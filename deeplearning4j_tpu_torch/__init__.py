@@ -1,0 +1,23 @@
+"""deeplearning4j_tpu_torch: the PyTorch + CUDA port of deeplearning4j_tpu.
+
+The JAX package `deeplearning4j_tpu` is the reference; this package mirrors
+its module layout (nn/, nn/conf/, nn/layers/, nn/helpers/, zoo/, util/,
+parallel/, resilience/) so every module has a findable counterpart. It
+imports torch, numpy and the standard library only — never jax, and never
+anything of the JAX package.
+
+Device policy: entry points run on "cuda" unless the caller passes
+device="cpu". Without a GPU and without device="cpu" they raise; nothing
+falls back to the CPU silently. Layouts stay NHWC (activations) and HWIO
+(conv weights) at every public function, as in the JAX package.
+
+Ported so far: ResNet-50 inference through ComputationGraph.output, the
+fused helper tier (helpers="fused"/"pallas"), the hand-written CUDA
+kernels for the fused 1x1 and 3x3 convolutions (nn/helpers/pallas_conv.py,
+sources in csrc/), the weight bridge (util/model_serializer.py) and
+batched serving (parallel/inference.py).
+"""
+
+from deeplearning4j_tpu_torch.device import resolve_device  # noqa: F401
+
+__all__ = ["resolve_device"]

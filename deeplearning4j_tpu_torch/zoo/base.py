@@ -1,0 +1,44 @@
+"""ZooModel base (counterpart of deeplearning4j_tpu/zoo/base.py).
+
+A zoo model builds its configuration (`conf()`) and an initialized
+network (`init_model(device=None)`, on CUDA unless device="cpu").
+Pretrained weights are not bundled; a JAX-package model zip loads through
+util/model_serializer.restore_computation_graph.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+
+class ZooModel:
+    num_classes: int = 1000
+    input_shape: Sequence[int] = (224, 224, 3)
+
+    def __init__(self, num_classes: Optional[int] = None,
+                 input_shape: Optional[Sequence[int]] = None,
+                 seed: int = 123, updater: str = "nesterovs",
+                 learning_rate: float = 1e-2, compute_dtype=None,
+                 helpers: Optional[str] = None):
+        if num_classes is not None:
+            self.num_classes = num_classes
+        if input_shape is not None:
+            self.input_shape = tuple(input_shape)
+        self.seed = seed
+        self.updater = updater
+        self.learning_rate = learning_rate
+        self.compute_dtype = compute_dtype   # e.g. "bfloat16"
+        self.helpers = helpers               # helper tier (nn/helpers)
+
+    def conf(self):
+        raise NotImplementedError
+
+    def init_model(self, device=None):
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+        from deeplearning4j_tpu_torch.nn.helpers import validate_helper_mode
+
+        c = self.conf()
+        if self.helpers is not None:
+            c.helper_mode = validate_helper_mode(self.helpers)
+        return ComputationGraph(c, compute_dtype=self.compute_dtype,
+                                device=device).init()
