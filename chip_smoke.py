@@ -5,9 +5,14 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the hand-written CUDA kernels from csrc/ with nvcc (sm_90a);
-  3. kernel phase: each kernel against its plain PyTorch version at every
-     distinct ResNet-50 shape, bf16 and f32, every prologue variant;
+  2. build the hand-written CUDA kernels from csrc/ with nvcc (sm_90a),
+     one nvcc per source, all started together;
+  3. kernel phase: each kernel against its plain PyTorch version — the
+     forward kernels at every distinct ResNet-50 shape at batch 32, the
+     1x1 backward kernels (dgrad, wgrad) at every 1x1 stride-1 backward
+     shape at batch 128 — in bf16 and f32, every prologue variant the
+     path uses, each kernel run twice on the same inputs and required to
+     give the same bits;
   4. serving phase: full-width ResNet-50 (224x224x3, 1000 classes, bf16,
      helpers="pallas", seeded random weights and BatchNorm statistics)
      behind ParallelInference(batch_limit=32): after a warm-up round,
@@ -17,10 +22,23 @@ Phases, in order; any failure exits non-zero:
      checked against a direct `net.output` on the same rows; the kernel
      launch counters must move by 30 (1x1) and 16 (3x3) per forward; the
      kernel path checked against the torch reference path;
-  5. timing: every kernel call of one batch-32 forward, timed on the card
-     (kernel, plain version, one library call) beside its bound, each
-     call reading its inputs from device memory, not from L2;
-  6. a `kernels` JSON line, then the last line
+  5. training: a step check (one `fit_batch` of the same ResNet-50 on one
+     batch of 32 under "pallas" against "fused", f32 with TF32 off and
+     bf16: each of the 30 routed 1x1 backwards against the composed
+     backward on the same operands, the loss gap and, in f32, the
+     update), then the training run — ResNet-50 at batch 128, bf16,
+     nesterovs lr 1e-2, on one fixed seeded batch: TRAIN_WARMUP steps,
+     then TRAIN_STEPS timed steps (img/s, ms/step from CUDA events, peak
+     memory, launches per step of all four kernels: 30/16/30/30, a finite
+     loss that falls, then a torch.profiler window: the device's busy
+     time per step, its idle share, and the kernels that take the most
+     device time), and the same, without the profiler window, for
+     "fused" (cuDNN convolutions) as the yardstick;
+  6. timing: every kernel call of one batch-32 forward and of one
+     batch-128 train step, timed on the card (kernel, plain version, one
+     library call) beside its bound, each call reading its inputs from
+     device memory, not from L2;
+  7. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -40,7 +58,12 @@ import time
 # flow may lower them; the driver's run never does)
 DEV = "cuda"
 HW = 224
-BATCH = 32                     # kernel-phase shapes and timings
+BATCH = 32                     # forward kernel shapes, step check
+TRAIN_BATCH = 128              # the train step: bench.py's flagship batch
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 20
+PROFILE_STEPS = 3              # profiled after the timed steps
+PROFILE_TOP = 12
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
@@ -58,6 +81,10 @@ SHAPES_1X1 = [(56, 64, 256), (56, 256, 64), (56, 64, 64),
               (7, 512, 2048), (7, 2048, 512)]
 SHAPES_3X3 = [(56, 64), (28, 128), (14, 256), (7, 512)]
 VARIANTS = ("plain", "affine", "affine_relu", "full")
+# prologues of the 30 1x1 stride-1 convs' backward: plain input (the
+# first block's a/sc convs), affine+relu, and the block inputs
+# affine + plain x2 + relu, affine + affine x2 + relu
+BWD_VARIANTS = ("plain", "affine_relu", "affine_x2_relu", "affine_affx2_relu")
 # normalized error bounds: max|kernel - plain| / max(max|plain|, 1).
 # f32: both accumulate in f32 (no TF32), only the order differs.
 # bf16: one rounding of the output to bf16 (2^-8 relative) may land on
@@ -72,6 +99,29 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # so a response that carries another request's row fails.
 LOGP_TOL = {"served": 0.3, "bf16_vs_torch": 0.3, "bf16_vs_f32": 1.0,
             "f32_vs_torch": 1e-4}
+# Step check: one fit_batch of "pallas" and of "fused" on the same
+# weights and batch (PERF.md, PR 2, has the readings the limits come
+# from). Two f32 train steps differ where a relu input lies within
+# rounding of zero: the two paths put it on opposite sides (a mask flip),
+# its gradient changes by its whole size, and the BatchNorm backward
+# spreads that over its channel — a few such elements move the update by
+# some 1e-3 of its size (tests/test_torch_train.py: with float64's masks
+# imposed an f32 step matches float64 within 1e-4). So the wiring is held
+# where no mask can flip: every routed 1x1 conv's backward in the
+# "pallas" step (dx, dx2, dW, db, ds/dt) against the composed backward of
+# "fused" on the same operands, error max|a - b| / max|b| (db: over the
+# largest sum of |ybar|, its terms — a conv bias in front of a BatchNorm
+# has a zero gradient up to rounding). ROUTE_TOL: f32 1e-4, both sum in
+# f32 in another order; bf16 2^-6, the composed form rounds du, the scale
+# and their product to bf16 where the kernel rounds once (three roundings
+# of 2^-9). The step: relative loss gap, readings 6.2e-8 (f32) and
+# 6.1e-5 (bf16), margin 16x; the f32 update's error over the largest
+# update in the network ("overall", reading 3.6e-3: mask flips), margin
+# 2.8x. bf16's update error (reading 0.21: bf16 rounding flips far more
+# masks) has no limit.
+ROUTE_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+STEP_TOL = {"float32": {"loss": 1e-6, "overall": 1e-2},
+            "bfloat16": {"loss": 1e-3}}
 
 
 def fail(msg):
@@ -195,6 +245,108 @@ def kernel_phase(torch, pc, batch):
                 if not ok:
                     fail(f"{name} disagrees with its plain version "
                          f"({dtype}, {kind} {h}x{h} K={k} N={n} {variant})")
+    return worst
+
+
+def backward_inputs(torch, gen, dt, m, k, n):
+    """Every operand a 1x1 backward call can take, at one shape."""
+    r = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    return {"dy": (r(m, n) * 0.1).to(dt), "y": r(m, n).to(dt),
+            "w": (r(k, n) / k ** 0.5).to(dt), "x": r(m, k).to(dt),
+            "x2": r(m, k).to(dt), "du_out": (r(m, k) * 0.1).to(dt),
+            "scale": r(k) * 0.5 + 1.0, "shift": r(k) * 0.1,
+            "scale2": r(k) * 0.5 + 1.0, "shift2": r(k) * 0.1,
+            "dssum": r(n) * 1e-3, "dssq": r(n) * 1e-3}
+
+
+# prologue flags (affine, x2: None | "plain" | "affine", relu) of a variant
+VARIANT_FLAGS = {"plain": (False, None, False),
+                 "affine_relu": (True, None, True),
+                 "affine_x2_relu": (True, "plain", True),
+                 "affine_affx2_relu": (True, "affine", True)}
+
+
+def backward_args(ops, affine, x2, duo, stats, relu):
+    """dgrad_conv1x1's keyword arguments for one call of the path."""
+    kw = {"dy": ops["dy"], "y": ops["y"], "w": ops["w"], "x": ops["x"],
+          "relu": relu}
+    if affine:
+        kw["scale"], kw["shift"] = ops["scale"], ops["shift"]
+    if x2 is not None:
+        kw["x2"] = ops["x2"]
+    if x2 == "affine":
+        kw["scale2"], kw["shift2"] = ops["scale2"], ops["shift2"]
+    if duo:
+        kw["du_out"] = ops["du_out"]
+    if stats:
+        kw["dssum"], kw["dssq"] = ops["dssum"], ops["dssq"]
+    return kw
+
+
+def wgrad_args(kw):
+    return {k: v for k, v in kw.items() if k not in ("w", "du_out")}
+
+
+def backward_kernel_phase(torch, pc, batch):
+    """dgrad/wgrad against their plain versions at every 1x1 stride-1
+    backward shape of ResNet-50 at `batch`, bf16 and f32, every variant
+    with and without du_out and statistics; each kernel run twice on the
+    same inputs must give the same bits."""
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    worst = {"dgrad_conv1x1": 0.0, "wgrad_conv1x1": 0.0}
+    names = ("dx1", "dx2", "ds1", "dt1", "ds2", "dt2", "db")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        tol = TOL[dtype]
+        for h, k, n in SHAPES_1X1:
+            m = batch * h * h
+            ops = backward_inputs(torch, gen, dt, m, k, n)
+            for variant in BWD_VARIANTS:
+                for duo in (False, True):
+                    for stats in (False, True):
+                        kw = backward_args(ops, *VARIANT_FLAGS[variant][:2],
+                                           duo, stats,
+                                           VARIANT_FLAGS[variant][2])
+                        wkw = wgrad_args(kw)
+                        got = pc.dgrad_conv1x1(**kw)
+                        again = pc.dgrad_conv1x1(**kw)
+                        ref = pc.ref_dgrad_conv1x1(**kw)
+                        gw = pc.wgrad_conv1x1(**wkw)
+                        gw2 = pc.wgrad_conv1x1(**wkw)
+                        rw = pc.ref_wgrad_conv1x1(**wkw)
+                        torch.cuda.synchronize()
+                        errs, same = {}, torch.equal(gw, gw2)
+                        for nm, a, b, c in zip(names, got, ref, again):
+                            if (a is None) != (b is None):
+                                fail(f"dgrad {nm}: absent in one version")
+                            if a is not None:
+                                errs[nm] = norm_err(a, b)
+                                same = same and torch.equal(a, c)
+                        errs["dW"] = norm_err(gw, rw)
+                        abs_dx = max(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(got[:2], ref[:2])
+                                     if a is not None)
+                        abs_dw = float((gw - rw).abs().max())
+                        worst["dgrad_conv1x1"] = max(worst["dgrad_conv1x1"],
+                                                     abs_dx)
+                        worst["wgrad_conv1x1"] = max(worst["wgrad_conv1x1"],
+                                                     abs_dw)
+                        ok = same and all(e <= tol for e in errs.values()) \
+                            and bool(torch.isfinite(got[0]).all()) \
+                            and bool(torch.isfinite(gw).all())
+                        log(f"check backward {dtype} M={m} K={k} N={n} "
+                            f"{variant} du_out={int(duo)} stats={int(stats)}: "
+                            + " ".join(f"{key}={v:.2e}"
+                                       for key, v in errs.items())
+                            + f" max_abs_dx={abs_dx:.3e} "
+                            f"max_abs_dW={abs_dw:.3e} bitwise_repeat="
+                            f"{same} tol={tol:g} " + ("ok" if ok else "FAIL"))
+                        if not ok:
+                            fail(f"1x1 backward kernels disagree with their "
+                                 f"plain versions or are not repeatable "
+                                 f"({dtype}, M={m} K={k} N={n} {variant} "
+                                 f"du_out={duo} stats={stats})")
+            del ops
     return worst
 
 
@@ -445,50 +597,303 @@ def forward_times(torch, net, batch):
 # ------------------------------------------------------------ phase 5
 
 
-def record_main_path_calls(torch, pc, net, batch):
-    """The kernel calls one batch-`batch` forward makes, with their flags."""
+def labels_for(torch, gen, batch, ncls):
+    cls = torch.randint(0, ncls, (batch,), generator=gen)
+    return torch.nn.functional.one_hot(cls, ncls).float().to(DEV)
+
+
+def twin_of(net, mode, compute_dtype, dtype=None):
+    """A fresh ComputationGraph on `net`'s configuration, helper mode
+    `mode`, with copies of net's params and BatchNorm states in `dtype`
+    (updater state zero, iteration 0)."""
+    import copy
+
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    dtype = dtype or torch.float32
+    conf = copy.deepcopy(net.conf)
+    conf.helper_mode = mode
+    twin = ComputationGraph(conf, dtype=dtype, compute_dtype=compute_dtype,
+                            device=DEV)
+    twin._params = {k: {q: t.detach().to(dtype).clone() for q, t in d.items()}
+                    for k, d in net.params.items()}
+    twin.states = {k: {q: t.to(dtype).clone() for q, t in d.items()}
+                   for k, d in net.states.items()}
+    twin._init_updaters()
+    return twin
+
+
+BWD_OUTPUTS = ("dx", "dW", "db", "ds1", "dt1", "dx2", "ds2", "dt2")
+
+
+def route_errors(torch, pc, args, got, ref):
+    """Errors of the kernel backward's outputs `got` against the composed
+    backward's `ref` on the same operands `args` (see ROUTE_TOL)."""
+    dy, y, dssum, dssq = args[9], args[8], args[10], args[11]
+    errs = {}
+    for name, a, r in zip(BWD_OUTPUTS, got, ref):
+        if (a is None) != (r is None):
+            fail(f"routed backward {name}: absent in one route")
+        if a is None:
+            continue
+        r = r.double()
+        if name == "db":
+            size = pc.ybar_acc(dy, y, dssum, dssq).double().abs().sum(
+                (0, 1, 2)).max()
+        else:
+            size = r.abs().max()
+        errs[name] = float((a.double() - r).abs().max()) / max(float(size),
+                                                               1e-30)
+    return errs
+
+
+def routed_backward_check(torch, pc, run):
+    """`run()` with every 1x1 backward that goes to the dgrad/wgrad
+    kernels also computed by the composed backward on the same operands;
+    returns the per-call errors (route_errors)."""
+    from deeplearning4j_tpu_torch.nn.helpers import fused_ops
+
+    orig, calls = fused_ops._bwd_pallas_1x1, []
+
+    def both(*args):
+        got = orig(*args)
+        ref = fused_ops._bwd_composed(*args[:13], (1, 1), "VALID", args[13],
+                                      int(args[10] is not None))
+        calls.append(route_errors(torch, pc, args, got, ref))
+        return got
+
+    fused_ops._bwd_pallas_1x1 = both
+    try:
+        run()
+    finally:
+        fused_ops._bwd_pallas_1x1 = orig
+    return calls
+
+
+def update_errors(upd, ref):
+    """(per_param, overall) errors of one update against another: max
+    |update - update_ref| over the parameter's own largest update (floor
+    1e-6), and over the largest update in the network."""
+    diffs = [float((a - b).abs().max()) for a, b in zip(upd, ref)]
+    sizes = [float(b.abs().max()) for b in ref]
+    return (max(d / max(z, 1e-6) for d, z in zip(diffs, sizes)),
+            max(diffs) / max(sizes))
+
+
+def step_check(torch, np, pc, net):
+    """One fit_batch on the same weights and batch of BATCH images under
+    "pallas" and "fused", in f32 (TF32 off) and bf16: the "pallas" step's
+    routed 1x1 backwards against the composed backward on their operands
+    (ROUTE_TOL), and the two steps' losses and updates (STEP_TOL)."""
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    gen = torch.Generator().manual_seed(21)
+    x = torch.from_numpy(serving_inputs(np, np.random.default_rng(21),
+                                        BATCH)).to(DEV)
+    y = labels_for(torch, gen, BATCH, net.conf.node("output").obj.n_out)
+    p0 = [t.detach().double() for t in leaves(net.params)]
+
+    def step(mode, compute_dtype):
+        twin = twin_of(net, mode, compute_dtype)
+        loss = float(twin.fit_batch(([x], [y])))
+        upd = [t.double() - t0 for t, t0 in zip(leaves(twin.params), p0)]
+        del twin
+        torch.cuda.empty_cache()
+        if not np.isfinite(loss):
+            fail(f"step check {mode}: non-finite loss {loss}")
+        return loss, upd
+
+    res = {}
+    for cd in (None, torch.bfloat16):
+        dtype = "float32" if cd is None else "bfloat16"
+        got = {}
+        routes = routed_backward_check(
+            torch, pc, lambda: got.update(pallas=step("pallas", cd)))
+        (lp, up), (lf, uf) = got["pallas"], step("fused", cd)
+        worst = {k: max(c[k] for c in routes if k in c)
+                 for k in BWD_OUTPUTS if any(k in c for c in routes)}
+        gap = abs(lp - lf) / abs(lf)
+        per_param, overall = update_errors(up, uf)
+        r = {"routed_calls": len(routes), "route_worst": worst,
+             "loss_pallas": lp, "loss_fused": lf, "loss_gap": gap,
+             "update_per_param": per_param, "update_overall": overall}
+        log(f"step check {dtype}, batch {BATCH}: {len(routes)} routed 1x1 "
+            f"backwards against the composed backward, worst " + " ".join(
+                f"{k}={v:.2e}" for k, v in worst.items())
+            + f" (limit {ROUTE_TOL[dtype]:.3g}); pallas vs fused: loss "
+            f"{lp:.7f} vs {lf:.7f}, relative gap {gap:.3e} (limit "
+            f"{STEP_TOL[dtype]['loss']:g}); update error per parameter "
+            f"{per_param:.3e}, overall {overall:.3e} (limit "
+            f"{STEP_TOL[dtype].get('overall', 'none')})")
+        ok = (len(routes) == 30 and max(worst.values()) <= ROUTE_TOL[dtype]
+              and gap <= STEP_TOL[dtype]["loss"]
+              and overall <= STEP_TOL[dtype].get("overall", float("inf")))
+        if not ok:
+            fail(f"step check {dtype}: the pallas train step departs from "
+                 f"the composed backward or from fused beyond the limits")
+        res[dtype] = r
+    return res
+
+
+def profile_steps(torch, step):
+    """torch.profiler over PROFILE_STEPS train steps: the device's busy
+    time per step (the sum of the kernels' device times; the port runs on
+    one stream, so kernels do not overlap) and the kernels that take the
+    most device time. The profiler stretches the host's side of a step,
+    so the idle share is taken against an unprofiled step's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    # device-side events only: an operator's own "device time" repeats
+    # the time of the kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and dev(e) > 0]
+    top = sorted(kernels, key=dev, reverse=True)[:PROFILE_TOP]
+    return {"profiled_wall_ms": wall * 1e3 / PROFILE_STEPS,
+            "busy_ms": sum(dev(e) for e in kernels) / 1e3 / PROFILE_STEPS,
+            "top": [(e.key[:60], dev(e) / 1e3 / PROFILE_STEPS) for e in top]}
+
+
+def training_run(torch, np, pc, ResNet50):
+    """ResNet-50 at TRAIN_BATCH, bf16, nesterovs lr 1e-2 (the flagship
+    configuration), one fixed seeded batch: TRAIN_WARMUP steps, then
+    TRAIN_STEPS steps timed with CUDA events, under "pallas" and then
+    "fused" (cuDNN convolutions). Returns the measurements and the
+    "pallas" net (for recording its kernel calls)."""
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn(TRAIN_BATCH, HW, HW, 3, generator=gen).to(DEV)
+    res, keep = {}, None
+    for mode in ("pallas", "fused"):
+        net = ResNet50(input_shape=(HW, HW, 3), compute_dtype="bfloat16",
+                       helpers=mode).init_model(device=DEV)
+        y = labels_for(torch, torch.Generator().manual_seed(32), TRAIN_BATCH,
+                       net.conf.node("output").obj.n_out)
+        losses = [net.fit_batch(([x], [y])) for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pc.reset_launch_counts()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(TRAIN_STEPS + 1)]
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(TRAIN_STEPS):
+            losses.append(net.fit_batch(([x], [y])))
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(pc.LAUNCHES)
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(TRAIN_STEPS)]
+        vals = [float(v) for v in losses]
+        r = {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+             "ms_per_step": float(np.mean(step_ms)),
+             "ms_per_step_min": float(np.min(step_ms)),
+             "ms_per_step_max": float(np.max(step_ms)),
+             "img_per_s": TRAIN_BATCH * TRAIN_STEPS / (sum(step_ms) / 1e3),
+             "host_img_per_s": TRAIN_BATCH * TRAIN_STEPS / wall,
+             "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches_per_step": {k: v / TRAIN_STEPS
+                                   for k, v in counts.items()},
+             "launches": counts, "loss_first": vals[0], "loss_last": vals[-1],
+             "losses": vals}
+        res[mode] = r
+        log(f"train {mode}: batch {TRAIN_BATCH}, {TRAIN_STEPS} steps after "
+            f"{TRAIN_WARMUP} warm-up: {r['img_per_s']:.1f} img/s, "
+            f"{r['ms_per_step']:.2f} ms/step (CUDA events; min "
+            f"{r['ms_per_step_min']:.2f}, max {r['ms_per_step_max']:.2f}), "
+            f"host {r['host_img_per_s']:.1f} img/s, peak memory "
+            f"{r['max_memory_gib']:.2f} GiB, launches per step "
+            f"{r['launches_per_step']}, loss {vals[0]:.4f} -> {vals[-1]:.4f}")
+        if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+            fail(f"train {mode}: loss not finite and falling: {vals}")
+        want = ({"fused_conv1x1": 30, "fused_conv3x3": 16,
+                 "dgrad_conv1x1": 30, "wgrad_conv1x1": 30}
+                if mode == "pallas" else {k: 0 for k in counts})
+        if counts != {k: v * TRAIN_STEPS for k, v in want.items()}:
+            fail(f"train {mode}: launches {counts} != {want} per step x "
+                 f"{TRAIN_STEPS}")
+        if mode == "pallas":
+            prof = profile_steps(torch, lambda: net.fit_batch(([x], [y])))
+            prof["idle_share"] = 1.0 - prof["busy_ms"] / r["ms_per_step"]
+            r["profile"] = prof
+            log(f"train {mode} profile of {PROFILE_STEPS} steps: device busy "
+                f"{prof['busy_ms']:.2f} ms per step against "
+                f"{r['ms_per_step']:.2f} ms/step unprofiled: idle share "
+                f"{prof['idle_share']:.4f} (a profiled step takes "
+                f"{prof['profiled_wall_ms']:.1f} ms); top kernels (ms per "
+                f"step): " + ", ".join(f"{n} {t:.2f}" for n, t in prof["top"]))
+            keep = net
+        else:
+            del net
+        torch.cuda.empty_cache()
+    res["pallas_over_fused_ms"] = (res["pallas"]["ms_per_step"]
+                                   / res["fused"]["ms_per_step"])
+    return res, keep, x
+
+
+# ------------------------------------------------------------ phase 6
+
+
+def record_kernel_calls(torch, pc, run):
+    """The kernel calls `run()` makes, with their shapes and flags."""
     calls = []
-    orig1, orig3 = pc.fused_conv1x1, pc.fused_conv3x3
+    orig = {n: getattr(pc, n) for n in pc.LAUNCHES}
 
     def rec1(x, w, b, scale=None, shift=None, add=None, relu=False,
              emit_u=False, stats=True):
         calls.append(("fused_conv1x1", (x.shape[0], x.shape[1], w.shape[1]),
                       x.dtype, scale is not None, add is not None,
                       bool(relu), bool(emit_u), bool(stats)))
-        return orig1(x, w, b, scale, shift, add, relu, emit_u, stats)
+        return orig["fused_conv1x1"](x, w, b, scale, shift, add, relu,
+                                     emit_u, stats)
 
     def rec3(x, w, b, scale=None, shift=None, relu=False, stats=True):
         calls.append(("fused_conv3x3", tuple(x.shape) + (w.shape[-1],),
                       x.dtype, scale is not None, False, bool(relu), False,
                       bool(stats)))
-        return orig3(x, w, b, scale, shift, relu, stats)
+        return orig["fused_conv3x3"](x, w, b, scale, shift, relu, stats)
+
+    def x2_mode(x2, scale2):
+        return None if x2 is None else ("plain" if scale2 is None
+                                        else "affine")
+
+    def recd(dy, y, w, x, x2=None, du_out=None, scale=None, shift=None,
+             scale2=None, shift2=None, dssum=None, dssq=None, relu=False):
+        calls.append(("dgrad_conv1x1", (x.shape[0], x.shape[1], w.shape[1]),
+                      x.dtype, scale is not None, x2_mode(x2, scale2),
+                      du_out is not None, dssum is not None, bool(relu)))
+        return orig["dgrad_conv1x1"](dy, y, w, x, x2, du_out, scale, shift,
+                                     scale2, shift2, dssum, dssq, relu)
+
+    def recw(dy, y, x, x2=None, scale=None, shift=None, scale2=None,
+             shift2=None, dssum=None, dssq=None, relu=False):
+        calls.append(("wgrad_conv1x1", (x.shape[0], x.shape[1], dy.shape[1]),
+                      x.dtype, scale is not None, x2_mode(x2, scale2),
+                      False, dssum is not None, bool(relu)))
+        return orig["wgrad_conv1x1"](dy, y, x, x2, scale, shift, scale2,
+                                     shift2, dssum, dssq, relu)
 
     pc.fused_conv1x1, pc.fused_conv3x3 = rec1, rec3
+    pc.dgrad_conv1x1, pc.wgrad_conv1x1 = recd, recw
     try:
-        x = torch.zeros(batch, HW, HW, 3)
-        net.output(x)
+        run()
         torch.cuda.synchronize()
     finally:
-        pc.fused_conv1x1, pc.fused_conv3x3 = orig1, orig3
+        for n, f in orig.items():
+            setattr(pc, n, f)
     return calls
-
-
-def work(name, shape, dtype_bytes, affine, add, emit_u, stats):
-    """(FLOPs, bytes) of one call: each input read once, each output
-    written once."""
-    if name == "fused_conv1x1":
-        m, k, n = shape
-        flops = 2.0 * m * k * n
-        nbytes = dtype_bytes * (m * k + k * n + m * n
-                                + (m * k if add else 0)
-                                + (m * k if emit_u else 0))
-    else:
-        bsz, h, w, k, n = shape
-        m = bsz * h * w
-        flops = 2.0 * m * 9 * k * n
-        nbytes = dtype_bytes * (m * k + 9 * k * n + m * n)
-    nbytes += 4 * (n + (2 * k if affine else 0) + (2 * n if stats else 0))
-    return flops, nbytes
 
 
 def bound_ms(flops, nbytes, dtype):
@@ -498,9 +903,92 @@ def bound_ms(flops, nbytes, dtype):
                                        else "operations")
 
 
-def timing_phase(torch, pc, calls):
+def forward_case(torch, pc, r, key):
+    """(FLOPs, bytes, make, kernel, plain, library) of a forward kernel
+    call: bytes count each input read once and each output written once;
+    the library call is torch.matmul / F.conv2d of x and W."""
     import torch.nn.functional as F
 
+    name, shape, dt, affine, add, relu, emit_u, stats = key
+    one_x1 = name == "fused_conv1x1"
+    c_in, n = shape[-2], shape[-1]
+    x_shape = shape[:2] if one_x1 else shape[:4]
+    w_shape = (c_in, n) if one_x1 else (3, 3, c_in, n)
+    fan_in = c_in if one_x1 else 9 * c_in
+    m = x_shape[0] if one_x1 else shape[0] * shape[1] * shape[2]
+    flops = 2.0 * m * n * (c_in if one_x1 else 9 * c_in)
+    nbytes = dt.itemsize * (m * c_in + (1 if one_x1 else 9) * c_in * n
+                            + m * n + (m * c_in if add else 0)
+                            + (m * c_in if emit_u else 0))
+    nbytes += 4 * (n + (2 * c_in if affine else 0) + (2 * n if stats else 0))
+
+    def make():
+        x, w = r(*x_shape).to(dt), (r(*w_shape) / fan_in ** 0.5).to(dt)
+        kw = {"relu": relu, "stats": stats}
+        if affine:
+            kw["scale"], kw["shift"] = r(c_in) * 0.5 + 1, r(c_in) * 0.1
+        if one_x1:
+            if add:
+                kw["add"] = r(*x_shape).to(dt)
+            kw["emit_u"] = emit_u
+        return x, w, r(n) * 0.1, kw
+
+    kern_f = pc.fused_conv1x1 if one_x1 else pc.fused_conv3x3
+    plain_f = pc.ref_fused_conv1x1 if one_x1 else pc.ref_fused_conv3x3
+    if one_x1:
+        lib = lambda a: torch.matmul(a[0], a[1])
+    else:
+        lib = lambda a: F.conv2d(a[4], a[5], padding=1)
+
+    def make_all():
+        a = make()
+        if one_x1:
+            return a
+        return a + (a[0].permute(0, 3, 1, 2), a[1].permute(3, 2, 0, 1)
+                    .contiguous(memory_format=torch.channels_last))
+
+    return (flops, nbytes, make_all,
+            lambda a: kern_f(*a[:3], **a[3]),
+            lambda a: plain_f(*a[:3], **a[3]), lib)
+
+
+def backward_case(torch, pc, r, key):
+    """As forward_case for dgrad/wgrad; the library calls are
+    torch.matmul(ybar, W^T) and torch.matmul(u^T, ybar) on inputs that
+    stand for ybar and u."""
+    name, (m, k, n), dt, affine, x2, duo, stats, relu = key
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    two, aff2 = x2 is not None, x2 == "affine"
+    flops = 2.0 * m * k * n
+    vec = 4 * ((2 * k if affine else 0) + (2 * k if aff2 else 0)
+               + (2 * n if stats else 0))
+    if name == "dgrad_conv1x1":
+        # x (x2) is read only for the relu mask or its ds1 (ds2); dx1 and
+        # dx2 are written; dt exists when either branch has an affine
+        reads_x, reads_x2 = relu or affine, two and (relu or aff2)
+        nbytes = dt.itemsize * (m * n * (2 if stats else 1) + k * n
+                                + m * k * (reads_x + 1 + reads_x2 + two
+                                           + duo))
+        nbytes += vec + 4 * (n + k * (affine + aff2 + (affine or aff2)))
+    else:
+        nbytes = dt.itemsize * (m * n * (2 if stats else 1)
+                                + m * k * (1 + two)) + 4 * k * n + vec
+
+    def make():
+        kw = backward_args(backward_inputs(torch, gen, dt, m, k, n), affine,
+                           x2, duo, stats, relu)
+        return kw if name == "dgrad_conv1x1" else wgrad_args(kw)
+
+    kern_f, plain_f = getattr(pc, name), getattr(pc, "ref_" + name)
+    if name == "dgrad_conv1x1":
+        lib = lambda a: torch.matmul(a["dy"], a["w"].t())
+    else:
+        lib = lambda a: torch.matmul(a["x"].t(), a["dy"])
+    return (flops, nbytes, make, lambda a: kern_f(**a),
+            lambda a: plain_f(**a), lib)
+
+
+def timing_phase(torch, pc, calls):
     gen = torch.Generator(device=DEV).manual_seed(3)
     r = lambda *s: torch.randn(*s, generator=gen, device=DEV)
     groups = {}
@@ -509,48 +997,20 @@ def timing_phase(torch, pc, calls):
     tot = {}
     rows = []
     for key, count in groups.items():
-        name, shape, dt, affine, add, relu, emit_u, stats = key
+        name, shape, dt = key[:3]
         dtype = str(dt).replace("torch.", "")
-        one_x1 = name == "fused_conv1x1"
-        c_in, n = shape[-2], shape[-1]
-        x_shape = shape[:2] if one_x1 else shape[:4]
-        w_shape = (c_in, n) if one_x1 else (3, 3, c_in, n)
-        fan_in = c_in if one_x1 else 9 * c_in
-
-        def make():
-            x, w = r(*x_shape).to(dt), (r(*w_shape) / fan_in ** 0.5).to(dt)
-            kw = {"relu": relu, "stats": stats}
-            if affine:
-                kw["scale"], kw["shift"] = r(c_in) * 0.5 + 1, r(c_in) * 0.1
-            if one_x1:
-                if add:
-                    kw["add"] = r(*x_shape).to(dt)
-                kw["emit_u"] = emit_u
-            return x, w, r(n) * 0.1, kw
-
-        flops, nbytes = work(name, shape, dt.itemsize, affine, add, emit_u,
-                             stats)
+        case = forward_case if name.startswith("fused") else backward_case
+        flops, nbytes, make, kern_f, plain_f, lib_f = case(torch, pc, r, key)
         ins = [make() for _ in range(copies_for(nbytes))]
-        kern_f = pc.fused_conv1x1 if one_x1 else pc.fused_conv3x3
-        plain_f = pc.ref_fused_conv1x1 if one_x1 else pc.ref_fused_conv3x3
-        kern = [lambda a=a: kern_f(*a[:3], **a[3]) for a in ins]
-        plain = [lambda a=a: plain_f(*a[:3], **a[3]) for a in ins]
-        if one_x1:
-            lib = [lambda a=a: torch.matmul(a[0], a[1]) for a in ins]
-        else:
-            lib_ins = [(a[0].permute(0, 3, 1, 2),
-                        a[1].permute(3, 2, 0, 1).contiguous(
-                            memory_format=torch.channels_last)) for a in ins]
-            lib = [lambda a=a: F.conv2d(a[0], a[1], padding=1)
-                   for a in lib_ins]
-        ms, p_ms, l_ms = (time_ms(torch, kern), time_ms(torch, plain),
-                          time_ms(torch, lib))
+        ms, p_ms, l_ms = (time_ms(torch, [lambda a=a: f(a) for a in ins])
+                          for f in (kern_f, plain_f, lib_f))
+        del ins
         bms, by = bound_ms(flops, nbytes, dtype)
         row = {"name": name, "shape": list(shape), "dtype": dtype,
-               "affine": affine, "add": add, "relu": relu, "emit_u": emit_u,
-               "stats": stats, "count": count, "input_copies": len(ins),
-               "ms": ms, "plain_ms": p_ms, "library_ms": l_ms,
-               "bound_ms": bms, "bound_by": by}
+               "flags": [str(v) for v in key[3:]], "count": count,
+               "input_copies": copies_for(nbytes), "ms": ms,
+               "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bms,
+               "bound_by": by}
         rows.append(row)
         log("timing " + json.dumps(row))
         t = tot.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
@@ -609,6 +1069,7 @@ def main():
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     worst = kernel_phase(torch, pc, BATCH)
+    worst.update(backward_kernel_phase(torch, pc, TRAIN_BATCH))
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
     # 4. serving the main path
@@ -621,26 +1082,55 @@ def main():
     serving = serving_phase(torch, np, pc, net)
     reference = reference_check(torch, np, net)
     fwd = forward_times(torch, net, BATCH)
+    calls = record_kernel_calls(torch, pc, lambda: net.output(
+        torch.zeros(BATCH, HW, HW, 3)))
 
-    # 5. timing of the main path's kernel calls
-    calls = record_main_path_calls(torch, pc, net, BATCH)
-    per_kernel = {}
-    for c in calls:
-        per_kernel[c[0]] = per_kernel.get(c[0], 0) + 1
-    log(f"main path at batch {BATCH}: kernel calls {per_kernel}")
+    # 5. training: the step check, then the training run
+    t0 = time.perf_counter()
+    step = step_check(torch, np, pc, net)
+    del net
+    train, train_net, train_x = training_run(torch, np, pc, ResNet50)
+    log(f"training phases: {time.perf_counter() - t0:.1f} s")
+
+    # 6. timing of the kernel calls of a batch-32 forward and of a
+    # batch-128 train step
+    t0 = time.perf_counter()
+    y = labels_for(torch, torch.Generator().manual_seed(32), TRAIN_BATCH,
+                   train_net.conf.node("output").obj.n_out)
+    train_calls = record_kernel_calls(
+        torch, pc, lambda: train_net.fit_batch(([train_x], [y])))
+    del train_net
+    torch.cuda.empty_cache()
+    for what, cs in (("forward at batch %d" % BATCH, calls),
+                     ("train step at batch %d" % TRAIN_BATCH, train_calls)):
+        per_kernel = {}
+        for c in cs:
+            per_kernel[c[0]] = per_kernel.get(c[0], 0) + 1
+        log(f"main path, {what}: kernel calls {per_kernel}")
     totals, rows = timing_phase(torch, pc, calls)
+    train_totals, train_rows = timing_phase(torch, pc, train_calls)
+    log(f"timing phases: {time.perf_counter() - t0:.1f} s")
 
-    sources = {"fused_conv1x1": ("deeplearning4j_tpu_torch/csrc/fused_conv1x1.cu",
-                                 "deeplearning4j_tpu/nn/helpers/pallas_conv.py:95"),
-               "fused_conv3x3": ("deeplearning4j_tpu_torch/csrc/fused_conv3x3.cu",
-                                 "deeplearning4j_tpu/nn/helpers/pallas_conv.py:221")}
+    src = "deeplearning4j_tpu_torch/csrc/"
+    tpu = "deeplearning4j_tpu/nn/helpers/pallas_conv.py:"
+    # forward kernels: launches from the serving run, times summed over a
+    # batch-32 forward; backward kernels: launches from the "pallas"
+    # training run, times summed over a batch-128 train step
+    sources = {"fused_conv1x1": ("fused_conv1x1.cu", "95",
+                                 serving["launches"], totals),
+               "fused_conv3x3": ("fused_conv3x3.cu", "221",
+                                 serving["launches"], totals),
+               "dgrad_conv1x1": ("dgrad_conv1x1.cu", "361",
+                                 train["pallas"]["launches"], train_totals),
+               "wgrad_conv1x1": ("wgrad_conv1x1.cu", "469",
+                                 train["pallas"]["launches"], train_totals)}
     kernels = []
-    for name, (src, replaces) in sources.items():
-        t = totals[name]
+    for name, (file, line, launches, tots) in sources.items():
+        t = tots[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": serving["launches"][name],
+            "name": name, "route": "cuda", "source": src + file,
+            "replaces": tpu + line,
+            "launches": launches[name],
             "max_abs_err": worst[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -651,13 +1141,18 @@ def main():
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, "batch": BATCH, "kernels": kernels,
-                       "timing_rows": rows, "serving": serving,
-                       "reference": reference, "forward_ms": fwd}, f,
-                      indent=1)
+            json.dump({"card": card, "batch": BATCH,
+                       "train_batch": TRAIN_BATCH, "kernels": kernels,
+                       "timing_rows": rows, "train_timing_rows": train_rows,
+                       "train_step_totals": train_totals,
+                       "serving": serving, "reference": reference,
+                       "forward_ms": fwd, "step_check": step,
+                       "train": train}, f, indent=1)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
-        f"kernel calls of one batch-{BATCH} forward; launches are from "
-        "the serving run")
+        f"kernel calls of one batch-{BATCH} forward (fused_conv*) or of one "
+        f"batch-{TRAIN_BATCH} train step (dgrad/wgrad); launches are from "
+        f"the serving run (fused_conv*) and the {TRAIN_STEPS}-step "
+        "training run (dgrad/wgrad)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Mixed-precision policy helpers (counterpart of deeplearning4j_tpu/nn/dtype.py).
 
-Inference policy, as in ComputationGraph.output of the JAX package:
-params and inputs are cast to the compute dtype (bf16), BatchNorm running
-states are not cast (their statistics stay f32), and the network output
-is cast back to the parameter dtype (f32).
+The JAX package's policy: master params and optimizer state stay f32;
+params and inputs are cast to the compute dtype (bf16) for the forward
+and backward — inside autograd, so gradients arrive back in f32 through
+the cast; BatchNorm running states are not cast (their statistics stay
+f32); loss pre-activations are upcast to f32 (losses.py); the network
+output and the loss are cast back to the parameter dtype.
 """
 
 from __future__ import annotations
@@ -47,4 +49,12 @@ def cast_floating(tree, dtype):
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+def ensure_f32(t):
+    """Upcast bf16/f16 tensors to f32; f32/f64 (gradient checks) pass."""
+    if (isinstance(t, torch.Tensor) and t.is_floating_point()
+            and is_low_precision(t.dtype)):
+        return t.float()
+    return t
 

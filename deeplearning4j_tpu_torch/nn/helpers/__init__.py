@@ -27,11 +27,13 @@ from deeplearning4j_tpu_torch.nn.helpers.fused_ops import (  # noqa: E402
     fused_conv,
 )
 from deeplearning4j_tpu_torch.nn.helpers.pallas_conv import (  # noqa: E402
+    dgrad_conv1x1,
     fused_conv_bn_act,
     fused_conv1x1,
     fused_conv3x3,
+    wgrad_conv1x1,
 )
 
 __all__ = ["HELPER_MODES", "validate_helper_mode", "bn_affine",
-           "fused_conv", "fused_conv_bn_act", "fused_conv1x1",
-           "fused_conv3x3"]
+           "dgrad_conv1x1", "fused_conv", "fused_conv_bn_act",
+           "fused_conv1x1", "fused_conv3x3", "wgrad_conv1x1"]

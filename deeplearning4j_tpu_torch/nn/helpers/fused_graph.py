@@ -6,7 +6,11 @@ A static planning pass over the topo order recognizes conv->BN(->relu)
 activations between fused convolutions as (raw conv output, per-channel
 affine) pairs, so BN-apply / relu / residual-add never cost separate
 passes. Unrecognized nodes run through the same node executor as the
-default path. This slice ports the inference forward (train=False).
+default path. In train mode each fused conv emits the statistics its BN
+consumer asks for (`stat_sample`: all rows, or the leading ceil(B/k)),
+the BN becomes [C]-vector algebra (`bn_affine`) that autograd
+differentiates, and the running statistics follow an EMA computed
+outside autograd.
 
 Port-only detail: PyTorch runs eagerly, so there is no dead-code
 elimination of the emitted `u` byproduct. A conv asks its kernel for u
@@ -19,8 +23,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 from deeplearning4j_tpu_torch.nn.helpers.fused_ops import (
     _prologue,
+    bn_affine,
     bn_affine_inference,
     fused_conv,
 )
@@ -135,13 +142,18 @@ def _materialize(expr: _Expr):
     return _prologue(*expr.operands(), expr.relu)
 
 
-def fused_forward(net, params, states, inputs, *, materialize_all=False):
-    """Inference forward over the DAG when a fusion plan is active.
-    Non-planned nodes run through ComputationGraph._exec_node."""
+def fused_forward(net, params, states, inputs, *, train=False,
+                  materialize_all=False):
+    """Forward over the DAG when a fusion plan is active. Non-planned
+    nodes run through ComputationGraph._exec_node. Returns (activations,
+    new_states)."""
     plan: Plan = net._fusion_plan
+    by_name = {n.name: n for n in net.topo}
     acts: Dict[str, object] = dict(inputs)
     virts: Dict[str, _Expr] = {}
     raws: Dict[str, object] = {}
+    stats: Dict[str, Tuple] = {}
+    new_states: Dict[str, object] = {}
 
     def resolve(name):
         if name not in acts:
@@ -164,26 +176,54 @@ def fused_forward(net, params, states, inputs, *, materialize_all=False):
                 e.relu or len(e.terms) > 1 or e.terms[0][1] is not None)
             # u is worth writing only when another consumer will read src
             emit = byproduct and len(plan.consumers.get(src, ())) > 1
+            # statistics as the BN consumer's stat_sample asks (1 = exact
+            # full-batch, k>1 = ghost rows; <=0 means exact)
+            bn_layer = by_name[spec.bn_name].obj
+            stats_k = (max(1, int(getattr(bn_layer, "stat_sample", 1)))
+                       if train else 0)
             p = params[name]
-            y, _, _, u = fused_conv(
+            y, ssum, ssq, u = fused_conv(
                 x, p["W"], p["b"], s1, t1, x2, s2, t2,
-                spec.stride, spec.padding, e.relu, 0, plan.impl,
+                spec.stride, spec.padding, e.relu, stats_k, plan.impl,
                 emit_u=emit)
             raws[name] = y
+            stats[name] = (ssum, ssq)
+            new_states[name] = states[name]
             if emit:
                 acts[src] = u   # byproduct: src is now materialized
             continue
         if name in plan.bn:
             layer = node.obj
+            conv_src = plan.bn[name]
+            gamma, beta = params[name]["gamma"], params[name]["beta"]
             st = states[name]
-            scale, shift = bn_affine_inference(
-                params[name]["gamma"], params[name]["beta"],
-                st["mean"], st["var"], layer.eps)
-            virts[name] = _Expr([(raws[plan.bn[name]], scale, shift)])
+            if train:
+                ssum, ssq = stats[conv_src]
+                raw = raws[conv_src]
+                k = max(int(getattr(layer, "stat_sample", 1)), 1)
+                nb = (raw.shape[0] - 1) // k + 1       # sampled rows
+                count = nb * raw.shape[1] * raw.shape[2]
+                scale, shift, mean, var = bn_affine(
+                    gamma, beta, ssum, ssq, count, layer.eps)
+                new_states[name] = st
+                if st:
+                    with torch.no_grad():
+                        d, sd = layer.decay, st["mean"].dtype
+                        new_states[name] = {
+                            "mean": d * st["mean"]
+                            + (1.0 - d) * mean.detach().to(sd),
+                            "var": d * st["var"]
+                            + (1.0 - d) * var.detach().to(sd)}
+            else:
+                scale, shift = bn_affine_inference(
+                    gamma, beta, st["mean"], st["var"], layer.eps)
+                new_states[name] = st
+            virts[name] = _Expr([(raws[conv_src], scale, shift)])
             continue
         if name in plan.vact:
             e = expr_of(plan.vact[name])
             virts[name] = _Expr(list(e.terms), relu=True)
+            new_states[name] = states.get(name)
             continue
         if name in plan.vadd:
             terms = []
@@ -196,11 +236,11 @@ def fused_forward(net, params, states, inputs, *, materialize_all=False):
             virts[name] = _Expr(terms)
             continue
         xs = [resolve(s) for s in node.inputs]
-        net._exec_node(node, xs, params, states, acts)
+        net._exec_node(node, xs, params, states, acts, train, new_states)
 
     if materialize_all:
         for name, y in raws.items():
             acts.setdefault(name, y)   # raw conv outputs ARE the conv acts
         for name in virts:
             resolve(name)
-    return acts
+    return acts, new_states

@@ -1,4 +1,4 @@
-"""Fused conv+BN+activation forward (counterpart of
+"""Fused conv+BN+activation op (counterpart of
 deeplearning4j_tpu/nn/helpers/fused_ops.py).
 
 Activations cross layers as (raw conv output, per-channel affine) pairs:
@@ -7,9 +7,12 @@ Activations cross layers as (raw conv output, per-channel affine) pairs:
     y_raw = conv(u, W) + b
     ssum, ssq = channel sums of y_raw                     # stats epilogue
 
-`fused_conv` is the forward of the JAX package's op. The
-`torch.autograd.Function` and its backward (with the dgrad/wgrad kernels)
-come with slice 2.
+`fused_conv` is a `torch.autograd.Function` (the JAX package's custom VJP):
+its forward saves only x, x2, y and the [C] vectors — never u — and its
+backward recomputes u. The BN backward needs no hand derivation: the
+scale/shift cotangents arrive from the next conv's backward through the
+[C]-vector algebra of `bn_affine`, and the statistics cotangents
+(dssum, dssq) flow into this op's backward.
 
 impl="xla" (the "fused" helper mode) composes torch ops, as the JAX
 package composes lax ops. impl="pallas" dispatches by geometry to the
@@ -23,13 +26,20 @@ A part of the prologue a kernel does not take is materialized in torch
 first, at the same rounding points as `_prologue`: for the 1x1 kernel the
 second affine term scale2*x2+shift2 becomes the kernel's plain `add`; for
 the 3x3 kernel any x2 term means the whole of u is materialized first.
+The backward of a 1x1 stride-1 conv with statistics of the full batch
+(with_stats <= 1) runs on the dgrad_conv1x1/wgrad_conv1x1 kernels under
+"pallas"; every other backward is the composed one, with torch's
+convolution gradients on the recomputed u (the JAX package computes
+those outside Pallas too).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.helpers import pallas_conv
+from deeplearning4j_tpu_torch.nn.helpers.pallas_conv import to_acc
 from deeplearning4j_tpu_torch.nn.layers.conv import conv2d_nhwc, resolve_padding
 
 
@@ -78,8 +88,59 @@ def fused_conv(x, w, b, scale, shift, x2, scale2, shift2,
     Returns (y_raw [B,H,W,N], ssum [N] f32, ssq [N] f32, u). Port-only,
     as PyTorch runs eagerly and nothing eliminates unread results: u is
     returned only when `emit_u` (None otherwise), and ssum/ssq are None
-    when with_stats is 0.
+    when with_stats is 0. Differentiable in every tensor argument.
     """
+    return FusedConv.apply(x, w, b, scale, shift, x2, scale2, shift2,
+                           tuple(int(s) for s in stride), padding,
+                           bool(relu), int(with_stats), impl, emit_u)
+
+
+class FusedConv(torch.autograd.Function):
+    """`fused_conv` with the JAX package's custom VJP: the forward saves
+    x, x2, y and the [C] vectors; the backward recomputes u. Outputs
+    nobody differentiates (u not emitted, statistics in eval) come back
+    as None cotangents and count as absent."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, scale, shift, x2, scale2, shift2, stride,
+                padding, relu, with_stats, impl, emit_u):
+        y, ssum, ssq, u = _forward(x, w, b, scale, shift, x2, scale2,
+                                   shift2, stride, padding, relu,
+                                   with_stats, impl, emit_u)
+        if u is x:   # identity prologue: an output may not be an input
+            u = x.clone()
+        ctx.save_for_backward(x, w, b, scale, shift, x2, scale2, shift2, y)
+        ctx.cfg = (stride, padding, relu, with_stats, impl)
+        ctx.set_materialize_grads(False)
+        return y, ssum, ssq, u
+
+    @staticmethod
+    def backward(ctx, dy, dssum, dssq, du_out):
+        x, w, b, scale, shift, x2, scale2, shift2, y = ctx.saved_tensors
+        stride, padding, relu, with_stats, impl = ctx.cfg
+        if dy is None:
+            dy = torch.zeros_like(y)
+        if not with_stats or (dssum is None and dssq is None):
+            dssum = dssq = None
+        else:
+            n = y.shape[-1]
+            zero = lambda v: torch.zeros(n, dtype=torch.float32,
+                                         device=y.device) if v is None else v
+            dssum, dssq = zero(dssum), zero(dssq)
+        if (impl == "pallas" and with_stats <= 1 and kernel_route(
+                w.shape, stride, padding, x.shape[1:3]) == "conv1x1"):
+            grads = _bwd_pallas_1x1(x, w, b, scale, shift, x2, scale2,
+                                    shift2, y, dy, dssum, dssq, du_out,
+                                    relu)
+        else:
+            grads = _bwd_composed(x, w, b, scale, shift, x2, scale2, shift2,
+                                  y, dy, dssum, dssq, du_out, stride,
+                                  padding, relu, with_stats)
+        return grads + (None,) * 6
+
+
+def _forward(x, w, b, scale, shift, x2, scale2, shift2, stride, padding,
+             relu, with_stats, impl, emit_u):
     if impl == "pallas" and int(with_stats) <= 1:
         route = kernel_route(w.shape, stride, padding, x.shape[1:3])
         if route is not None:
@@ -98,7 +159,7 @@ def _fwd_impl(x, w, b, scale, shift, x2, scale2, shift2,
         y = y + b.to(y.dtype)
     ssum = ssq = None
     if with_stats:
-        yf = _stat_rows(y, int(with_stats)).float()
+        yf = to_acc(_stat_rows(y, int(with_stats)))
         ssum = yf.sum((0, 1, 2))
         ssq = (yf * yf).sum((0, 1, 2))
     return y, ssum, ssq, u
@@ -137,6 +198,79 @@ def _fwd_kernel(route, x, w, b, scale, shift, x2, scale2, shift2, relu,
                 x.contiguous(), w.contiguous(), b, scale, shift, relu=relu,
                 stats=stats)
     return y, ssum, ssq, (u if emit_u else None)
+
+
+# --------------------------------------------------------------- backward
+
+
+def _conv_grads(u, w, ybar, stride, padding):
+    """(du, dw) of conv2d_nhwc(u, w, stride, padding) for the cotangent
+    ybar: torch's convolution backward on the explicitly padded u."""
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    h, wd = u.shape[1], u.shape[2]
+    (pt, pb), (pl, pr) = resolve_padding(padding, h, wd, kh, kw, *stride)
+    up = F.pad(u, (0, 0, pl, pr, pt, pb)) if pt or pb or pl or pr else u
+    gi, gw, _ = torch.ops.aten.convolution_backward(
+        ybar.permute(0, 3, 1, 2), up.permute(0, 3, 1, 2),
+        w.permute(3, 2, 0, 1), None, list(stride), [0, 0], [1, 1], False,
+        [0, 0], 1, [True, True, False])
+    du = gi.permute(0, 2, 3, 1)[:, pt:pt + h, pl:pl + wd, :]
+    return du, gw.permute(2, 3, 1, 0)
+
+
+def _bwd_composed(x, w, b, scale, shift, x2, scale2, shift2, y, dy, dssum,
+                  dssq, du_out, stride, padding, relu, with_stats):
+    """The JAX package's composed backward (fused_ops.py _fused_conv_bwd):
+    ybar rounded to the compute dtype, u recomputed, torch's convolution
+    gradients, then the relu mask and the two branches' affine grads."""
+    dtype = x.dtype
+    ybar = dy
+    if dssum is not None:
+        if with_stats <= 1:
+            ybar = pallas_conv.ybar_acc(dy, y, dssum, dssq).to(dtype)
+        else:
+            # sampled statistics: only the leading ghost rows carry a
+            # statistics contribution (the JAX package's zero tail pad)
+            nb = _stat_rows(y, with_stats).shape[0]
+            corr = (to_acc(dssum) + 2.0 * to_acc(y[:nb]) * to_acc(dssq))
+            corr = corr.to(dtype)
+            ybar = torch.cat([dy[:nb] + corr, dy[nb:]])
+    u = _prologue(x, scale, shift, x2, scale2, shift2, relu)
+    db = None if b is None else to_acc(ybar).sum((0, 1, 2)).to(b.dtype)
+    du, dw = _conv_grads(u, w, ybar, stride, padding)
+    if du_out is not None:
+        du = du + du_out.to(du.dtype)
+    if relu:
+        du = du * (u > 0).to(dtype)
+
+    def branch(xb, sb):
+        if sb is None:
+            return du, None, None
+        duf = to_acc(du)
+        return (du * sb.to(dtype), (to_acc(xb) * duf).sum((0, 1, 2)),
+                duf.sum((0, 1, 2)))
+
+    dx, ds1, dt1 = branch(x, scale)
+    dx2, ds2, dt2 = (None,) * 3 if x2 is None else branch(x2, scale2)
+    return dx, dw, db, ds1, dt1, dx2, ds2, dt2
+
+
+def _bwd_pallas_1x1(x, w, b, scale, shift, x2, scale2, shift2, y, dy,
+                    dssum, dssq, du_out, relu):
+    """Backward on the dgrad/wgrad kernels: each big tensor is read once
+    per kernel; ybar and du never round-trip device memory."""
+    bsz, h, wd, k = x.shape
+    m, n = bsz * h * wd, w.shape[-1]
+    rows = lambda t, c: None if t is None else t.reshape(m, c).contiguous()
+    dy2, y2, x1, xx2 = rows(dy, n), rows(y, n), rows(x, k), rows(x2, k)
+    dx1, dx2, ds1, dt1, ds2, dt2, db = pallas_conv.dgrad_conv1x1(
+        dy2, y2, w.reshape(k, n).contiguous(), x1, xx2, rows(du_out, k),
+        scale, shift, scale2, shift2, dssum, dssq, relu)
+    dw = pallas_conv.wgrad_conv1x1(dy2, y2, x1, xx2, scale, shift, scale2,
+                                   shift2, dssum, dssq, relu)
+    return (dx1.reshape(x.shape), dw.reshape(w.shape).to(w.dtype),
+            None if b is None else db.to(b.dtype), ds1, dt1,
+            None if x2 is None else dx2.reshape(x2.shape), ds2, dt2)
 
 
 # ---------------------------------------------------------------- helpers

@@ -31,8 +31,10 @@ BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = {
     "fused_conv1x1": "fused_conv1x1.cu",
     "fused_conv3x3": "fused_conv3x3.cu",
+    "dgrad_conv1x1": "dgrad_conv1x1.cu",
+    "wgrad_conv1x1": "wgrad_conv1x1.cu",
 }
-_HEADERS = ("fused_conv_common.cuh",)
+_HEADERS = ("fused_conv_common.cuh", "conv1x1_backward.cuh")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point of each library: (name, argtypes); every one returns the
@@ -42,6 +44,10 @@ _ENTRY_POINTS = {
                       [_I] + [_P] * 11 + [_I] * 4 + [_P]),
     "fused_conv3x3": ("fused_conv3x3_launch",
                       [_I] + [_P] * 9 + [_I] * 6 + [_P]),
+    "dgrad_conv1x1": ("dgrad_conv1x1_launch",
+                      [_I] + [_P] * 19 + [_I] * 4 + [_P]),
+    "wgrad_conv1x1": ("wgrad_conv1x1_launch",
+                      [_I] + [_P] * 12 + [_I] * 5 + [_P]),
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

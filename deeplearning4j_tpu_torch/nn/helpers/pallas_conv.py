@@ -2,8 +2,9 @@
 deeplearning4j_tpu/nn/helpers/pallas_conv.py).
 
 The JAX package's Pallas kernels for the TPU become CUDA C++ kernels for
-sm_90a (csrc/fused_conv1x1.cu, csrc/fused_conv3x3.cu; built and bound by
-kernel_build.py). Each kernel keeps its TPU counterpart's contract:
+sm_90a (csrc/fused_conv1x1.cu, csrc/fused_conv3x3.cu, csrc/dgrad_conv1x1.cu,
+csrc/wgrad_conv1x1.cu; built and bound by kernel_build.py). The forward
+kernels keep their TPU counterparts' contract:
 
   PROLOGUE  u = relu?(scale*x + shift [+ add]) as the input is loaded —
             BN-apply/activation/residual-add never round-trip memory;
@@ -13,8 +14,15 @@ kernel_build.py). Each kernel keeps its TPU counterpart's contract:
             sum / sum-of-squares of the rounded output (`stats=False`:
             skipped, for the inference path that reads no statistics).
 
+The 1x1 backward kernels fold everything around their two products:
+dgrad recomputes ybar = dy + dssum + 2*y*dssq as it loads, forms
+du = ybar @ W^T, masks it with the relu of the recomputed u and writes
+dx = du*scale, with the [C]-sized ds/dt/db reductions as byproducts;
+wgrad recomputes u and ybar per tile and accumulates dW = u^T @ ybar.
+
 Every kernel has a plain PyTorch version beside it with the same
-signature and rounding points (`ref_fused_conv1x1`, `ref_fused_conv3x3`).
+signature and rounding points (`ref_fused_conv1x1`, `ref_fused_conv3x3`,
+`ref_dgrad_conv1x1`, `ref_wgrad_conv1x1`).
 The wrappers take the plain version only for tensors on the CPU; for a
 CUDA tensor they launch the kernel or raise. `LAUNCHES` counts kernel
 launches (one per wrapper call that launched), so a run can show that
@@ -29,7 +37,8 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.nn.helpers import kernel_build
 
 # launches per kernel wrapper; reset with reset_launch_counts()
-LAUNCHES = {"fused_conv1x1": 0, "fused_conv3x3": 0}
+LAUNCHES = {"fused_conv1x1": 0, "fused_conv3x3": 0, "dgrad_conv1x1": 0,
+            "wgrad_conv1x1": 0}
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -169,7 +178,136 @@ def fused_conv3x3(x, w, b, scale=None, shift=None, relu: bool = False,
     return y, ssum, ssq
 
 
+# ------------------------------------------------------------ 1x1 backward
+
+
+def _check_backward(dy, y, x, x2, scale, shift, scale2, shift2, dssum,
+                    dssq, k):
+    """Checks shared by the two backward wrappers; returns (m, n)."""
+    _check_x(dy, 2)
+    m, n = dy.shape
+    dev, dt = dy.device, dy.dtype
+    _check_operand(y, "y", (m, n), dt, dev)
+    _check_operand(x, "x", (m, k), dt, dev)
+    if x2 is not None:
+        _check_operand(x2, "x2", (m, k), dt, dev)
+    _require((scale is None) == (shift is None), "scale and shift go together")
+    _require((scale2 is None) == (shift2 is None),
+             "scale2 and shift2 go together")
+    _require(scale2 is None or x2 is not None, "scale2 needs x2")
+    _require((dssum is None) == (dssq is None), "dssum and dssq go together")
+    return m, n
+
+
+def dgrad_conv1x1(dy, y, w, x, x2=None, du_out=None, scale=None,
+                  shift=None, scale2=None, shift2=None, dssum=None,
+                  dssq=None, relu=False):
+    """Fused input-gradient of fused_conv (1x1, stride 1): one pass over
+    (dy, y, x[, x2]) producing dx1[, dx2] plus the [C]-sized ds/dt/db
+    reductions.
+
+    dy, y: [M, N]; w: [K, N]; x, x2, du_out: [M, K]; scale*/shift*: [K];
+    dssum/dssq: [N] (None: no statistics cotangent). Returns
+    (dx1, dx2, ds1, dt1, ds2, dt2, db) with None for absent outputs.
+    """
+    if dy.device.type == "cpu":
+        return ref_dgrad_conv1x1(dy, y, w, x, x2, du_out, scale, shift,
+                                 scale2, shift2, dssum, dssq, relu)
+    k = w.shape[0] if w.ndim == 2 else -1
+    m, n = _check_backward(dy, y, x, x2, scale, shift, scale2, shift2,
+                           dssum, dssq, k)
+    dev, dt = dy.device, dy.dtype
+    _check_operand(w, "w", (k, n), dt, dev)
+    if du_out is not None:
+        _check_operand(du_out, "du_out", (m, k), dt, dev)
+    s1, t1 = _vec_f32(scale, k, "scale", dev), _vec_f32(shift, k, "shift", dev)
+    s2 = _vec_f32(scale2, k, "scale2", dev)
+    t2 = _vec_f32(shift2, k, "shift2", dev)
+    dsum = _vec_f32(dssum, n, "dssum", dev)
+    dsq = _vec_f32(dssq, n, "dssq", dev)
+    lib = kernel_build.load("dgrad_conv1x1")
+    f32 = dict(dtype=torch.float32, device=dev)
+    tiles = -(-m // lib.dl4j_conv_row_tile())
+    dx1 = torch.empty((m, k), dtype=dt, device=dev)
+    dx2 = None if x2 is None else torch.empty((m, k), dtype=dt, device=dev)
+    # per-row-tile partials of ds1, dt, ds2 ([tiles, K] each) and db
+    # ([tiles, N]), reduced in a fixed order by a second kernel
+    partial = torch.empty((tiles * (3 * k + n),), **f32)
+    ds1 = None if s1 is None else torch.empty((k,), **f32)
+    ds2 = None if s2 is None else torch.empty((k,), **f32)
+    dt_ = None if s1 is None and s2 is None else torch.empty((k,), **f32)
+    db = torch.empty((n,), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.dgrad_conv1x1_launch(
+        int(dt == torch.bfloat16), _ptr(dy), _ptr(y), _ptr(w), _ptr(x),
+        _ptr(x2), _ptr(du_out), _ptr(s1), _ptr(t1), _ptr(s2), _ptr(t2),
+        _ptr(dsum), _ptr(dsq), _ptr(dx1), _ptr(dx2), _ptr(partial),
+        _ptr(ds1), _ptr(dt_), _ptr(ds2), _ptr(db), m, k, n, int(bool(relu)),
+        stream)
+    kernel_build.check(lib, rc, "dgrad_conv1x1")
+    LAUNCHES["dgrad_conv1x1"] += 1
+    # both branches' shift gradients are the same sum over du
+    dt1 = dt_ if s1 is not None else None
+    dt2 = None if s2 is None else (dt_.clone() if s1 is not None else dt_)
+    return dx1, dx2, ds1, dt1, ds2, dt2, db
+
+
+# wgrad splits M over blocks: aim at WGRAD_BLOCKS blocks, give each split
+# at least WGRAD_MIN_ROWS rows, and keep the f32 split partials within
+# WGRAD_SCRATCH elements (64 MB; the 7x7 stage's K*N is 512*2048)
+WGRAD_BLOCKS = 528             # 4 per SM of an H100
+WGRAD_MIN_ROWS = 512
+WGRAD_SCRATCH = 16 * 2 ** 20
+
+
+def wgrad_splits(m: int, k: int, n: int) -> int:
+    """How many row ranges wgrad_conv1x1 splits M into (64x64 tiles of
+    dW per range)."""
+    tiles = -(-k // 64) * -(-n // 64)
+    return max(1, min(-(-WGRAD_BLOCKS // tiles), m // WGRAD_MIN_ROWS,
+                      WGRAD_SCRATCH // (k * n)))
+
+
+def wgrad_conv1x1(dy, y, x, x2=None, scale=None, shift=None, scale2=None,
+                  shift2=None, dssum=None, dssq=None, relu=False):
+    """Fused weight-gradient of fused_conv (1x1, stride 1): recomputes u
+    and ybar per tile and accumulates dW = u^T @ ybar in f32. Returns
+    dW [K, N] f32."""
+    if dy.device.type == "cpu":
+        return ref_wgrad_conv1x1(dy, y, x, x2, scale, shift, scale2, shift2,
+                                 dssum, dssq, relu)
+    k = x.shape[1] if x.ndim == 2 else -1
+    m, n = _check_backward(dy, y, x, x2, scale, shift, scale2, shift2,
+                           dssum, dssq, k)
+    dev = dy.device
+    s1, t1 = _vec_f32(scale, k, "scale", dev), _vec_f32(shift, k, "shift", dev)
+    s2 = _vec_f32(scale2, k, "scale2", dev)
+    t2 = _vec_f32(shift2, k, "shift2", dev)
+    dsum = _vec_f32(dssum, n, "dssum", dev)
+    dsq = _vec_f32(dssq, n, "dssq", dev)
+    lib = kernel_build.load("wgrad_conv1x1")
+    splits = wgrad_splits(m, k, n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dw = torch.empty((k, n), **f32)
+    scratch = torch.empty((splits, k, n), **f32) if splits > 1 else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.wgrad_conv1x1_launch(
+        int(dy.dtype == torch.bfloat16), _ptr(dy), _ptr(y), _ptr(x),
+        _ptr(x2), _ptr(s1), _ptr(t1), _ptr(s2), _ptr(t2), _ptr(dsum),
+        _ptr(dsq), _ptr(dw), _ptr(scratch), m, k, n, splits,
+        int(bool(relu)), stream)
+    kernel_build.check(lib, rc, "wgrad_conv1x1")
+    LAUNCHES["wgrad_conv1x1"] += 1
+    return dw
+
+
 # --------------------------------------------------------- plain versions
+
+
+def to_acc(t):
+    """`t` in the kernels' accumulation dtype: f32, or f64 for f64 inputs
+    (gradient checks)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def affine(x, scale, shift):
@@ -192,7 +330,7 @@ def prologue(x, scale=None, shift=None, add=None, relu=False):
 def _channel_stats(y, dims, stats):
     if not stats:
         return None, None
-    yf = y.float()
+    yf = to_acc(y)
     return yf.sum(dims), (yf * yf).sum(dims)
 
 
@@ -202,9 +340,9 @@ def ref_fused_conv1x1(x, w, b, scale=None, shift=None, add=None,
     each prologue op rounds to x's dtype, the product accumulates in
     f32, the bias joins in f32, one rounding to x's dtype)."""
     u = prologue(x, scale, shift, add, relu)
-    acc = u.float() @ w.float()
+    acc = to_acc(u) @ to_acc(w)
     if b is not None:
-        acc = acc + b.float()
+        acc = acc + to_acc(b)
     y = acc.to(x.dtype)
     return (y, *_channel_stats(y, 0, stats), (u if emit_u else None))
 
@@ -213,13 +351,66 @@ def ref_fused_conv3x3(x, w, b, scale=None, shift=None, relu=False,
                       stats=True):
     """Plain PyTorch version of fused_conv3x3."""
     u = prologue(x, scale, shift, None, relu)
-    acc = F.conv2d(u.float().permute(0, 3, 1, 2),
-                   w.float().permute(3, 2, 0, 1), padding=1)
+    acc = F.conv2d(to_acc(u).permute(0, 3, 1, 2),
+                   to_acc(w).permute(3, 2, 0, 1), padding=1)
     acc = acc.permute(0, 2, 3, 1)
     if b is not None:
-        acc = acc + b.float()
+        acc = acc + to_acc(b)
     y = acc.to(x.dtype)
     return (y, *_channel_stats(y, (0, 1, 2), stats))
+
+
+def ybar_acc(dy, y, dssum=None, dssq=None):
+    """The effective output cotangent dy + dssum + 2*y*dssq, unrounded
+    (f32): the order of the kernels' f32 operations."""
+    dyf = to_acc(dy)
+    if dssum is not None:
+        dyf = dyf + to_acc(dssum) + 2.0 * to_acc(y) * to_acc(dssq)
+    return dyf
+
+
+def recompute_u(x, x2=None, scale=None, shift=None, scale2=None,
+                shift2=None, relu=False):
+    """u of the fused conv's prologue, recomputed from its raw inputs."""
+    add = x2 if x2 is None or scale2 is None else affine(x2, scale2, shift2)
+    return prologue(x, scale, shift, add, relu)
+
+
+def ref_dgrad_conv1x1(dy, y, w, x, x2=None, du_out=None, scale=None,
+                      shift=None, scale2=None, shift2=None, dssum=None,
+                      dssq=None, relu=False):
+    """Plain PyTorch version of dgrad_conv1x1, at the kernel's rounding
+    points: ybar formed in f32 and rounded once for the product, which
+    accumulates in f32; db sums the unrounded ybar; the relu mask compares
+    the recomputed u in f32; dx = du*scale in f32, rounded once."""
+    dtype = dy.dtype
+    dyf = ybar_acc(dy, y, dssum, dssq)
+    du = to_acc(dyf.to(dtype)) @ to_acc(w).t()
+    if du_out is not None:
+        du = du + to_acc(du_out)
+    if relu:
+        u = recompute_u(x, x2, scale, shift, scale2, shift2)
+        du = torch.where(to_acc(u) > 0, du, 0.0)
+
+    def branch(xb, s):
+        if s is None:
+            return du.to(dtype), None, None
+        return ((du * to_acc(s)).to(dtype), (to_acc(xb) * du).sum(0),
+                du.sum(0))
+
+    dx1, ds1, dt1 = branch(x, scale)
+    dx2, ds2, dt2 = (None,) * 3 if x2 is None else branch(x2, scale2)
+    return dx1, dx2, ds1, dt1, ds2, dt2, dyf.sum(0)
+
+
+def ref_wgrad_conv1x1(dy, y, x, x2=None, scale=None, shift=None,
+                      scale2=None, shift2=None, dssum=None, dssq=None,
+                      relu=False):
+    """Plain PyTorch version of wgrad_conv1x1: u recomputed in the
+    compute dtype, times ybar rounded to u's dtype, accumulated in f32."""
+    u = recompute_u(x, x2, scale, shift, scale2, shift2, relu)
+    ybar = ybar_acc(dy, y, dssum, dssq).to(u.dtype)
+    return to_acc(u).t() @ to_acc(ybar)
 
 
 def fused_conv_bn_act(x, w, b, gamma, beta, mean, var, eps=1e-5,

@@ -3,9 +3,11 @@
 A layer is a dataclass of hyperparameters — the same fields as the JAX
 package, so configurations serialize identically — carrying
 `init_params(gen, input_type, dtype) -> dict of tensors` and
-`apply(params, x, state=...) -> (y, state)`. Running statistics live in a
-separate `state` dict. This slice ports the inference forward; training
-(dropout, regularization, the backward) arrives with slice 2.
+`apply(params, x, train=..., state=...) -> (y, state)`. Running
+statistics live in a separate `state` dict; a train-mode apply returns the
+updated state. Gradients come from autograd over the whole network.
+Input dropout waits for a later slice (it needs an explicit
+torch.Generator): a layer with dropout > 0 raises in train mode.
 """
 
 from __future__ import annotations
@@ -53,9 +55,37 @@ class Layer:
         return False
 
     # ---- forward ----
-    def apply(self, params, x, *, state=None):
-        """Inference forward. Returns (output, state)."""
+    def apply(self, params, x, *, train=False, state=None):
+        """Returns (output, new_state)."""
         raise NotImplementedError
+
+    # ---- regularization ----
+    def regularization_loss(self, params):
+        """L1/L2 penalty over this layer's weight (non-bias) params: a leaf
+        is exempt iff its own dict key starts with 'b' (b, beta, ...) or is
+        'centers', as in the JAX package. Returns 0.0 when there is no
+        penalty."""
+        l1 = self.l1 or 0.0
+        l2 = self.l2 or 0.0
+        if not params or (l1 == 0.0 and l2 == 0.0):
+            return 0.0
+        reg = 0.0
+        for key, leaf in _leaves_with_keys(params):
+            if str(key).startswith("b") or str(key) == "centers":
+                continue
+            if l2:
+                reg = reg + 0.5 * l2 * torch.sum(leaf * leaf)
+            if l1:
+                reg = reg + l1 * torch.sum(torch.abs(leaf))
+        return reg
+
+    # ---- input dropout ----
+    def _maybe_dropout_input(self, x, train):
+        if not train or not self.dropout or self.dropout <= 0.0:
+            return x
+        raise NotImplementedError(
+            f"Layer {self.name or type(self).__name__}: train-mode dropout "
+            f"is not ported yet (set dropout=0)")
 
     # ---- serde ----
     def to_dict(self) -> dict:
@@ -66,6 +96,16 @@ class Layer:
                 v = v.to_dict()
             d[f.name] = v
         return d
+
+
+def _leaves_with_keys(tree, key=None):
+    """(own dict key, tensor) for every leaf of a nested param dict, in
+    sorted-key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_with_keys(tree[k], k)
+    elif tree is not None:
+        yield key, tree
 
 
 @dataclass(kw_only=True)

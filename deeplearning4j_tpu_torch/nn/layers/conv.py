@@ -125,7 +125,8 @@ class ConvolutionLayer(BaseLayer):
         b = torch.full((self.n_out,), self.bias_init, dtype=dtype)
         return {"W": W, "b": b}
 
-    def apply(self, params, x, *, state=None):
+    def apply(self, params, x, *, train=False, state=None):
+        x = self._maybe_dropout_input(x, train)
         y = conv2d_nhwc(x, params["W"], _pair(self.stride),
                         self.lax_padding(), _pair(self.dilation))
         y = y + params["b"]
@@ -153,7 +154,7 @@ class SubsamplingLayer(Layer):
         w = _out_dim(input_type.width, kw, sw, pw, self.convolution_mode)
         return InputType.convolutional(h, w, input_type.channels)
 
-    def apply(self, params, x, *, state=None):
+    def apply(self, params, x, *, train=False, state=None):
         kh, kw = _pair(self.kernel_size)
         sh, sw = _pair(self.stride)
         if self.convolution_mode == "same":

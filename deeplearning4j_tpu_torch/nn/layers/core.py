@@ -1,8 +1,5 @@
 """Core feed-forward layers (counterpart of deeplearning4j_tpu/nn/layers/core.py):
-Dense, Activation, Output (forward) and GlobalPooling.
-
-The output layer's loss and the train-time dropout arrive with slice 2;
-`loss` stays a field so configurations serialize like the JAX package's.
+Dense, Activation, Output (with its per-example loss) and GlobalPooling.
 """
 
 from __future__ import annotations
@@ -20,6 +17,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputTypeRecurrent,
 )
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayer, Layer
+from deeplearning4j_tpu_torch.nn.losses import get_loss
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 
@@ -49,7 +47,8 @@ class DenseLayer(BaseLayer):
     def init_params(self, gen, input_type, dtype=torch.float32):
         return _dense_params(self, gen, dtype)
 
-    def apply(self, params, x, *, state=None):
+    def apply(self, params, x, *, train=False, state=None):
+        x = self._maybe_dropout_input(x, train)
         y = x @ params["W"] + params["b"]
         return get_activation(self.activation)(y), state
 
@@ -60,7 +59,7 @@ class ActivationLayer(Layer):
 
     activation: str = "relu"
 
-    def apply(self, params, x, *, state=None):
+    def apply(self, params, x, *, train=False, state=None):
         return get_activation(self.activation)(x), state
 
 
@@ -69,13 +68,21 @@ class BaseOutputLayer(BaseLayer):
     loss: str = "mcxent"
     activation: Optional[str] = "softmax"
 
+    def compute_per_example_loss(self, labels, pre_output, mask=None):
+        return get_loss(self.loss)(labels, pre_output, self.activation, mask)
+
     def pre_output(self, params, x):
         return x @ params["W"] + params["b"]
+
+    def per_example_loss_from_input(self, params, x, labels, mask=None):
+        """Loss seen from the layer's input activations."""
+        return self.compute_per_example_loss(
+            labels, self.pre_output(params, x), mask=mask)
 
 
 @dataclass(kw_only=True)
 class OutputLayer(BaseOutputLayer):
-    """Dense + loss head for classification/regression (forward only)."""
+    """Dense + loss head for classification/regression."""
 
     def set_n_in(self, input_type: InputType) -> None:
         if isinstance(input_type, InputTypeFeedForward):
@@ -89,7 +96,8 @@ class OutputLayer(BaseOutputLayer):
     def init_params(self, gen, input_type, dtype=torch.float32):
         return _dense_params(self, gen, dtype)
 
-    def apply(self, params, x, *, state=None):
+    def apply(self, params, x, *, train=False, state=None):
+        x = self._maybe_dropout_input(x, train)
         return get_activation(self.activation)(self.pre_output(params, x)), state
 
 
@@ -108,7 +116,7 @@ class GlobalPoolingLayer(Layer):
             return InputType.feed_forward(input_type.channels)
         return input_type
 
-    def apply(self, params, x, *, state=None):
+    def apply(self, params, x, *, train=False, state=None):
         if x.ndim == 3:
             axes = (1,)
         elif x.ndim == 4:

@@ -2,10 +2,13 @@
 (counterpart of deeplearning4j_tpu/util/model_serializer.py, read side).
 
 A JAX model zip holds `configuration.json` (ComputationGraphConfiguration
-JSON, helper_mode included), `coefficients.npz` and `states.npz`. The
-arrays are stored as `leaf_i` in jax.tree_util flatten order: nested dict
-keys sorted at every level, list/tuple items in order, and no leaf for
-None or an empty dict. `_flatten` rebuilds that order without jax.
+JSON, helper_mode included), `coefficients.npz`, `states.npz`,
+`updaterState.npz` (optimizer state, when saved) and `meta.json` (the
+iteration and epoch). The arrays are stored as `leaf_i` in jax.tree_util
+flatten order: nested dict keys sorted at every level, list/tuple items
+in order, and no leaf for None or an empty dict. `_flatten` rebuilds that
+order without jax, so a net the JAX package trained resumes training in
+the port with its momentum and its learning-rate schedule position.
 
 Layouts need no change: both packages keep conv kernels HWIO, dense
 weights [n_in, n_out] and activations NHWC, so the bridge only converts
@@ -16,54 +19,24 @@ from __future__ import annotations
 
 import hashlib
 import io
+import json
 import os
 import zipfile
-from typing import Any, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.resilience.errors import CheckpointIntegrityError
+from deeplearning4j_tpu_torch.util.tree import leaves as _flatten
+from deeplearning4j_tpu_torch.util.tree import tree_map as _tree_map
+from deeplearning4j_tpu_torch.util.tree import unflatten as _unflatten
 
 CONFIG_ENTRY = "configuration.json"
 COEFFICIENTS_ENTRY = "coefficients.npz"
 STATES_ENTRY = "states.npz"
-
-
-def _flatten(tree) -> List[Any]:
-    """Leaves of a nested dict/list tree in jax.tree_util order."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out.extend(_flatten(tree[k]))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for v in tree:
-            out.extend(_flatten(v))
-        return out
-    return [tree]
-
-
-def _unflatten(like, leaves, pos=0):
-    """Rebuild `like`'s structure from `leaves` (same order as _flatten).
-    Returns (tree, next position)."""
-    if like is None:
-        return None, pos
-    if isinstance(like, dict):
-        out = {}
-        for k in sorted(like):
-            out[k], pos = _unflatten(like[k], leaves, pos)
-        return {k: out[k] for k in like}, pos
-    if isinstance(like, (list, tuple)):
-        items = []
-        for v in like:
-            item, pos = _unflatten(v, leaves, pos)
-            items.append(item)
-        return type(like)(items), pos
-    return leaves[pos], pos + 1
+UPDATER_ENTRY = "updaterState.npz"
+META_ENTRY = "meta.json"
 
 
 def _to_tensor(a, device, dtype):
@@ -73,28 +46,22 @@ def _to_tensor(a, device, dtype):
     return t.to(device)
 
 
-def _tree_map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _tree_map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(v, fn) for v in tree)
-    if tree is None:
-        return None
-    return fn(tree)
-
-
-def params_from_jax(params, states=None, device=None, dtype=torch.float32
-                    ) -> Tuple[dict, dict]:
+def params_from_jax(params, states=None, device=None, dtype=torch.float32,
+                    updater_states=None) -> Tuple[dict, ...]:
     """Carry the JAX package's param/state trees (nested dicts of numpy or
     jax arrays: conv W/b, BN gamma/beta and mean/var, output W/b) into the
     port's tensors on `device` (default "cuda"; pass "cpu" explicitly).
-    Returns (params, states)."""
+    Returns (params, states), and the updater states (e.g. nesterovs'
+    {"v": {...}} per layer) as a third item when they are given."""
     from deeplearning4j_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
     conv = lambda a: _to_tensor(a, dev, dtype)
-    return (_tree_map(params, conv),
-            None if states is None else _tree_map(states, conv))
+    out = (_tree_map(conv, params),
+           None if states is None else _tree_map(conv, states))
+    if updater_states is None:
+        return out
+    return out + (_tree_map(conv, updater_states),)
 
 
 def _npz_leaves(data: bytes) -> List[np.ndarray]:
@@ -140,7 +107,8 @@ def verify_model(path) -> bool:
 
 def restore_computation_graph(path, device=None, compute_dtype=None):
     """Load a ComputationGraph from a zip the JAX package's
-    `ModelSerializer.write_model` wrote — without jax. Raises
+    `ModelSerializer.write_model` wrote — without jax — with its updater
+    state and iteration count when the zip has them. Raises
     CheckpointIntegrityError if the file fails its sha256 sidecar."""
     from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
         ComputationGraphConfiguration,
@@ -157,7 +125,15 @@ def restore_computation_graph(path, device=None, compute_dtype=None):
                                device=device).init()
         net.params = _load_into(net.params, z.read(COEFFICIENTS_ENTRY),
                                 COEFFICIENTS_ENTRY)
-        if STATES_ENTRY in z.namelist():
+        names = set(z.namelist())
+        if STATES_ENTRY in names:
             net.states = _load_into(net.states, z.read(STATES_ENTRY),
                                     STATES_ENTRY)
+        if UPDATER_ENTRY in names:
+            net.updater_states = _load_into(
+                net.updater_states, z.read(UPDATER_ENTRY), UPDATER_ENTRY)
+        if META_ENTRY in names:
+            meta = json.loads(z.read(META_ENTRY).decode())
+            net.iteration = meta.get("iteration", 0)
+            net.epoch = meta.get("epoch", 0)
     return net

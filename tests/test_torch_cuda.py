@@ -123,3 +123,80 @@ def test_cuda_kernels_without_stats_give_the_same_y(rng, kind):
     torch.cuda.synchronize()
     assert torch.equal(with_stats[0], without[0])
     assert without[1] is None and without[2] is None
+
+
+# (M, K, N) of the 1x1 backward kernels: vector accesses over several
+# tiles with M split across blocks in wgrad; odd K and N (scalar loads)
+SHAPES_BWD = [(1100, 72, 136), (77, 13, 9)]
+# (affine, x2: None | "plain" | "affine", du_out, statistics, relu)
+BWD_CASES = [(False, None, False, True, False), (True, None, False, True, True),
+             (True, "plain", True, True, True),
+             (True, "affine", True, False, True),
+             (True, "affine", False, True, True)]
+
+
+def _bwd_args(rng, M, K, N, dt, case):
+    affine, x2, duo, stats, relu = case
+    t = lambda *s, sc=1.0, off=0.0: torch.from_numpy(
+        (rng.normal(size=s) * sc + off).astype(np.float32)).cuda()
+    kw = {"dy": t(M, N, sc=0.1).to(dt), "y": t(M, N).to(dt),
+          "w": t(K, N, sc=K ** -0.5).to(dt), "x": t(M, K).to(dt),
+          "relu": relu}
+    if affine:
+        kw["scale"], kw["shift"] = t(K, sc=0.5, off=1.0), t(K, sc=0.1)
+    if x2 is not None:
+        kw["x2"] = t(M, K).to(dt)
+    if x2 == "affine":
+        kw["scale2"], kw["shift2"] = t(K, sc=0.5, off=1.0), t(K, sc=0.1)
+    if duo:
+        kw["du_out"] = t(M, K, sc=0.1).to(dt)
+    if stats:
+        kw["dssum"], kw["dssq"] = t(N, sc=1e-3), t(N, sc=1e-3)
+    return kw
+
+
+def _wgrad_kw(kw):
+    return {k: v for k, v in kw.items() if k not in ("w", "du_out")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES_BWD, ids=["vec_split", "scalar"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=["plain", "affine_relu", "x2_duo", "affx2_duo",
+                              "affx2_stats"])
+def test_cuda_backward_kernels_match_plain(rng, case, dtype, shape):
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    kw = _bwd_args(rng, *shape, dt, case)
+    got = tpc.dgrad_conv1x1(**kw)
+    ref = tpc.ref_dgrad_conv1x1(**kw)
+    gw = tpc.wgrad_conv1x1(**_wgrad_kw(kw))
+    rw = tpc.ref_wgrad_conv1x1(**_wgrad_kw(kw))
+    torch.cuda.synchronize()
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    for name, g, r in zip(("dx1", "dx2", "ds1", "dt1", "ds2", "dt2", "db"),
+                          got, ref):
+        assert (g is None) == (r is None), name
+        if g is not None:
+            scale = max(float(r.float().abs().max()), 1.0)
+            torch.testing.assert_close(g.float() / scale, r.float() / scale,
+                                       rtol=0, atol=tol, msg=name)
+    scale = max(float(rw.abs().max()), 1.0)
+    torch.testing.assert_close(gw / scale, rw / scale, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernels_are_bitwise_repeatable(rng):
+    """Partials and fixed-order reductions, no atomics: the same inputs
+    give the same bits."""
+    _need_cuda()
+    kw = _bwd_args(rng, 1100, 72, 136, torch.bfloat16, BWD_CASES[4])
+    a, b = tpc.dgrad_conv1x1(**kw), tpc.dgrad_conv1x1(**kw)
+    wa = tpc.wgrad_conv1x1(**_wgrad_kw(kw))
+    wb = tpc.wgrad_conv1x1(**_wgrad_kw(kw))
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert torch.equal(wa, wb)

@@ -110,7 +110,8 @@ def test_cpu_wrappers_take_plain_version_and_count_nothing(rng):
     for g, r in zip(tpc.fused_conv3x3(x, w, None),
                     tpc.ref_fused_conv3x3(x, w, None)):
         assert torch.equal(g, r)
-    assert tpc.LAUNCHES == {"fused_conv1x1": 0, "fused_conv3x3": 0}
+    assert tpc.LAUNCHES == {"fused_conv1x1": 0, "fused_conv3x3": 0,
+                            "dgrad_conv1x1": 0, "wgrad_conv1x1": 0}
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
