@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero:
      1x1 backward kernels (dgrad, wgrad) at every 1x1 stride-1 backward
      shape at batch 128 — in bf16 and f32, every prologue variant the
      path uses, each kernel run twice on the same inputs and required to
-     give the same bits;
+     give the same bits; each backward call's route (pc.BACKWARD_ROUTES:
+     "wgmma" for bf16 at these shapes, "simple" for f32) is logged;
   4. serving phase: full-width ResNet-50 (224x224x3, 1000 classes, bf16,
      helpers="pallas", seeded random weights and BatchNorm statistics)
      behind ParallelInference(batch_limit=32): after a warm-up round,
@@ -29,15 +30,17 @@ Phases, in order; any failure exits non-zero:
      update), then the training run — ResNet-50 at batch 128, bf16,
      nesterovs lr 1e-2, on one fixed seeded batch: TRAIN_WARMUP steps,
      then TRAIN_STEPS timed steps (img/s, ms/step from CUDA events, peak
-     memory, launches per step of all four kernels: 30/16/30/30, a finite
-     loss that falls, then a torch.profiler window: the device's busy
-     time per step, its idle share, and the kernels that take the most
-     device time), and the same, without the profiler window, for
+     memory, launches per step of all four kernels: 30/16/30/30, every
+     dgrad/wgrad call on the "wgmma" route, a finite loss that falls,
+     then a torch.profiler window: the device's busy time per step, its
+     idle share, and the kernels that take the most device time), and
+     the same, without the profiler window, for
      "fused" (cuDNN convolutions) as the yardstick;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
-     library call) beside its bound, each call reading its inputs from
-     device memory, not from L2;
+     library call) beside its bound and the ratio of the two, with the
+     backward calls' route, each call reading its inputs from device
+     memory, not from L2;
   7. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -287,6 +290,17 @@ def wgrad_args(kw):
     return {k: v for k, v in kw.items() if k not in ("w", "du_out")}
 
 
+def launched_routes(pc):
+    """The route (pc.BACKWARD_ROUTES) each 1x1 backward kernel took since
+    the counts were last reset: "wgmma", "simple", "none", or "mixed"."""
+    out = {}
+    for name, routes in pc.BACKWARD_ROUTES.items():
+        took = [r for r, v in routes.items() if v]
+        out[name] = took[0] if len(took) == 1 else ("mixed" if took
+                                                     else "none")
+    return out
+
+
 def backward_kernel_phase(torch, pc, batch):
     """dgrad/wgrad against their plain versions at every 1x1 stride-1
     backward shape of ResNet-50 at `batch`, bf16 and f32, every variant
@@ -308,6 +322,7 @@ def backward_kernel_phase(torch, pc, batch):
                                            duo, stats,
                                            VARIANT_FLAGS[variant][2])
                         wkw = wgrad_args(kw)
+                        pc.reset_launch_counts()
                         got = pc.dgrad_conv1x1(**kw)
                         again = pc.dgrad_conv1x1(**kw)
                         ref = pc.ref_dgrad_conv1x1(**kw)
@@ -315,6 +330,7 @@ def backward_kernel_phase(torch, pc, batch):
                         gw2 = pc.wgrad_conv1x1(**wkw)
                         rw = pc.ref_wgrad_conv1x1(**wkw)
                         torch.cuda.synchronize()
+                        routes = launched_routes(pc)
                         errs, same = {}, torch.equal(gw, gw2)
                         for nm, a, b, c in zip(names, got, ref, again):
                             if (a is None) != (b is None):
@@ -340,7 +356,10 @@ def backward_kernel_phase(torch, pc, batch):
                                        for key, v in errs.items())
                             + f" max_abs_dx={abs_dx:.3e} "
                             f"max_abs_dW={abs_dw:.3e} bitwise_repeat="
-                            f"{same} tol={tol:g} " + ("ok" if ok else "FAIL"))
+                            f"{same} tol={tol:g} route dgrad="
+                            f"{routes['dgrad_conv1x1']} wgrad="
+                            f"{routes['wgrad_conv1x1']} "
+                            + ("ok" if ok else "FAIL"))
                         if not ok:
                             fail(f"1x1 backward kernels disagree with their "
                                  f"plain versions or are not repeatable "
@@ -794,6 +813,7 @@ def training_run(torch, np, pc, ResNet50):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(pc.LAUNCHES)
+        routes = {k: dict(v) for k, v in pc.BACKWARD_ROUTES.items()}
         step_ms = [events[i].elapsed_time(events[i + 1])
                    for i in range(TRAIN_STEPS)]
         vals = [float(v) for v in losses]
@@ -806,7 +826,8 @@ def training_run(torch, np, pc, ResNet50):
              "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "launches_per_step": {k: v / TRAIN_STEPS
                                    for k, v in counts.items()},
-             "launches": counts, "loss_first": vals[0], "loss_last": vals[-1],
+             "launches": counts, "backward_routes": routes,
+             "loss_first": vals[0], "loss_last": vals[-1],
              "losses": vals}
         res[mode] = r
         log(f"train {mode}: batch {TRAIN_BATCH}, {TRAIN_STEPS} steps after "
@@ -815,7 +836,8 @@ def training_run(torch, np, pc, ResNet50):
             f"{r['ms_per_step_min']:.2f}, max {r['ms_per_step_max']:.2f}), "
             f"host {r['host_img_per_s']:.1f} img/s, peak memory "
             f"{r['max_memory_gib']:.2f} GiB, launches per step "
-            f"{r['launches_per_step']}, loss {vals[0]:.4f} -> {vals[-1]:.4f}")
+            f"{r['launches_per_step']}, backward routes {routes}, loss "
+            f"{vals[0]:.4f} -> {vals[-1]:.4f}")
         if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
             fail(f"train {mode}: loss not finite and falling: {vals}")
         want = ({"fused_conv1x1": 30, "fused_conv3x3": 16,
@@ -824,6 +846,12 @@ def training_run(torch, np, pc, ResNet50):
         if counts != {k: v * TRAIN_STEPS for k, v in want.items()}:
             fail(f"train {mode}: launches {counts} != {want} per step x "
                  f"{TRAIN_STEPS}")
+        # every bf16 dgrad/wgrad call of the step runs on the Hopper design
+        for name in ("dgrad_conv1x1", "wgrad_conv1x1"):
+            if routes[name] != {"wgmma": want[name] * TRAIN_STEPS,
+                                "simple": 0}:
+                fail(f"train {mode}: {name} routes {routes[name]}: not "
+                     f"every call took the wgmma route")
         if mode == "pallas":
             prof = profile_steps(torch, lambda: net.fit_batch(([x], [y])))
             prof["idle_share"] = 1.0 - prof["busy_ms"] / r["ms_per_step"]
@@ -1002,15 +1030,17 @@ def timing_phase(torch, pc, calls):
         case = forward_case if name.startswith("fused") else backward_case
         flops, nbytes, make, kern_f, plain_f, lib_f = case(torch, pc, r, key)
         ins = [make() for _ in range(copies_for(nbytes))]
+        pc.reset_launch_counts()
         ms, p_ms, l_ms = (time_ms(torch, [lambda a=a: f(a) for a in ins])
                           for f in (kern_f, plain_f, lib_f))
+        route = launched_routes(pc).get(name, "cuda")
         del ins
         bms, by = bound_ms(flops, nbytes, dtype)
         row = {"name": name, "shape": list(shape), "dtype": dtype,
                "flags": [str(v) for v in key[3:]], "count": count,
-               "input_copies": copies_for(nbytes), "ms": ms,
+               "route": route, "input_copies": copies_for(nbytes), "ms": ms,
                "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bms,
-               "bound_by": by}
+               "bound_by": by, "x_bound": ms / bms}
         rows.append(row)
         log("timing " + json.dumps(row))
         t = tot.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
@@ -1109,6 +1139,11 @@ def main():
         log(f"main path, {what}: kernel calls {per_kernel}")
     totals, rows = timing_phase(torch, pc, calls)
     train_totals, train_rows = timing_phase(torch, pc, train_calls)
+    for name, t in train_totals.items():
+        log(f"train step at batch {TRAIN_BATCH}, {name} summed over its "
+            f"calls: {t['ms']:.3f} ms (bound {t['bound_ms']:.3f} ms, "
+            f"{t['ms'] / t['bound_ms']:.1f}x; plain {t['plain_ms']:.3f} ms; "
+            f"library {t['library_ms']:.3f} ms)")
     log(f"timing phases: {time.perf_counter() - t0:.1f} s")
 
     src = "deeplearning4j_tpu_torch/csrc/"

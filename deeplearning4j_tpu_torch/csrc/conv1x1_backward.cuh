@@ -1,5 +1,8 @@
 // Shared core of the fused 1x1 backward kernels (dgrad_conv1x1.cu,
-// wgrad_conv1x1.cu): a 64x64 tile of C = A * B^T where both operands are
+// wgrad_conv1x1.cu): the rounding helpers both routes use (ybar_f32,
+// TileAffineW), and for the "simple" route (f32, and shapes or pointers
+// the bf16 "wgmma" route does not take) a 64x64 tile of C = A * B^T where
+// both operands are
 // produced element by element from their raw inputs (ybar from dy, y and
 // the statistics cotangents; u from x, x2 and the affines), plus the
 // fixed-order reductions of their per-tile partials. Built for sm_90a with
@@ -84,26 +87,38 @@ struct YbarOp {
   }
 };
 
-// The [C] vectors of a 64-column tile of the prologue, in shared memory:
+// The [C] vectors of a W-column tile of the prologue, in shared memory:
 // scale/shift rounded to T (the prologue's operands) and the raw f32
 // scales (dgrad's dx = du*scale)
-struct TileAffine {
-  float s1r[BN], t1r[BN], s2r[BN], t2r[BN], s1f[BN], s2f[BN];
+template <int W>
+struct TileAffineW {
+  float s1r[W], t1r[W], s2r[W], t2r[W], s1f[W], s2f[W];
+  // the rounded scale/shift again, as bf16 pairs of columns 2j, 2j + 1
+  __nv_bfloat162 s1h[W / 2], t1h[W / 2], s2h[W / 2], t2h[W / 2];
 
   template <typename T>
   __device__ __forceinline__ void fill(const float* s1, const float* t1,
                                        const float* s2, const float* t2,
                                        int c0, int C) {
-    const int j = threadIdx.x;
-    if (j >= BN) return;
-    const int c = c0 + j;
-    const bool a1 = s1 != nullptr && c < C, a2 = s2 != nullptr && c < C;
-    s1f[j] = a1 ? s1[c] : 0.0f;
-    s1r[j] = a1 ? rnd<T>(s1[c]) : 0.0f;
-    t1r[j] = a1 ? rnd<T>(t1[c]) : 0.0f;
-    s2f[j] = a2 ? s2[c] : 0.0f;
-    s2r[j] = a2 ? rnd<T>(s2[c]) : 0.0f;
-    t2r[j] = a2 ? rnd<T>(t2[c]) : 0.0f;
+    for (int j = threadIdx.x; j < W; j += blockDim.x) {
+      const int c = c0 + j;
+      const bool a1 = s1 != nullptr && c < C, a2 = s2 != nullptr && c < C;
+      s1f[j] = a1 ? s1[c] : 0.0f;
+      s1r[j] = a1 ? rnd<T>(s1[c]) : 0.0f;
+      t1r[j] = a1 ? rnd<T>(t1[c]) : 0.0f;
+      s2f[j] = a2 ? s2[c] : 0.0f;
+      s2r[j] = a2 ? rnd<T>(s2[c]) : 0.0f;
+      t2r[j] = a2 ? rnd<T>(t2[c]) : 0.0f;
+    }
+    for (int j = threadIdx.x; j < W / 2; j += blockDim.x) {
+      const int c = c0 + 2 * j;
+      const bool a1 = s1 != nullptr && c + 1 < C;
+      const bool a2 = s2 != nullptr && c + 1 < C;
+      s1h[j] = __floats2bfloat162_rn(a1 ? s1[c] : 0.0f, a1 ? s1[c + 1] : 0.0f);
+      t1h[j] = __floats2bfloat162_rn(a1 ? t1[c] : 0.0f, a1 ? t1[c + 1] : 0.0f);
+      s2h[j] = __floats2bfloat162_rn(a2 ? s2[c] : 0.0f, a2 ? s2[c + 1] : 0.0f);
+      t2h[j] = __floats2bfloat162_rn(a2 ? t2[c] : 0.0f, a2 ? t2[c + 1] : 0.0f);
+    }
   }
 
   // u = relu?(x*s1 + t1 [+ x2 (*s2 + t2)]) of tile column j, with the
@@ -118,7 +133,26 @@ struct TileAffine {
                        : x2;
     return prologue<T>(x, aff1, s1r[j], t1r[j], has_x2, add, relu);
   }
+
+  // u of the bf16 pair of columns 2j, 2j + 1, the same bits as u<bf16>:
+  // a product or sum of two bf16 values is exact in f32 (or, where the
+  // exponents lie 16+ apart, rounds to the larger operand either way), so
+  // one bf16 rounding of it, as mul/add.rn.bf16x2 do, equals rounding the
+  // f32 result. The .rn forms (_rn) keep the compiler from contracting a
+  // product and a sum into one fma, which would round once, not twice.
+  __device__ __forceinline__ __nv_bfloat162 u2(__nv_bfloat162 x, bool aff1,
+                                               bool has_x2,
+                                               __nv_bfloat162 x2, bool aff2,
+                                               bool relu, int j) const {
+    __nv_bfloat162 v =
+        aff1 ? __hadd2_rn(__hmul2_rn(x, s1h[j]), t1h[j]) : x;
+    if (has_x2)
+      v = __hadd2_rn(
+          v, aff2 ? __hadd2_rn(__hmul2_rn(x2, s2h[j]), t2h[j]) : x2);
+    return relu ? __hmax2(v, __float2bfloat162_rn(0.0f)) : v;
+  }
 };
+using TileAffine = TileAffineW<BN>;
 
 // u [M, K] recomputed from x (and x2), as wgrad's A: out k, red m; the
 // vector runs along k, inside the block's 64-column tile k0..k0+63

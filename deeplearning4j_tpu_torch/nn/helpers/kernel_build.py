@@ -34,7 +34,8 @@ KERNEL_SOURCES = {
     "dgrad_conv1x1": "dgrad_conv1x1.cu",
     "wgrad_conv1x1": "wgrad_conv1x1.cu",
 }
-_HEADERS = ("fused_conv_common.cuh", "conv1x1_backward.cuh")
+_HEADERS = ("fused_conv_common.cuh", "conv1x1_backward.cuh",
+            "wgmma_sm90.cuh")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point of each library: (name, argtypes); every one returns the
@@ -45,9 +46,9 @@ _ENTRY_POINTS = {
     "fused_conv3x3": ("fused_conv3x3_launch",
                       [_I] + [_P] * 9 + [_I] * 6 + [_P]),
     "dgrad_conv1x1": ("dgrad_conv1x1_launch",
-                      [_I] + [_P] * 19 + [_I] * 4 + [_P]),
+                      [_I] + [_P] * 19 + [_I] * 5 + [_P]),
     "wgrad_conv1x1": ("wgrad_conv1x1_launch",
-                      [_I] + [_P] * 12 + [_I] * 5 + [_P]),
+                      [_I] + [_P] * 12 + [_I] * 6 + [_P]),
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -133,6 +134,14 @@ def load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            # one-time set-up (the backward kernels' shared-memory limits)
+            if hasattr(lib, "dl4j_init"):
+                lib.dl4j_init.restype = ctypes.c_int
+                lib.dl4j_init.argtypes = []
+                check(lib, lib.dl4j_init(), f"{name} init")
+            if hasattr(lib, "dl4j_dgrad_row_tile"):
+                lib.dl4j_dgrad_row_tile.restype = ctypes.c_int
+                lib.dl4j_dgrad_row_tile.argtypes = [ctypes.c_int]
             _libs[name] = lib
     return _libs[name]
 

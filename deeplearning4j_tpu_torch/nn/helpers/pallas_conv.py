@@ -27,6 +27,12 @@ The wrappers take the plain version only for tensors on the CPU; for a
 CUDA tensor they launch the kernel or raise. `LAUNCHES` counts kernel
 launches (one per wrapper call that launched), so a run can show that
 its main path went through the kernels.
+
+The 1x1 backward kernels have two routes (`backward_route`): "wgmma",
+the Hopper design (cp.async ring, wgmma) for bf16 with K and N multiples
+of 64 and 16-byte aligned operands, which every ResNet-50 backward
+takes; "simple", PR 2's kernels, for f32 and every other shape.
+`BACKWARD_ROUTES` counts each launch's route.
 """
 
 from __future__ import annotations
@@ -40,12 +46,21 @@ from deeplearning4j_tpu_torch.nn.helpers import kernel_build
 LAUNCHES = {"fused_conv1x1": 0, "fused_conv3x3": 0, "dgrad_conv1x1": 0,
             "wgrad_conv1x1": 0}
 
+# launches of each 1x1 backward kernel by route (backward_route); reset
+# with reset_launch_counts()
+BACKWARD_ROUTES = {"dgrad_conv1x1": {"wgmma": 0, "simple": 0},
+                   "wgrad_conv1x1": {"wgmma": 0, "simple": 0}}
+_ROUTE_IDS = {"simple": 0, "wgmma": 1}
+
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for routes in BACKWARD_ROUTES.values():
+        for r in routes:
+            routes[r] = 0
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -227,9 +242,11 @@ def dgrad_conv1x1(dy, y, w, x, x2=None, du_out=None, scale=None,
     dsq = _vec_f32(dssq, n, "dssq", dev)
     lib = kernel_build.load("dgrad_conv1x1")
     f32 = dict(dtype=torch.float32, device=dev)
-    tiles = -(-m // lib.dl4j_conv_row_tile())
     dx1 = torch.empty((m, k), dtype=dt, device=dev)
     dx2 = None if x2 is None else torch.empty((m, k), dtype=dt, device=dev)
+    route = backward_route(dt, m, k, n, _aligned(dy, y, w, x, x2, du_out,
+                                                  dx1, dx2, dsum, dsq))
+    tiles = -(-m // lib.dl4j_dgrad_row_tile(_ROUTE_IDS[route]))
     # per-row-tile partials of ds1, dt, ds2 ([tiles, K] each) and db
     # ([tiles, N]), reduced in a fixed order by a second kernel
     partial = torch.empty((tiles * (3 * k + n),), **f32)
@@ -243,29 +260,65 @@ def dgrad_conv1x1(dy, y, w, x, x2=None, du_out=None, scale=None,
         _ptr(x2), _ptr(du_out), _ptr(s1), _ptr(t1), _ptr(s2), _ptr(t2),
         _ptr(dsum), _ptr(dsq), _ptr(dx1), _ptr(dx2), _ptr(partial),
         _ptr(ds1), _ptr(dt_), _ptr(ds2), _ptr(db), m, k, n, int(bool(relu)),
-        stream)
-    kernel_build.check(lib, rc, "dgrad_conv1x1")
+        _ROUTE_IDS[route], stream)
+    kernel_build.check(lib, rc, f"dgrad_conv1x1 ({route})")
     LAUNCHES["dgrad_conv1x1"] += 1
+    BACKWARD_ROUTES["dgrad_conv1x1"][route] += 1
     # both branches' shift gradients are the same sum over du
     dt1 = dt_ if s1 is not None else None
     dt2 = None if s2 is None else (dt_.clone() if s1 is not None else dt_)
     return dx1, dx2, ds1, dt1, ds2, dt2, db
 
 
-# wgrad splits M over blocks: aim at WGRAD_BLOCKS blocks, give each split
+def _aligned(*tensors) -> bool:
+    """Every given tensor starts on a 16-byte boundary (None: no
+    constraint)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def backward_route(dtype, m: int, k: int, n: int,
+                   aligned: bool = True) -> str:
+    """Which kernel a 1x1 backward call launches: "wgmma" (bf16, K and N
+    multiples of 64, every operand 16-byte aligned) or "simple" (the rest:
+    f32 has no tensor-core product that keeps its f32 contract)."""
+    if (dtype == torch.bfloat16 and m > 0 and k % 64 == 0 and n % 64 == 0
+            and aligned):
+        return "wgmma"
+    return "simple"
+
+
+def wgrad_tile(k: int, n: int, route: str):
+    """The dW tile one wgrad block computes on `route`."""
+    if route == "wgmma":
+        return (128 if k % 128 == 0 else 64), (128 if n % 128 == 0 else 64)
+    return 64, 64
+
+
+# wgrad splits M over blocks: aim at WGRAD_BLOCKS blocks (simple route: 4
+# blocks of 128 threads per SM of an H100; wgmma route: 2 blocks of 256
+# threads and ~100 KB of shared memory per SM, two waves), give each split
 # at least WGRAD_MIN_ROWS rows, and keep the f32 split partials within
 # WGRAD_SCRATCH elements (64 MB; the 7x7 stage's K*N is 512*2048)
-WGRAD_BLOCKS = 528             # 4 per SM of an H100
+WGRAD_BLOCKS = 528
 WGRAD_MIN_ROWS = 512
 WGRAD_SCRATCH = 16 * 2 ** 20
+WGRAD_CHUNK = 32               # rows: a split is a whole number of chunks
 
 
-def wgrad_splits(m: int, k: int, n: int) -> int:
-    """How many row ranges wgrad_conv1x1 splits M into (64x64 tiles of
-    dW per range)."""
-    tiles = -(-k // 64) * -(-n // 64)
+def wgrad_splits(m: int, k: int, n: int, route: str = "simple") -> int:
+    """How many row ranges wgrad_conv1x1 splits M into on `route`."""
+    tk, tn = wgrad_tile(k, n, route)
+    tiles = -(-k // tk) * -(-n // tn)
     return max(1, min(-(-WGRAD_BLOCKS // tiles), m // WGRAD_MIN_ROWS,
                       WGRAD_SCRATCH // (k * n)))
+
+
+def wgrad_split_rows(m: int, splits: int):
+    """(rows per range, ranges launched): the kernels' split of M into
+    ranges of whole chunks; ranges past M are not launched."""
+    rows = -(-m // splits)
+    rows = -(-rows // WGRAD_CHUNK) * WGRAD_CHUNK
+    return rows, -(-m // rows)
 
 
 def wgrad_conv1x1(dy, y, x, x2=None, scale=None, shift=None, scale2=None,
@@ -286,7 +339,8 @@ def wgrad_conv1x1(dy, y, x, x2=None, scale=None, shift=None, scale2=None,
     dsum = _vec_f32(dssum, n, "dssum", dev)
     dsq = _vec_f32(dssq, n, "dssq", dev)
     lib = kernel_build.load("wgrad_conv1x1")
-    splits = wgrad_splits(m, k, n)
+    route = backward_route(dy.dtype, m, k, n, _aligned(dy, y, x, x2))
+    splits = wgrad_splits(m, k, n, route)
     f32 = dict(dtype=torch.float32, device=dev)
     dw = torch.empty((k, n), **f32)
     scratch = torch.empty((splits, k, n), **f32) if splits > 1 else None
@@ -295,9 +349,10 @@ def wgrad_conv1x1(dy, y, x, x2=None, scale=None, shift=None, scale2=None,
         int(dy.dtype == torch.bfloat16), _ptr(dy), _ptr(y), _ptr(x),
         _ptr(x2), _ptr(s1), _ptr(t1), _ptr(s2), _ptr(t2), _ptr(dsum),
         _ptr(dsq), _ptr(dw), _ptr(scratch), m, k, n, splits,
-        int(bool(relu)), stream)
-    kernel_build.check(lib, rc, "wgrad_conv1x1")
+        int(bool(relu)), _ROUTE_IDS[route], stream)
+    kernel_build.check(lib, rc, f"wgrad_conv1x1 ({route})")
     LAUNCHES["wgrad_conv1x1"] += 1
+    BACKWARD_ROUTES["wgrad_conv1x1"][route] += 1
     return dw
 
 

@@ -126,8 +126,19 @@ def test_cuda_kernels_without_stats_give_the_same_y(rng, kind):
 
 
 # (M, K, N) of the 1x1 backward kernels: vector accesses over several
-# tiles with M split across blocks in wgrad; odd K and N (scalar loads)
-SHAPES_BWD = [(1100, 72, 136), (77, 13, 9)]
+# tiles with M split across blocks in wgrad; odd K and N (scalar loads);
+# then shapes of the bf16 wgmma route: M not a multiple of its 128-row
+# tile with K or N at 64 and at 192 (not a multiple of 128: 64-wide
+# tiles), a deep reduction over few rows (dgrad: 64 chunks), and a wide
+# K*N whose M wgrad splits
+SHAPES_BWD = [(1100, 72, 136), (77, 13, 9), (1100, 64, 192), (1100, 192, 64),
+              (300, 512, 2048), (1100, 512, 2048)]
+BWD_IDS = ["vec_split", "scalar", "ragged_k64_n192", "ragged_k192_n64",
+           "deep_n", "split_wide"]
+# the route each shape takes in bf16 (f32 always takes "simple")
+BF16_ROUTE = {"vec_split": "simple", "scalar": "simple",
+              "ragged_k64_n192": "wgmma", "ragged_k192_n64": "wgmma",
+              "deep_n": "wgmma", "split_wide": "wgmma"}
 # (affine, x2: None | "plain" | "affine", du_out, statistics, relu)
 BWD_CASES = [(False, None, False, True, False), (True, None, False, True, True),
              (True, "plain", True, True, True),
@@ -160,7 +171,7 @@ def _wgrad_kw(kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES_BWD, ids=["vec_split", "scalar"])
+@pytest.mark.parametrize("shape", SHAPES_BWD, ids=BWD_IDS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", BWD_CASES,
                          ids=["plain", "affine_relu", "x2_duo", "affx2_duo",
@@ -188,11 +199,13 @@ def test_cuda_backward_kernels_match_plain(rng, case, dtype, shape):
 
 
 @pytest.mark.cuda
-def test_cuda_backward_kernels_are_bitwise_repeatable(rng):
+@pytest.mark.parametrize("shape", [SHAPES_BWD[0], SHAPES_BWD[5]],
+                         ids=["simple", "wgmma"])
+def test_cuda_backward_kernels_are_bitwise_repeatable(rng, shape):
     """Partials and fixed-order reductions, no atomics: the same inputs
-    give the same bits."""
+    give the same bits, on either route."""
     _need_cuda()
-    kw = _bwd_args(rng, 1100, 72, 136, torch.bfloat16, BWD_CASES[4])
+    kw = _bwd_args(rng, *shape, torch.bfloat16, BWD_CASES[4])
     a, b = tpc.dgrad_conv1x1(**kw), tpc.dgrad_conv1x1(**kw)
     wa = tpc.wgrad_conv1x1(**_wgrad_kw(kw))
     wb = tpc.wgrad_conv1x1(**_wgrad_kw(kw))
@@ -200,3 +213,39 @@ def test_cuda_backward_kernels_are_bitwise_repeatable(rng):
     for x, y in zip(a, b):
         assert (x is None and y is None) or torch.equal(x, y)
     assert torch.equal(wa, wb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES_BWD, ids=BWD_IDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_route_counter_names_the_kernel_launched(rng, dtype,
+                                                              shape):
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    kw = _bwd_args(rng, *shape, dt, BWD_CASES[2])
+    want = BF16_ROUTE[BWD_IDS[SHAPES_BWD.index(shape)]] \
+        if dt == torch.bfloat16 else "simple"
+    tpc.reset_launch_counts()
+    tpc.dgrad_conv1x1(**kw)
+    tpc.wgrad_conv1x1(**_wgrad_kw(kw))
+    torch.cuda.synchronize()
+    for name in ("dgrad_conv1x1", "wgrad_conv1x1"):
+        assert tpc.BACKWARD_ROUTES[name] == {
+            "wgmma": int(want == "wgmma"), "simple": int(want == "simple")}
+        assert tpc.LAUNCHES[name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES_BWD, ids=BWD_IDS)
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[4]],
+                         ids=["affine_relu", "affx2_stats"])
+def test_cuda_dgrad_relu_mask_matches_plain_exactly(rng, case, shape):
+    """u is recomputed with the forward's rounding on either route, so no
+    element of the relu mask flips against the plain version: dx1 is zero
+    exactly where the plain version's is."""
+    _need_cuda()
+    kw = _bwd_args(rng, *shape, torch.bfloat16, case)
+    got = tpc.dgrad_conv1x1(**kw)[0]
+    ref = tpc.ref_dgrad_conv1x1(**kw)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got == 0, ref == 0)
