@@ -8,12 +8,14 @@ Phases, in order; any failure exits non-zero:
   2. build the hand-written CUDA kernels from csrc/ with nvcc (sm_90a),
      one nvcc per source, all started together;
   3. kernel phase: each kernel against its plain PyTorch version — the
-     forward kernels at every distinct ResNet-50 shape at batch 32, the
-     1x1 backward kernels (dgrad, wgrad) at every 1x1 stride-1 backward
-     shape at batch 128 — in bf16 and f32, every prologue variant the
-     path uses, each kernel run twice on the same inputs and required to
-     give the same bits; each backward call's route (pc.BACKWARD_ROUTES:
-     "wgmma" for bf16 at these shapes, "simple" for f32) is logged;
+     forward kernels at every distinct ResNet-50 shape at batch 32 (bf16
+     and f32) and at batch 128 (bf16, the train step's calls), the 1x1
+     backward kernels (dgrad, wgrad) at every 1x1 stride-1 backward
+     shape at batch 128 in bf16 and f32 — every prologue variant the path
+     uses; the backward kernels run twice on the same inputs and must give
+     the same bits; each call's route (pc.FORWARD_ROUTES,
+     pc.BACKWARD_ROUTES) is logged, and a forward call fails unless it
+     took "wgmma" in bf16 and "simple" in f32;
   4. serving phase: full-width ResNet-50 (224x224x3, 1000 classes, bf16,
      helpers="pallas", seeded random weights and BatchNorm statistics)
      behind ParallelInference(batch_limit=32): after a warm-up round,
@@ -21,8 +23,9 @@ Phases, in order; any failure exits non-zero:
      SERVE_S seconds (hundreds of requests); throughput over the whole
      window, latency percentiles over every request; every response
      checked against a direct `net.output` on the same rows; the kernel
-     launch counters must move by 30 (1x1) and 16 (3x3) per forward; the
-     kernel path checked against the torch reference path;
+     launch counters must move by 30 (1x1) and 16 (3x3) per forward, every
+     call on the "wgmma" route; the kernel path checked against the torch
+     reference path;
   5. training: a step check (one `fit_batch` of the same ResNet-50 on one
      batch of 32 under "pallas" against "fused", f32 with TF32 off and
      bf16: each of the 30 routed 1x1 backwards against the composed
@@ -31,7 +34,7 @@ Phases, in order; any failure exits non-zero:
      nesterovs lr 1e-2, on one fixed seeded batch: TRAIN_WARMUP steps,
      then TRAIN_STEPS timed steps (img/s, ms/step from CUDA events, peak
      memory, launches per step of all four kernels: 30/16/30/30, every
-     dgrad/wgrad call on the "wgmma" route, a finite loss that falls,
+     call on the "wgmma" route, a finite loss that falls,
      then a torch.profiler window: the device's busy time per step, its
      idle share, and the kernels that take the most device time), and
      the same, without the profiler window, for
@@ -206,10 +209,13 @@ def make_inputs(torch, gen, dt, m, k, n, kind, variant, hw=None):
     return x, w, r(n) * 0.1, kw
 
 
-def kernel_phase(torch, pc, batch):
+def kernel_phase(torch, pc, batch, dtypes=("bfloat16", "float32")):
+    """The forward kernels against their plain versions at every distinct
+    ResNet-50 shape at `batch`, every prologue variant; each call's route
+    (pc.FORWARD_ROUTES) must be "wgmma" for bf16 and "simple" for f32."""
     gen = torch.Generator(device=DEV).manual_seed(0)
     worst = {}
-    for dtype in ("bfloat16", "float32"):
+    for dtype in dtypes:
         dt = getattr(torch, dtype)
         tol = TOL[dtype]
         cases = [("1x1", h, k, n) for h, k, n in SHAPES_1X1] + \
@@ -225,11 +231,14 @@ def kernel_phase(torch, pc, batch):
                 else:
                     kern, plain = pc.fused_conv3x3, pc.ref_fused_conv3x3
                     name = "fused_conv3x3"
+                pc.reset_launch_counts()
                 got = kern(x, w, b, **kw)
                 ref = plain(x, w, b, **kw)
                 # the main path asks for no statistics: same y, no ssum/ssq
                 bare = kern(x, w, b, **kw, stats=False)
                 torch.cuda.synchronize()
+                route = launched_routes(pc)[name]
+                want = "wgmma" if dtype == "bfloat16" else "simple"
                 errs = {"y": norm_err(got[0], ref[0]),
                         "ssum": norm_err(got[1], ref[1]),
                         "ssq": norm_err(got[2], ref[2])}
@@ -239,15 +248,16 @@ def kernel_phase(torch, pc, batch):
                 worst[name] = max(worst.get(name, 0.0), abs_y)
                 ok = all(e <= tol for e in errs.values()) and bool(
                     torch.isfinite(got[0]).all()) and torch.equal(
-                    bare[0], got[0]) and bare[1] is None
-                log(f"check {name} {dtype} {kind} {h}x{h} K={k} N={n} "
-                    f"{variant}: " + " ".join(
+                    bare[0], got[0]) and bare[1] is None and route == want
+                log(f"check {name} {dtype} batch {batch} {kind} {h}x{h} "
+                    f"K={k} N={n} {variant}: " + " ".join(
                         f"{key}={v:.2e}" for key, v in errs.items())
-                    + f" max_abs_y={abs_y:.3e} tol={tol:g} "
+                    + f" max_abs_y={abs_y:.3e} tol={tol:g} route={route} "
                     + ("ok" if ok else "FAIL"))
                 if not ok:
-                    fail(f"{name} disagrees with its plain version "
-                         f"({dtype}, {kind} {h}x{h} K={k} N={n} {variant})")
+                    fail(f"{name} disagrees with its plain version or took "
+                         f"route {route}, not {want} ({dtype}, batch "
+                         f"{batch}, {kind} {h}x{h} K={k} N={n} {variant})")
     return worst
 
 
@@ -291,10 +301,12 @@ def wgrad_args(kw):
 
 
 def launched_routes(pc):
-    """The route (pc.BACKWARD_ROUTES) each 1x1 backward kernel took since
-    the counts were last reset: "wgmma", "simple", "none", or "mixed"."""
+    """The route (pc.FORWARD_ROUTES, pc.BACKWARD_ROUTES) each kernel took
+    since the counts were last reset: "wgmma", "simple", "none", or
+    "mixed"."""
     out = {}
-    for name, routes in pc.BACKWARD_ROUTES.items():
+    for name, routes in {**pc.FORWARD_ROUTES,
+                         **pc.BACKWARD_ROUTES}.items():
         took = [r for r, v in routes.items() if v]
         out[name] = took[0] if len(took) == 1 else ("mixed" if took
                                                      else "none")
@@ -483,6 +495,7 @@ def serving_phase(torch, np, pc, net):
         t_start = time.perf_counter()
         records = run(100, deadline=t_start + SERVE_S)
         counts = dict(pc.LAUNCHES)
+        fwd_routes = {k: dict(v) for k, v in pc.FORWARD_ROUTES.items()}
         st = pi.stats()
         forwards = st["batches_dispatched"] - b0
     finally:
@@ -498,10 +511,17 @@ def serving_phase(torch, np, pc, net):
         f"closed-loop clients); latency ms p50={pct[50]:.1f} "
         f"p90={pct[90]:.1f} p99={pct[99]:.1f} max={lat_ms.max():.1f}; "
         f"{forwards} forwards, bucket fill {st['bucket_fill']}")
-    log(f"serving: launches {counts} over {forwards} forwards")
+    log(f"serving: launches {counts} over {forwards} forwards, forward "
+        f"routes {fwd_routes}")
     if forwards <= 0 or counts["fused_conv1x1"] != 30 * forwards or \
             counts["fused_conv3x3"] != 16 * forwards:
         fail(f"launch counts {counts} != 30/16 per forward x {forwards}")
+    # every bf16 forward kernel call of the served path takes the Hopper
+    # design
+    for name in ("fused_conv1x1", "fused_conv3x3"):
+        if fwd_routes[name] != {"wgmma": counts[name], "simple": 0}:
+            fail(f"serving: {name} routes {fwd_routes[name]}: not every "
+                 f"call took the wgmma route")
 
     ncls = net.conf.node("output").obj.n_out
     direct = [net.output(x).cpu().numpy() for x in pool]
@@ -531,6 +551,7 @@ def serving_phase(torch, np, pc, net):
             "latency_ms_p50": pct[50], "latency_ms_p90": pct[90],
             "latency_ms_p99": pct[99], "latency_ms_max": float(lat_ms.max()),
             "forwards": forwards, "launches": counts,
+            "forward_routes": fwd_routes,
             "served_logp_gap": worst_logp, "served_p_gap": worst_abs,
             "row_separation_logp": sep}
 
@@ -813,7 +834,8 @@ def training_run(torch, np, pc, ResNet50):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(pc.LAUNCHES)
-        routes = {k: dict(v) for k, v in pc.BACKWARD_ROUTES.items()}
+        routes = {k: dict(v) for k, v in {**pc.FORWARD_ROUTES,
+                                          **pc.BACKWARD_ROUTES}.items()}
         step_ms = [events[i].elapsed_time(events[i + 1])
                    for i in range(TRAIN_STEPS)]
         vals = [float(v) for v in losses]
@@ -826,7 +848,7 @@ def training_run(torch, np, pc, ResNet50):
              "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "launches_per_step": {k: v / TRAIN_STEPS
                                    for k, v in counts.items()},
-             "launches": counts, "backward_routes": routes,
+             "launches": counts, "kernel_routes": routes,
              "loss_first": vals[0], "loss_last": vals[-1],
              "losses": vals}
         res[mode] = r
@@ -836,7 +858,7 @@ def training_run(torch, np, pc, ResNet50):
             f"{r['ms_per_step_min']:.2f}, max {r['ms_per_step_max']:.2f}), "
             f"host {r['host_img_per_s']:.1f} img/s, peak memory "
             f"{r['max_memory_gib']:.2f} GiB, launches per step "
-            f"{r['launches_per_step']}, backward routes {routes}, loss "
+            f"{r['launches_per_step']}, kernel routes {routes}, loss "
             f"{vals[0]:.4f} -> {vals[-1]:.4f}")
         if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
             fail(f"train {mode}: loss not finite and falling: {vals}")
@@ -846,8 +868,8 @@ def training_run(torch, np, pc, ResNet50):
         if counts != {k: v * TRAIN_STEPS for k, v in want.items()}:
             fail(f"train {mode}: launches {counts} != {want} per step x "
                  f"{TRAIN_STEPS}")
-        # every bf16 dgrad/wgrad call of the step runs on the Hopper design
-        for name in ("dgrad_conv1x1", "wgrad_conv1x1"):
+        # every bf16 kernel call of the step runs on the Hopper design
+        for name in want:
             if routes[name] != {"wgmma": want[name] * TRAIN_STEPS,
                                 "simple": 0}:
                 fail(f"train {mode}: {name} routes {routes[name]}: not "
@@ -1099,6 +1121,10 @@ def main():
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     worst = kernel_phase(torch, pc, BATCH)
+    # the train step's forward calls: bf16, with statistics
+    for name, v in kernel_phase(torch, pc, TRAIN_BATCH,
+                                dtypes=("bfloat16",)).items():
+        worst[name] = max(worst[name], v)
     worst.update(backward_kernel_phase(torch, pc, TRAIN_BATCH))
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
@@ -1139,11 +1165,13 @@ def main():
         log(f"main path, {what}: kernel calls {per_kernel}")
     totals, rows = timing_phase(torch, pc, calls)
     train_totals, train_rows = timing_phase(torch, pc, train_calls)
-    for name, t in train_totals.items():
-        log(f"train step at batch {TRAIN_BATCH}, {name} summed over its "
-            f"calls: {t['ms']:.3f} ms (bound {t['bound_ms']:.3f} ms, "
-            f"{t['ms'] / t['bound_ms']:.1f}x; plain {t['plain_ms']:.3f} ms; "
-            f"library {t['library_ms']:.3f} ms)")
+    for what, tots in ((f"forward at batch {BATCH}", totals),
+                       (f"train step at batch {TRAIN_BATCH}", train_totals)):
+        for name, t in tots.items():
+            log(f"{what}, {name} summed over its calls: {t['ms']:.3f} ms "
+                f"(bound {t['bound_ms']:.3f} ms, "
+                f"{t['ms'] / t['bound_ms']:.1f}x; plain {t['plain_ms']:.3f} "
+                f"ms; library {t['library_ms']:.3f} ms)")
     log(f"timing phases: {time.perf_counter() - t0:.1f} s")
 
     src = "deeplearning4j_tpu_torch/csrc/"

@@ -410,6 +410,15 @@ stats_reduce_kernel(const float* __restrict__ partial, int tiles, int N,
   if (threadIdx.y == 0 && col < N) (which == 0 ? ssum : ssq)[col] = sh[0][threadIdx.x];
 }
 
+// ssum/ssq from the [2, tiles, N] partials: the fixed-order second pass
+// of both routes
+inline cudaError_t reduce_stats(const float* partial, int tiles, int N,
+                                float* ssum, float* ssq, cudaStream_t stream) {
+  stats_reduce_kernel<<<dim3((N + RC - 1) / RC, 2), dim3(RC, RS), 0,
+                        stream>>>(partial, tiles, N, ssum, ssq);
+  return cudaGetLastError();
+}
+
 template <typename T, typename Loader>
 cudaError_t launch_fused_gemm(const Loader& ld, const T* w, const float* bias,
                               T* y, float* partial, float* ssum, float* ssq,
@@ -419,17 +428,12 @@ cudaError_t launch_fused_gemm(const Loader& ld, const T* w, const float* bias,
       ld, w, bias, y, partial, M, K, N);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || partial == nullptr) return e;
-  const dim3 rgrid((N + RC - 1) / RC, 2);
-  stats_reduce_kernel<<<rgrid, dim3(RC, RS), 0, stream>>>(
-      partial, (int)grid.x, N, ssum, ssq);
-  return cudaGetLastError();
+  return reduce_stats(partial, (int)grid.x, N, ssum, ssq, stream);
 }
 
 }  // namespace dl4j
 
 extern "C" {
-// rows per block: the wrapper sizes the [2, ceil(M/BM), N] scratch with it
-int dl4j_conv_row_tile() { return dl4j::BM; }
 const char* dl4j_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

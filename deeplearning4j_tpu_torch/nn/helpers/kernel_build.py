@@ -35,21 +35,24 @@ KERNEL_SOURCES = {
     "wgrad_conv1x1": "wgrad_conv1x1.cu",
 }
 _HEADERS = ("fused_conv_common.cuh", "conv1x1_backward.cuh",
-            "wgmma_sm90.cuh")
+            "wgmma_sm90.cuh", "fused_conv_sm90.cuh")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point of each library: (name, argtypes); every one returns the
 # cudaError_t of its launches as an int
 _ENTRY_POINTS = {
     "fused_conv1x1": ("fused_conv1x1_launch",
-                      [_I] + [_P] * 11 + [_I] * 4 + [_P]),
+                      [_I] + [_P] * 11 + [_I] * 5 + [_P]),
     "fused_conv3x3": ("fused_conv3x3_launch",
-                      [_I] + [_P] * 9 + [_I] * 6 + [_P]),
+                      [_I] + [_P] * 9 + [_I] * 7 + [_P]),
     "dgrad_conv1x1": ("dgrad_conv1x1_launch",
                       [_I] + [_P] * 19 + [_I] * 5 + [_P]),
     "wgrad_conv1x1": ("wgrad_conv1x1_launch",
                       [_I] + [_P] * 12 + [_I] * 6 + [_P]),
 }
+# per-route partial-row counts the libraries export: (name, int arguments)
+_ROW_TILE_FUNCTIONS = {"dl4j_dgrad_row_tile": 1, "dl4j_conv1x1_row_tiles": 3,
+                       "dl4j_conv3x3_row_tiles": 6}
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
@@ -128,20 +131,21 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
             lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.dl4j_conv_row_tile.restype = ctypes.c_int
-            lib.dl4j_conv_row_tile.argtypes = []
             entry, argtypes = _ENTRY_POINTS[name]
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            # one-time set-up (the backward kernels' shared-memory limits)
+            # one-time set-up (the wgmma routes' shared-memory limits)
             if hasattr(lib, "dl4j_init"):
                 lib.dl4j_init.restype = ctypes.c_int
                 lib.dl4j_init.argtypes = []
                 check(lib, lib.dl4j_init(), f"{name} init")
-            if hasattr(lib, "dl4j_dgrad_row_tile"):
-                lib.dl4j_dgrad_row_tile.restype = ctypes.c_int
-                lib.dl4j_dgrad_row_tile.argtypes = [ctypes.c_int]
+            # rows of the statistics partials, per route
+            for fn_name, nargs in _ROW_TILE_FUNCTIONS.items():
+                if hasattr(lib, fn_name):
+                    fn = getattr(lib, fn_name)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = [ctypes.c_int] * nargs
             _libs[name] = lib
     return _libs[name]
 

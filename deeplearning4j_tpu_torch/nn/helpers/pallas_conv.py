@@ -28,11 +28,13 @@ CUDA tensor they launch the kernel or raise. `LAUNCHES` counts kernel
 launches (one per wrapper call that launched), so a run can show that
 its main path went through the kernels.
 
-The 1x1 backward kernels have two routes (`backward_route`): "wgmma",
-the Hopper design (cp.async ring, wgmma) for bf16 with K and N multiples
-of 64 and 16-byte aligned operands, which every ResNet-50 backward
-takes; "simple", PR 2's kernels, for f32 and every other shape.
-`BACKWARD_ROUTES` counts each launch's route.
+Every kernel has two routes. "wgmma" is the Hopper design (cp.async
+ring, the prologue or the cotangent applied in shared memory, wgmma) for
+bf16 with the channel counts multiples of 64 and 16-byte aligned operands,
+which every bf16 ResNet-50 call takes; "simple", the first, plainer
+kernels (64x64 tiles, mma.sync or FMA), takes f32 and every other shape.
+`forward_route` / `backward_route` pick it; `FORWARD_ROUTES` /
+`BACKWARD_ROUTES` count each launch's route.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ LAUNCHES = {"fused_conv1x1": 0, "fused_conv3x3": 0, "dgrad_conv1x1": 0,
 # with reset_launch_counts()
 BACKWARD_ROUTES = {"dgrad_conv1x1": {"wgmma": 0, "simple": 0},
                    "wgrad_conv1x1": {"wgmma": 0, "simple": 0}}
+# launches of each forward kernel by route (forward_route); reset with
+# reset_launch_counts()
+FORWARD_ROUTES = {"fused_conv1x1": {"wgmma": 0, "simple": 0},
+                  "fused_conv3x3": {"wgmma": 0, "simple": 0}}
 _ROUTE_IDS = {"simple": 0, "wgmma": 1}
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -58,7 +64,7 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for routes in BACKWARD_ROUTES.values():
+    for routes in (*FORWARD_ROUTES.values(), *BACKWARD_ROUTES.values()):
         for r in routes:
             routes[r] = 0
 
@@ -101,13 +107,13 @@ def _check_x(x, ndim):
     _require(x.is_contiguous(), "x must be contiguous")
 
 
-def _stats_buffers(m, n, device, lib, stats):
-    """Per-row-tile statistics partials and the ssum/ssq outputs (all
+def _stats_buffers(tiles, n, device, stats):
+    """Per-row-tile statistics partials ([2, tiles, n]; `tiles` from the
+    library's row-tile count of the route) and the ssum/ssq outputs (all
     None when no statistics are asked for)."""
     if not stats:
         return None, None, None
     f32 = dict(dtype=torch.float32, device=device)
-    tiles = -(-m // lib.dl4j_conv_row_tile())
     return (torch.empty((2, tiles, n), **f32), torch.empty((n,), **f32),
             torch.empty((n,), **f32))
 
@@ -144,14 +150,18 @@ def fused_conv1x1(x, w, b, scale=None, shift=None, add=None,
     lib = kernel_build.load("fused_conv1x1")
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     u = torch.empty((m, k), dtype=x.dtype, device=dev) if emit_u else None
-    partial, ssum, ssq = _stats_buffers(m, n, dev, lib, stats)
+    route = forward_route(x.dtype, m, k, n, _aligned(x, w, add, y, u))
+    rid = _ROUTE_IDS[route]
+    partial, ssum, ssq = _stats_buffers(
+        lib.dl4j_conv1x1_row_tiles(rid, m, n), n, dev, stats)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_conv1x1_launch(
         int(x.dtype == torch.bfloat16), _ptr(x), _ptr(w), _ptr(b32),
         _ptr(s32), _ptr(t32), _ptr(add), _ptr(y), _ptr(partial), _ptr(ssum),
-        _ptr(ssq), _ptr(u), m, k, n, int(bool(relu)), stream)
-    kernel_build.check(lib, rc, "fused_conv1x1")
+        _ptr(ssq), _ptr(u), m, k, n, int(bool(relu)), rid, stream)
+    kernel_build.check(lib, rc, f"fused_conv1x1 ({route})")
     LAUNCHES["fused_conv1x1"] += 1
+    FORWARD_ROUTES["fused_conv1x1"][route] += 1
     return y, ssum, ssq, u
 
 
@@ -182,14 +192,19 @@ def fused_conv3x3(x, w, b, scale=None, shift=None, relu: bool = False,
     t32 = _vec_f32(shift, c, "shift", dev)
     lib = kernel_build.load("fused_conv3x3")
     y = torch.empty((bsz, h, wd, n), dtype=x.dtype, device=dev)
-    partial, ssum, ssq = _stats_buffers(bsz * h * wd, n, dev, lib, stats)
+    route = forward_route(x.dtype, bsz * h * wd, c, n, _aligned(x, w, y),
+                          width=wd)
+    rid = _ROUTE_IDS[route]
+    partial, ssum, ssq = _stats_buffers(
+        lib.dl4j_conv3x3_row_tiles(rid, bsz, h, wd, c, n), n, dev, stats)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_conv3x3_launch(
         int(x.dtype == torch.bfloat16), _ptr(x), _ptr(w), _ptr(b32),
         _ptr(s32), _ptr(t32), _ptr(y), _ptr(partial), _ptr(ssum), _ptr(ssq),
-        bsz, h, wd, c, n, int(bool(relu)), stream)
-    kernel_build.check(lib, rc, "fused_conv3x3")
+        bsz, h, wd, c, n, int(bool(relu)), rid, stream)
+    kernel_build.check(lib, rc, f"fused_conv3x3 ({route})")
     LAUNCHES["fused_conv3x3"] += 1
+    FORWARD_ROUTES["fused_conv3x3"][route] += 1
     return y, ssum, ssq
 
 
@@ -274,6 +289,28 @@ def _aligned(*tensors) -> bool:
     """Every given tensor starts on a 16-byte boundary (None: no
     constraint)."""
     return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+# the 3x3 "wgmma" route's warpgroup covers 64 positions of the padded
+# (W+2)-wide grid: at least one image row
+FORWARD_MAX_WIDTH = 62
+# the "wgmma" routes keep the prologue's [K] scale/shift in shared memory
+# beside their rings: 4*K bytes next to the 1x1's largest ring (192 KB)
+FORWARD_MAX_K = 8192
+
+
+def forward_route(dtype, m: int, k: int, n: int, aligned: bool = True,
+                  width=None) -> str:
+    """Which kernel a forward call launches: "wgmma" (bf16, K — C for the
+    3x3 — and N multiples of 64, every operand 16-byte aligned, and for
+    the 3x3 (`width` given) an image at most FORWARD_MAX_WIDTH wide) or
+    "simple" (the rest: f32 has no tensor-core product that keeps its f32
+    contract, wgmma's f32 form being TF32)."""
+    if (dtype == torch.bfloat16 and m > 0 and k % 64 == 0 and n % 64 == 0
+            and 0 < k <= FORWARD_MAX_K and n > 0 and aligned
+            and (width is None or 0 < width <= FORWARD_MAX_WIDTH)):
+        return "wgmma"
+    return "simple"
 
 
 def backward_route(dtype, m: int, k: int, n: int,

@@ -39,13 +39,23 @@ def _need_cuda():
 
 
 # (M, K, N): 16-byte vector accesses; odd K and N (the kernels' scalar
-# fallback); a small grid with a deep K (many chunks per tile)
-SHAPES_1X1 = [(200, 72, 136), (77, 13, 9), (100, 1024, 72)]
+# fallback); a small grid with a deep K (many chunks per tile); then
+# shapes of the bf16 wgmma route: M not a multiple of its row tile with K
+# or N at 64 and at 192 (64-wide N tiles), a deep K over few rows, and a
+# grid large enough for two warpgroups per block
+SHAPES_1X1 = [(200, 72, 136), (77, 13, 9), (100, 1024, 72),
+              (1100, 64, 192), (1100, 192, 64), (300, 2048, 512),
+              (8500, 256, 512)]
+IDS_1X1 = ["vec", "scalar", "deep_k", "ragged_k64_n192", "ragged_k192_n64",
+           "deep_k_small_m", "two_warpgroups"]
+# the forward route each shape takes in bf16 (f32 always takes "simple")
+FWD_ROUTE_1X1 = {"vec": "simple", "scalar": "simple", "deep_k": "simple",
+                 "ragged_k64_n192": "wgmma", "ragged_k192_n64": "wgmma",
+                 "deep_k_small_m": "wgmma", "two_warpgroups": "wgmma"}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES_1X1,
-                         ids=["vec", "scalar", "deep_k"])
+@pytest.mark.parametrize("shape", SHAPES_1X1, ids=IDS_1X1)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("variant", ["plain", "affine", "affine_relu",
                                      "full", "add_only"])
@@ -71,11 +81,23 @@ def test_cuda_conv1x1_kernel_matches_plain(rng, variant, dtype, shape):
         assert torch.equal(u, ur)
 
 
-# (B, H, C, N), as for SHAPES_1X1
+# (B, H, C, N), as for SHAPES_1X1; the wgmma route's shapes: the 7x7 and
+# 56x56 stages with ragged image counts (one warpgroup tile per image at
+# 7x7, one image row per tile at 56x56), C = 64 -> N = 192, and a grid
+# large enough for two warpgroups per block
+SHAPES_3X3 = [(2, 9, 24, 40), (2, 9, 5, 7), (1, 5, 128, 40),
+              (1, 7, 512, 512), (3, 7, 128, 256), (1, 56, 64, 64),
+              (3, 56, 64, 128), (2, 14, 64, 192), (10, 56, 64, 64)]
+IDS_3X3 = ["vec", "scalar", "deep_k", "img7_b1", "img7_b3", "img56_b1",
+           "img56_b3", "c64_n192", "two_warpgroups"]
+FWD_ROUTE_3X3 = {"vec": "simple", "scalar": "simple", "deep_k": "simple",
+                 "img7_b1": "wgmma", "img7_b3": "wgmma", "img56_b1": "wgmma",
+                 "img56_b3": "wgmma", "c64_n192": "wgmma",
+                 "two_warpgroups": "wgmma"}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 9, 24, 40), (2, 9, 5, 7),
-                                   (1, 5, 128, 40)],
-                         ids=["vec", "scalar", "deep_k"])
+@pytest.mark.parametrize("shape", SHAPES_3X3, ids=IDS_3X3)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("affine", [False, True])
 def test_cuda_conv3x3_kernel_matches_plain(rng, affine, dtype, shape):
@@ -104,25 +126,113 @@ def test_cuda_conv3x3_kernel_matches_plain(rng, affine, dtype, shape):
     torch.testing.assert_close(q, qr, rtol=tol, atol=tol * 10)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["1x1", "3x3"])
-def test_cuda_kernels_without_stats_give_the_same_y(rng, kind):
-    _need_cuda()
-    dt = torch.bfloat16
+def _fwd_inputs(rng, kind, shape, dt=torch.bfloat16, prologue=True):
+    """x, w, b and the prologue keywords of one forward call on the card."""
+    t = lambda *sz, sc=1.0, off=0.0: torch.from_numpy(
+        (rng.normal(size=sz) * sc + off).astype(np.float32)).cuda()
     if kind == "1x1":
-        x = torch.from_numpy(rng.normal(size=(200, 72))).cuda().to(dt)
-        w = torch.from_numpy(rng.normal(size=(72, 136)) * 0.1).cuda().to(dt)
-        f = tpc.fused_conv1x1
+        m, k, n = shape
+        x, w = t(m, k).to(dt), t(k, n, sc=k ** -0.5).to(dt)
     else:
-        x = torch.from_numpy(rng.normal(size=(2, 9, 9, 24))).cuda().to(dt)
-        w = torch.from_numpy(rng.normal(size=(3, 3, 24, 40)) * 0.1) \
-            .cuda().to(dt)
-        f = tpc.fused_conv3x3
+        bsz, h, k, n = shape
+        x, w = t(bsz, h, h, k).to(dt), t(3, 3, k, n, sc=(9 * k) ** -0.5).to(dt)
+    kw = {}
+    if prologue:
+        kw = {"scale": t(k, sc=0.5, off=1.0), "shift": t(k, sc=0.1),
+              "relu": True}
+        if kind == "1x1":
+            kw["add"] = t(*x.shape).to(dt)
+            kw["emit_u"] = True
+    return x, w, t(n, sc=0.1), kw
+
+
+def _fwd(kind):
+    return tpc.fused_conv1x1 if kind == "1x1" else tpc.fused_conv3x3
+
+
+# (kind, shape) on either forward route
+FWD_CASES = [("1x1", (200, 72, 136)), ("3x3", (2, 9, 24, 40)),
+             ("1x1", (1100, 64, 192)), ("1x1", (8500, 256, 512)),
+             ("3x3", (3, 7, 128, 256)), ("3x3", (10, 56, 64, 64))]
+FWD_IDS = ["1x1_simple", "3x3_simple", "1x1_wgmma", "1x1_wgmma_wgs2",
+           "3x3_wgmma", "3x3_wgmma_wgs2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FWD_CASES, ids=FWD_IDS)
+def test_cuda_kernels_without_stats_give_the_same_y(rng, case):
+    _need_cuda()
+    kind, shape = case
+    x, w, _, kw = _fwd_inputs(rng, kind, shape, prologue=False)
+    f = _fwd(kind)
     with_stats = f(x, w, None)
     without = f(x, w, None, stats=False)
     torch.cuda.synchronize()
     assert torch.equal(with_stats[0], without[0])
     assert without[1] is None and without[2] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FWD_CASES, ids=FWD_IDS)
+def test_cuda_forward_kernels_are_bitwise_repeatable(rng, case):
+    """Partials and fixed-order reductions, no atomics: y, ssum, ssq (and
+    u) are the same bits on every run, on either route."""
+    _need_cuda()
+    kind, shape = case
+    x, w, b, kw = _fwd_inputs(rng, kind, shape)
+    first, again = _fwd(kind)(x, w, b, **kw), _fwd(kind)(x, w, b, **kw)
+    torch.cuda.synchronize()
+    for p, q in zip(first, again):
+        assert (p is None and q is None) or torch.equal(p, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [("1x1", s) for s in SHAPES_1X1]
+                         + [("3x3", s) for s in SHAPES_3X3],
+                         ids=[f"1x1_{i}" for i in IDS_1X1]
+                         + [f"3x3_{i}" for i in IDS_3X3])
+def test_cuda_forward_route_counter_names_the_kernel_launched(rng, case,
+                                                              dtype):
+    _need_cuda()
+    kind, shape = case
+    dt = getattr(torch, dtype)
+    routes = FWD_ROUTE_1X1 if kind == "1x1" else FWD_ROUTE_3X3
+    shapes, ids = ((SHAPES_1X1, IDS_1X1) if kind == "1x1"
+                   else (SHAPES_3X3, IDS_3X3))
+    want = routes[ids[shapes.index(shape)]] if dt == torch.bfloat16 \
+        else "simple"
+    x, w, b, kw = _fwd_inputs(rng, kind, shape, dt)
+    name = "fused_conv1x1" if kind == "1x1" else "fused_conv3x3"
+    tpc.reset_launch_counts()
+    _fwd(kind)(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert tpc.FORWARD_ROUTES[name] == {"wgmma": int(want == "wgmma"),
+                                        "simple": int(want == "simple")}
+    assert tpc.LAUNCHES[name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["1x1", "3x3"])
+def test_cuda_forward_row_is_the_same_in_a_batch_of_1_and_of_32(rng, kind):
+    """The wgmma route picks its tiles' reduction order from K (C) and N
+    alone: an image's y (and u) is the same bits whether it is served
+    alone or with 31 others, as ParallelInference's buckets need."""
+    _need_cuda()
+    shape = (32 * 49, 2048, 512) if kind == "1x1" else (32, 7, 512, 512)
+    x, w, b, kw = _fwd_inputs(rng, kind, shape)
+    rows = 49 if kind == "1x1" else 1
+    one_kw = dict(kw, add=kw["add"][:rows].contiguous()) if "add" in kw \
+        else kw
+    batch = _fwd(kind)(x, w, b, **kw, stats=False)
+    one = _fwd(kind)(x[:rows].contiguous(), w, b, **one_kw, stats=False)
+    torch.cuda.synchronize()
+    assert tpc.forward_route(torch.bfloat16, rows * (1 if kind == "1x1"
+                                                     else 49),
+                             shape[-2], shape[-1]) == "wgmma"
+    assert torch.equal(one[0], batch[0][:rows])
+    if kind == "1x1":
+        assert torch.equal(one[3], batch[3][:rows])
 
 
 # (M, K, N) of the 1x1 backward kernels: vector accesses over several

@@ -84,3 +84,64 @@ def test_wgrad_splits_on_the_wgmma_route_follow_its_tile():
     # 7x7 stage: 4 x 16 tiles of 128x128 -> 9 ranges, scratch 36 MB
     assert tpc.wgrad_splits(6272, 512, 2048, "wgmma") == 9
     assert tpc.wgrad_splits(100, 64, 64, "wgmma") == 1
+
+
+# ResNet-50's 3x3 stride-1 convs at 224x224: (H=W, C), C -> C
+RESNET50_3X3 = [(56, 64), (28, 128), (14, 256), (7, 512)]
+SERVE_BATCHES = (1, 3, 32, 128)
+FWD_1X1 = [(b, h, k, n) for b in SERVE_BATCHES for h, k, n in RESNET50_1X1]
+FWD_3X3 = [(b, h, c) for b in SERVE_BATCHES for h, c in RESNET50_3X3]
+
+
+@pytest.mark.parametrize("case", FWD_1X1,
+                         ids=[f"b{b}_{h}x{h}_{k}to{n}" for b, h, k, n in FWD_1X1])
+def test_resnet50_bf16_1x1_forward_takes_the_wgmma_route(case):
+    batch, h, k, n = case
+    assert tpc.forward_route(torch.bfloat16, batch * h * h, k, n) == "wgmma"
+    assert tpc.forward_route(torch.float32, batch * h * h, k, n) == "simple"
+
+
+@pytest.mark.parametrize("case", FWD_3X3,
+                         ids=[f"b{b}_{h}x{h}_{c}" for b, h, c in FWD_3X3])
+def test_resnet50_bf16_3x3_forward_takes_the_wgmma_route(case):
+    batch, h, c = case
+    m = batch * h * h
+    assert tpc.forward_route(torch.bfloat16, m, c, c, width=h) == "wgmma"
+    assert tpc.forward_route(torch.float32, m, c, c, width=h) == "simple"
+
+
+@pytest.mark.parametrize("args,want", [
+    ((77, 13, 9), "simple"),               # odd K and N
+    ((200, 72, 136), "simple"),            # K, N not multiples of 64
+    ((1100, 64, 96), "simple"),
+    ((1100, 64, 192), "wgmma"),            # multiples of 64, not of 128
+    ((1100, 192, 64), "wgmma"),
+    ((0, 64, 64), "simple"),               # nothing to compute
+    ((100, 2 * tpc.FORWARD_MAX_K, 64), "simple"),
+], ids=["odd", "k72", "n96", "k64_n192", "k192_n64", "empty", "k_too_deep"])
+def test_forward_route_of_other_1x1_shapes(args, want):
+    assert tpc.forward_route(torch.bfloat16, *args) == want
+
+
+@pytest.mark.parametrize("args,width,aligned,want", [
+    ((2 * 81, 5, 7), 9, True, "simple"),          # odd C and N
+    ((2 * 81, 24, 40), 9, True, "simple"),
+    ((2 * 196, 64, 192), 14, True, "wgmma"),      # C = 64 -> N = 192
+    ((1 * 64 * 64, 64, 64), 64, True, "simple"),  # wider than the tile
+    ((1 * 62 * 62, 64, 64), 62, True, "wgmma"),
+    ((32 * 49, 512, 512), 7, False, "simple"),    # an operand off 16 bytes
+], ids=["odd", "c24", "c64_n192", "w64", "w62", "unaligned"])
+def test_forward_route_of_other_3x3_shapes(args, width, aligned, want):
+    assert tpc.forward_route(torch.bfloat16, *args, aligned,
+                             width=width) == want
+
+
+def test_forward_route_counts_reset_with_the_launches():
+    tpc.FORWARD_ROUTES["fused_conv3x3"]["wgmma"] = 3
+    tpc.LAUNCHES["fused_conv3x3"] = 3
+    tpc.reset_launch_counts()
+    assert all(v == 0 for r in tpc.FORWARD_ROUTES.values()
+               for v in r.values())
+    assert set(tpc.FORWARD_ROUTES) == {"fused_conv1x1", "fused_conv3x3"}
+    assert set(tpc.LAUNCHES) == {"fused_conv1x1", "fused_conv3x3",
+                                 "dgrad_conv1x1", "wgrad_conv1x1"}
