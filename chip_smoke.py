@@ -39,6 +39,27 @@ Phases, in order; any failure exits non-zero:
      idle share, and the kernels that take the most device time), and
      the same, without the profiler window, for
      "fused" (cuDNN convolutions) as the yardstick;
+  5b. the training engine on the same flagship (ResNet-50, bf16,
+     helpers="pallas"): the group check — from one seeded state at batch
+     32, GROUP_K eager StepProgram.run calls against one
+     run_group(GROUP_K) replay (a CUDA graph of GROUP_K captured train
+     steps), then a second replay after a guard snapshot restore: params,
+     updater state, BN states and losses bit for bit (first, two eager
+     runs must agree; if cuDNN's default algorithms make them differ,
+     cudnn.deterministic is set for the engine's bitwise checks only);
+     timed runs at batch 128 on one fixed batch — run (k=1) and
+     run_group(GROUP_K) for ENGINE_STEPS steps under "pallas" and "fused":
+     ms/step (CUDA events), img/s, host img/s, capture time (outside the
+     window), peak memory, launches per step (30/16/30/30, all "wgmma",
+     under "pallas"), the idle share (profiler window against the
+     unprofiled ms/step) and MFU (img/s x 3 x 4.09e9 / 989e12, which
+     counts a multiply-add as one FLOP; twice that at two), with a
+     finite, falling loss; EarlyStoppingTrainer end to end (ES_BATCHES
+     batches of 128 through the input pipeline, DataSetLossCalculator,
+     ES_EPOCHS epochs, NonFiniteGuard skip_step, LocalFileGraphSaver):
+     the best model verifies and rescores exactly after a reload; a run
+     with one NaN batch skips it once per epoch and ends bit for bit
+     where a run over the clean batches ends;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -74,6 +95,19 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20        # H100 SXM L2
+# phase 5b, the training engine
+GROUP_K = 4                    # steps per run_group (bench.py:72 unroll=4)
+ENGINE_CHECK_BATCH = 32        # the bitwise group check
+ENGINE_WARMUP = 2              # eager warm-up steps before the timed run
+ENGINE_STEPS = 20              # timed steps: 20 run() calls, 5 replays
+ENGINE_PROFILE_STEPS = 4       # steps under torch.profiler, after those
+ES_BATCHES = 4                 # EarlyStoppingTrainer: batches per epoch
+ES_EPOCHS = 3
+# ResNet-50 forward at 224x224: 4.09e9 multiply-adds per image, the
+# constant bench.py:57-63 calls FLOPs; a train step is 3x the forward.
+# "mfu" counts one multiply-add as one FLOP, as bench.py does;
+# "mfu_2flops" counts it as two, the FLOPs the card's peak counts.
+RESNET50_MACS_PER_IMAGE = 4.09e9
 SERVE_S = 8.0                  # measured serving window
 SERVE_THREADS = 8              # closed-loop clients
 SERVE_SIZES = (1, 3, 8, 16, 32)
@@ -893,6 +927,423 @@ def training_run(torch, np, pc, ResNet50):
     return res, keep, x
 
 
+# ------------------------------------------------------------ phase 5b
+
+
+def train_state(net):
+    """Every tensor a train step mutates: params, updater state, BN
+    states (reading params drops a net's flat carry; fine at a check)."""
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    return (leaves(net.params) + leaves(net.updater_states)
+            + leaves(net.states))
+
+
+def bits_equal(torch, a, b):
+    """a and b hold the same bits (NaNs included)."""
+    raw = lambda t: t.detach().contiguous().reshape(-1).view(torch.uint8)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        raw(a), raw(b))
+
+
+def same_bits(torch, a, b):
+    """(equal, tensors compared, tensors that differ) of two nets'
+    train states."""
+    sa, sb = train_state(a), train_state(b)
+    diff = sum(1 for x, y in zip(sa, sb) if not bits_equal(torch, x, y))
+    return len(sa) == len(sb) and diff == 0, len(sa), diff
+
+
+def engine_batches(np, seed, n, batch, ncls):
+    """n seeded host batches (x f32 NHWC, one-hot y)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = serving_inputs(np, rng, batch)
+        y = np.eye(ncls, dtype=np.float32)[rng.integers(0, ncls, batch)]
+        out.append((x, y))
+    return out
+
+
+def flagship(ResNet50, mode):
+    """The flagship of bench.py:72 at full width: ResNet-50, 224x224x3,
+    1000 classes, bf16 policy, nesterovs lr 1e-2; seeded init."""
+    return ResNet50(input_shape=(HW, HW, 3), compute_dtype="bfloat16",
+                    helpers=mode).init_model(device=DEV)
+
+
+def group_check(torch, np, ResNet50):
+    """From one seeded state at ENGINE_CHECK_BATCH, on GROUP_K seeded
+    batches: GROUP_K eager StepProgram.run calls against one
+    run_group(GROUP_K) replay, then a second replay after restoring a
+    guard snapshot — params, updater state, BN states and the losses bit
+    for bit. First two eager runs from the same state must agree; where
+    cuDNN's default algorithms make them differ, cudnn.deterministic is
+    set for the bitwise checks (returned as `deterministic`)."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.resilience import NonFiniteGuard
+
+    data = engine_batches(np, 41, GROUP_K, ENGINE_CHECK_BATCH, 1000)
+    xs = np.stack([d[0] for d in data])
+    ys = np.stack([d[1] for d in data])
+
+    def eager():
+        net = flagship(ResNet50, "pallas")
+        prog = StepProgram(net)
+        losses = torch.stack([prog.run(x, y) for x, y in data])
+        return net, losses
+
+    res = {"deterministic": False}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        e1, l1 = eager()
+        e2, l2 = eager()
+        torch.cuda.synchronize()
+        same, n, diff = same_bits(torch, e1, e2)
+        same = same and bits_equal(torch, l1, l2)
+        log(f"engine group check: two eager runs of {GROUP_K} steps from "
+            f"one seeded state (batch {ENGINE_CHECK_BATCH}, "
+            f"cudnn.deterministic={det}): {n} tensors, {diff} differ, "
+            f"losses equal {bits_equal(torch, l1, l2)}")
+        del e2
+        if same:
+            res["deterministic"] = det
+            break
+        if det:
+            fail("engine group check: two eager runs from one state differ "
+                 "even with cudnn.deterministic")
+        log("engine group check: cuDNN's default algorithms are not "
+            "bitwise repeatable here; cudnn.deterministic=True for the "
+            "engine's bitwise checks only")
+        del e1
+        torch.cuda.empty_cache()
+    g = flagship(ResNet50, "pallas")
+    prog = StepProgram(g)
+    guard = NonFiniteGuard("skip_step")
+    snap = guard.snapshot(g)
+    for attempt in ("first replay", "replay after a snapshot restore"):
+        if attempt != "first replay":
+            guard.restore(g, snap)
+        prog.run_group(xs, ys)
+        torch.cuda.synchronize()
+        same, n, diff = same_bits(torch, e1, g)
+        losses_equal = bits_equal(torch, l1, prog.last_step_losses)
+        log(f"engine group check, {attempt}: run_group({GROUP_K}) against "
+            f"{GROUP_K} eager run() calls: {n} tensors (params, updater "
+            f"state, BN states), {diff} differ; losses "
+            f"{[float(v) for v in prog.last_step_losses]} equal "
+            f"{losses_equal}; iteration {g.iteration}")
+        if not (same and losses_equal and g.iteration == GROUP_K):
+            fail(f"engine group check ({attempt}): run_group differs from "
+                 f"eager steps")
+    res.update(tensors=n, captures=prog.group_stats["captures"],
+               capture_s=prog.group_stats["capture_s"],
+               losses=[float(v) for v in l1])
+    if prog.group_stats["captures"] != 1:
+        fail("engine group check: the restore forced a recapture")
+    del e1, g, prog, snap
+    torch.cuda.empty_cache()
+    return res
+
+
+def engine_profile(torch, fn, steps):
+    """torch.profiler over `fn()` (advancing `steps` train steps): the
+    device's busy ms per step (None when the profiler saw no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / steps if busy > 0 else None
+
+
+def engine_timed(torch, np, pc, ResNet50, mode):
+    """StepProgram.run (k=1) and run_group(GROUP_K) under `mode`, each for
+    ENGINE_STEPS steps on one fixed seeded batch of TRAIN_BATCH after
+    warm-up (and, for the group, capture), on one net: ms/step from CUDA
+    events, img/s, host img/s, peak memory, launches per step, the idle
+    share (profiler window against the unprofiled ms/step) and MFU."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    # the batch lives on the card, as the input pipeline stages it
+    ((x, y),) = [(torch.from_numpy(a).to(DEV), torch.from_numpy(b).to(DEV))
+                 for a, b in engine_batches(np, 43, 1, TRAIN_BATCH, 1000)]
+    net = flagship(ResNet50, mode)
+    prog = StepProgram(net)
+    xs, ys = torch.stack([x] * GROUP_K), torch.stack([y] * GROUP_K)
+    want = ({"fused_conv1x1": 30, "fused_conv3x3": 16, "dgrad_conv1x1": 30,
+             "wgrad_conv1x1": 30} if mode == "pallas"
+            else {k: 0 for k in pc.LAUNCHES})
+    out, losses = {}, []
+    for kind in ("run", "group"):
+        if kind == "run":
+            call, per_call = (lambda: prog.run(x, y)), 1
+        else:
+            call, per_call = (lambda: prog.run_group(xs, ys)), GROUP_K
+        calls = ENGINE_STEPS // per_call
+        for _ in range(ENGINE_WARMUP if kind == "run" else 1):
+            losses.append(call())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pc.reset_launch_counts()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(calls + 1)]
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(calls):
+            call()
+            losses.extend(prog.last_step_losses if kind == "group"
+                          else [net._score])
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = pc.launch_counts()
+        ms = sum(events[i].elapsed_time(events[i + 1])
+                 for i in range(calls)) / ENGINE_STEPS
+        img_s = TRAIN_BATCH / ms * 1e3
+        r = {"steps": ENGINE_STEPS, "calls": calls, "ms_per_step": ms,
+             "img_per_s": img_s,
+             "host_img_per_s": TRAIN_BATCH * ENGINE_STEPS / wall,
+             "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             # a captured graph's private pool is reserved, not allocated
+             "max_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+             "launches_per_step": {k: counts[k] / ENGINE_STEPS
+                                   for k in pc.LAUNCHES},
+             "launches": {k: counts[k] for k in pc.LAUNCHES},
+             "mfu": img_s * 3 * RESNET50_MACS_PER_IMAGE / BF16_FLOPS_PER_S}
+        r["mfu_2flops"] = 2 * r["mfu"]
+        if kind == "group":
+            r["capture_s"] = prog.group_stats["capture_s"]
+            (per_replay,) = prog.group_launches().values() or ({},)
+            r["launches_per_replay"] = {k: v for k, v in per_replay.items()
+                                        if "/" not in k}
+        n_prof = max(1, ENGINE_PROFILE_STEPS // per_call)
+        busy = engine_profile(torch, lambda: [call() for _ in range(n_prof)],
+                              n_prof * per_call)
+        r["busy_ms"] = busy
+        r["idle_share"] = None if busy is None else 1.0 - busy / ms
+        out[kind] = r
+        log(f"engine {mode} {kind}" + (f"({GROUP_K})" if kind == "group"
+                                       else "")
+            + f": batch {TRAIN_BATCH}, {ENGINE_STEPS} steps ({calls} calls) "
+            f"after warm-up: {ms:.2f} ms/step (CUDA events), {img_s:.1f} "
+            f"img/s, host {r['host_img_per_s']:.1f} img/s, peak memory "
+            f"{r['max_memory_gib']:.2f} GiB allocated, "
+            f"{r['max_reserved_gib']:.2f} GiB reserved (the graph's pool "
+            f"included), launches per step "
+            f"{r['launches_per_step']}, device busy "
+            + ("not measured" if busy is None else f"{busy:.2f}")
+            + " ms per step, idle share "
+            + ("not measured" if busy is None else f"{r['idle_share']:.4f}")
+            + f", MFU {r['mfu']:.4f} counting multiply-adds (bench.py:63), "
+            f"{r['mfu_2flops']:.4f} at 2 FLOPs per multiply-add"
+            + (f", capture {r['capture_s']:.2f} s (outside the window)"
+               if kind == "group" else ""))
+        if any(counts[k] != v * ENGINE_STEPS for k, v in want.items()):
+            fail(f"engine {mode} {kind}: launches {counts} != {want} per "
+                 f"step x {ENGINE_STEPS}")
+        for name, n in want.items():
+            if n and counts[f"{name}/wgmma"] != n * ENGINE_STEPS:
+                fail(f"engine {mode} {kind}: {name} did not take the wgmma "
+                     f"route on every call ({counts})")
+    vals = [float(v) for v in losses]
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"engine {mode}: loss not finite and falling: {vals}")
+    out["loss_first"], out["loss_last"] = vals[0], vals[-1]
+    log(f"engine {mode}: loss {vals[0]:.4f} -> {vals[-1]:.4f} over "
+        f"{len(vals)} steps")
+    del net, prog
+    torch.cuda.empty_cache()
+    return out
+
+
+def view_score_reading(torch, net, batch):
+    """`ComputationGraph.score(data)` reads views of the live flat carry:
+    the eval-mode loss on `batch` over those views against the loss over
+    copies of them (the operands a reloaded net has), the first vertex
+    whose activation differs, and how many views, and that vertex's
+    params, do not start on a 16-byte boundary (fresh allocations start
+    on a 512-byte one)."""
+    from deeplearning4j_tpu_torch.util.tree import clone, leaves
+
+    views = net._params_view()
+    inputs, labels, lmasks = net._batch_tensors([batch[0]], [batch[1]])
+    out = {"views_not_16B_aligned": sum(
+        1 for t in leaves(views) if t.data_ptr() % 16),
+        "views": len(leaves(views))}
+    acts = {}
+    with torch.no_grad():
+        for name, params in (("views", views), ("copies", clone(views))):
+            loss, _ = net._loss_fn(params, net.states, inputs, labels,
+                                   lmasks, train=False)
+            out[f"loss_{name}"] = float(loss)
+            acts[name] = net._forward(params, net.states, inputs,
+                                      materialize_all=True)[0]
+    first = next((n.name for n in net.topo if n.name in acts["views"]
+                  and not torch.equal(acts["views"][n.name],
+                                      acts["copies"][n.name])), None)
+    out["first_differing_vertex"] = first
+    if first is not None:
+        node = net.conf.node(first)
+        out["vertex_kind"] = type(node.obj).__name__
+        out["vertex_inputs"] = list(node.inputs)
+        out["vertex_param_offsets_mod_16B"] = [
+            t.data_ptr() % 16 for t in leaves(views.get(first) or {})]
+    log(f"engine score on the flat carry's views against per-layer copies "
+        f"(f32, eval mode, batch {len(batch[0])}): {out}")
+    return out
+
+
+def early_stopping_check(torch, np, ResNet50, tmp):
+    """EarlyStoppingTrainer end to end on the flagship: ES_BATCHES seeded
+    host batches of TRAIN_BATCH through a ListDataSetIterator and the
+    input pipeline, DataSetLossCalculator on a held-out batch,
+    MaxEpochsTerminationCondition(ES_EPOCHS), NonFiniteGuard("skip_step",
+    check_every=1), LocalFileGraphSaver. The best model must verify and,
+    reloaded on the same device and compute dtype, score exactly its
+    recorded score. Then one batch's features set to NaN: skipped once per
+    epoch, ending bit for bit where a run over the clean batches ends."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator,
+        EarlyStoppingConfiguration,
+        EarlyStoppingTrainer,
+        InMemoryModelSaver,
+        LocalFileGraphSaver,
+        MaxEpochsTerminationCondition,
+    )
+    from deeplearning4j_tpu_torch.observability import metrics as obs
+    from deeplearning4j_tpu_torch.resilience import NonFiniteGuard
+    from deeplearning4j_tpu_torch.util.model_serializer import verify_model
+
+    data = engine_batches(np, 45, ES_BATCHES, TRAIN_BATCH, 1000)
+    held = engine_batches(np, 46, 1, TRAIN_BATCH, 1000)
+    x_all = np.concatenate([d[0] for d in data])
+    y_all = np.concatenate([d[1] for d in data])
+
+    def fit(x, y, saver):
+        net = flagship(ResNet50, "pallas")
+        guard = NonFiniteGuard("skip_step", check_every=1)
+        cfg = EarlyStoppingConfiguration(
+            epoch_termination_conditions=[
+                MaxEpochsTerminationCondition(ES_EPOCHS)],
+            model_saver=saver, score_calculator=DataSetLossCalculator(held))
+        trainer = EarlyStoppingTrainer(
+            cfg, net, ListDataSetIterator(DataSet(x, y),
+                                          batch_size=TRAIN_BATCH),
+            guard=guard)
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        torch.cuda.synchronize()
+        return net, guard, trainer, result, time.perf_counter() - t0
+
+    def wait_buckets():
+        h = obs.get_registry().snapshot()["histograms"].get(
+            "dl4j_pipeline_wait_seconds")
+        return {} if h is None else h["buckets"]
+
+    res = {}
+    before = wait_buckets()
+    net, guard, trainer, result, secs = fit(x_all, y_all,
+                                            LocalFileGraphSaver(tmp))
+    pipe = trainer._harness.pipeline_stats()
+    # batches per wait bucket (upper bound in s) of this run
+    waits = {b: n - before.get(b, 0) for b, n in wait_buckets().items()
+             if n != before.get(b, 0)}
+    best = result.best_model
+    path = os.path.join(tmp, "bestModel.zip")
+    rescored = best.score(held[0])
+    recorded = result.score_vs_epoch[result.best_model_epoch]
+    res["trainer"] = {
+        "seconds": secs, "epochs": result.total_epochs,
+        "score_vs_epoch": result.score_vs_epoch,
+        "best_epoch": result.best_model_epoch, "rescored": rescored,
+        "verified": verify_model(path), "iteration": net.iteration,
+        "pipeline_batches": pipe["batches"],
+        "pipeline_wait_ms_per_batch": pipe["wait_s"] * 1e3 / pipe["batches"],
+        "pipeline_waits_by_bucket_s": waits,
+        "guard": guard.stats()}
+    log(f"engine early stopping: {result.total_epochs} epochs of "
+        f"{ES_BATCHES} batches of {TRAIN_BATCH} in {secs:.1f} s, "
+        f"{result.termination_reason}; score per epoch "
+        f"{result.score_vs_epoch}; best epoch {result.best_model_epoch}, "
+        f"{os.path.getsize(path)} bytes, verify_model "
+        f"{res['trainer']['verified']}, reloaded score {rescored!r} against "
+        f"recorded {recorded!r}; pipeline {pipe['batches']} batches, wait "
+        f"{res['trainer']['pipeline_wait_ms_per_batch']:.3f} ms per batch "
+        f"(batches per wait bucket, upper bound in s: {waits}; a pass "
+        f"starts its producer anew each epoch); "
+        f"guard {guard.stats()}")
+    if not (result.total_epochs == ES_EPOCHS and res["trainer"]["verified"]
+            and rescored == recorded and net.iteration
+            == ES_EPOCHS * ES_BATCHES and best.device == net.device
+            and best.compute_dtype == net.compute_dtype):
+        fail("engine early stopping: the trainer did not run to its end, or "
+             "the best model does not verify and rescore exactly")
+    if net._flat_train is not None:
+        res["view_score"] = view_score_reading(torch, net, held[0])
+    del net, best, trainer, result
+    torch.cuda.empty_cache()
+    bad = x_all.copy()
+    bad[2 * TRAIN_BATCH:3 * TRAIN_BATCH] = np.nan
+    keep = np.r_[0:2 * TRAIN_BATCH, 3 * TRAIN_BATCH:len(x_all)]
+    poisoned, pguard, _, presult, _ = fit(bad, y_all, InMemoryModelSaver())
+    clean, _, _, cresult, _ = fit(x_all[keep], y_all[keep],
+                                  InMemoryModelSaver())
+    same, n, diff = same_bits(torch, poisoned, clean)
+    res["poisoned"] = {"guard": pguard.stats(), "tensors": n, "differ": diff,
+                       "score_vs_epoch": presult.score_vs_epoch,
+                       "clean_score_vs_epoch": cresult.score_vs_epoch}
+    log(f"engine early stopping with batch 3 of {ES_BATCHES} poisoned (NaN "
+        f"features): guard {pguard.stats()}; against a run over the "
+        f"{ES_BATCHES - 1} clean batches: {n} tensors, {diff} differ, "
+        f"scores {presult.score_vs_epoch} vs {cresult.score_vs_epoch}")
+    if not (same and pguard.counters["skipped_steps"] == ES_EPOCHS
+            and presult.score_vs_epoch == cresult.score_vs_epoch):
+        fail("engine early stopping: the poisoned run did not skip its NaN "
+             "batch once per epoch or does not end where the clean run ends")
+    del poisoned, clean
+    torch.cuda.empty_cache()
+    return res
+
+
+def engine_phase(torch, np, pc, ResNet50, card):
+    """Phase 5b: the training engine on the flagship (see the module
+    docstring). The bitwise checks run with the cuDNN setting the group
+    check found repeatable; the timed runs with PyTorch's default.
+    `card`: nvidia-smi's name and power limit, printed beside the
+    numbers."""
+    import tempfile
+
+    res = {"card": card, "group_check": group_check(torch, np, ResNet50)}
+    det = res["group_check"]["deterministic"]
+    torch.backends.cudnn.deterministic = False
+    for mode in ("pallas", "fused"):
+        res[mode] = engine_timed(torch, np, pc, ResNet50, mode)
+    cells = [f"{m} {k}: {res[m][k]['ms_per_step']:.2f}, "
+             f"{res[m][k]['img_per_s']:.1f}, {res[m][k]['idle_share']}, "
+             f"{res[m][k]['mfu']:.4f}"
+             for m in ("pallas", "fused") for k in ("run", "group")]
+    ratios = [f"{m} group over run "
+              f"{res[m]['group']['ms_per_step'] / res[m]['run']['ms_per_step']:.4f}"
+              for m in ("pallas", "fused")]
+    log(f"engine summary on {card} (ms/step, img/s, idle share, MFU "
+        "counting multiply-adds): "
+        + "; ".join(cells + ratios))
+    torch.backends.cudnn.deterministic = det
+    with tempfile.TemporaryDirectory() as tmp:
+        res["early_stopping"] = early_stopping_check(torch, np, ResNet50, tmp)
+    torch.backends.cudnn.deterministic = False
+    return res
+
+
 # ------------------------------------------------------------ phase 6
 
 
@@ -1147,9 +1598,6 @@ def main():
     del net
     train, train_net, train_x = training_run(torch, np, pc, ResNet50)
     log(f"training phases: {time.perf_counter() - t0:.1f} s")
-
-    # 6. timing of the kernel calls of a batch-32 forward and of a
-    # batch-128 train step
     t0 = time.perf_counter()
     y = labels_for(torch, torch.Generator().manual_seed(32), TRAIN_BATCH,
                    train_net.conf.node("output").obj.n_out)
@@ -1157,6 +1605,15 @@ def main():
         torch, pc, lambda: train_net.fit_batch(([train_x], [y])))
     del train_net
     torch.cuda.empty_cache()
+
+    # 5b. the training engine: StepProgram.run / run_group (a CUDA graph
+    # of GROUP_K captured train steps) and EarlyStoppingTrainer
+    engine = engine_phase(torch, np, pc, ResNet50, card)
+    log(f"engine phase: {time.perf_counter() - t0:.1f} s")
+
+    # 6. timing of the kernel calls of a batch-32 forward and of a
+    # batch-128 train step
+    t0 = time.perf_counter()
     for what, cs in (("forward at batch %d" % BATCH, calls),
                      ("train step at batch %d" % TRAIN_BATCH, train_calls)):
         per_kernel = {}
@@ -1210,7 +1667,8 @@ def main():
                        "train_step_totals": train_totals,
                        "serving": serving, "reference": reference,
                        "forward_ms": fwd, "step_check": step,
-                       "train": train}, f, indent=1)
+                       "train": train, "engine": engine}, f, indent=1,
+                      default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
         f"kernel calls of one batch-{BATCH} forward (fused_conv*) or of one "
         f"batch-{TRAIN_BATCH} train step (dgrad/wgrad); launches are from "

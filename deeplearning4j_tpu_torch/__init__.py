@@ -13,9 +13,14 @@ falls back to the CPU silently. Layouts stay NHWC (activations) and HWIO
 
 Ported so far: ResNet-50 inference through ComputationGraph.output, the
 fused helper tier (helpers="fused"/"pallas"), the hand-written CUDA
-kernels for the fused 1x1 and 3x3 convolutions (nn/helpers/pallas_conv.py,
-sources in csrc/), the weight bridge (util/model_serializer.py) and
-batched serving (parallel/inference.py).
+kernels of the fused 1x1 and 3x3 convolutions and of the 1x1 backward
+(nn/helpers/pallas_conv.py, sources in csrc/), training (fit, the losses,
+updaters and schedules), the model files (util/model_serializer.py:
+the JAX package's zips both ways), batched serving
+(parallel/inference.py), and the training engine: engine/ (StepProgram,
+whose run_group replays a CUDA graph of k captured steps; StepHarness;
+the input pipeline), resilience/ (the non-finite guard), datasets/,
+observability/metrics.py and earlystopping/.
 """
 
 from deeplearning4j_tpu_torch.device import resolve_device  # noqa: F401

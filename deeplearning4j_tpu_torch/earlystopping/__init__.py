@@ -1,0 +1,26 @@
+"""Early stopping (counterpart of deeplearning4j_tpu/earlystopping/).
+EarlyStoppingParallelTrainer waits for ParallelWrapper (ROADMAP queue 9)."""
+
+from deeplearning4j_tpu_torch.earlystopping.config import (  # noqa: F401
+    EarlyStoppingConfiguration,
+    EarlyStoppingResult,
+)
+from deeplearning4j_tpu_torch.earlystopping.termination import (  # noqa: F401
+    BestScoreEpochTerminationCondition,
+    InvalidScoreIterationTerminationCondition,
+    MaxEpochsTerminationCondition,
+    MaxScoreIterationTerminationCondition,
+    MaxTimeIterationTerminationCondition,
+    ScoreImprovementEpochTerminationCondition,
+)
+from deeplearning4j_tpu_torch.earlystopping.saver import (  # noqa: F401
+    InMemoryModelSaver,
+    LocalFileGraphSaver,
+    LocalFileModelSaver,
+)
+from deeplearning4j_tpu_torch.earlystopping.trainer import (  # noqa: F401
+    EarlyStoppingTrainer,
+)
+from deeplearning4j_tpu_torch.earlystopping.score_calc import (  # noqa: F401
+    DataSetLossCalculator,
+)

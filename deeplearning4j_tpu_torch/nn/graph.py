@@ -21,6 +21,15 @@ updater-state field when the configuration allows (updater/flat_chain.py);
 `params`/`updater_states` then materialize the per-layer trees on demand,
 and any such access drops the flat carry, since the caller may mutate the
 returned tree.
+
+One function holds the step math: `_step(carry, inputs, labels, lmasks,
+scalars)` runs the forward, `torch.autograd.grad`, `clip_grads` and the
+update on an explicit carry (params, updater state, BN states) and one row
+of per-step scalars (learning rate, step index) that lives on the device.
+`_train_step` (fit_batch, engine.StepProgram.run) and the k-step group of
+engine.StepProgram.run_group both call it; since the scalars are tensors,
+the same step can be captured once into a CUDA graph and replayed with new
+values.
 """
 
 from __future__ import annotations
@@ -325,73 +334,140 @@ class ComputationGraph:
                 reg = reg + node.obj.regularization_loss(params[node.name])
         return total + reg, new_states
 
-    def _loss_for_grad(self, params, inputs, labels, lmasks):
+    def _loss_for_grad(self, params, states, inputs, labels, lmasks):
         """The train loss under the mixed-precision policy: params and
         inputs cast to the compute dtype inside autograd (so gradients
-        reach the f32 master params in f32), the loss cast back."""
+        reach the f32 master params in f32), the loss cast back.
+        Returns (loss, new_states)."""
         cd = self.compute_dtype
         if cd is not None:
             params = cast_floating(params, cd)
             inputs = cast_floating(inputs, cd)
-        loss, new_states = self._loss_fn(params, self.states, inputs,
-                                         labels, lmasks, train=True)
+        loss, new_states = self._loss_fn(params, states, inputs, labels,
+                                         lmasks, train=True)
         if cd is not None:
             loss = loss.to(self.dtype)
         return loss, new_states
 
     # ------------------------------------------------------------ train step
-    def _train_step(self, inputs, labels, lmasks=None):
-        """One forward, backward and update. The flat chain when the
-        configuration is eligible and nothing is frozen, else the
-        per-layer `fused_apply` path."""
-        conf = self.conf
-        frozen = {n.name for n in self.topo
-                  if n.kind == "layer" and n.obj.frozen}
-        chain = self._flat_chain_obj() if not frozen else None
-        step = self.iteration
-        lr = schedule_lr(conf, step) * self._lr_score_factor
-        if chain is not None:
+    def _frozen(self):
+        return {n.name for n in self.topo
+                if n.kind == "layer" and n.obj.frozen}
+
+    def _train_carry(self):
+        """The state a train step reads: (params, updater state, BN
+        states). On the flat chain (eligible configuration, nothing
+        frozen) params is one flat tensor and the updater state {field:
+        flat tensor}, raveled on first use; else the per-layer trees."""
+        chain = self._flat_chain_obj() if not self._frozen() else None
+        if chain is None:
+            return self.params, self.updater_states, self.states
+        if self._flat_train is None:
+            flat = chain.ravel(self._params)
+            uflat = chain.ravel_upd(self._upd_states)
+            # the live state is the flat carry; keep only a skeleton
+            self._upd_states = chain.upd_skeleton(self._upd_states)
+            self._params = None
+            self._flat_train = (flat, uflat)
+        return self._flat_train + (self.states,)
+
+    def _set_train_carry(self, carry):
+        """Rebind the net's state to a carry shaped as `_train_carry`
+        returns it."""
+        params, upd, states = carry
+        if isinstance(params, torch.Tensor):
             if self._flat_train is None:
-                flat = chain.ravel(self._params)
-                uflat = chain.ravel_upd(self._upd_states)
-                # the live state is the flat carry; keep only a skeleton
-                self._upd_states = chain.upd_skeleton(self._upd_states)
-                self._params = None
-                self._flat_train = (flat, uflat)
-            flat, uflat = self._flat_train
-            leaf = flat.detach().requires_grad_()
-            with torch.enable_grad():
-                loss, new_states = self._loss_for_grad(
-                    chain.unravel(leaf), inputs, labels, lmasks)
-                (g,) = torch.autograd.grad(loss, leaf)
-            with torch.no_grad():
-                g = clip_grads(conf, g)
-                deltas, new_u = chain.updater.update(g, uflat, flat, lr, step)
-                self._flat_train = (flat + deltas, new_u)
+                self._upd_states = self._flat_chain_obj().upd_skeleton(
+                    self._upd_states)
+            self._params = None
+            self._flat_train = (params, upd)
         else:
-            names = [n.name for n in self.topo if n.kind == "layer"]
-            params = tree_map(lambda t: t.detach().requires_grad_(),
-                              self.params)
-            with torch.enable_grad():
-                loss, new_states = self._loss_for_grad(params, inputs,
-                                                       labels, lmasks)
-                ps = leaves(params)
-                gs = torch.autograd.grad(loss, ps, allow_unused=True)
-            with torch.no_grad():
-                gs = [torch.zeros_like(p) if g is None else g
-                      for p, g in zip(ps, gs)]
-                grads = clip_grads(conf, unflatten(params, gs)[0])
-                lr_f = {n: self._lr_factor(n) for n in names}
-                np_list, nu_list = fused_apply(
-                    [(self._updaters[n], lr_f[n], n in frozen,
-                      tree_map(torch.Tensor.detach, params[n]), grads[n],
-                      self.updater_states[n]) for n in names], lr, step)
-                self.params = dict(zip(names, np_list))
-                self.updater_states = dict(zip(names, nu_list))
+            self.params = params
+            self.updater_states = upd
         self._cast_params = None
-        self.states = new_states
+        self.states = states
+
+    def _params_view(self):
+        """The per-layer params without dropping the flat carry (views
+        of it when it is live): for readers that mutate nothing."""
+        if self._flat_train is not None:
+            return self._flat_chain.unravel(self._flat_train[0])
+        return self._params
+
+    def _upd_view(self):
+        """The per-layer updater state, as `_params_view`."""
+        if self._flat_train is not None:
+            return self._flat_chain.unravel_upd(self._flat_train[1],
+                                                self._upd_states)
+        return self._upd_states
+
+    def _step_scalars(self, first_step: int, k: int = 1) -> torch.Tensor:
+        """[k, 2] per-step scalars of steps first_step .. first_step+k-1:
+        (learning rate, step index), computed on the host in double and
+        rounded once to the net's dtype, on the device. The copy leaves
+        from pinned memory without waiting for the device."""
+        conf = self.conf
+        rows = [[schedule_lr(conf, s) * self._lr_score_factor, float(s)]
+                for s in range(first_step, first_step + k)]
+        host = torch.tensor(rows, dtype=self.dtype)
+        if self.device.type == "cpu":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _apply_updates(self, params, upd, grads, lr, step):
+        """The update: the flat chain's one elementwise rule when
+        `params` is the flat vector, else the per-layer rules with their
+        lr factors and frozen flags (`fused_apply`). Returns (params,
+        updater state)."""
+        if isinstance(params, torch.Tensor):
+            deltas, new_u = self._flat_chain.updater.update(
+                grads, upd, params, lr, step)
+            return params + deltas, new_u
+        frozen = self._frozen()
+        names = [n.name for n in self.topo if n.kind == "layer"]
+        np_list, nu_list = fused_apply(
+            [(self._updaters[n], self._lr_factor(n), n in frozen, params[n],
+              grads[n], upd[n]) for n in names], lr, step)
+        return dict(zip(names, np_list)), dict(zip(names, nu_list))
+
+    def _step(self, carry, inputs, labels, lmasks, scalars):
+        """ONE train step on an explicit carry — the step math every
+        caller shares: forward (`_loss_for_grad`), `torch.autograd.grad`,
+        `clip_grads` and the update (`_apply_updates`). `scalars` is one
+        row of `_step_scalars` ([2]: lr, step index, as tensors, so no
+        Python number of the step reaches a kernel). Returns (new carry,
+        loss); touches no net state, reads no value back to the host,
+        and allocates only on the device."""
+        params, upd, states = carry
+        flat = isinstance(params, torch.Tensor)
+        if flat:
+            leaf = params.detach().requires_grad_()
+            ps = [leaf]
+        else:
+            leaf = tree_map(lambda t: t.detach().requires_grad_(), params)
+            ps = leaves(leaf)
+        with torch.enable_grad():
+            loss, new_states = self._loss_for_grad(
+                self._flat_chain.unravel(leaf) if flat else leaf, states,
+                inputs, labels, lmasks)
+            gs = torch.autograd.grad(loss, ps, allow_unused=True)
+        with torch.no_grad():
+            gs = [torch.zeros_like(p) if g is None else g
+                  for p, g in zip(ps, gs)]
+            grads = clip_grads(self.conf, gs[0] if flat
+                               else unflatten(leaf, gs)[0])
+            new_p, new_u = self._apply_updates(params, upd, grads,
+                                               scalars[0], scalars[1])
+        return (new_p, new_u, new_states), loss.detach()
+
+    def _train_step(self, inputs, labels, lmasks=None):
+        """One forward, backward and update (`_step`) on the net's own
+        carry; advances the iteration and sets the score."""
+        carry, loss = self._step(self._train_carry(), inputs, labels,
+                                 lmasks, self._step_scalars(self.iteration)[0])
+        self._set_train_carry(carry)
         self.iteration += 1
-        self._score = loss.detach()
+        self._score = loss
         apply_score_decay(self, self._score)
         return self._score
 
@@ -432,36 +508,39 @@ class ComputationGraph:
         if self._params is None and self._flat_train is None:
             self.init()
         ins, labs, fms, lms = _as_multi(batch)
-        if labs is None:
-            raise ValueError("fit needs labels")
-        if fms is not None and any(m is not None for m in fms):
-            raise NotImplementedError("feature masks are not ported yet")
         if self.conf.optimization_algo not in (
                 "stochastic_gradient_descent", "sgd"):
             raise NotImplementedError(
                 f"optimization_algo {self.conf.optimization_algo!r} is not "
                 f"ported yet")
+        self._train_step(*self._batch_tensors(ins, labs, fms, lms))
+        return self._score
+
+    def _batch_tensors(self, ins, labs, fms=None, lms=None):
+        """(inputs dict, labels list, label masks) of a labelled batch as
+        tensors on the device in the net's dtype, from per-input lists."""
+        if labs is None:
+            raise ValueError("fit needs labels")
+        if fms is not None and any(m is not None for m in fms):
+            raise NotImplementedError("feature masks are not ported yet")
         inputs = {name: self._as_input(x)
                   for name, x in zip(self.conf.network_inputs, ins)}
         labels = [self._as_input(y) for y in labs]
         lmasks = (None if lms is None else
                   [None if m is None else self._as_input(m) for m in lms])
-        self._train_step(inputs, labels, lmasks)
-        return self._score
+        return inputs, labels, lmasks
 
     def score(self, data=None):
         """The last training loss, or the eval-mode loss on `data` (with
-        the f32 params, as the JAX package's score)."""
+        the f32 params, as the JAX package's score). With the flat carry
+        live the params are read as views of it; the carry stays live."""
         if data is None:
             return None if self._score is None else float(self._score)
         ins, labs, _, lms = _as_multi(data)
-        inputs = {name: self._as_input(x)
-                  for name, x in zip(self.conf.network_inputs, ins)}
-        labels = [self._as_input(y) for y in labs]
-        lmasks = (None if lms is None else
-                  [None if m is None else self._as_input(m) for m in lms])
+        inputs, labels, lmasks = self._batch_tensors(ins, labs, None, lms)
         with torch.no_grad():
-            loss, _ = self._loss_fn(self.params, self.states, inputs, labels,
+            params = self._params_view()
+            loss, _ = self._loss_fn(params, self.states, inputs, labels,
                                     lmasks, train=False)
         return float(loss)
 

@@ -69,6 +69,29 @@ def reset_launch_counts() -> None:
             routes[r] = 0
 
 
+def launch_counts() -> dict:
+    """A flat copy of every launch counter: {kernel: launches,
+    "kernel/route": launches on that route}."""
+    out = dict(LAUNCHES)
+    for name, routes in {**FORWARD_ROUTES, **BACKWARD_ROUTES}.items():
+        for r, v in routes.items():
+            out[f"{name}/{r}"] = v
+    return out
+
+
+def add_launch_counts(delta: dict, times: int = 1) -> None:
+    """Add `times` x `delta` (launch_counts' keys) to the counters. A
+    CUDA graph launches the kernels it captured on every replay without
+    calling the wrappers, so its owner records what one replay launches
+    at capture and adds it here per replay (engine/step_program.py)."""
+    for key, v in delta.items():
+        name, _, route = key.partition("/")
+        if route:
+            {**FORWARD_ROUTES, **BACKWARD_ROUTES}[name][route] += v * times
+        else:
+            LAUNCHES[name] += v * times
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)

@@ -12,8 +12,12 @@ with `new_params = params + deltas` applied by the container. `params`,
 `grads` and states are trees of tensors (nested dicts, or one flat tensor
 on the flat chain). The rules are pure: they return new tensors, run under
 `torch.no_grad()` in the containers, and never update in place. `lr` and
-`step` are host numbers (PyTorch runs eagerly; the schedule is computed
-per step on the host).
+`step` are host numbers or 0-d tensors on the device: the train step
+(ComputationGraph._step) passes tensors, so a step captured in a CUDA
+graph reads each replay's values, and the bias corrections of adam, adamax
+and nadam are then computed on the device in the tensors' dtype, as the
+JAX package computes them under jit. The schedule (`schedule_lr`) stays
+on the host.
 """
 
 from __future__ import annotations
@@ -37,6 +41,11 @@ class Updater(NamedTuple):
 
 def _zeros_like(params):
     return tree_map(torch.zeros_like, params)
+
+
+def _sqrt(v):
+    """sqrt of a host number or of a tensor."""
+    return torch.sqrt(v) if isinstance(v, torch.Tensor) else math.sqrt(v)
 
 
 # ---------------- updaters ----------------
@@ -132,7 +141,7 @@ def adam(beta1: float = 0.9, beta2: float = 0.999,
                      grads)
         v = tree_map(lambda v, g: beta2 * v + (1 - beta2) * g * g,
                      state["v"], grads)
-        alpha = lr * math.sqrt(1 - beta2 ** t) / (1 - beta1 ** t)
+        alpha = lr * _sqrt(1 - beta2 ** t) / (1 - beta1 ** t)
         deltas = tree_map(lambda m, v: -alpha * m / (torch.sqrt(v) + epsilon),
                           m, v)
         return deltas, {"m": m, "v": v}

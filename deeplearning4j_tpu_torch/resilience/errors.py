@@ -1,13 +1,22 @@
 """Typed failures (a copy of the classes of deeplearning4j_tpu/resilience/errors.py
-that the ported serving and model-loading paths raise). Callers route on
-type: shed load (Overloaded), surface (Shutdown / Unavailable), fail over
-(integrity)."""
+that the ported serving, model-loading and training paths raise). Callers
+route on type: shed load (Overloaded), surface (Shutdown / Unavailable),
+fail over (integrity), stop training (non-finite, preempted)."""
 
 from __future__ import annotations
 
 
 class ResilienceError(RuntimeError):
     """Base for every typed failure raised by this subsystem."""
+
+
+class FaultInjectedError(ResilienceError):
+    """Raised by FaultInjector 'raise' faults (a simulated crash)."""
+
+    def __init__(self, point: str, hit: int):
+        super().__init__(f"injected fault at {point!r} (hit #{hit})")
+        self.point = point
+        self.hit = hit
 
 
 class ShutdownError(ResilienceError):
@@ -34,3 +43,18 @@ class InferenceUnavailableError(ResilienceError):
 
 class CheckpointIntegrityError(ResilienceError):
     """A checkpoint/model file failed checksum or structural validation."""
+
+
+class NonFiniteLossError(ResilienceError):
+    """Non-finite loss/params (or an unrecoverable loss spike) detected
+    by the training guard — raised by policy='abort', or when a
+    skip/rollback policy exhausted its recovery budget."""
+
+
+class PreemptedError(ResilienceError):
+    """Preemption (SIGTERM/SIGINT or the `train.preempt` fault) was
+    requested; training state was checkpointed before raising."""
+
+    def __init__(self, msg: str, step: int | None = None):
+        super().__init__(msg)
+        self.step = step

@@ -1,5 +1,6 @@
-"""The weight bridge: JAX-package model zips and param trees into the port
-(counterpart of deeplearning4j_tpu/util/model_serializer.py, read side).
+"""The weight bridge and model files (counterpart of
+deeplearning4j_tpu/util/model_serializer.py): JAX-package model zips and
+param trees into the port, and `write_model`, which writes the same zip.
 
 A JAX model zip holds `configuration.json` (ComputationGraphConfiguration
 JSON, helper_mode included), `coefficients.npz`, `states.npz`,
@@ -13,21 +14,34 @@ the port with its momentum and its learning-rate schedule position.
 Layouts need no change: both packages keep conv kernels HWIO, dense
 weights [n_in, n_out] and activations NHWC, so the bridge only converts
 arrays to tensors on the target device and dtype.
+
+`write_model` writes the same layout in the same leaf order, so the JAX
+package's `restore_computation_graph` reads a port-written zip. The write
+is crash-safe (tmp file + fsync + os.replace) with a `<path>.sha256`
+sidecar of the pre-publish bytes, and fires the `checkpoint.write` fault
+point between the two, as the JAX package's writer does: a torn write
+surfaces on restore as CheckpointIntegrityError.
 """
 
 from __future__ import annotations
 
-import hashlib
 import io
 import json
 import os
+import time
 import zipfile
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.observability import metrics as _obs
+from deeplearning4j_tpu_torch.resilience.checkpoint_integrity import (
+    atomic_writer,
+    sha256_file,
+)
 from deeplearning4j_tpu_torch.resilience.errors import CheckpointIntegrityError
+from deeplearning4j_tpu_torch.resilience.faults import fire as _fire
 from deeplearning4j_tpu_torch.util.tree import leaves as _flatten
 from deeplearning4j_tpu_torch.util.tree import tree_map as _tree_map
 from deeplearning4j_tpu_torch.util.tree import unflatten as _unflatten
@@ -88,28 +102,93 @@ def _load_into(like, data: bytes, what: str):
     return tree
 
 
+def _checksum_path(path) -> str:
+    return os.fspath(path) + ".sha256"
+
+
+def _structure(tree):
+    """The nested key structure of a tree, "*" for each leaf (written as
+    the npz's `treedef` entry, for readers; loaders use leaf order)."""
+    if isinstance(tree, dict):
+        return {k: _structure(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_structure(v) for v in tree]
+    return None if tree is None else "*"
+
+
+def _tree_to_npz_bytes(tree) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, treedef=np.frombuffer(
+        json.dumps(_structure(tree)).encode(), dtype=np.uint8),
+        **{f"leaf_{i}": t.detach().cpu().numpy()
+           for i, t in enumerate(_flatten(tree))})
+    return buf.getvalue()
+
+
+def write_model(net, path, save_updater: bool = True) -> None:
+    """Save a ComputationGraph to a zip file the JAX package's
+    `restore_computation_graph` reads: configuration.json,
+    coefficients.npz, states.npz, updaterState.npz (unless
+    `save_updater` is False) and meta.json (iteration, epoch).
+
+    Crash-safe: the zip is assembled in a tmp file and published with
+    fsync + os.replace (a kill mid-write never leaves a partial model at
+    `path`), and a `<path>.sha256` sidecar records the digest of the
+    pre-publish bytes so torn writes are detected on restore. Reads the
+    params without dropping the net's flat train carry."""
+    if net._params is None and net._flat_train is None:
+        raise ValueError("Network not initialized; nothing to save")
+    t_write = time.perf_counter()
+    path = os.fspath(path)
+    with atomic_writer(path) as tmp:
+        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as z:
+            z.writestr(CONFIG_ENTRY, net.conf.to_json())
+            z.writestr(COEFFICIENTS_ENTRY,
+                       _tree_to_npz_bytes(net._params_view()))
+            z.writestr(STATES_ENTRY, _tree_to_npz_bytes(net.states))
+            upd = net._upd_view()
+            if save_updater and upd is not None:
+                z.writestr(UPDATER_ENTRY, _tree_to_npz_bytes(upd))
+            z.writestr(META_ENTRY, json.dumps({
+                "format": "deeplearning4j_tpu",
+                "version": 1,
+                "model_type": type(net).__name__,
+                "iteration": net.iteration,
+                "epoch": net.epoch,
+            }))
+        digest = sha256_file(tmp)
+        # chaos hook: 'raise' = kill mid-write, 'truncate' = torn write
+        _fire("checkpoint.write", path=tmp)
+        with open(_checksum_path(path) + ".tmp", "w") as f:
+            f.write(digest)
+        os.replace(_checksum_path(path) + ".tmp", _checksum_path(path))
+    _obs.count("dl4j_checkpoint_writes_total")
+    _obs.observe("dl4j_checkpoint_write_seconds",
+                 time.perf_counter() - t_write)
+
+
 def verify_model(path) -> bool:
     """True iff `path` matches its .sha256 sidecar (files without a
     sidecar pass on existence alone) — the JAX package's rule."""
     path = os.fspath(path)
     if not os.path.exists(path):
         return False
-    sidecar = path + ".sha256"
+    sidecar = _checksum_path(path)
     if not os.path.exists(sidecar):
         return True
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 20), b""):
-            h.update(chunk)
-    with open(sidecar) as f:
-        return h.hexdigest() == f.read().strip()
+    try:
+        with open(sidecar) as f:
+            return sha256_file(path) == f.read().strip()
+    except OSError:
+        return False
 
 
 def restore_computation_graph(path, device=None, compute_dtype=None):
-    """Load a ComputationGraph from a zip the JAX package's
-    `ModelSerializer.write_model` wrote — without jax — with its updater
-    state and iteration count when the zip has them. Raises
-    CheckpointIntegrityError if the file fails its sha256 sidecar."""
+    """Load a ComputationGraph from a zip that the JAX package's
+    `ModelSerializer.write_model` or this module's `write_model` wrote —
+    without jax — with its updater state and iteration count when the zip
+    has them. Raises CheckpointIntegrityError if the file fails its
+    sha256 sidecar."""
     from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
         ComputationGraphConfiguration,
     )

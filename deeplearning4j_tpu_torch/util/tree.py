@@ -48,6 +48,11 @@ def unflatten(like, values, pos=0):
     return values[pos], pos + 1
 
 
+def clone(tree):
+    """A copy of every tensor leaf (detached), same structure."""
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
 def tree_map(fn, tree, *rest):
     """fn over corresponding leaves of trees with `tree`'s structure."""
     if isinstance(tree, dict):

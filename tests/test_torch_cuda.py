@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Marked `cuda`; they skip without a CUDA device. This file imports no
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+training engine's CUDA-graph group against eager steps, on the card.
+Marked `cuda`; they skip without a CUDA device. This file imports no
 jax, so it runs on a GPU host without the JAX package's dependencies:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -359,3 +360,314 @@ def test_cuda_dgrad_relu_mask_matches_plain_exactly(rng, case, shape):
     ref = tpc.ref_dgrad_conv1x1(**kw)[0]
     torch.cuda.synchronize()
     assert torch.equal(got == 0, ref == 0)
+
+
+# ------------------------------------------------- the training engine
+#
+# StepProgram.run_group on the card: one replay of a CUDA graph that holds
+# k captured train steps, against k eager run() calls, on a graph the size
+# of tests/test_helpers.py's `_mini_resnet`, built from the port alone.
+# cuDNN computes this net's stride-2 stem convolution and the composed
+# backward; its default algorithms may reduce in a run-dependent order, so
+# these tests ask it for deterministic ones (the comparison is bitwise).
+
+
+def _port_mini_resnet(helpers, compute_dtype=None, **conf_attrs):
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.graph_vertices import (
+        ElementWiseVertex,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ActivationLayer,
+        BatchNormalization,
+        ConvolutionLayer,
+        GlobalPoolingLayer,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+
+    gb = (NeuralNetConfiguration.Builder().seed(7).updater("sgd")
+          .learning_rate(0.05).weight_init("relu").activation("relu")
+          .graph_builder().add_inputs("input"))
+
+    def conv_bn(name, inp, n_out, kernel, stride=(1, 1), act=True):
+        gb.add_layer(f"{name}_conv", ConvolutionLayer(
+            n_out=n_out, kernel_size=kernel, stride=stride,
+            convolution_mode="same", activation="identity"), inp)
+        gb.add_layer(f"{name}_bn", BatchNormalization(), f"{name}_conv")
+        if not act:
+            return f"{name}_bn"
+        gb.add_layer(f"{name}_act", ActivationLayer(activation="relu"),
+                     f"{name}_bn")
+        return f"{name}_act"
+
+    x = conv_bn("stem", "input", 8, (3, 3), stride=(2, 2))
+    gb.add_layer("pool", SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2),
+                                          convolution_mode="same"), x)
+    a = conv_bn("b0a", "pool", 8, (1, 1))
+    b = conv_bn("b0b", a, 8, (3, 3))
+    c = conv_bn("b0c", b, 16, (1, 1), act=False)
+    sc = conv_bn("b0sc", "pool", 16, (1, 1), act=False)
+    gb.add_vertex("b0_add", ElementWiseVertex(op="add"), c, sc)
+    gb.add_layer("b0_out", ActivationLayer(activation="relu"), "b0_add")
+    a = conv_bn("b1a", "b0_out", 8, (1, 1))
+    b = conv_bn("b1b", a, 8, (3, 3))
+    c = conv_bn("b1c", b, 16, (1, 1), act=False)
+    gb.add_vertex("b1_add", ElementWiseVertex(op="add"), c, "b0_out")
+    gb.add_layer("b1_out", ActivationLayer(activation="relu"), "b1_add")
+    gb.add_layer("gap", GlobalPoolingLayer(pooling_type="avg"), "b1_out")
+    gb.add_layer("out", OutputLayer(n_out=5, loss="mcxent"), "gap")
+    gb.set_outputs("out")
+    gb.set_input_types(input=InputType.convolutional(16, 16, 3))
+    gb.helpers(helpers)
+    conf = gb.build()
+    for k, v in conf_attrs.items():
+        setattr(conf, k, v)
+    return ComputationGraph(conf, compute_dtype=compute_dtype).init()
+
+
+def _engine_batches(n, seed=2024, rows=8):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.normal(size=(rows, 16, 16, 3)).astype(np.float32)
+        y = np.eye(5, dtype=np.float32)[rng.integers(0, 5, rows)]
+        out.append((x, y))
+    return out
+
+
+def _stacked(data):
+    return (np.stack([d[0] for d in data]), np.stack([d[1] for d in data]))
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    _need_cuda()
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = old
+
+
+def _train_state(net):
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    return (leaves(net.params) + leaves(net.updater_states)
+            + leaves(net.states))
+
+
+def _assert_nets_bitwise(a, b):
+    sa, sb = _train_state(a), _train_state(b)
+    assert len(sa) == len(sb) and a.iteration == b.iteration
+    for x, y in zip(sa, sb):
+        assert torch.equal(x, y)
+
+
+ENGINE_CONF = dict(updater="adam", lr_policy="step",
+                   lr_policy_decay_rate=0.5, lr_policy_steps=2.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("helpers", ["fused", "pallas"])
+def test_cuda_run_group_replay_equals_eager_runs_bitwise(
+        deterministic_cudnn, helpers, compute_dtype):
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    data = _engine_batches(6)
+    a = _port_mini_resnet(helpers, compute_dtype, **ENGINE_CONF)
+    b = _port_mini_resnet(helpers, compute_dtype, **ENGINE_CONF)
+    pa, pb = StepProgram(a), StepProgram(b)
+    for lo in (0, 3):                    # capture + replay, then replay
+        losses = torch.stack([pa.run(x, y) for x, y in data[lo:lo + 3]])
+        pb.run_group(*_stacked(data[lo:lo + 3]))
+        torch.cuda.synchronize()
+        assert torch.equal(losses, pb.last_step_losses)
+        _assert_nets_bitwise(a, b)
+    assert pb.group_stats["captures"] == 1
+    assert pb.group_stats["replays"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_run_group_replays_after_a_snapshot_restore(
+        deterministic_cudnn):
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.resilience import NonFiniteGuard
+
+    data = _engine_batches(3, seed=5)
+    a = _port_mini_resnet("pallas", **ENGINE_CONF)
+    b = _port_mini_resnet("pallas", **ENGINE_CONF)
+    pb = StepProgram(b)
+    guard = NonFiniteGuard("skip_step")
+    snap = guard.snapshot(b)
+    pb.run_group(*_stacked(data))
+    first = pb.last_step_losses.clone()
+    guard.restore(b, snap)
+    assert b.iteration == 0
+    pb.run_group(*_stacked(data))        # same graph, restored state
+    for x, y in data:
+        StepProgram(a).run(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(first, pb.last_step_losses)
+    _assert_nets_bitwise(a, b)
+    assert pb.group_stats["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_run_group_counts_launches_once_per_replay():
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    _need_cuda()
+    data = _engine_batches(4, seed=6)
+    net = _port_mini_resnet("pallas")
+    prog = StepProgram(net)
+    tpc.reset_launch_counts()
+    prog.run(*data[0])
+    per_step = tpc.launch_counts()
+    assert per_step["fused_conv1x1"] > 0 and per_step["dgrad_conv1x1"] > 0
+    assert per_step["fused_conv3x3"] > 0 and per_step["wgrad_conv1x1"] > 0
+    xs, ys = _stacked(data[1:])
+    tpc.reset_launch_counts()
+    prog.run_group(xs, ys)               # warm-up step + capture + replay
+    first = tpc.launch_counts()
+    (launches,) = prog.group_launches().values()
+    assert launches == {k: 3 * v for k, v in per_step.items() if v}
+    assert first == {k: 4 * v for k, v in per_step.items()}
+    tpc.reset_launch_counts()
+    for _ in range(2):
+        prog.run_group(xs, ys)
+    torch.cuda.synchronize()
+    assert tpc.launch_counts() == {k: 6 * v for k, v in per_step.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_run_group_raises_when_capture_is_impossible(monkeypatch):
+    """A host read inside the step cannot be captured: run_group raises
+    and runs no eager step in place of the graph."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    _need_cuda()
+    data = _engine_batches(2, seed=7)
+    net = _port_mini_resnet("pallas")
+    before = [t.clone() for t in _train_state(net)]
+    step = net._step
+
+    def step_with_host_read(*args):
+        carry, loss = step(*args)
+        float(loss)                      # a host sync: not capturable
+        return carry, loss
+
+    monkeypatch.setattr(net, "_step", step_with_host_read)
+    with pytest.raises(RuntimeError, match="into a CUDA graph failed"):
+        StepProgram(net).run_group(*_stacked(data))
+    torch.cuda.synchronize()
+    assert net.iteration == 0
+    for x, y in zip(before, _train_state(net)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_device_prefetch_stages_on_a_side_stream():
+    from deeplearning4j_tpu_torch.datasets import DevicePrefetchIterator
+
+    _need_cuda()
+    data = _engine_batches(3, seed=8)
+    it = DevicePrefetchIterator(data, buffer_size=2)
+    got = list(it)
+    torch.cuda.synchronize()
+    assert len(got) == 3 and it._stream is not None
+    for (x, y), (sx, sy) in zip(data, got):
+        assert sx.is_cuda and sx.dtype == torch.float32
+        assert np.array_equal(sx.cpu().numpy(), x)
+        assert np.array_equal(sy.cpu().numpy(), y)
+
+
+@pytest.mark.cuda
+def test_cuda_host_stage_converts_into_pinned_memory():
+    """The host half of staging, as the producer thread runs it: each
+    floating array in the net's dtype in pinned memory, the rest as it
+    was, and the pipeline's batches on the card with the same values."""
+    from deeplearning4j_tpu_torch.datasets.iterators import host_stage
+    from deeplearning4j_tpu_torch.engine import IteratorPipeline
+
+    _need_cuda()
+    x, y = _engine_batches(1, seed=11)[0]
+    idx = np.arange(len(x), dtype=np.int64)
+    hb = host_stage((x.astype(np.float64), y, idx),
+                    device=torch.device("cuda"), dtype=torch.float32)
+    assert all(t.is_pinned() for t in hb)
+    assert [t.dtype for t in hb] == [torch.float32, torch.float32,
+                                     torch.int64]
+    assert np.array_equal(hb[0].numpy(), x) and np.array_equal(
+        hb[2].numpy(), idx)
+    data = _engine_batches(3, seed=12)
+    with IteratorPipeline(data, depth=2) as pipe:
+        got = list(pipe)
+    torch.cuda.synchronize()
+    for (bx, by), (sx, sy, *_) in zip(data, got):
+        assert sx.is_cuda and np.array_equal(sx.cpu().numpy(), bx)
+        assert np.array_equal(sy.cpu().numpy(), by)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("helpers", ["pallas", "fused"])
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_cuda_score_on_the_flat_carry_equals_the_reloaded_score(
+        tmp_path, helpers, compute_dtype):
+    """score(data) over views of the live flat carry (some of which do
+    not start on a 16-byte boundary) gives the bits a net reloaded from
+    the written file gives."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_computation_graph,
+        write_model,
+    )
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    _need_cuda()
+    data = _engine_batches(3, seed=13)
+    net = _port_mini_resnet(helpers, compute_dtype, updater="nesterovs")
+    prog = StepProgram(net)
+    for x, y in data[:2]:
+        prog.run(x, y)
+    assert net._flat_train is not None
+    assert any(t.data_ptr() % 16 for t in leaves(net._params_view()))
+    path = str(tmp_path / "m.zip")
+    write_model(net, path)
+    back = restore_computation_graph(path, compute_dtype=compute_dtype)
+    assert net.score(data[2]) == back.score(data[2])
+    assert net._flat_train is not None
+
+
+@pytest.mark.cuda
+def test_cuda_early_stopping_pipeline_on_equals_off_bitwise(
+        deterministic_cudnn):
+    """Batches staged on a side stream by the input pipeline train to the
+    same bits as batches the step copies itself."""
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator,
+        EarlyStoppingConfiguration,
+        EarlyStoppingTrainer,
+        InMemoryModelSaver,
+        MaxEpochsTerminationCondition,
+    )
+
+    data = _engine_batches(4, seed=9)
+    held = _engine_batches(1, seed=10)
+    nets, results = [], []
+    for pipeline in (True, False):
+        net = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+        cfg = EarlyStoppingConfiguration(
+            epoch_termination_conditions=[MaxEpochsTerminationCondition(2)],
+            model_saver=InMemoryModelSaver(),
+            score_calculator=DataSetLossCalculator(held))
+        results.append(EarlyStoppingTrainer(cfg, net, data,
+                                            pipeline=pipeline).fit())
+        nets.append(net)
+    torch.cuda.synchronize()
+    assert results[0].score_vs_epoch == results[1].score_vs_epoch
+    _assert_nets_bitwise(*nets)
