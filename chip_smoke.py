@@ -60,6 +60,24 @@ Phases, in order; any failure exits non-zero:
      the best model verifies and rescores exactly after a reload; a run
      with one NaN batch skips it once per epoch and ends bit for bit
      where a run over the clean batches ends;
+  5c. MultiLayerNetwork (no helper tier, so no kernel of csrc/ on its
+     path; the launch counters, zeroed before it, are read after it): the
+     zoo's full-width VGG16 (224x224x3, 1000 classes, dropout 0.5 on both
+     4096-wide dense layers, bf16 policy, seeded init) — `output` at
+     MLN_BATCH timed by CUDA events and its log-probs against the f32
+     torch path (MLN_LOGP_TOL), a few requests through ParallelInference
+     against direct output; StepProgram.run and run_group(GROUP_K) with
+     dropout on, MLN_STEPS steps on one fixed batch after warm-up and
+     capture: ms/step, img/s, idle share, peak memory, capture s, MFU
+     from VGG16's multiply-adds (one FLOP each, and two), a finite
+     falling loss; a second k captured into the program's one graph
+     pool and a shorter window run eagerly; the dropout checks at
+     MLN_CHECK_BATCH (replay against eager steps from one generator
+     state, bit for bit with the generator's state; consecutive replays
+     draw new masks; a guard's skip of a NaN batch ends where the run
+     without it ends); then AlexNet (LRN, the 11x11 stride-4 "same"
+     conv) for ALEXNET_STEPS steps with a finite, falling loss. Images
+     are scaled by MLN_INPUT_SCALE and the rates lowered (see there);
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -108,6 +126,35 @@ ES_EPOCHS = 3
 # "mfu" counts one multiply-add as one FLOP, as bench.py does;
 # "mfu_2flops" counts it as two, the FLOPs the card's peak counts.
 RESNET50_MACS_PER_IMAGE = 4.09e9
+# phase 5c, MultiLayerNetwork: the zoo's VGG16 at full width (bench.py:506
+# bench_vgg16's batch) and AlexNet
+MLN_BATCH = 32
+MLN_OUTPUT_CALLS = 10          # timed output() calls
+MLN_WARMUP = 2
+MLN_STEPS = 20                 # timed steps: 20 run() calls, 5 replays
+MLN_PROFILE_STEPS = 4
+MLN_CHECK_BATCH = 8            # the dropout checks
+MLN_SERVE_SIZES = (1, 3, 8, 16, 32, 5)
+ALEXNET_STEPS = 8
+# The zoo's VGG16 and AlexNet have linear convolutions: ConvolutionLayer's
+# default activation is identity and the JAX package's zoo sets none (the
+# configuration is held to its JSON). Under He init the activations then
+# grow about 1.4x per conv: unit-variance images give VGG16 logits near
+# 800 (CPU rehearsal at 64x64), a softmax saturated to one-hot, and
+# nesterovs at the zoo's lr 1e-2 diverges at once (811 -> 2.5e24 -> NaN).
+# At init the nets are positively homogeneous (zero biases), so images
+# scaled by MLN_INPUT_SCALE give logits 100x smaller (a softmax whose
+# every class is informative), and the rates below are ones under which
+# the loss fell steadily in CPU rehearsals at reduced sizes (VGG16 at
+# 128x128: lr 1e-4 and 1e-5; AlexNet at 224: lr 1e-3 slowly, 1e-2 with a
+# spike; on the card AlexNet at 1e-3 fell only 0.04 in 8 steps).
+MLN_INPUT_SCALE = 0.01
+VGG16_LR = 1e-5
+ALEXNET_LR = 3e-3
+# VGG16's max |log p - log p_ref|: the bf16 policy against the f32 torch
+# path, and served responses against direct output; set from the readings
+# 0.148 and 0.092 (PERF.md, section 2) with a margin of 3.3-3.4x
+MLN_LOGP_TOL = {"bf16_vs_f32": 0.5, "served": 0.3}
 SERVE_S = 8.0                  # measured serving window
 SERVE_THREADS = 8              # closed-loop clients
 SERVE_SIZES = (1, 3, 8, 16, 32)
@@ -812,32 +859,9 @@ def step_check(torch, np, pc, net):
 
 
 def profile_steps(torch, step):
-    """torch.profiler over PROFILE_STEPS train steps: the device's busy
-    time per step (the sum of the kernels' device times; the port runs on
-    one stream, so kernels do not overlap) and the kernels that take the
-    most device time. The profiler stretches the host's side of a step,
-    so the idle share is taken against an unprofiled step's time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    # device-side events only: an operator's own "device time" repeats
-    # the time of the kernels it launched
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and dev(e) > 0]
-    top = sorted(kernels, key=dev, reverse=True)[:PROFILE_TOP]
-    return {"profiled_wall_ms": wall * 1e3 / PROFILE_STEPS,
-            "busy_ms": sum(dev(e) for e in kernels) / 1e3 / PROFILE_STEPS,
-            "top": [(e.key[:60], dev(e) / 1e3 / PROFILE_STEPS) for e in top]}
+    """`engine_profile` over PROFILE_STEPS calls of `step`."""
+    return engine_profile(torch, lambda: [step() for _ in range(PROFILE_STEPS)],
+                          PROFILE_STEPS)
 
 
 def training_run(torch, np, pc, ResNet50):
@@ -1048,28 +1072,117 @@ def group_check(torch, np, ResNet50):
 
 def engine_profile(torch, fn, steps):
     """torch.profiler over `fn()` (advancing `steps` train steps): the
-    device's busy ms per step (None when the profiler saw no device
-    time)."""
+    device's busy ms per step (the sum of the kernels' device times; the
+    port runs on one stream, so kernels do not overlap; None when the
+    profiler saw no device time), the kernels that take the most device
+    time per step, and the profiled wall ms per step. The profiler
+    stretches the host's side of a step, so an idle share is taken
+    against an unprofiled step's time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     dev = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev(e) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy / 1e3 / steps if busy > 0 else None
+    # device-side events only: an operator's own "device time" repeats
+    # the time of the kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and dev(e) > 0]
+    top = sorted(kernels, key=dev, reverse=True)[:PROFILE_TOP]
+    busy = sum(dev(e) for e in kernels) / 1e3 / steps
+    return {"profiled_wall_ms": wall * 1e3 / steps,
+            "busy_ms": busy if busy > 0 else None,
+            "top": [(e.key[:60], dev(e) / 1e3 / steps) for e in top]}
+
+
+def timed_steps(torch, prog, kind, call, *, steps, warmup, batch, macs,
+                profile_steps, on_start=None, on_end=None):
+    """One net's `call` (prog.run, or prog.run_group of GROUP_K steps when
+    `kind` is "group"): `warmup` calls (for a group one, which captures),
+    then `steps` steps timed by CUDA events around each call, then a
+    torch.profiler window. Returns (result, per-step losses): ms/step,
+    img/s, host img/s, peak memory allocated and reserved (a captured
+    graph's pool is reserved, not allocated), MFU from `macs` per image
+    (one FLOP per multiply-add; "mfu_2flops" at two), the device's busy
+    ms per step and idle share, and for a group its capture s.
+    `on_start()` runs just before the timed calls and `on_end()` just
+    after them (before the profiler); on_end's dict joins the result."""
+    per_call = GROUP_K if kind == "group" else 1
+    calls = steps // per_call
+    losses = []
+
+    def record():
+        losses.extend(prog.last_step_losses if kind == "group"
+                      else [prog.net._score])
+
+    for _ in range(warmup):
+        call()
+        record()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if on_start is not None:
+        on_start()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(calls):
+        call()
+        record()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r = {} if on_end is None else on_end()
+    ms = sum(events[i].elapsed_time(events[i + 1])
+             for i in range(calls)) / steps
+    img_s = batch / ms * 1e3
+    r.update(steps=steps, calls=calls, ms_per_step=ms, img_per_s=img_s,
+             host_img_per_s=batch * steps / wall,
+             max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             max_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+             mfu=img_s * 3 * macs / BF16_FLOPS_PER_S)
+    r["mfu_2flops"] = 2 * r["mfu"]
+    if kind == "group":
+        r["capture_s"] = prog.group_stats["capture_s"]
+    n_prof = max(1, profile_steps // per_call)
+    prof = engine_profile(torch, lambda: [call() for _ in range(n_prof)],
+                          n_prof * per_call)
+    busy = r["busy_ms"] = prof["busy_ms"]
+    r["top_kernels"] = prof["top"]
+    r["idle_share"] = None if busy is None else 1.0 - busy / ms
+    return r, losses
+
+
+def timed_line(r, kind, batch, steps):
+    """The common part of a timed run's log line."""
+    busy = r["busy_ms"]
+    return (f" {kind}" + (f"({GROUP_K})" if kind == "group" else "")
+            + f": batch {batch}, {steps} steps ({r['calls']} calls) after "
+            f"warm-up: {r['ms_per_step']:.2f} ms/step (CUDA events), "
+            f"{r['img_per_s']:.1f} img/s, host {r['host_img_per_s']:.1f} "
+            f"img/s, peak memory {r['max_memory_gib']:.2f} GiB allocated, "
+            f"{r['max_reserved_gib']:.2f} GiB reserved (a graph's pool "
+            "included), device busy "
+            + ("not measured" if busy is None else f"{busy:.2f}")
+            + " ms per step, idle share "
+            + ("not measured" if busy is None else f"{r['idle_share']:.4f}")
+            + f", MFU {r['mfu']:.4f} counting a multiply-add as one FLOP, "
+            f"{r['mfu_2flops']:.4f} at two"
+            + (f", capture {r['capture_s']:.2f} s (outside the window)"
+               if kind == "group" else ""))
 
 
 def engine_timed(torch, np, pc, ResNet50, mode):
     """StepProgram.run (k=1) and run_group(GROUP_K) under `mode`, each for
     ENGINE_STEPS steps on one fixed seeded batch of TRAIN_BATCH after
-    warm-up (and, for the group, capture), on one net: ms/step from CUDA
-    events, img/s, host img/s, peak memory, launches per step, the idle
-    share (profiler window against the unprofiled ms/step) and MFU."""
+    warm-up (and, for the group, capture), on one net: `timed_steps`'
+    readings (MFU from bench.py:63's multiply-add count) and the kernel
+    launches per step."""
     from deeplearning4j_tpu_torch.engine import StepProgram
 
     # the batch lives on the card, as the input pipeline stages it
@@ -1081,71 +1194,33 @@ def engine_timed(torch, np, pc, ResNet50, mode):
     want = ({"fused_conv1x1": 30, "fused_conv3x3": 16, "dgrad_conv1x1": 30,
              "wgrad_conv1x1": 30} if mode == "pallas"
             else {k: 0 for k in pc.LAUNCHES})
+
+    def launches():
+        counts = pc.launch_counts()
+        return {"launches_per_step": {k: counts[k] / ENGINE_STEPS
+                                      for k in pc.LAUNCHES},
+                "launches": {k: counts[k] for k in pc.LAUNCHES},
+                "counts": counts}
+
     out, losses = {}, []
     for kind in ("run", "group"):
-        if kind == "run":
-            call, per_call = (lambda: prog.run(x, y)), 1
-        else:
-            call, per_call = (lambda: prog.run_group(xs, ys)), GROUP_K
-        calls = ENGINE_STEPS // per_call
-        for _ in range(ENGINE_WARMUP if kind == "run" else 1):
-            losses.append(call())
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        pc.reset_launch_counts()
-        events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(calls + 1)]
-        t0 = time.perf_counter()
-        events[0].record()
-        for i in range(calls):
-            call()
-            losses.extend(prog.last_step_losses if kind == "group"
-                          else [net._score])
-            events[i + 1].record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = pc.launch_counts()
-        ms = sum(events[i].elapsed_time(events[i + 1])
-                 for i in range(calls)) / ENGINE_STEPS
-        img_s = TRAIN_BATCH / ms * 1e3
-        r = {"steps": ENGINE_STEPS, "calls": calls, "ms_per_step": ms,
-             "img_per_s": img_s,
-             "host_img_per_s": TRAIN_BATCH * ENGINE_STEPS / wall,
-             "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-             # a captured graph's private pool is reserved, not allocated
-             "max_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
-             "launches_per_step": {k: counts[k] / ENGINE_STEPS
-                                   for k in pc.LAUNCHES},
-             "launches": {k: counts[k] for k in pc.LAUNCHES},
-             "mfu": img_s * 3 * RESNET50_MACS_PER_IMAGE / BF16_FLOPS_PER_S}
-        r["mfu_2flops"] = 2 * r["mfu"]
+        call = (lambda: prog.run(x, y)) if kind == "run" \
+            else (lambda: prog.run_group(xs, ys))
+        r, ls = timed_steps(
+            torch, prog, kind, call, steps=ENGINE_STEPS,
+            warmup=ENGINE_WARMUP if kind == "run" else 1,
+            batch=TRAIN_BATCH, macs=RESNET50_MACS_PER_IMAGE,
+            profile_steps=ENGINE_PROFILE_STEPS,
+            on_start=pc.reset_launch_counts, on_end=launches)
+        losses.extend(ls)
+        counts = r.pop("counts")
         if kind == "group":
-            r["capture_s"] = prog.group_stats["capture_s"]
             (per_replay,) = prog.group_launches().values() or ({},)
             r["launches_per_replay"] = {k: v for k, v in per_replay.items()
                                         if "/" not in k}
-        n_prof = max(1, ENGINE_PROFILE_STEPS // per_call)
-        busy = engine_profile(torch, lambda: [call() for _ in range(n_prof)],
-                              n_prof * per_call)
-        r["busy_ms"] = busy
-        r["idle_share"] = None if busy is None else 1.0 - busy / ms
         out[kind] = r
-        log(f"engine {mode} {kind}" + (f"({GROUP_K})" if kind == "group"
-                                       else "")
-            + f": batch {TRAIN_BATCH}, {ENGINE_STEPS} steps ({calls} calls) "
-            f"after warm-up: {ms:.2f} ms/step (CUDA events), {img_s:.1f} "
-            f"img/s, host {r['host_img_per_s']:.1f} img/s, peak memory "
-            f"{r['max_memory_gib']:.2f} GiB allocated, "
-            f"{r['max_reserved_gib']:.2f} GiB reserved (the graph's pool "
-            f"included), launches per step "
-            f"{r['launches_per_step']}, device busy "
-            + ("not measured" if busy is None else f"{busy:.2f}")
-            + " ms per step, idle share "
-            + ("not measured" if busy is None else f"{r['idle_share']:.4f}")
-            + f", MFU {r['mfu']:.4f} counting multiply-adds (bench.py:63), "
-            f"{r['mfu_2flops']:.4f} at 2 FLOPs per multiply-add"
-            + (f", capture {r['capture_s']:.2f} s (outside the window)"
-               if kind == "group" else ""))
+        log(f"engine {mode}" + timed_line(r, kind, TRAIN_BATCH, ENGINE_STEPS)
+            + f" (bench.py:63); launches per step {r['launches_per_step']}")
         if any(counts[k] != v * ENGINE_STEPS for k, v in want.items()):
             fail(f"engine {mode} {kind}: launches {counts} != {want} per "
                  f"step x {ENGINE_STEPS}")
@@ -1341,6 +1416,405 @@ def engine_phase(torch, np, pc, ResNet50, card):
     with tempfile.TemporaryDirectory() as tmp:
         res["early_stopping"] = early_stopping_check(torch, np, ResNet50, tmp)
     torch.backends.cudnn.deterministic = False
+    return res
+
+
+# ------------------------------------------------------------ phase 5c
+
+
+def vgg16(VGG16, compute_dtype="bfloat16"):
+    """The zoo's full-width VGG16 (224x224x3, 1000 classes, dropout 0.5 on
+    both 4096-wide dense layers' inputs, nesterovs; bench.py:506
+    bench_vgg16's model) at VGG16_LR, seeded random weights, as a
+    MultiLayerNetwork."""
+    return VGG16(input_shape=(HW, HW, 3), learning_rate=VGG16_LR,
+                 compute_dtype=compute_dtype).init_model(device=DEV)
+
+
+def macs_per_image(net):
+    """Multiply-adds of one image's forward, from the layer shapes:
+    out_h * out_w * kh * kw * c_in * c_out per convolution, n_in * n_out
+    per dense and output layer."""
+    total = 0
+    for layer, t in zip(net.conf.layers, net.layer_input_types):
+        kind = type(layer).__name__
+        if kind == "ConvolutionLayer":
+            o = layer.output_type(t)
+            kh, kw = layer.kernel_size
+            total += o.height * o.width * kh * kw * t.channels * o.channels
+        elif kind in ("DenseLayer", "OutputLayer"):
+            total += layer.n_in * layer.n_out
+    return total
+
+
+def mln_batches(np, seed, n, batch, ncls=1000):
+    """n seeded host batches of images scaled by MLN_INPUT_SCALE and
+    one-hot labels."""
+    return [(x * np.float32(MLN_INPUT_SCALE), y)
+            for x, y in engine_batches(np, seed, n, batch, ncls)]
+
+
+def mln_batch(torch, np, seed, batch, ncls=1000):
+    """One seeded batch on the card, as the input pipeline stages it."""
+    ((x, y),) = mln_batches(np, seed, 1, batch, ncls)
+    return torch.from_numpy(x).to(DEV), torch.from_numpy(y).to(DEV)
+
+
+def mln_inference(torch, np, MultiLayerNetwork, net):
+    """VGG16's `output` at MLN_BATCH timed by CUDA events; its log-probs
+    against the f32 torch path (the same params, compute_dtype None, TF32
+    off); then a few requests through ParallelInference, each against a
+    direct `output` of its rows."""
+    from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
+
+    x, _ = mln_batch(torch, np, 71, MLN_BATCH)
+    for _ in range(3):
+        out = net.output(x)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(MLN_OUTPUT_CALLS + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(MLN_OUTPUT_CALLS):
+        out = net.output(x)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / MLN_OUTPUT_CALLS
+    ms = [events[i].elapsed_time(events[i + 1])
+          for i in range(MLN_OUTPUT_CALLS)]
+    f32 = MultiLayerNetwork(net.conf, device=DEV)
+    f32.params, f32.states = net.params, net.states
+    ref = f32.output(x)
+    got = out.cpu().numpy()
+    if got.shape != (MLN_BATCH, 1000) or not np.isfinite(got).all():
+        fail(f"mln: VGG16 output {got.shape} not finite of shape "
+             f"({MLN_BATCH}, 1000)")
+    gap = logp_gap(np, got, ref.cpu().numpy())
+    res = {"output_ms": float(np.mean(ms)), "output_ms_min": min(ms),
+           "output_ms_max": max(ms), "output_host_ms": host_ms,
+           "bf16_vs_f32_logp_gap": gap}
+    del f32, ref
+    rng = np.random.default_rng(72)
+    reqs = [serving_inputs(np, rng, s) * np.float32(MLN_INPUT_SCALE)
+            for s in MLN_SERVE_SIZES]
+    pi = ParallelInference(net, batch_limit=MLN_BATCH, queue_limit=64,
+                           default_timeout_s=300.0, max_wait_ms=2.0)
+    errors, served = [], [None] * len(reqs)
+
+    def client(i):
+        try:
+            served[i] = pi.output(reqs[i])
+        except Exception as e:   # noqa: BLE001 - reported below
+            errors.append(e)
+
+    try:
+        warmed = pi.stats()["warmed_buckets"]
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        st = pi.stats()
+    finally:
+        pi.shutdown()
+    if errors:
+        fail(f"mln: ParallelInference raised {errors[0]!r}")
+    worst = 0.0
+    for r, s in zip(reqs, served):
+        direct = net.output(r).cpu().numpy()
+        if s.shape != direct.shape or not np.isfinite(s).all():
+            fail(f"mln: served response {s.shape} != {direct.shape}")
+        worst = max(worst, logp_gap(np, s, direct))
+    res.update(served_requests=len(reqs), served_logp_gap=worst,
+               warmed_buckets=warmed, batches=st["batches_dispatched"])
+    log(f"mln inference: VGG16 output at batch {MLN_BATCH}, bf16 policy: "
+        f"{res['output_ms']:.3f} ms per call (CUDA events, mean of "
+        f"{MLN_OUTPUT_CALLS}; min {res['output_ms_min']:.3f}, max "
+        f"{res['output_ms_max']:.3f}; host {host_ms:.3f} ms), "
+        f"{MLN_BATCH / res['output_ms'] * 1e3:.1f} img/s; max |log p gap| "
+        f"against the f32 torch path {gap:.4e} (limit "
+        f"{MLN_LOGP_TOL['bf16_vs_f32']:g}); ParallelInference: "
+        f"{len(reqs)} requests of {MLN_SERVE_SIZES} rows in "
+        f"{st['batches_dispatched']} batches (warmed {warmed}), max |log p "
+        f"gap| against direct output {worst:.4e} (limit "
+        f"{MLN_LOGP_TOL['served']:g})")
+    if gap > MLN_LOGP_TOL["bf16_vs_f32"] or worst > MLN_LOGP_TOL["served"]:
+        fail("mln: VGG16 log-probs outside their limits")
+    return res
+
+
+def mln_timed(torch, np, VGG16, card):
+    """StepProgram.run (eager) and run_group(GROUP_K) (one CUDA-graph
+    replay) on one VGG16 with dropout on, each for MLN_STEPS steps on one
+    fixed batch of MLN_BATCH after warm-up (and capture): `timed_steps`'
+    readings with MFU from VGG16's multiply-adds. Then a second k
+    (2 * GROUP_K) captures into the program's one graph pool, a window of
+    GROUP_K // 2 steps runs eagerly, and the reserved memory of two
+    groups in one pool is read against two pools."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    x, y = mln_batch(torch, np, 73, MLN_BATCH)
+    net = vgg16(VGG16)
+    macs = macs_per_image(net)
+    if not net._has_dropout():
+        fail("mln: VGG16 has no dropout")
+    prog = StepProgram(net)
+    xs, ys = torch.stack([x] * GROUP_K), torch.stack([y] * GROUP_K)
+    out, losses = {"macs_per_image": macs, "card": card}, []
+    for kind in ("run", "group"):
+        call = (lambda: prog.run(x, y)) if kind == "run" \
+            else (lambda: prog.run_group(xs, ys))
+        r, ls = timed_steps(
+            torch, prog, kind, call, steps=MLN_STEPS,
+            warmup=MLN_WARMUP if kind == "run" else 1, batch=MLN_BATCH,
+            macs=macs, profile_steps=MLN_PROFILE_STEPS)
+        losses.extend(ls)
+        out[kind] = r
+        log("mln VGG16" + timed_line(r, kind, MLN_BATCH, MLN_STEPS)
+            + f" ({macs / 1e9:.3f}e9 multiply-adds per image); bf16, "
+            f"dropout on [{card}]; top kernels (ms per step): "
+            + ", ".join(f"{n} {t:.3f}" for n, t in r["top_kernels"]))
+    vals = [float(v) for v in losses]
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"mln VGG16: loss not finite and falling: {vals}")
+    out["loss_first"], out["loss_last"] = vals[0], vals[-1]
+    log(f"mln VGG16: loss {vals[0]:.4f} -> {vals[-1]:.4f} over {len(vals)} "
+        "recorded steps")
+    # F2: one graph pool per StepProgram
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    k2 = 2 * GROUP_K
+    prog.run_group(torch.stack([x] * k2), torch.stack([y] * k2))
+    half = GROUP_K // 2
+    prog.run_group(torch.stack([x] * half), torch.stack([y] * half))
+    torch.cuda.synchronize()
+    pools = {g.graph.pool() for g in prog._groups.values()}
+    out["pool"] = {"groups": len(prog._groups), "pools": len(pools),
+                   "captures": prog.group_stats["captures"],
+                   "eager_windows": prog.group_stats["eager_windows"],
+                   "reserved_gib_before": reserved,
+                   "reserved_gib_after": torch.cuda.memory_reserved()
+                   / 2 ** 30}
+    log(f"mln VGG16 graph pool: after run_group({k2}) and "
+        f"run_group({half}): {out['pool']}")
+    if not (len(prog._groups) == 2 and len(pools) == 1
+            and prog.group_stats["eager_windows"] == 1):
+        fail("mln: the second k did not capture into the program's one "
+             "pool, or the shorter window did not run eagerly")
+    # what sharing saves: the two groups (k=GROUP_K, then k2) in one
+    # program's pool against the same two in two programs (a pool each,
+    # as every group had one before), reserved memory from an emptied
+    # cache, on the same net
+    del prog
+    grow = {}
+    for how in ("one pool", "two pools"):
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        progs = [StepProgram(net)]
+        if how == "two pools":
+            progs.append(StepProgram(net))
+        for p, k in zip(progs * 2, (GROUP_K, k2)):
+            p.run_group(torch.stack([x] * k), torch.stack([y] * k))
+        torch.cuda.synchronize()
+        grow[how] = (torch.cuda.memory_reserved() - r0) / 2 ** 30
+        del progs, p
+    out["pool"]["reserved_growth_gib"] = grow
+    log(f"mln VGG16 graph pools: reserved memory grows {grow['one pool']:.3f}"
+        f" GiB for run_group({GROUP_K}) and run_group({k2}) in one program "
+        f"(one pool) against {grow['two pools']:.3f} GiB in two programs "
+        "(a pool each)")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def mln_dropout_checks(torch, np, VGG16):
+    """Dropout on the card, full-width VGG16 at MLN_CHECK_BATCH: from one
+    generator state, GROUP_K eager run() calls against one
+    run_group(GROUP_K) replay (params, updater state, losses and the
+    generator's state bit for bit); two consecutive replays from the same
+    carry draw different masks (their losses differ) unless the
+    generator is rewound too (then equal); a guard's skip of a NaN batch
+    ends where the run without that batch ends, bit for bit."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator,
+        EarlyStoppingConfiguration,
+        EarlyStoppingTrainer,
+        InMemoryModelSaver,
+        MaxEpochsTerminationCondition,
+    )
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.resilience import NonFiniteGuard
+    from deeplearning4j_tpu_torch.util.tree import clone
+
+    data = mln_batches(np, 74, GROUP_K, MLN_CHECK_BATCH)
+    xs = np.stack([d[0] for d in data])
+    ys = np.stack([d[1] for d in data])
+
+    def eager():
+        net = vgg16(VGG16)
+        prog = StepProgram(net)
+        return net, torch.stack([prog.run(x, y) for x, y in data])
+
+    res = {"deterministic": False}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        e1, l1 = eager()
+        e2, l2 = eager()
+        torch.cuda.synchronize()
+        same, n, diff = same_bits(torch, e1, e2)
+        same = same and bits_equal(torch, l1, l2)
+        log(f"mln dropout check: two eager runs of {GROUP_K} VGG16 steps "
+            f"(batch {MLN_CHECK_BATCH}, cudnn.deterministic={det}): {n} "
+            f"tensors, {diff} differ, losses equal {bits_equal(torch, l1, l2)}")
+        del e2
+        if same:
+            res["deterministic"] = det
+            break
+        if det:
+            fail("mln dropout check: two eager runs from one state differ "
+                 "even with cudnn.deterministic")
+        del e1
+        torch.cuda.empty_cache()
+    g = vgg16(VGG16)
+    prog = StepProgram(g)
+    prog.run_group(xs, ys)
+    torch.cuda.synchronize()
+    same, n, diff = same_bits(torch, e1, g)
+    rng_same = bits_equal(torch, e1._rng_state(), g._rng_state())
+    losses_equal = bits_equal(torch, l1, prog.last_step_losses)
+    log(f"mln dropout check: run_group({GROUP_K}) against {GROUP_K} eager "
+        f"run() calls from one generator state: {n} tensors, {diff} differ; "
+        f"losses equal {losses_equal}; generator state equal {rng_same}")
+    if not (same and losses_equal and rng_same):
+        fail("mln dropout check: the replay differs from the eager steps")
+    del e1
+    guard = NonFiniteGuard("skip_step")
+    snap = guard.snapshot(g)
+    prog.run_group(xs, ys)
+    l_a = prog.last_step_losses.clone()
+    g._set_train_carry(clone(snap["carry"]))   # carry back, generator not
+    g.iteration = snap["iteration"]
+    prog.run_group(xs, ys)
+    l_b = prog.last_step_losses.clone()
+    guard.restore(g, snap)                     # carry and generator back
+    prog.run_group(xs, ys)
+    l_c = prog.last_step_losses.clone()
+    torch.cuda.synchronize()
+    res.update(tensors=n, replay_losses=[float(v) for v in l_a],
+               next_replay_losses=[float(v) for v in l_b],
+               captures=prog.group_stats["captures"])
+    log(f"mln dropout check: consecutive replays from one carry: losses "
+        f"{res['replay_losses']} then {res['next_replay_losses']} (new "
+        f"masks); with the generator rewound too, equal "
+        f"{bits_equal(torch, l_a, l_c)}")
+    if bits_equal(torch, l_a, l_b) or not bits_equal(torch, l_a, l_c) \
+            or prog.group_stats["captures"] != 1:
+        fail("mln dropout check: consecutive replays drew the same masks, "
+             "or a rewound replay differs")
+    del g, prog, snap
+    torch.cuda.empty_cache()
+
+    x_all = np.concatenate([d[0] for d in data])
+    y_all = np.concatenate([d[1] for d in data])
+    bad = x_all.copy()
+    bad[2 * MLN_CHECK_BATCH:3 * MLN_CHECK_BATCH] = np.nan
+    keep = np.r_[0:2 * MLN_CHECK_BATCH, 3 * MLN_CHECK_BATCH:len(x_all)]
+    held = mln_batches(np, 75, 1, MLN_CHECK_BATCH)
+
+    def fit(x, y):
+        net = vgg16(VGG16)
+        guard = NonFiniteGuard("skip_step", check_every=1)
+        cfg = EarlyStoppingConfiguration(
+            epoch_termination_conditions=[MaxEpochsTerminationCondition(2)],
+            model_saver=InMemoryModelSaver(),
+            score_calculator=DataSetLossCalculator(held))
+        result = EarlyStoppingTrainer(
+            cfg, net, ListDataSetIterator(DataSet(x, y),
+                                          batch_size=MLN_CHECK_BATCH),
+            guard=guard).fit()
+        return net, guard, result
+
+    poisoned, pguard, presult = fit(bad, y_all)
+    clean, _, cresult = fit(x_all[keep], y_all[keep])
+    torch.cuda.synchronize()
+    same, n, diff = same_bits(torch, poisoned, clean)
+    rng_same = bits_equal(torch, poisoned._rng_state(), clean._rng_state())
+    res["poisoned"] = {"guard": pguard.stats(), "tensors": n, "differ": diff,
+                       "generator_equal": rng_same,
+                       "score_vs_epoch": presult.score_vs_epoch,
+                       "clean_score_vs_epoch": cresult.score_vs_epoch}
+    log(f"mln dropout check: EarlyStoppingTrainer over {GROUP_K} batches of "
+        f"{MLN_CHECK_BATCH}, batch 3 NaN, 2 epochs, dropout on: guard "
+        f"{pguard.stats()}; against the 3 clean batches: {n} tensors, {diff} "
+        f"differ, generator state equal {rng_same}, scores "
+        f"{presult.score_vs_epoch} vs {cresult.score_vs_epoch}")
+    if not (same and rng_same and pguard.counters["skipped_steps"] == 2
+            and presult.score_vs_epoch == cresult.score_vs_epoch):
+        fail("mln dropout check: the guard's skip with dropout on does not "
+             "end where the run without the batch ends")
+    del poisoned, clean
+    torch.cuda.empty_cache()
+    return res
+
+
+def alexnet_check(torch, np, AlexNet):
+    """AlexNet (the zoo's: 11x11 stride-4 "same" conv, LRN, dropout 0.5 on
+    the dense layers), full width at 224, bf16 policy, nesterovs at
+    ALEXNET_LR: ALEXNET_STEPS train steps on one fixed batch of MLN_BATCH,
+    with a finite, falling loss."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    x, y = mln_batch(torch, np, 76, MLN_BATCH)
+    net = AlexNet(input_shape=(HW, HW, 3), learning_rate=ALEXNET_LR,
+                  compute_dtype="bfloat16").init_model(device=DEV)
+    prog = StepProgram(net)
+    t0 = time.perf_counter()
+    vals = [float(prog.run(x, y)) for _ in range(ALEXNET_STEPS)]
+    secs = time.perf_counter() - t0
+    log(f"mln AlexNet: {net.num_params()} params, batch {MLN_BATCH}, bf16, "
+        f"dropout on: loss {vals} over {ALEXNET_STEPS} steps ({secs:.2f} s "
+        "with first-call costs)")
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"mln AlexNet: loss not finite and falling: {vals}")
+    del net, prog
+    torch.cuda.empty_cache()
+    return {"losses": vals, "seconds": secs}
+
+
+def mln_phase(torch, np, pc, card):
+    """Phase 5c: MultiLayerNetwork on the card (see the module docstring).
+    The kernel launch counters are set to 0 before it and read after it:
+    no kernel of csrc/ is on the MLN's path (an MLN has no helper tier)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo.models import VGG16, AlexNet
+
+    pc.reset_launch_counts()
+    net = vgg16(VGG16)
+    log(f"model: VGG16 (MultiLayerNetwork), {net.num_params()} params, "
+        f"{len(net.conf.layers)} layers, bf16 policy, dropout "
+        f"{[l.dropout for l in net.conf.layers if l.dropout]}")
+    res = {"card": card, "params": net.num_params(),
+           "inference": mln_inference(torch, np, MultiLayerNetwork, net)}
+    del net
+    torch.cuda.empty_cache()
+    res["train"] = mln_timed(torch, np, VGG16, card)
+    res["dropout"] = mln_dropout_checks(torch, np, VGG16)
+    torch.backends.cudnn.deterministic = False
+    res["alexnet"] = alexnet_check(torch, np, AlexNet)
+    res["launches"] = {k: pc.LAUNCHES[k] for k in pc.LAUNCHES
+                       if "/" not in k}
+    t = res["train"]
+    log(f"mln summary on {card}: VGG16 output {res['inference']['output_ms']:.3f} "
+        f"ms at batch {MLN_BATCH}; run {t['run']['ms_per_step']:.2f} and "
+        f"run_group({GROUP_K}) {t['group']['ms_per_step']:.2f} ms/step, "
+        f"{t['run']['img_per_s']:.1f} and {t['group']['img_per_s']:.1f} "
+        f"img/s, idle share {t['run']['idle_share']} and "
+        f"{t['group']['idle_share']}, MFU {t['run']['mfu']:.4f} and "
+        f"{t['group']['mfu']:.4f} (x2: {t['run']['mfu_2flops']:.4f} and "
+        f"{t['group']['mfu_2flops']:.4f}); kernel launches on the MLN path "
+        f"{res['launches']}")
     return res
 
 
@@ -1611,6 +2085,13 @@ def main():
     engine = engine_phase(torch, np, pc, ResNet50, card)
     log(f"engine phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5c. MultiLayerNetwork: VGG16 serving and training (eager and one
+    # CUDA-graph replay of GROUP_K steps, dropout on), the dropout checks,
+    # AlexNet
+    t0 = time.perf_counter()
+    mln = mln_phase(torch, np, pc, card)
+    log(f"mln phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -1667,7 +2148,8 @@ def main():
                        "train_step_totals": train_totals,
                        "serving": serving, "reference": reference,
                        "forward_ms": fwd, "step_check": step,
-                       "train": train, "engine": engine}, f, indent=1,
+                       "train": train, "engine": engine, "mln": mln},
+                      f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
         f"kernel calls of one batch-{BATCH} forward (fused_conv*) or of one "

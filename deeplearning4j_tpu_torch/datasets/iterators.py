@@ -126,7 +126,16 @@ class AsyncDataSetIterator(DataSetIterator):
     bounded queue of upcoming host batches full (ref:
     AsyncDataSetIterator.java:30,36 AsyncPrefetchThread). `prepare(item)
     -> item`, when given, runs on that thread on each item before it is
-    queued."""
+    queued.
+
+    It calls on `base` exactly what a loop over `base` itself would:
+    `reset()` resets the base (and starts nothing), and a pass
+    (`__iter__`, or `__next__` with no pass running) starts ONE producer,
+    which iterates the base once. So `reset()` then `for b in it` resets
+    a shuffled base as often, and yields the same batches in the same
+    order, as `reset()` then `for b in base`. Every base call is made
+    under a lock and only by the current producer: a superseded producer
+    never resets or advances the base again."""
 
     _SENTINEL = object()
 
@@ -138,6 +147,7 @@ class AsyncDataSetIterator(DataSetIterator):
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._gen = 0  # restart generation: stale producers self-terminate
+        self._base_lock = threading.Lock()
         self._exhausted = False
 
     def _start(self):
@@ -160,7 +170,18 @@ class AsyncDataSetIterator(DataSetIterator):
                 return False  # superseded by a restart
 
             try:
-                for item in self.base:
+                with self._base_lock:
+                    if self._gen != gen:
+                        return
+                    it = iter(self.base)
+                while True:
+                    with self._base_lock:
+                        if self._gen != gen:
+                            return
+                        try:
+                            item = next(it)
+                        except StopIteration:
+                            break
                     if self.prepare is not None:
                         item = self.prepare(item)
                     if not put(item):
@@ -175,17 +196,17 @@ class AsyncDataSetIterator(DataSetIterator):
         self._thread.start()
 
     def __iter__(self):
-        if hasattr(self.base, "reset"):
-            self.base.reset()
         self._exhausted = False
         self._start()
         return self
 
     def reset(self):
-        if hasattr(self.base, "reset"):
-            self.base.reset()
+        self._gen += 1           # a running producer stops touching base
+        self._q = None
+        with self._base_lock:
+            if hasattr(self.base, "reset"):
+                self.base.reset()
         self._exhausted = False
-        self._start()
 
     def __next__(self):
         if self._exhausted:

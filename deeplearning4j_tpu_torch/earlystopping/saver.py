@@ -50,7 +50,7 @@ class LocalFileModelSaver:
     Writes ride util/model_serializer.write_model's crash-safe path (tmp
     + fsync + os.replace, sha256 sidecar), so a kill mid-save never
     clobbers the previous best/latest model; loads go through
-    `restore_computation_graph`, which surfaces a torn file as
+    `restore_model` (a graph or a layer list), which surfaces a torn file as
     CheckpointIntegrityError instead of silently restoring garbage. A
     model loads on `like_net`'s device and compute dtype when one is
     given (else on the port's default device)."""
@@ -72,7 +72,7 @@ class LocalFileModelSaver:
 
     def _load(self, tag, like_net):
         from deeplearning4j_tpu_torch.util.model_serializer import (
-            restore_computation_graph,
+            restore_model,
         )
         p = self._path(tag)
         if not os.path.exists(p):
@@ -81,7 +81,7 @@ class LocalFileModelSaver:
         if like_net is not None:
             kw = {"device": like_net.device,
                   "compute_dtype": like_net.compute_dtype}
-        return restore_computation_graph(p, **kw)
+        return restore_model(p, **kw)
 
     def get_best_model(self, like_net=None):
         return self._load("best", like_net)

@@ -80,7 +80,7 @@ class EarlyStoppingTrainer:
     def fit(self) -> EarlyStoppingResult:
         cfg = self.config
         net = self.net
-        if net._params is None and net._flat_train is None:
+        if not net._initialized():
             net.init()
         for c in (cfg.epoch_termination_conditions
                   + cfg.iteration_termination_conditions):

@@ -2,10 +2,11 @@
 program + ONE host supervisor.
 
   StepProgram   the step half — one train step on an explicit carry
-                (ComputationGraph._step), in every grouping: `run` /
-                `run_batch` (one step) and `run_group` (k steps in one
-                dispatch: one replay of a CUDA graph holding k captured
-                train steps on the card, the body itself on the CPU),
+                (the network's `_step`, nn/base_network.py), in every
+                grouping: `run` / `run_batch` (one step) and `run_group`
+                (k steps in one dispatch: one replay of a CUDA graph
+                holding k captured train steps on the card, the body
+                itself on the CPU),
                 with the per-inner-step losses preserved so a
                 NonFiniteGuard can condemn ONE poisoned inner step.
   StepHarness   the host half — one supervisor owning the guard-verdict

@@ -1,21 +1,25 @@
 """StepProgram: the ONE train step every fit loop runs on (counterpart of
 deeplearning4j_tpu/engine/step_program.py).
 
-A StepProgram wraps a ComputationGraph and owns:
+A StepProgram wraps a network (ComputationGraph or MultiLayerNetwork:
+both carry nn/base_network.py's train-step contract) and owns:
 
   - `make_loss_and_apply(net)`: the two halves of the step math (the
     loss under the mixed-precision policy, and the update), which the
     net's `_step` composes with `torch.autograd.grad` and `clip_grads` —
     one source of step math for every grouping;
   - `run(x, y)`: one training step in the canonical (x, y, fm, lm) batch
-    shape, with the graph-input adaptation (the net's own `_train_step`);
+    shape, adapted to a graph's named inputs where the net is a graph
+    (the net's own `_train_step`);
   - `run_batch(batch)`: one step with full `fit_batch` semantics (the
     EarlyStoppingTrainer entry);
   - `run_group(xs, ys)`: k steps on stacked [k, ...] data in one
     dispatch. On the CPU the group body (k calls of the net's `_step`)
     runs directly. On CUDA the same body is captured once into a
     `torch.cuda.CUDAGraph` per group key and replayed: the counterpart of
-    the JAX package's `lax.scan` group under one `jax.jit`. The state
+    the JAX package's `lax.scan` group under one `jax.jit`. A window of
+    fewer steps than a group already captured for the same key runs as
+    eager steps (bit for bit the same) instead of capturing again. The state
     advances exactly as k `run()` calls would — bit for bit, since both
     run the same kernels on the same values — and `last_step_losses`
     holds the [k] per-step losses, so a NonFiniteGuard can condemn one
@@ -24,7 +28,7 @@ A StepProgram wraps a ComputationGraph and owns:
 How the captured group keeps the eager step's contract:
   - Per-step scalars (learning rate, step index) are tensors: a [k, 2]
     static buffer the host fills before each replay with the values the
-    eager steps would use (`ComputationGraph._step_scalars`); no Python
+    eager steps would use (the network's `_step_scalars`); no Python
     number of the step is baked into the graph. lr_policy="score" (a
     host-side decay per step) is rejected, as in the JAX package.
   - State lives in static buffers: the net's carry (the flat params and
@@ -41,6 +45,16 @@ How the captured group keeps the eager step's contract:
   - A warm-up step runs on a side stream before capture, so the kernels
     are built and loaded and autograd's buffers exist; if capture fails,
     run_group raises — it never runs eager steps in place of the graph.
+  - Dropout: the masks come from the net's own generator, registered
+    with each graph (`CUDAGraph.register_generator_state`), so every
+    replay draws new masks and advances the generator exactly as k
+    eager steps would; the warm-up step's draws are rewound.
+  - Memory: every group of one StepProgram captures into ONE graph pool
+    (`torch.cuda.graph_pool_handle()`), and at most MAX_GROUPS groups
+    are kept (the oldest is dropped). Sharing is safe because a replay
+    is self-contained: its inputs are copied in before it and its
+    outputs cloned out right after it, so no graph reads memory another
+    graph's replay may have written.
 
 Not ported yet: `attach_mesh` (ZeRO-1, ROADMAP queue 9), `lint_records`
 and `register_perf` (queues 8 and 10), `trainer_program` (queue 9).
@@ -54,12 +68,15 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.helpers import pallas_conv
-from deeplearning4j_tpu_torch.util.tree import clone, leaves
+from deeplearning4j_tpu_torch.util.tree import clone, leaves, tree_map
+
+# captured groups a StepProgram keeps (k-step windows of distinct shapes)
+MAX_GROUPS = 4
 
 
 def make_loss_and_apply(net):
     """(loss_for_grad, apply_updates) of `net` — the step math's two
-    halves that `ComputationGraph._step` composes.
+    halves that the network's `_step` composes.
 
     `loss_for_grad(params, states, inputs, labels, lmasks)` returns
     (loss, new_states) with the net's mixed-precision policy applied
@@ -75,23 +92,29 @@ class _CapturedGroup:
     buffers, the graph, its outputs, and the kernel launches one replay
     makes."""
 
-    def __init__(self, body, args, device):
+    def __init__(self, body, args, device, pool, gen=None):
         self.static = clone(args)
         self._in = leaves(self.static)
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
+        rng = None if gen is None else gen.get_state()
         # warm-up: builds and loads the kernels, creates autograd's and
-        # the allocator's buffers; its launches are real and count
+        # the allocator's buffers; its launches are real and count, its
+        # dropout draws are rewound
         with torch.cuda.stream(side):
             body(*self.static, steps=1)
         cur.wait_stream(side)
+        if gen is not None:
+            gen.set_state(rng)
         before = pallas_conv.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            self.graph.register_generator_state(gen)
         try:
             # thread_local: an input pipeline's producer thread may pin
             # host memory while this thread captures
-            with torch.cuda.graph(self.graph,
+            with torch.cuda.graph(self.graph, pool=pool,
                                   capture_error_mode="thread_local"):
                 self.out = body(*self.static)
         except Exception as e:
@@ -136,8 +159,10 @@ class StepProgram:
         # tensor; read by the guard only on checked groups)
         self.last_step_losses = None
         self._groups = {}
-        # capture cost and replay count of the CUDA-graph groups
-        self.group_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+        self._pool = None   # the graph pool every group captures into
+        # capture cost, replay count and eager-run windows of the groups
+        self.group_stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
+                            "eager_windows": 0}
 
     # ------------------------------------------------------------ mesh
     def attach_mesh(self, manager) -> "StepProgram":
@@ -158,15 +183,17 @@ class StepProgram:
                 "use stochastic_gradient_descent")
 
     # ------------------------------------------------------- single step
-    def _graph_args(self, x, y, fm, lm):
-        return ([x], [y], None if fm is None else [fm],
-                None if lm is None else [lm])
-
     def _tensors(self, x, y, fm, lm):
+        """The batch as the net's `_batch_tensors` gives it: a graph
+        takes per-input lists (its one input and output named by the
+        configuration), a layer list the tensors themselves."""
         net = self.net
-        if net._params is None and net._flat_train is None:
+        if not net._initialized():
             net.init()
-        return net._batch_tensors(*self._graph_args(x, y, fm, lm))
+        if self.is_graph:
+            return net._batch_tensors([x], [y], None if fm is None else [fm],
+                                      None if lm is None else [lm])
+        return net._batch_tensors(x, y, fm, lm)
 
     def run(self, x, y, fm=None, lm=None):
         """One training step on a canonical (x, y[, fm, lm]) batch.
@@ -186,19 +213,18 @@ class StepProgram:
     def _frozen_sig(self):
         return tuple(sorted(self.net._frozen()))
 
-    def group_key(self, k, inputs, labels, lmasks, flat: bool):
-        """Cache key of a captured group: k, input/label shapes and
-        dtypes, masks present, frozen signature, helper mode, compute
-        dtype, and whether the carry is the flat chain's."""
+    def group_key(self, inputs, labels, lmasks, flat: bool):
+        """Cache key of a captured group, k aside: the per-step shapes and
+        dtypes of inputs, labels and label masks (None kept in place),
+        frozen signature, helper mode, compute dtype, whether the carry
+        is the flat chain's and whether dropout draws masks."""
         net = self.net
         plan = net._helper_plan()
-        sig = lambda ts: tuple((tuple(t.shape), str(t.dtype))
-                               for t in leaves(ts))
-        return ("engine_group", k, sig(inputs), sig(labels),
-                None if lmasks is None else tuple(m is not None
-                                                  for m in lmasks),
+        sig = lambda ts: repr(tree_map(
+            lambda t: (tuple(t.shape[1:]), str(t.dtype)), ts))
+        return ("engine_group", sig(inputs), sig(labels), sig(lmasks),
                 self._frozen_sig(), "none" if plan is None else plan.impl,
-                str(net.compute_dtype), flat)
+                str(net.compute_dtype), flat, net._has_dropout())
 
     def _group_body(self, carry, inputs, labels, lmasks, scalars,
                     steps=None):
@@ -208,13 +234,34 @@ class StepProgram:
         k = scalars.shape[0] if steps is None else steps
         losses = []
         for i in range(k):
-            carry, loss = net._step(
-                carry, {n: t[i] for n, t in inputs.items()},
-                [y[i] for y in labels],
-                None if lmasks is None else
-                [None if m is None else m[i] for m in lmasks], scalars[i])
+            at = lambda ts: tree_map(lambda t: t[i], ts)
+            carry, loss = net._step(carry, at(inputs), at(labels),
+                                    at(lmasks), scalars[i])
             losses.append(loss)
         return carry, torch.stack(losses)
+
+    def _captured(self, key, k, args):
+        """The group captured for (key, k), capturing it on first use
+        into the program's one pool; None when a group of more steps is
+        captured for `key` already (the window then runs eagerly)."""
+        net = self.net
+        grp = self._groups.get((key, k))
+        if grp is not None:
+            return grp
+        if any(gk == key and gn > k for gk, gn in self._groups):
+            return None
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        while len(self._groups) >= MAX_GROUPS:
+            del self._groups[next(iter(self._groups))]
+        t0 = time.perf_counter()
+        grp = _CapturedGroup(self._group_body, args, net.device, self._pool,
+                             net._train_rng())
+        torch.cuda.synchronize(net.device)
+        self.group_stats["capture_s"] += time.perf_counter() - t0
+        self.group_stats["captures"] += 1
+        self._groups[(key, k)] = grp
+        return grp
 
     def run_group(self, xs, ys, fms=None, lms=None):
         """k steps, one dispatch. `xs`/`ys` (and optional masks) carry a
@@ -223,7 +270,8 @@ class StepProgram:
         `last_step_losses` to the [k] device losses and `_score` to the
         final one. On CUDA the first call per group key captures the
         group into a CUDA graph (group_stats["capture_s"]); every call
-        replays it."""
+        replays it, except a window shorter than a group already
+        captured for the same shapes, which runs as k eager steps."""
         net = self.net
         if self.is_tbptt:
             raise NotImplementedError(
@@ -239,19 +287,16 @@ class StepProgram:
         carry = net._train_carry()
         scalars = net._step_scalars(net.iteration, k)
         args = (carry, inputs, labels, lmasks, scalars)
-        if net.device.type == "cpu":
+        grp = None
+        if net.device.type != "cpu":
+            grp = self._captured(self.group_key(
+                inputs, labels, lmasks, isinstance(carry[0], torch.Tensor)),
+                k, args)
+            if grp is None:
+                self.group_stats["eager_windows"] += 1
+        if grp is None:
             carry, losses = self._group_body(*args)
         else:
-            key = self.group_key(k, inputs, labels, lmasks,
-                                 isinstance(carry[0], torch.Tensor))
-            grp = self._groups.get(key)
-            if grp is None:
-                t0 = time.perf_counter()
-                grp = _CapturedGroup(self._group_body, args, net.device)
-                torch.cuda.synchronize(net.device)
-                self.group_stats["capture_s"] += time.perf_counter() - t0
-                self.group_stats["captures"] += 1
-                self._groups[key] = grp
             carry, losses = grp.replay(args)
             self.group_stats["replays"] += 1
         net._set_train_carry(carry)
@@ -261,6 +306,6 @@ class StepProgram:
         return net._score
 
     def group_launches(self):
-        """{group key: kernel launches one replay makes} of the captured
-        groups (launch_counts' keys)."""
+        """{(group key, k): kernel launches one replay makes} of the
+        captured groups (launch_counts' keys)."""
         return {key: dict(g.launches) for key, g in self._groups.items()}

@@ -1,5 +1,6 @@
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.network import (  # noqa: F401
+    MultiLayerConfiguration,
     NeuralNetConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (  # noqa: F401

@@ -315,6 +315,11 @@ class GraphBuilder:
             conf.seed = g["seed"]
             conf.updater = g["updater"]
             conf.learning_rate = g["learning_rate"]
+            known = {f.name for f in dataclasses.fields(
+                ComputationGraphConfiguration)}
+            for k, v in self._global._extra.items():
+                if k in known:
+                    setattr(conf, k, v)
             for node in conf.nodes:
                 if node.kind == "layer":
                     _apply_global_defaults(node.obj, g)

@@ -78,18 +78,21 @@ def preprocessor_from_dict(d: dict) -> InputPreProcessor:
 
 def infer_preprocessor(prev_type: InputType, layer) -> InputPreProcessor | None:
     """The JAX package's auto-insertion rules, for the ported layers:
-      convolutionalFlat input + conv/subsampling/BN layer -> unflatten
+      convolutionalFlat input + conv-like/BN layer -> unflatten
       convolutional output + dense/output layer           -> flatten
     """
     from deeplearning4j_tpu_torch.nn.layers.conv import (
         ConvolutionLayer,
+        LocalResponseNormalization,
         SubsamplingLayer,
+        ZeroPaddingLayer,
     )
     from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer, OutputLayer
     from deeplearning4j_tpu_torch.nn.layers.norm import BatchNormalization
 
     if isinstance(prev_type, InputTypeConvolutionalFlat):
         if isinstance(layer, (ConvolutionLayer, SubsamplingLayer,
+                              ZeroPaddingLayer, LocalResponseNormalization,
                               BatchNormalization)):
             return FeedForwardToCnnPreProcessor(
                 prev_type.height, prev_type.width, prev_type.channels)

@@ -22,14 +22,15 @@ updater-state field when the configuration allows (updater/flat_chain.py);
 and any such access drops the flat carry, since the caller may mutate the
 returned tree.
 
-One function holds the step math: `_step(carry, inputs, labels, lmasks,
-scalars)` runs the forward, `torch.autograd.grad`, `clip_grads` and the
-update on an explicit carry (params, updater state, BN states) and one row
-of per-step scalars (learning rate, step index) that lives on the device.
-`_train_step` (fit_batch, engine.StepProgram.run) and the k-step group of
-engine.StepProgram.run_group both call it; since the scalars are tensors,
-the same step can be captured once into a CUDA graph and replayed with new
-values.
+The train-step contract (the flat carry, `_step`, `_train_step`,
+`_step_scalars`, the dropout generator) is nn/base_network.py's, shared
+with MultiLayerNetwork: one function holds the step math, `_step(carry,
+inputs, labels, lmasks, scalars)`, on an explicit carry (params, updater
+state, BN states) and one row of per-step scalars (learning rate, step
+index) that lives on the device. `_train_step` (fit_batch,
+engine.StepProgram.run) and the k-step group of engine.StepProgram.run_group
+both call it; since the scalars are tensors, the same step can be
+captured once into a CUDA graph and replayed with new values.
 """
 
 from __future__ import annotations
@@ -37,31 +38,15 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn.base_network import BaseNetwork, batch_loss
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration,
     GraphNode,
 )
-from deeplearning4j_tpu_torch.nn.dtype import canonical_dtype, cast_floating
+from deeplearning4j_tpu_torch.nn.dtype import cast_floating
 from deeplearning4j_tpu_torch.nn.layers.core import BaseOutputLayer
-from deeplearning4j_tpu_torch.nn.updater import (
-    apply_score_decay,
-    fused_apply,
-    get_updater,
-    schedule_lr,
-)
-from deeplearning4j_tpu_torch.util.tree import leaves, tree_map, unflatten
-
-
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    return tree
 
 
 def _as_multi(data):
@@ -80,111 +65,40 @@ def _as_multi(data):
     return [data], None, None, None
 
 
-def _grad_norm(tree):
-    return torch.sqrt(sum(torch.sum(g * g) for g in leaves(tree)) + 1e-12)
-
-
-def clip_grads(conf, grads):
-    """Gradient normalization (the JAX package's
-    MultiLayerNetwork._clip_grads): a global-norm clip (max_grad_norm),
-    then the configured mode over a dict of per-layer grads, or over one
-    flat gradient on the flat chain (elementwise modes only)."""
-    if conf.max_grad_norm:
-        total = torch.sqrt(sum(torch.sum(g * g) for g in leaves(grads)))
-        scale = torch.clamp_max(conf.max_grad_norm / (total + 1e-12), 1.0)
-        grads = tree_map(lambda g: g * scale, grads)
-    gn = conf.gradient_normalization
-    if not gn or gn == "none":
-        return grads
-    t = conf.gradient_normalization_threshold
-    if gn == "clip_element_wise_absolute_value":
-        return tree_map(lambda g: torch.clamp(g, -t, t), grads)
-    if gn == "clip_l2_per_layer":
-        return {k: tree_map(lambda g, s=torch.clamp_max(
-            t / _grad_norm(lg), 1.0): g * s, lg) for k, lg in grads.items()}
-    if gn == "renormalize_l2_per_layer":
-        return {k: tree_map(lambda g, s=1.0 / _grad_norm(lg): g * s, lg)
-                for k, lg in grads.items()}
-    if gn == "clip_l2_per_param_type":
-        return tree_map(lambda g: g * torch.clamp_max(
-            t / torch.sqrt(torch.sum(g * g) + 1e-12), 1.0), grads)
-    if gn == "renormalize_l2_per_param_type":
-        return tree_map(lambda g: g / torch.sqrt(torch.sum(g * g) + 1e-12),
-                        grads)
-    raise ValueError(f"Unknown gradient normalization '{gn}'")
-
-
-class ComputationGraph:
+class ComputationGraph(BaseNetwork):
     def __init__(self, conf: ComputationGraphConfiguration,
                  dtype=torch.float32, compute_dtype=None, device=None):
         if not conf.nodes:
             raise ValueError("Configuration has no nodes")
-        self.device = resolve_device(device)
+        self._init_state(dtype, compute_dtype, device)
         self.conf = conf
-        self.dtype = canonical_dtype(dtype)
-        self.compute_dtype = canonical_dtype(compute_dtype)
         self.topo: List[GraphNode] = conf.topological_order()
         self.node_types = None
         self._layer_in_types = None
         if conf.input_types:
             self.node_types, self._layer_in_types = conf.resolve_shapes(
                 return_layer_inputs=True)
-        self._params: Optional[Dict[str, Any]] = None
-        self.states: Optional[Dict[str, Any]] = None
-        self._upd_states: Optional[Dict[str, Any]] = None
-        self._updaters: Optional[Dict[str, Any]] = None
-        self._flat_train = None       # (flat params, flat updater state)
-        self._flat_chain = "uninit"   # grad-over-flat carrier (updater/)
-        self._cast_params = None      # params in the compute dtype (cache)
+        self._layer_names = [n.name for n in self.topo if n.kind == "layer"]
         self._fusion_plan = "uninit"   # helper tier (nn/helpers/)
-        self.iteration = 0
-        self.epoch = 0
-        self._score = None
-        self._lr_score_factor = 1.0   # lr_policy="score" decay state
-        self._best_score = None
 
-    # -------------------------------------------------- params (flat carry)
-    def _materialize_flat(self):
-        if self._flat_train is not None:
-            chain = self._flat_chain
-            flat, uflat = self._flat_train
-            self._params = chain.unravel(flat)
-            self._upd_states = chain.unravel_upd(uflat, self._upd_states)
-            self._flat_train = None
+    # ------------------------------------------------- BaseNetwork hooks
+    def _layer_items(self):
+        return [(n.name, n.obj) for n in self.topo if n.kind == "layer"]
 
-    @property
-    def params(self):
-        self._materialize_flat()
-        return self._params
+    def _pack(self, values):
+        return dict(zip(self._layer_names, values))
 
-    @params.setter
-    def params(self, value):
-        self._materialize_flat()
-        self._cast_params = None
-        self._params = value
-
-    @property
-    def updater_states(self):
-        self._materialize_flat()
-        return self._upd_states
-
-    @updater_states.setter
-    def updater_states(self, value):
-        self._materialize_flat()
-        self._upd_states = value
-
-    def _flat_chain_obj(self):
-        if self._flat_chain == "uninit":
-            from deeplearning4j_tpu_torch.nn.updater.flat_chain import (
-                FlatTrainChain,
-            )
-            self._flat_chain = FlatTrainChain.build(self)
-        return self._flat_chain
+    def _build_flat_chain(self):
+        from deeplearning4j_tpu_torch.nn.updater.flat_chain import (
+            FlatTrainChain,
+        )
+        return FlatTrainChain.build(self)
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None) -> "ComputationGraph":
         """Initialize params from a seeded torch.Generator (drawn on the
-        CPU, then moved to the device) and the updater states."""
+        CPU, then moved to the device), the updater states and the
+        dropout generator."""
         if self.node_types is None:
             raise ValueError("set input types on the configuration "
                              "before init()")
@@ -197,25 +111,7 @@ class ComputationGraph:
             t = self._layer_in_types[node.name]
             params[node.name] = node.obj.init_params(gen, t, self.dtype)
             states[node.name] = node.obj.init_state(t, self.dtype)
-        self.params = _tree_to(params, self.device)
-        self.states = _tree_to(states, self.device)
-        self._init_updaters()
-        return self
-
-    def _init_updaters(self):
-        self._updaters = {}
-        upd_states = {}
-        for node in self.topo:
-            if node.kind != "layer":
-                continue
-            upd = get_updater(node.obj.updater or self.conf.updater,
-                              self.conf)
-            self._updaters[node.name] = upd
-            upd_states[node.name] = upd.init(self._params[node.name])
-        self.updater_states = upd_states
-
-    def num_params(self) -> int:
-        return sum(int(t.numel()) for t in leaves(self.params))
+        return self._finish_init(params, states, seed)
 
     # --------------------------------------------------------------- forward
     def _helper_plan(self):
@@ -242,25 +138,27 @@ class ComputationGraph:
         return self._fusion_plan
 
     def _forward(self, params, states, inputs: Dict[str, Any], *,
-                 train: bool = False, materialize_all: bool = False):
+                 train: bool = False, materialize_all: bool = False,
+                 rng=None):
         """Forward over the DAG. Returns (activations, new_states); in
         train mode BatchNorm normalizes with batch statistics and
-        new_states carries the updated running statistics."""
+        new_states carries the updated running statistics, and layers
+        with dropout draw their masks from `rng` in topological order."""
         if self._helper_plan() is not None:
             from deeplearning4j_tpu_torch.nn.helpers.fused_graph import (
                 fused_forward,
             )
             return fused_forward(self, params, states, inputs, train=train,
-                                 materialize_all=materialize_all)
+                                 materialize_all=materialize_all, rng=rng)
         acts: Dict[str, Any] = dict(inputs)
         new_states: Dict[str, Any] = {}
         for node in self.topo:
             self._exec_node(node, [acts[s] for s in node.inputs], params,
-                            states, acts, train, new_states)
+                            states, acts, train, new_states, rng)
         return acts, new_states
 
     def _exec_node(self, node, xs, params, states, acts, train=False,
-                   new_states=None):
+                   new_states=None, rng=None):
         """Execute ONE node with resolved inputs, writing its activation
         (and, given `new_states`, its state). Shared by the default loop
         and the fused executor's fallback."""
@@ -270,7 +168,7 @@ class ComputationGraph:
                 x = node.preprocessor.preprocess(x)
             st = states[node.name] if states[node.name] else None
             out, ns = node.obj.apply(params[node.name], x, train=train,
-                                     state=st)
+                                     rng=rng, state=st)
             acts[node.name] = out
             if new_states is not None:
                 new_states[node.name] = (ns if ns is not None
@@ -278,25 +176,12 @@ class ComputationGraph:
         else:
             acts[node.name] = node.obj.apply(xs)
 
-    def _compute_params(self):
-        if self.compute_dtype is None:
-            return self.params
-        if self._cast_params is None:
-            self._cast_params = cast_floating(self.params, self.compute_dtype)
-        return self._cast_params
-
-    def _as_input(self, x):
-        if isinstance(x, torch.Tensor):
-            return x.to(device=self.device, dtype=self.dtype)
-        return torch.as_tensor(np.asarray(x), dtype=self.dtype,
-                               device=self.device)
-
     # ------------------------------------------------------------------ loss
     def _output_layer_nodes(self) -> List[GraphNode]:
         return [self.conf.node(n) for n in self.conf.network_outputs]
 
     def _loss_fn(self, params, states, inputs, labels, label_masks=None,
-                 train=True):
+                 train=True, rng=None):
         """Sum of output-layer losses + regularization (the JAX package's
         ComputationGraph._loss_fn). Returns (loss, new_states)."""
         conf = self.conf
@@ -306,7 +191,8 @@ class ComputationGraph:
                 raise ValueError(
                     f"network output '{n.name}' must be an output layer "
                     f"to train; got {type(n.obj).__name__}")
-        acts, new_states = self._forward(params, states, inputs, train=train)
+        acts, new_states = self._forward(params, states, inputs, train=train,
+                                         rng=rng)
         total = 0.0
         for oi, node in enumerate(out_nodes):
             # the output layer's per-example loss, from its input
@@ -314,169 +200,16 @@ class ComputationGraph:
             if node.preprocessor is not None:
                 x = node.preprocessor.preprocess(x)
             layer = node.obj
-            x = layer._maybe_dropout_input(x, train)
+            x = layer._maybe_dropout_input(x, train, rng)
             lm = None if label_masks is None else label_masks[oi]
             per_ex = layer.per_example_loss_from_input(
                 params[node.name], x, labels[oi], mask=lm)
-            if lm is not None:
-                active = lm if lm.ndim == 1 else torch.any(lm > 0, dim=1).to(
-                    lm.dtype)
-                s = per_ex.sum()
-                total = total + (s / torch.clamp_min(active.sum(), 1.0)
-                                 if conf.minibatch else s)
-            elif conf.minibatch:
-                total = total + per_ex.mean()
-            else:
-                total = total + per_ex.sum()
+            total = total + batch_loss(conf, per_ex, lm)
         reg = 0.0
         for node in self.topo:
             if node.kind == "layer":
                 reg = reg + node.obj.regularization_loss(params[node.name])
         return total + reg, new_states
-
-    def _loss_for_grad(self, params, states, inputs, labels, lmasks):
-        """The train loss under the mixed-precision policy: params and
-        inputs cast to the compute dtype inside autograd (so gradients
-        reach the f32 master params in f32), the loss cast back.
-        Returns (loss, new_states)."""
-        cd = self.compute_dtype
-        if cd is not None:
-            params = cast_floating(params, cd)
-            inputs = cast_floating(inputs, cd)
-        loss, new_states = self._loss_fn(params, states, inputs, labels,
-                                         lmasks, train=True)
-        if cd is not None:
-            loss = loss.to(self.dtype)
-        return loss, new_states
-
-    # ------------------------------------------------------------ train step
-    def _frozen(self):
-        return {n.name for n in self.topo
-                if n.kind == "layer" and n.obj.frozen}
-
-    def _train_carry(self):
-        """The state a train step reads: (params, updater state, BN
-        states). On the flat chain (eligible configuration, nothing
-        frozen) params is one flat tensor and the updater state {field:
-        flat tensor}, raveled on first use; else the per-layer trees."""
-        chain = self._flat_chain_obj() if not self._frozen() else None
-        if chain is None:
-            return self.params, self.updater_states, self.states
-        if self._flat_train is None:
-            flat = chain.ravel(self._params)
-            uflat = chain.ravel_upd(self._upd_states)
-            # the live state is the flat carry; keep only a skeleton
-            self._upd_states = chain.upd_skeleton(self._upd_states)
-            self._params = None
-            self._flat_train = (flat, uflat)
-        return self._flat_train + (self.states,)
-
-    def _set_train_carry(self, carry):
-        """Rebind the net's state to a carry shaped as `_train_carry`
-        returns it."""
-        params, upd, states = carry
-        if isinstance(params, torch.Tensor):
-            if self._flat_train is None:
-                self._upd_states = self._flat_chain_obj().upd_skeleton(
-                    self._upd_states)
-            self._params = None
-            self._flat_train = (params, upd)
-        else:
-            self.params = params
-            self.updater_states = upd
-        self._cast_params = None
-        self.states = states
-
-    def _params_view(self):
-        """The per-layer params without dropping the flat carry (views
-        of it when it is live): for readers that mutate nothing."""
-        if self._flat_train is not None:
-            return self._flat_chain.unravel(self._flat_train[0])
-        return self._params
-
-    def _upd_view(self):
-        """The per-layer updater state, as `_params_view`."""
-        if self._flat_train is not None:
-            return self._flat_chain.unravel_upd(self._flat_train[1],
-                                                self._upd_states)
-        return self._upd_states
-
-    def _step_scalars(self, first_step: int, k: int = 1) -> torch.Tensor:
-        """[k, 2] per-step scalars of steps first_step .. first_step+k-1:
-        (learning rate, step index), computed on the host in double and
-        rounded once to the net's dtype, on the device. The copy leaves
-        from pinned memory without waiting for the device."""
-        conf = self.conf
-        rows = [[schedule_lr(conf, s) * self._lr_score_factor, float(s)]
-                for s in range(first_step, first_step + k)]
-        host = torch.tensor(rows, dtype=self.dtype)
-        if self.device.type == "cpu":
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
-
-    def _apply_updates(self, params, upd, grads, lr, step):
-        """The update: the flat chain's one elementwise rule when
-        `params` is the flat vector, else the per-layer rules with their
-        lr factors and frozen flags (`fused_apply`). Returns (params,
-        updater state)."""
-        if isinstance(params, torch.Tensor):
-            deltas, new_u = self._flat_chain.updater.update(
-                grads, upd, params, lr, step)
-            return params + deltas, new_u
-        frozen = self._frozen()
-        names = [n.name for n in self.topo if n.kind == "layer"]
-        np_list, nu_list = fused_apply(
-            [(self._updaters[n], self._lr_factor(n), n in frozen, params[n],
-              grads[n], upd[n]) for n in names], lr, step)
-        return dict(zip(names, np_list)), dict(zip(names, nu_list))
-
-    def _step(self, carry, inputs, labels, lmasks, scalars):
-        """ONE train step on an explicit carry — the step math every
-        caller shares: forward (`_loss_for_grad`), `torch.autograd.grad`,
-        `clip_grads` and the update (`_apply_updates`). `scalars` is one
-        row of `_step_scalars` ([2]: lr, step index, as tensors, so no
-        Python number of the step reaches a kernel). Returns (new carry,
-        loss); touches no net state, reads no value back to the host,
-        and allocates only on the device."""
-        params, upd, states = carry
-        flat = isinstance(params, torch.Tensor)
-        if flat:
-            leaf = params.detach().requires_grad_()
-            ps = [leaf]
-        else:
-            leaf = tree_map(lambda t: t.detach().requires_grad_(), params)
-            ps = leaves(leaf)
-        with torch.enable_grad():
-            loss, new_states = self._loss_for_grad(
-                self._flat_chain.unravel(leaf) if flat else leaf, states,
-                inputs, labels, lmasks)
-            gs = torch.autograd.grad(loss, ps, allow_unused=True)
-        with torch.no_grad():
-            gs = [torch.zeros_like(p) if g is None else g
-                  for p, g in zip(ps, gs)]
-            grads = clip_grads(self.conf, gs[0] if flat
-                               else unflatten(leaf, gs)[0])
-            new_p, new_u = self._apply_updates(params, upd, grads,
-                                               scalars[0], scalars[1])
-        return (new_p, new_u, new_states), loss.detach()
-
-    def _train_step(self, inputs, labels, lmasks=None):
-        """One forward, backward and update (`_step`) on the net's own
-        carry; advances the iteration and sets the score."""
-        carry, loss = self._step(self._train_carry(), inputs, labels,
-                                 lmasks, self._step_scalars(self.iteration)[0])
-        self._set_train_carry(carry)
-        self.iteration += 1
-        self._score = loss
-        apply_score_decay(self, self._score)
-        return self._score
-
-    def _lr_factor(self, name):
-        layer = self.conf.node(name).obj
-        lr = getattr(layer, "learning_rate", None)
-        if lr is None or self.conf.learning_rate == 0:
-            return 1.0
-        return lr / self.conf.learning_rate
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, epochs: int = 1):
@@ -505,14 +238,10 @@ class ComputationGraph:
     def fit_batch(self, batch):
         """Train on ONE batch; returns the loss (a 0-d tensor on the
         device, no host sync)."""
-        if self._params is None and self._flat_train is None:
+        if not self._initialized():
             self.init()
         ins, labs, fms, lms = _as_multi(batch)
-        if self.conf.optimization_algo not in (
-                "stochastic_gradient_descent", "sgd"):
-            raise NotImplementedError(
-                f"optimization_algo {self.conf.optimization_algo!r} is not "
-                f"ported yet")
+        self._require_sgd()
         self._train_step(*self._batch_tensors(ins, labs, fms, lms))
         return self._score
 

@@ -143,9 +143,10 @@ def _materialize(expr: _Expr):
 
 
 def fused_forward(net, params, states, inputs, *, train=False,
-                  materialize_all=False):
+                  materialize_all=False, rng=None):
     """Forward over the DAG when a fusion plan is active. Non-planned
-    nodes run through ComputationGraph._exec_node. Returns (activations,
+    nodes run through ComputationGraph._exec_node (layers with dropout
+    are never planned; they draw from `rng` there). Returns (activations,
     new_states)."""
     plan: Plan = net._fusion_plan
     by_name = {n.name: n for n in net.topo}
@@ -236,7 +237,8 @@ def fused_forward(net, params, states, inputs, *, train=False,
             virts[name] = _Expr(terms)
             continue
         xs = [resolve(s) for s in node.inputs]
-        net._exec_node(node, xs, params, states, acts, train, new_states)
+        net._exec_node(node, xs, params, states, acts, train, new_states,
+                       rng)
 
     if materialize_all:
         for name, y in raws.items():

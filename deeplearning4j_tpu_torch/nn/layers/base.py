@@ -6,8 +6,14 @@ package, so configurations serialize identically — carrying
 `apply(params, x, train=..., state=...) -> (y, state)`. Running
 statistics live in a separate `state` dict; a train-mode apply returns the
 updated state. Gradients come from autograd over the whole network.
-Input dropout waits for a later slice (it needs an explicit
-torch.Generator): a layer with dropout > 0 raises in train mode.
+
+Input dropout is inverted dropout, `where(mask, x / keep, 0)` with
+`keep = 1 - p`, split into a mask draw (`dropout_mask`, uniform draws
+from an explicit torch.Generator that the network owns, passed to
+`apply` as `rng`) and the apply step (`apply_dropout`), which tests hold
+against the JAX package on one shared mask. torch cannot reproduce
+`jax.random.bernoulli`'s bits, so the masks themselves are pinned within
+the port: one generator state gives one set of masks.
 """
 
 from __future__ import annotations
@@ -55,8 +61,9 @@ class Layer:
         return False
 
     # ---- forward ----
-    def apply(self, params, x, *, train=False, state=None):
-        """Returns (output, new_state)."""
+    def apply(self, params, x, *, train=False, rng=None, state=None):
+        """Returns (output, new_state). `rng`: the network's dropout
+        generator (train mode only)."""
         raise NotImplementedError
 
     # ---- regularization ----
@@ -80,12 +87,15 @@ class Layer:
         return reg
 
     # ---- input dropout ----
-    def _maybe_dropout_input(self, x, train):
+    def _maybe_dropout_input(self, x, train, rng):
         if not train or not self.dropout or self.dropout <= 0.0:
             return x
-        raise NotImplementedError(
-            f"Layer {self.name or type(self).__name__}: train-mode dropout "
-            f"is not ported yet (set dropout=0)")
+        if rng is None:
+            raise ValueError(
+                f"Layer {self.name or type(self).__name__} has dropout but "
+                f"no rng")
+        return apply_dropout(x, dropout_mask(x, self.dropout, rng),
+                             self.dropout)
 
     # ---- serde ----
     def to_dict(self) -> dict:
@@ -96,6 +106,23 @@ class Layer:
                 v = v.to_dict()
             d[f.name] = v
         return d
+
+
+def dropout_mask(x, p, gen):
+    """The keep mask of inverted dropout at rate `p` for `x`: f32 uniform
+    draws from `gen` (on `x`'s device) below keep = 1 - p, as
+    `jax.random.bernoulli` draws its mask."""
+    u = torch.rand(x.shape, generator=gen, device=x.device,
+                   dtype=torch.float32)
+    return u < (1.0 - p)
+
+
+def apply_dropout(x, mask, p):
+    """Inverted dropout on a drawn mask: where(mask, x / keep, 0), with
+    keep rounded to x's dtype first, as JAX rounds a Python scalar (a
+    device fill, not a host copy, so a CUDA graph can capture it)."""
+    keep = torch.full((), 1.0 - p, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / keep, 0.0)
 
 
 def _leaves_with_keys(tree, key=None):

@@ -1,4 +1,5 @@
-"""ConvolutionLayer and SubsamplingLayer (counterpart of
+"""ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer and
+LocalResponseNormalization (counterpart of
 deeplearning4j_tpu/nn/layers/conv.py).
 
 Activations are NHWC and kernels HWIO, as in the JAX package. Torch's
@@ -125,8 +126,8 @@ class ConvolutionLayer(BaseLayer):
         b = torch.full((self.n_out,), self.bias_init, dtype=dtype)
         return {"W": W, "b": b}
 
-    def apply(self, params, x, *, train=False, state=None):
-        x = self._maybe_dropout_input(x, train)
+    def apply(self, params, x, *, train=False, rng=None, state=None):
+        x = self._maybe_dropout_input(x, train, rng)
         y = conv2d_nhwc(x, params["W"], _pair(self.stride),
                         self.lax_padding(), _pair(self.dilation))
         y = y + params["b"]
@@ -154,7 +155,7 @@ class SubsamplingLayer(Layer):
         w = _out_dim(input_type.width, kw, sw, pw, self.convolution_mode)
         return InputType.convolutional(h, w, input_type.channels)
 
-    def apply(self, params, x, *, train=False, state=None):
+    def apply(self, params, x, *, train=False, rng=None, state=None):
         kh, kw = _pair(self.kernel_size)
         sh, sw = _pair(self.stride)
         if self.convolution_mode == "same":
@@ -185,3 +186,55 @@ class SubsamplingLayer(Layer):
             if pt_ == "pnorm":
                 y = y ** (1.0 / float(self.pnorm))
         return y.permute(0, 2, 3, 1), state
+
+
+@dataclass(kw_only=True)
+class ZeroPaddingLayer(Layer):
+    """Zero-pads the spatial dims of NHWC input. padding = (top, bottom,
+    left, right), or (h, w) for symmetric padding."""
+
+    padding: Sequence[int] = (1, 1)
+
+    def _pads(self):
+        p = tuple(int(v) for v in self.padding)
+        if len(p) == 2:
+            return (p[0], p[0], p[1], p[1])
+        if len(p) == 4:
+            return p
+        raise ValueError(f"padding must have 2 or 4 elements, got {p}")
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t, b, l, r = self._pads()
+        return InputType.convolutional(
+            input_type.height + t + b, input_type.width + l + r,
+            input_type.channels)
+
+    def apply(self, params, x, *, train=False, rng=None, state=None):
+        t, b, l, r = self._pads()
+        return F.pad(x, (0, 0, l, r, t, b)), state
+
+
+@dataclass(kw_only=True)
+class LocalResponseNormalization(Layer):
+    """Cross-channel LRN over NHWC: x / (k + alpha * s)^beta, with s the
+    sum of x^2 over a window of n channels centred on each channel (zero
+    outside), as the JAX package's lax.reduce_window computes it: the
+    window sum runs in x's dtype, so in bf16 each partial sum is rounded
+    to bf16, in the window's order (the channel below first)."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def apply(self, params, x, *, train=False, rng=None, state=None):
+        half = self.n // 2
+        c = x.shape[-1]
+        sq = F.pad(x * x, (half, half))
+        ssum = sq[..., 0:c]
+        for j in range(1, self.n):
+            ssum = ssum + sq[..., j:j + c]
+        # alpha rounded to x's dtype first, as JAX rounds a Python scalar
+        alpha = torch.full((), self.alpha, dtype=x.dtype, device=x.device)
+        denom = (self.k + alpha * ssum) ** self.beta
+        return x / denom, state

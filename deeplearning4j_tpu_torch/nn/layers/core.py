@@ -1,5 +1,6 @@
 """Core feed-forward layers (counterpart of deeplearning4j_tpu/nn/layers/core.py):
-Dense, Activation, Output (with its per-example loss) and GlobalPooling.
+Dense, Activation, Dropout, Output (with its per-example loss) and
+GlobalPooling.
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ class DenseLayer(BaseLayer):
     def init_params(self, gen, input_type, dtype=torch.float32):
         return _dense_params(self, gen, dtype)
 
-    def apply(self, params, x, *, train=False, state=None):
-        x = self._maybe_dropout_input(x, train)
+    def apply(self, params, x, *, train=False, rng=None, state=None):
+        x = self._maybe_dropout_input(x, train, rng)
         y = x @ params["W"] + params["b"]
         return get_activation(self.activation)(y), state
 
@@ -59,8 +60,18 @@ class ActivationLayer(Layer):
 
     activation: str = "relu"
 
-    def apply(self, params, x, *, train=False, state=None):
+    def apply(self, params, x, *, train=False, rng=None, state=None):
         return get_activation(self.activation)(x), state
+
+
+@dataclass(kw_only=True)
+class DropoutLayer(Layer):
+    """Standalone inverted-dropout layer (identity at inference)."""
+
+    dropout: float = 0.5
+
+    def apply(self, params, x, *, train=False, rng=None, state=None):
+        return self._maybe_dropout_input(x, train, rng), state
 
 
 @dataclass(kw_only=True)
@@ -96,8 +107,8 @@ class OutputLayer(BaseOutputLayer):
     def init_params(self, gen, input_type, dtype=torch.float32):
         return _dense_params(self, gen, dtype)
 
-    def apply(self, params, x, *, train=False, state=None):
-        x = self._maybe_dropout_input(x, train)
+    def apply(self, params, x, *, train=False, rng=None, state=None):
+        x = self._maybe_dropout_input(x, train, rng)
         return get_activation(self.activation)(self.pre_output(params, x)), state
 
 
@@ -116,7 +127,7 @@ class GlobalPoolingLayer(Layer):
             return InputType.feed_forward(input_type.channels)
         return input_type
 
-    def apply(self, params, x, *, train=False, state=None):
+    def apply(self, params, x, *, train=False, rng=None, state=None):
         if x.ndim == 3:
             axes = (1,)
         elif x.ndim == 4:

@@ -217,13 +217,17 @@ class ParallelInference:
 
     # ------------------------------------------------------------ warmup
     def _warmup_shapes(self) -> Optional[List[tuple]]:
-        """Per-example shape of every network input, from the graph's
-        input types (None when the net has none)."""
+        """Per-example shape of every network input: a graph's input
+        types, else a layer list's `input_type` (None when the net has
+        neither)."""
         conf = getattr(self.net, "conf", None)
         names = getattr(conf, "network_inputs", None)
         itypes = getattr(conf, "input_types", None)
         if names and itypes and set(itypes) >= set(names):
             return [tuple(itypes[n].batch_shape(1))[1:] for n in names]
+        input_type = getattr(conf, "input_type", None)
+        if input_type is not None:
+            return [tuple(input_type.batch_shape(1))[1:]]
         return None
 
     def warmup(self) -> List[int]:

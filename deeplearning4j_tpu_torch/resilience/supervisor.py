@@ -9,8 +9,8 @@ engine's StepHarness takes any object with their methods.
                      samples the hot path) with an optional loss-spike
                      detector. Policies: `skip_step` (restore the
                      pre-step snapshot — params, updater state, BN
-                     states, iteration — so the poisoned batch never
-                     happened), `rollback` (restore the caller's
+                     states, the dropout generator, iteration — so the
+                     poisoned batch never happened), `rollback` (restore the caller's
                      rollback target), `abort` (raise).
   PeriodicSnapshotter  in-memory rollback targets for fit loops without
                      a checkpoint directory.
@@ -19,7 +19,8 @@ engine's StepHarness takes any object with their methods.
                      (PreemptedError). The `train.preempt` fault point
                      simulates a preemption deterministically.
 
-A snapshot copies the train carry itself (ComputationGraph._train_carry):
+A snapshot copies the train carry itself (nn/base_network.py's
+`_train_carry`) and the dropout generator's state:
 on the flat chain that is one flat parameter vector and one flat vector
 per updater-state field, so a checked step pays two device copies and no
 unravel/re-ravel of the per-layer trees.
@@ -83,6 +84,7 @@ class NonFiniteGuard:
         """Device copies of everything a train step mutates."""
         return {
             "carry": clone(net._train_carry()),
+            "rng": net._rng_state(),
             "iteration": net.iteration,
             "epoch": net.epoch,
             "score": net._score,
@@ -93,6 +95,7 @@ class NonFiniteGuard:
         """Rewind `net` to `snap`. The net gets copies, so one snapshot
         can be restored more than once."""
         net._set_train_carry(clone(snap["carry"]))
+        net._set_rng_state(snap["rng"])
         net.iteration = snap["iteration"]
         net.epoch = snap["epoch"]
         net._score = snap["score"]

@@ -3,13 +3,17 @@ deeplearning4j_tpu/util/model_serializer.py): JAX-package model zips and
 param trees into the port, and `write_model`, which writes the same zip.
 
 A JAX model zip holds `configuration.json` (ComputationGraphConfiguration
-JSON, helper_mode included), `coefficients.npz`, `states.npz`,
+JSON, helper_mode included, or MultiLayerConfiguration JSON),
+`coefficients.npz`, `states.npz`,
 `updaterState.npz` (optimizer state, when saved) and `meta.json` (the
 iteration and epoch). The arrays are stored as `leaf_i` in jax.tree_util
 flatten order: nested dict keys sorted at every level, list/tuple items
 in order, and no leaf for None or an empty dict. `_flatten` rebuilds that
 order without jax, so a net the JAX package trained resumes training in
-the port with its momentum and its learning-rate schedule position.
+the port with its momentum and its learning-rate schedule position. A
+graph's trees are dicts keyed by node name; a MultiLayerNetwork's are
+lists with one dict per layer (`{}`, no leaf, for a layer without
+params).
 
 Layouts need no change: both packages keep conv kernels HWIO, dense
 weights [n_in, n_out] and activations NHWC, so the bridge only converts
@@ -62,9 +66,11 @@ def _to_tensor(a, device, dtype):
 
 def params_from_jax(params, states=None, device=None, dtype=torch.float32,
                     updater_states=None) -> Tuple[dict, ...]:
-    """Carry the JAX package's param/state trees (nested dicts of numpy or
-    jax arrays: conv W/b, BN gamma/beta and mean/var, output W/b) into the
-    port's tensors on `device` (default "cuda"; pass "cpu" explicitly).
+    """Carry the JAX package's param/state trees (a graph's dicts keyed by
+    node name or a MultiLayerNetwork's per-layer lists, of numpy or jax
+    arrays: conv W/b, BN gamma/beta and mean/var, dense and output W/b)
+    into the port's tensors on `device` (default "cuda"; pass "cpu"
+    explicitly), in the same structure.
     Returns (params, states), and the updater states (e.g. nesterovs'
     {"v": {...}} per layer) as a third item when they are given."""
     from deeplearning4j_tpu_torch.device import resolve_device
@@ -126,8 +132,9 @@ def _tree_to_npz_bytes(tree) -> bytes:
 
 
 def write_model(net, path, save_updater: bool = True) -> None:
-    """Save a ComputationGraph to a zip file the JAX package's
-    `restore_computation_graph` reads: configuration.json,
+    """Save a ComputationGraph or MultiLayerNetwork to a zip file the JAX
+    package's `restore_computation_graph` / `restore_multi_layer_network`
+    reads: configuration.json,
     coefficients.npz, states.npz, updaterState.npz (unless
     `save_updater` is False) and meta.json (iteration, epoch).
 
@@ -136,7 +143,7 @@ def write_model(net, path, save_updater: bool = True) -> None:
     `path`), and a `<path>.sha256` sidecar records the digest of the
     pre-publish bytes so torn writes are detected on restore. Reads the
     params without dropping the net's flat train carry."""
-    if net._params is None and net._flat_train is None:
+    if not net._initialized():
         raise ValueError("Network not initialized; nothing to save")
     t_write = time.perf_counter()
     path = os.fspath(path)
@@ -183,32 +190,37 @@ def verify_model(path) -> bool:
         return False
 
 
-def restore_computation_graph(path, device=None, compute_dtype=None):
-    """Load a ComputationGraph from a zip that the JAX package's
-    `ModelSerializer.write_model` or this module's `write_model` wrote —
-    without jax — with its updater state and iteration count when the zip
-    has them. Raises CheckpointIntegrityError if the file fails its
-    sha256 sidecar."""
+def _restore(path, kind, device, compute_dtype, load_updater=True):
+    """Load the network a model zip holds; `kind` "graph" or "list", or
+    None to follow the configuration (a layer list has "layers")."""
     from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
         ComputationGraphConfiguration,
     )
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        MultiLayerConfiguration,
+    )
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
     if not verify_model(path):
         raise CheckpointIntegrityError(
             f"{path} failed sha256 validation (truncated or torn write?)")
     with zipfile.ZipFile(path, "r") as z:
-        conf = ComputationGraphConfiguration.from_json(
-            z.read(CONFIG_ENTRY).decode())
-        net = ComputationGraph(conf, compute_dtype=compute_dtype,
-                               device=device).init()
+        conf_dict = json.loads(z.read(CONFIG_ENTRY).decode())
+        if kind is None:
+            kind = "list" if "layers" in conf_dict else "graph"
+        conf_cls, net_cls = (
+            (MultiLayerConfiguration, MultiLayerNetwork) if kind == "list"
+            else (ComputationGraphConfiguration, ComputationGraph))
+        conf = conf_cls.from_dict(conf_dict)
+        net = net_cls(conf, compute_dtype=compute_dtype, device=device).init()
         net.params = _load_into(net.params, z.read(COEFFICIENTS_ENTRY),
                                 COEFFICIENTS_ENTRY)
         names = set(z.namelist())
         if STATES_ENTRY in names:
             net.states = _load_into(net.states, z.read(STATES_ENTRY),
                                     STATES_ENTRY)
-        if UPDATER_ENTRY in names:
+        if load_updater and UPDATER_ENTRY in names:
             net.updater_states = _load_into(
                 net.updater_states, z.read(UPDATER_ENTRY), UPDATER_ENTRY)
         if META_ENTRY in names:
@@ -216,3 +228,26 @@ def restore_computation_graph(path, device=None, compute_dtype=None):
             net.iteration = meta.get("iteration", 0)
             net.epoch = meta.get("epoch", 0)
     return net
+
+
+def restore_computation_graph(path, device=None, compute_dtype=None):
+    """Load a ComputationGraph from a zip that the JAX package's
+    `ModelSerializer.write_model` or this module's `write_model` wrote —
+    without jax — with its updater state and iteration count when the zip
+    has them. Raises CheckpointIntegrityError if the file fails its
+    sha256 sidecar."""
+    return _restore(path, "graph", device, compute_dtype)
+
+
+def restore_multi_layer_network(path, load_updater: bool = True,
+                                device=None, compute_dtype=None):
+    """Load a MultiLayerNetwork from a zip that the JAX package's
+    `ModelSerializer.write_model` or this module's `write_model` wrote,
+    as `restore_computation_graph` does for a graph."""
+    return _restore(path, "list", device, compute_dtype, load_updater)
+
+
+def restore_model(path, device=None, compute_dtype=None):
+    """Load whichever network a model zip holds: a MultiLayerNetwork when
+    its configuration is a layer list, else a ComputationGraph."""
+    return _restore(path, None, device, compute_dtype)

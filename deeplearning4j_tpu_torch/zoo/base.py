@@ -1,13 +1,15 @@
 """ZooModel base (counterpart of deeplearning4j_tpu/zoo/base.py).
 
 A zoo model builds its configuration (`conf()`) and an initialized
-network (`init_model(device=None)`, on CUDA unless device="cpu").
-Pretrained weights are not bundled; a JAX-package model zip loads through
-util/model_serializer.restore_computation_graph.
+network (`init_model(device=None)`, on CUDA unless device="cpu"): a
+ComputationGraph for a graph configuration, a MultiLayerNetwork for a
+layer list. Pretrained weights are not bundled; a JAX-package model zip
+loads through util/model_serializer.restore_model.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Sequence
 
 
@@ -36,9 +38,18 @@ class ZooModel:
     def init_model(self, device=None):
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
         from deeplearning4j_tpu_torch.nn.helpers import validate_helper_mode
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
         c = self.conf()
+        is_graph = hasattr(c, "helper_mode")
         if self.helpers is not None:
-            c.helper_mode = validate_helper_mode(self.helpers)
-        return ComputationGraph(c, compute_dtype=self.compute_dtype,
-                                device=device).init()
+            mode = validate_helper_mode(self.helpers)
+            if is_graph:
+                c.helper_mode = mode
+            else:
+                logging.getLogger("deeplearning4j_tpu_torch").warning(
+                    "%s: helpers=%r requested but the model is layer-list "
+                    "based; the helper tier applies to ComputationGraph "
+                    "models only", type(self).__name__, self.helpers)
+        cls = ComputationGraph if is_graph else MultiLayerNetwork
+        return cls(c, compute_dtype=self.compute_dtype, device=device).init()

@@ -671,3 +671,135 @@ def test_cuda_early_stopping_pipeline_on_equals_off_bitwise(
     torch.cuda.synchronize()
     assert results[0].score_vs_epoch == results[1].score_vs_epoch
     _assert_nets_bitwise(*nets)
+
+
+# ----------------------------------------- MultiLayerNetwork and dropout
+
+
+def _cuda_mln(seed=3, compute_dtype=None):
+    """A small conv MLN with dropout on a conv, a dense layer and the
+    output layer's input (SimpleCNN's shape at a narrow width)."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer,
+        DenseLayer,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.Builder().seed(seed).updater("nesterovs")
+            .learning_rate(1e-2).activation("relu").weight_init("relu")
+            .list()
+            .layer(ConvolutionLayer(n_out=8, kernel_size=(3, 3),
+                                    convolution_mode="same"))
+            .layer(ConvolutionLayer(n_out=8, kernel_size=(3, 3),
+                                    convolution_mode="same", dropout=0.5))
+            .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=32, dropout=0.5))
+            .layer(OutputLayer(n_out=5, loss="mcxent", dropout=0.25))
+            .set_input_type(InputType.convolutional(16, 16, 3)).build())
+    return MultiLayerNetwork(conf, compute_dtype=compute_dtype).init()
+
+
+def _same_state(a, b):
+    sa, sb = _train_state(a), _train_state(b)
+    return len(sa) == len(sb) and all(torch.equal(x, y)
+                                      for x, y in zip(sa, sb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_cuda_mln_run_group_with_dropout_equals_eager_runs(
+        deterministic_cudnn, compute_dtype):
+    """run_group(4) replays a captured graph whose dropout masks come
+    from the net's own generator (registered with the graph): from one
+    generator state it equals four eager run() calls bit for bit, the
+    generator's state after included; a second replay draws new masks."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.nn.layers.base import dropout_mask
+
+    data = _engine_batches(4, seed=51)
+    a, b = _cuda_mln(compute_dtype=compute_dtype), \
+        _cuda_mln(compute_dtype=compute_dtype)
+    pa, pb = StepProgram(a), StepProgram(b)
+    losses = torch.stack([pa.run(x, y) for x, y in data])
+    pb.run_group(*_stacked(data))
+    torch.cuda.synchronize()
+    assert _same_state(a, b)
+    assert torch.equal(losses, pb.last_step_losses)
+    assert torch.equal(a._rng_state(), b._rng_state())
+    probe = torch.zeros(64, device="cuda")
+    m1 = dropout_mask(probe, 0.5, b._train_rng())
+    pb.run_group(*_stacked(data))
+    m2 = dropout_mask(probe, 0.5, b._train_rng())
+    assert not torch.equal(m1, m2)
+    assert not torch.equal(pb.last_step_losses, losses)
+    assert pb.group_stats["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_guard_skip_rewinds_the_dropout_generator(deterministic_cudnn):
+    """A skip_step restore between replays rewinds the generator too: the
+    replay after it equals the first replay bit for bit."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.resilience import NonFiniteGuard
+
+    net = _cuda_mln()
+    prog = StepProgram(net)
+    xs, ys = _stacked(_engine_batches(4, seed=52))
+    guard = NonFiniteGuard("skip_step")
+    snap = guard.snapshot(net)
+    prog.run_group(xs, ys)
+    first = [t.clone() for t in _train_state(net)]
+    first_losses = prog.last_step_losses.clone()
+    guard.restore(net, snap)
+    prog.run_group(xs, ys)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, _train_state(net)))
+    assert torch.equal(first_losses, prog.last_step_losses)
+
+
+@pytest.mark.cuda
+def test_cuda_groups_share_one_graph_pool(deterministic_cudnn):
+    """A second k captures into the StepProgram's one pool; a window
+    shorter than a captured group runs as eager steps, bit for bit the
+    same as a replay of that many steps would be."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    data = _engine_batches(4, seed=53)
+    net, ref = _cuda_mln(), _cuda_mln()
+    prog, pref = StepProgram(net), StepProgram(ref)
+    prog.run_group(*_stacked(data[:2]))
+    prog.run_group(*_stacked(data))
+    pools = {g.graph.pool() for g in prog._groups.values()}
+    assert len(prog._groups) == 2 and len(pools) == 1
+    prog.run_group(*_stacked(data[:1]))           # shorter: eager
+    assert prog.group_stats["eager_windows"] == 1
+    assert prog.group_stats["captures"] == 2
+    for x, y in data[:2] + data + data[:1]:
+        pref.run(x, y)
+    torch.cuda.synchronize()
+    assert _same_state(net, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_lrn_and_zero_padding_match_the_cpu(rng):
+    """AlexNet's LRN and zero padding on the card against the CPU (f32,
+    1e-6; bf16, one bf16 ulp)."""
+    from deeplearning4j_tpu_torch.nn.layers import (
+        LocalResponseNormalization,
+        ZeroPaddingLayer,
+    )
+
+    _need_cuda()
+    x = torch.from_numpy(rng.normal(size=(2, 9, 9, 96)).astype(np.float32))
+    for dt, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2.0 ** -8)):
+        for layer in (LocalResponseNormalization(),
+                      ZeroPaddingLayer(padding=(1, 2))):
+            cpu = layer.apply({}, x.to(dt))[0].float()
+            gpu = layer.apply({}, x.to(dt).cuda())[0].float().cpu()
+            torch.testing.assert_close(gpu, cpu, rtol=tol, atol=1e-6)

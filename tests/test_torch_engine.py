@@ -243,6 +243,74 @@ def test_step_scalars_are_the_schedule_in_the_nets_dtype():
         s.numpy(), np.float32([[0.1 * 0.5, 3.0], [0.1 * 0.25, 4.0]]))
 
 
+def _bf16_master_graph(updater="adam"):
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+
+    conf = (NeuralNetConfiguration.Builder().updater(updater)
+            .learning_rate(0.01).graph_builder().add_inputs("x")
+            .add_layer("d", DenseLayer(n_out=4), "x")
+            .add_layer("out", OutputLayer(n_out=2), "d").set_outputs("out")
+            .set_input_types(x=InputType.feed_forward(3)).build())
+    return ComputationGraph(conf, dtype=torch.bfloat16, device="cpu").init()
+
+
+def test_step_scalars_stay_f32_at_a_bf16_master():
+    """At a bf16 master the step index 257 and lr 0.01 reach the update
+    as the f32 schedule has them (a bf16 buffer rounds them to 256 and
+    0.0100098): Adam's bias-corrected update equals the f32 schedule's."""
+    net = _bf16_master_graph()
+    lr, step = net._step_scalars(257)[0]
+    assert lr.dtype == step.dtype == torch.float32
+    assert step.item() == 257.0 and lr.item() == np.float32(0.01)
+    upd, p = net._updaters["d"], net.params["d"]
+    g = {k: torch.full_like(t, 0.5) for k, t in p.items()}
+    state = {f: {k: torch.full_like(t, 0.25) for k, t in p.items()}
+             for f in ("m", "v")}
+    got, _ = upd.update(g, state, p, lr, step)
+    ref, _ = upd.update(g, state, p, torch.tensor(0.01),
+                        torch.tensor(257.0))
+    for k in p:
+        assert got[k].dtype == torch.bfloat16
+        assert torch.equal(got[k], ref[k])
+
+
+def test_captured_groups_share_one_pool_and_stay_bounded(monkeypatch):
+    """The group policy without a card (the capture faked): every group
+    of a StepProgram captures into one graph pool; a window shorter than
+    a captured group of the same shapes runs eagerly (no capture); at
+    most MAX_GROUPS groups are kept, the oldest dropped first. On the
+    card: tests/test_torch_cuda.py."""
+    from deeplearning4j_tpu_torch.engine import step_program as sp
+
+    pools = []
+
+    class FakeGroup:
+        def __init__(self, body, args, device, pool, gen=None):
+            pools.append(pool)
+
+    handles = iter(range(100))
+    monkeypatch.setattr(sp, "_CapturedGroup", FakeGroup)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: ("pool", next(handles)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    prog = StepProgram(_port_net())
+    g4 = prog._captured("shapes", 4, None)
+    assert prog._captured("shapes", 4, None) is g4
+    assert prog._captured("shapes", 2, None) is None     # eager window
+    g8 = prog._captured("shapes", 8, None)
+    assert g8 is not g4 and pools == [("pool", 0), ("pool", 0)]
+    for i in range(sp.MAX_GROUPS + 2):
+        prog._captured(("other", i), 4, None)
+    assert len(prog._groups) == sp.MAX_GROUPS
+    assert ("shapes", 4) not in prog._groups
+    assert set(pools) == {("pool", 0)}
+    assert prog.group_stats["captures"] == 2 + sp.MAX_GROUPS + 2
+
+
 def test_run_group_rejects_score_policy_and_tbptt():
     x, y = _batches(1)[0]
     xs, ys = np.stack([x, x]), np.stack([y, y])

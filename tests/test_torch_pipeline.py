@@ -5,9 +5,18 @@ step, IteratorPipeline order and close joining its producer, the
 DevicePrefetchIterator's CPU pass-through and close propagation, the
 AsyncDataSetIterator's restartable close — and the pipeline metrics.
 The CUDA staging (pinned memory, side stream, event) runs on the card:
-tests/test_torch_cuda.py."""
+tests/test_torch_cuda.py.
+
+One producer per pass: `reset()` then a pass over the pipeline resets
+and iterates the base exactly as `reset()` then a pass over the base
+itself does, so a shuffled epoch trains on the same batches in the same
+order with the pipeline on as off. The JAX package's pipeline starts two
+producers per such pass (and resets a shuffled base twice more); that
+fault stays in the reference, so the port's pipeline-on order equals the
+JAX package's pipeline-off order, not its pipeline-on order."""
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -29,6 +38,12 @@ from deeplearning4j_tpu_torch.engine import (
     stack_staged,
 )
 from deeplearning4j_tpu_torch.observability import metrics as tobs
+
+from deeplearning4j_tpu.datasets import DataSet as JDataSet
+from deeplearning4j_tpu.datasets import ListDataSetIterator as JListIterator
+from deeplearning4j_tpu.engine.pipeline import (
+    IteratorPipeline as JIteratorPipeline,
+)
 
 
 def _batch(step, rows=4):
@@ -155,6 +170,113 @@ def test_iterator_pipeline_over_a_producer_stages_on_the_consumer():
         assert pipe._async is src and src.prepare is None
         assert len(list(pipe)) == 3
     assert calls == [threading.current_thread().name] * 3
+
+
+def _shuffled(pkg="port", rows=16, batch=4, seed=5):
+    """A shuffled list iterator whose features name their row."""
+    x = np.arange(rows, dtype=np.float32).reshape(rows, 1) * [[1.0, -1.0]]
+    y = np.eye(2, dtype=np.float32)[np.arange(rows) % 2]
+    if pkg == "jax":
+        return JListIterator(JDataSet(x, y), batch_size=batch, shuffle=True,
+                             seed=seed)
+    return ListDataSetIterator(DataSet(x, y), batch_size=batch, shuffle=True,
+                               seed=seed)
+
+
+def _epoch_orders(data, epochs=2):
+    """The rows of each batch over `epochs` passes of the trainer's
+    pattern (reset, then iterate)."""
+    out = []
+    for _ in range(epochs):
+        data.reset()
+        out.append([np.asarray(b[0] if isinstance(b, tuple)
+                               else b.features)[:, 0].astype(int).tolist()
+                    for b in data])
+    return out
+
+
+def test_pipeline_prepares_each_batch_once_per_pass():
+    """reset() then a pass starts one producer: `stage` (the host half of
+    staging) runs once per batch and the base is reset as often as a
+    pass over it alone resets it."""
+    calls, resets = [], []
+
+    class Counted(ListDataSetIterator):
+        def reset(self):
+            resets.append(1)
+            super().reset()
+
+    x = np.zeros((16, 2), np.float32)
+    base = Counted(DataSet(x, np.eye(2, dtype=np.float32)[np.arange(16) % 2]),
+                   batch_size=4)
+    resets.clear()
+    pipe = IteratorPipeline(base, depth=2, device="cpu",
+                            stage=lambda b: calls.append(1) or b)
+    for epoch in range(2):
+        pipe.reset()
+        assert len(list(pipe)) == 4
+        assert len(calls) == 4 * (epoch + 1)
+        assert len(resets) == 2 * (epoch + 1)   # reset() + the pass's iter
+    pipe.close()
+
+
+def test_pipeline_on_equals_off_over_shuffled_epochs():
+    on = IteratorPipeline(_shuffled(), depth=2, device="cpu")
+    assert _epoch_orders(on) == _epoch_orders(_shuffled())
+    on.close()
+
+
+def test_port_pipeline_order_is_jax_pipeline_off_order():
+    """The JAX package's pipeline starts two producers per reset-then-
+    iterate pass and so shuffles its epochs into another order than its
+    synchronous path; the port's pipeline follows the synchronous
+    order."""
+    port_on = IteratorPipeline(_shuffled(), depth=2, device="cpu")
+    jax_on = JIteratorPipeline(_shuffled("jax"), depth=2)
+    ours, jax_off = _epoch_orders(port_on), _epoch_orders(_shuffled("jax"))
+    theirs_on = _epoch_orders(jax_on)
+    port_on.close()
+    jax_on.close()
+    assert ours == jax_off
+    assert ours != theirs_on
+
+
+def test_superseded_producer_never_touches_the_base_again():
+    """A producer superseded by reset() stops calling the base: the base
+    sees exactly the calls of the new pass."""
+    log = []
+
+    class Slow:
+        def __init__(self):
+            self.i = 0
+
+        def reset(self):
+            log.append("reset")
+            self.i = 0
+
+        def __iter__(self):
+            log.append("iter")
+            return self
+
+        def __next__(self):
+            time.sleep(0.01)
+            self.i += 1
+            log.append("next")
+            if self.i > 50:
+                raise StopIteration
+            return _batch(self.i)
+
+    it = AsyncDataSetIterator(Slow(), queue_size=1)
+    next(iter(it))                      # producer 1 is now running
+    it.reset()
+    mark = len(log)
+    got = [next(iter(it)) for _ in range(1)]
+    it.close()
+    assert log[mark - 1] == "reset" and log[mark] == "iter"
+    # after the reset only the new pass's producer called the base: one
+    # iter, then nexts, and never a second iter or reset
+    assert "reset" not in log[mark:] and log[mark:].count("iter") == 1
+    assert len(got) == 1
 
 
 def test_iterator_pipeline_close_joins_its_producer():

@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.layers import BatchNormalization as TBN
 from deeplearning4j_tpu_torch.nn.layers import DenseLayer as TDense
+from deeplearning4j_tpu_torch.nn.layers.base import dropout_mask
 from deeplearning4j_tpu_torch.util.model_serializer import (
     params_from_jax,
     restore_computation_graph,
@@ -316,11 +317,23 @@ def test_regularization_loss_matches_jax_and_exempts_biases(rng):
 
 
 def test_train_mode_dropout_raises_until_ported():
-    layer = TDense(n_in=3, n_out=2, dropout=0.5, activation="relu")
-    p = {"W": torch.zeros(3, 2), "b": torch.zeros(2)}
-    layer.apply(p, torch.zeros(1, 3))          # inference: identity
-    with pytest.raises(NotImplementedError, match="dropout"):
-        layer.apply(p, torch.zeros(1, 3), train=True)
+    """Train-mode dropout is ported: it raises only without a generator
+    (as the JAX layer raises without an rng), is the identity at
+    inference, and with a generator equals the JAX layer on the same
+    mask (exact: the apply step is one division and a select)."""
+    layer = TDense(n_in=3, n_out=2, dropout=0.5, activation="identity")
+    p = {"W": torch.eye(3, 2), "b": torch.zeros(2)}
+    x = torch.arange(1.0, 13.0).reshape(4, 3)
+    out, _ = layer.apply(p, x)                 # inference: identity
+    assert torch.equal(out, x @ p["W"])
+    with pytest.raises(ValueError, match="no rng"):
+        layer.apply(p, x, train=True)
+    gen = torch.Generator().manual_seed(7)
+    got, _ = layer.apply(p, x, train=True, rng=gen)
+    mask = dropout_mask(x, 0.5, torch.Generator().manual_seed(7))
+    ref = jnp.where(jnp.asarray(mask.numpy()), jnp.asarray(x.numpy()) / 0.5,
+                    0.0) @ jnp.asarray(p["W"].numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 # -------------------------------------------------- the mini ResNet step
