@@ -78,6 +78,27 @@ Phases, in order; any failure exits non-zero:
      without it ends); then AlexNet (LRN, the 11x11 stride-4 "same"
      conv) for ALEXNET_STEPS steps with a finite, falling loss. Images
      are scaled by MLN_INPUT_SCALE and the rates lowered (see there);
+  5d. TrainingMaster and ParallelWrapper on the flagship (ResNet-50,
+     bf16, helpers="pallas"; a batch_fn cycling through TM_DATA seeded
+     host batches built before any timed window): TrainingMaster
+     (steps_per_dispatch=GROUP_K, pipeline on) at batch 128, TM_STEPS
+     steps after a warm-up fit — ms/step by the host clock with a sync at
+     the end, img/s, the ratio to phase 5b's run_group(GROUP_K), the
+     steady state between group ends (CUDA events), the idle share (a
+     profiler window), launches per step (30/16/30/30, all "wgmma") and
+     per replay, a finite falling loss — and the same at
+     steps_per_dispatch=1 for TM_K1_STEPS steps; the save and restore
+     seconds and bytes of one flagship checkpoint; at batch 32 the
+     resume (a fresh net restores step GROUP_K of a 2*GROUP_K-step run
+     and trains on: bit for bit), a torn write (checkpoint.write:truncate
+     on the second save: load_latest_checkpoint falls back to the
+     first) and a guard drill (one inner step of a group poisoned under
+     skip_step: bit for bit a run without that batch);
+     ParallelWrapper(steps_per_dispatch=GROUP_K) over PW_BATCHES batches
+     of 128 against hand-driven run_group calls (bit for bit), and
+     EarlyStoppingParallelTrainer over ES_PARALLEL_EPOCHS epochs with a
+     LocalFileGraphSaver (the best model verifies and rescores exactly).
+     The bitwise checks run with phase 5b's cuDNN setting;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -136,6 +157,15 @@ MLN_PROFILE_STEPS = 4
 MLN_CHECK_BATCH = 8            # the dropout checks
 MLN_SERVE_SIZES = (1, 3, 8, 16, 32, 5)
 ALEXNET_STEPS = 8
+# phase 5d, TrainingMaster and ParallelWrapper on the flagship
+TM_DATA = 4                    # seeded host batches a batch_fn cycles through
+TM_STEPS = 20                  # timed steps at steps_per_dispatch=GROUP_K
+TM_K1_STEPS = 8                # timed steps at steps_per_dispatch=1
+TM_PROFILE_STEPS = 8           # profiled steps after a timed fit
+TM_CHECK_BATCH = 32            # the resume, torn-write and guard checks
+TM_CKPT_REPEATS = 2            # timed saves and restores of one checkpoint
+PW_BATCHES = 8                 # ParallelWrapper's bitwise check
+ES_PARALLEL_EPOCHS = 2
 # The zoo's VGG16 and AlexNet have linear convolutions: ConvolutionLayer's
 # default activation is identity and the JAX package's zoo sets none (the
 # configuration is held to its JSON). Under He init the activations then
@@ -1818,6 +1848,342 @@ def mln_phase(torch, np, pc, card):
     return res
 
 
+# ------------------------------------------------------------ phase 5d
+
+
+def tm_data(np, seed, batch):
+    """TM_DATA seeded host batches for a `batch_fn` that cycles through
+    them (built before any timed window)."""
+    data = engine_batches(np, seed, TM_DATA, batch, 1000)
+    return data, (lambda step: data[step % TM_DATA])
+
+
+class LossRecorder:
+    """A listener (TrainingMaster calls `iteration_done` after each step,
+    or after each group of k) keeping each step's device loss and a CUDA
+    event at the end of each call: no host read inside the timed
+    window."""
+
+    def __init__(self, torch, prog, k):
+        self.torch, self.prog, self.k = torch, prog, k
+        self.losses, self.events = [], []
+
+    def iteration_done(self, net, iteration):
+        self.losses.extend([net._score] if self.k == 1
+                           else self.prog.last_step_losses)
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+
+
+def tm_timed(torch, np, pc, ResNet50, k, steps, batch_fn):
+    """TrainingMaster(steps_per_dispatch=k) on a fresh flagship, pipeline
+    on: a warm-up fit of max(k, 2) steps (for k > 1 it captures the
+    group), then a fit of `steps` more, timed by the host clock with a
+    CUDA sync at its end (the producer's start, its pinned copies and the
+    first window's wait included), the kernel launches of that fit
+    counted from 0, and for k > 1 the steady state between the first and
+    the last group's end (CUDA events); then a profiler window of
+    TM_PROFILE_STEPS steps for the idle share."""
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster
+
+    net = flagship(ResNet50, "pallas")
+    tm = TrainingMaster(net, steps_per_dispatch=k)
+    prog = tm._harness.program
+    rec = LossRecorder(torch, prog, k)
+    net.listeners = [rec]
+    warm = max(k, 2)
+    tm.fit(batch_fn, warm)
+    torch.cuda.synchronize()
+    rec.events.clear()
+    pc.reset_launch_counts()
+    t0 = time.perf_counter()
+    tm.fit(batch_fn, warm + steps, start_step=warm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = pc.launch_counts()
+    ms = wall * 1e3 / steps
+    r = {"k": k, "steps": steps, "ms_per_step": ms,
+         "img_per_s": TRAIN_BATCH / ms * 1e3,
+         "launches": {n: counts[n] for n in pc.LAUNCHES},
+         "launches_per_step": {n: counts[n] / steps for n in pc.LAUNCHES},
+         "wgmma_per_step": {n: counts[f"{n}/wgmma"] / steps
+                            for n in pc.LAUNCHES},
+         "captures": prog.group_stats["captures"],
+         "replays": prog.group_stats["replays"]}
+    if k > 1:
+        ev = rec.events
+        r["steady_ms_per_step"] = ev[0].elapsed_time(ev[-1]) / (
+            (len(ev) - 1) * k)
+        (per_replay,) = prog.group_launches().values() or ({},)
+        r["launches_per_replay"] = {n: v for n, v in per_replay.items()
+                                    if "/" not in n}
+    at = warm + steps
+    prof = engine_profile(
+        torch, lambda: tm.fit(batch_fn, at + TM_PROFILE_STEPS, start_step=at),
+        TM_PROFILE_STEPS)
+    busy = r["busy_ms"] = prof["busy_ms"]
+    r["idle_share"] = None if busy is None else 1.0 - busy / ms
+    # the loss over the first pass through the TM_DATA batches against
+    # the loss over the last pass (the same batches, in another order)
+    vals = [float(v) for v in rec.losses]
+    first, last = (float(np.mean(vals[:TM_DATA])),
+                   float(np.mean(vals[-TM_DATA:])))
+    r["loss_first"], r["loss_last"] = first, last
+    if not all(np.isfinite(vals)) or not last < first:
+        fail(f"tm k={k}: loss not finite and falling: {vals}")
+    want = {"fused_conv1x1": 30, "fused_conv3x3": 16, "dgrad_conv1x1": 30,
+            "wgrad_conv1x1": 30}
+    for name, n in want.items():
+        if counts[name] != n * steps or counts[f"{name}/wgmma"] != n * steps:
+            fail(f"tm k={k}: {name} launched {counts[name]} times "
+                 f"({counts[f'{name}/wgmma']} on wgmma) in {steps} steps, "
+                 f"not {n} per step, all on wgmma")
+    return net, tm, r
+
+
+def checkpoint_times(torch, net, tmp):
+    """Save and restore of one flagship checkpoint (params, nesterovs
+    momentum, BN states; the device-to-host copy, np.savez and sha256
+    included), TM_CKPT_REPEATS times each, outside any timed step."""
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster
+
+    tm = TrainingMaster(net, checkpoint_dir=tmp)
+    step = net.iteration
+    saves, restores = [], []
+    for _ in range(TM_CKPT_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tm.save_checkpoint(step)
+        saves.append(time.perf_counter() - t0)
+    for _ in range(TM_CKPT_REPEATS):
+        t0 = time.perf_counter()
+        tm.load_checkpoint_at(step)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+    nbytes = os.path.getsize(tm._ckpt_path(step))
+    return {"save_s": saves, "restore_s": restores, "bytes": nbytes,
+            "params": net.num_params()}
+
+
+def tm_resume_checks(torch, np, ResNet50, tmp):
+    """At TM_CHECK_BATCH: (1) resume — 2 * GROUP_K uninterrupted steps
+    with checkpoint_every=GROUP_K against a fresh net of the same seed
+    that restores step GROUP_K (load_checkpoint_at) and trains on; params,
+    updater state, BN states and iteration bit for bit, no recapture;
+    (2) torn write — checkpoint.write:truncate on the second save, and
+    load_latest_checkpoint falls back to the first; (3) guard — one inner
+    step of a GROUP_K group poisoned (train.grad_nonfinite) under
+    NonFiniteGuard("skip_step") ends bit for bit where a run without that
+    batch ends."""
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster
+    from deeplearning4j_tpu_torch.resilience import NonFiniteGuard, injector
+
+    _, bf = tm_data(np, 47, TM_CHECK_BATCH)
+    n = 2 * GROUP_K
+    res = {}
+    d1, d2 = os.path.join(tmp, "resume"), os.path.join(tmp, "torn")
+    a = flagship(ResNet50, "pallas")
+    TrainingMaster(a, checkpoint_dir=d1, checkpoint_every=GROUP_K,
+                   steps_per_dispatch=GROUP_K).fit(bf, n)
+    b = flagship(ResNet50, "pallas")
+    tmb = TrainingMaster(b, checkpoint_dir=d1, steps_per_dispatch=GROUP_K)
+    tmb.load_checkpoint_at(GROUP_K)
+    tmb.fit(bf, n, start_step=GROUP_K)
+    torch.cuda.synchronize()
+    same, count, diff = same_bits(torch, a, b)
+    pb = tmb._harness.program
+    res["resume"] = {"tensors": count, "differ": diff,
+                     "iteration": b.iteration,
+                     "captures": pb.group_stats["captures"],
+                     "checkpoints": tmb.list_checkpoints()}
+    log(f"tm resume at batch {TM_CHECK_BATCH}: {n} uninterrupted steps "
+        f"(checkpoint_every={GROUP_K}) against a fresh net that restores "
+        f"step {GROUP_K} and trains to {n}: {res['resume']}")
+    if not (same and b.iteration == a.iteration == n):
+        fail("tm resume: the resumed run differs from the uninterrupted one")
+    del b, tmb
+    injector().inject("checkpoint.write", mode="truncate", at_hit=2,
+                      truncate_to=64)
+    try:
+        TrainingMaster(a, checkpoint_dir=d2, checkpoint_every=GROUP_K,
+                       steps_per_dispatch=GROUP_K).fit(bf, n, start_step=0)
+    finally:
+        injector().clear()
+    probe = TrainingMaster(a, checkpoint_dir=d2)
+    back = probe.load_latest_checkpoint()
+    res["torn"] = {"on_disk": probe.list_checkpoints(), "restored": back}
+    log(f"tm torn write (checkpoint.write:truncate on the second save): "
+        f"{res['torn']}")
+    if back != GROUP_K:
+        fail("tm torn write: load_latest_checkpoint did not fall back to "
+             "the first checkpoint")
+    del a, probe
+    torch.cuda.empty_cache()
+    bad = 1
+    g = flagship(ResNet50, "pallas")
+    guard = NonFiniteGuard("skip_step", check_every=1)
+    tmg = TrainingMaster(g, steps_per_dispatch=GROUP_K, guard=guard)
+    injector().inject("train.grad_nonfinite", at_hit=bad + 1)
+    try:
+        tmg.fit(bf, n)
+    finally:
+        injector().clear()
+    keep = [s for s in range(n) if s != bad]
+    c = flagship(ResNet50, "pallas")
+    TrainingMaster(c, steps_per_dispatch=GROUP_K).fit(
+        lambda s: bf(keep[s]), len(keep))
+    torch.cuda.synchronize()
+    same, count, diff = same_bits(torch, g, c)
+    pg = tmg._harness.program
+    res["guard"] = {"poisoned": sorted(tmg._poisoned_steps),
+                    "guard": guard.stats(), "tensors": count, "differ": diff,
+                    "captures": pg.group_stats["captures"],
+                    "eager_windows": pg.group_stats["eager_windows"]}
+    log(f"tm guard: step {bad} of the first {GROUP_K}-step group poisoned "
+        f"under skip_step, against a run over the {len(keep)} clean "
+        f"batches: {res['guard']}")
+    if not (same and res["guard"]["poisoned"] == [bad]
+            and guard.counters["skipped_steps"] == 1):
+        fail("tm guard: the poisoned inner step was not condemned alone, "
+             "or the run does not end where the clean run ends")
+    del g, c, tmg
+    torch.cuda.empty_cache()
+    return res
+
+
+def pw_checks(torch, np, ResNet50, tmp):
+    """ParallelWrapper(steps_per_dispatch=GROUP_K) over PW_BATCHES
+    batches of TRAIN_BATCH (the TM batches, cycled) against hand-driven
+    run_group calls on the same batches from the same state, bit for bit;
+    then EarlyStoppingParallelTrainer over ES_PARALLEL_EPOCHS epochs of
+    TM_DATA batches of TM_CHECK_BATCH with a LocalFileGraphSaver: the best
+    model verifies and, reloaded, rescores exactly."""
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator,
+        EarlyStoppingConfiguration,
+        EarlyStoppingParallelTrainer,
+        LocalFileGraphSaver,
+        MaxEpochsTerminationCondition,
+    )
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.util.model_serializer import verify_model
+
+    res = {}
+    data, _ = tm_data(np, 48, TRAIN_BATCH)
+    batches = [data[i % TM_DATA] for i in range(PW_BATCHES)]
+    a = flagship(ResNet50, "pallas")
+    t0 = time.perf_counter()
+    ParallelWrapper(a, steps_per_dispatch=GROUP_K).fit(batches)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    b = flagship(ResNet50, "pallas")
+    prog = StepProgram(b)
+    for lo in range(0, PW_BATCHES, GROUP_K):
+        w = batches[lo:lo + GROUP_K]
+        prog.run_group(np.stack([d[0] for d in w]),
+                       np.stack([d[1] for d in w]))
+    torch.cuda.synchronize()
+    same, count, diff = same_bits(torch, a, b)
+    res["wrapper"] = {"tensors": count, "differ": diff, "seconds": secs,
+                      "iteration": a.iteration}
+    log(f"pw: ParallelWrapper(steps_per_dispatch={GROUP_K}) over "
+        f"{PW_BATCHES} batches of {TRAIN_BATCH} against hand-driven "
+        f"run_group calls: {res['wrapper']}")
+    if not (same and a.iteration == b.iteration == PW_BATCHES):
+        fail("pw: ParallelWrapper differs from hand-driven run_group")
+    del a, b, prog
+    torch.cuda.empty_cache()
+    small, _ = tm_data(np, 49, TM_CHECK_BATCH)
+    held = engine_batches(np, 50, 1, TM_CHECK_BATCH, 1000)
+    net = flagship(ResNet50, "pallas")
+    cfg = EarlyStoppingConfiguration(
+        epoch_termination_conditions=[
+            MaxEpochsTerminationCondition(ES_PARALLEL_EPOCHS)],
+        model_saver=LocalFileGraphSaver(tmp),
+        score_calculator=DataSetLossCalculator(held))
+    t0 = time.perf_counter()
+    result = EarlyStoppingParallelTrainer(cfg, net, small).fit()
+    secs = time.perf_counter() - t0
+    best = result.best_model
+    rescored = best.score(held[0])
+    recorded = result.score_vs_epoch[result.best_model_epoch]
+    path = os.path.join(tmp, "bestModel.zip")
+    res["es_parallel"] = {"seconds": secs, "epochs": result.total_epochs,
+                          "score_vs_epoch": result.score_vs_epoch,
+                          "best_epoch": result.best_model_epoch,
+                          "rescored": rescored, "verified": verify_model(path),
+                          "iteration": net.iteration}
+    log(f"pw early stopping (EarlyStoppingParallelTrainer): "
+        f"{res['es_parallel']}")
+    if not (result.total_epochs == ES_PARALLEL_EPOCHS
+            and res["es_parallel"]["verified"] and rescored == recorded
+            and net.iteration == ES_PARALLEL_EPOCHS * TM_DATA):
+        fail("pw early stopping: the trainer did not run to its end, or the "
+             "best model does not verify and rescore exactly")
+    del net, best
+    torch.cuda.empty_cache()
+    return res
+
+
+def tm_phase(torch, np, pc, ResNet50, card, group_ms, det):
+    """Phase 5d: TrainingMaster, checkpoints, ParallelWrapper and
+    EarlyStoppingParallelTrainer on the flagship (see the module
+    docstring). `group_ms`: phase 5b's run_group(GROUP_K) ms/step;
+    `det`: the cuDNN setting phase 5b's group check found repeatable,
+    used for the bitwise checks only."""
+    import tempfile
+
+    torch.backends.cudnn.deterministic = False
+    data, bf = tm_data(np, 44, TRAIN_BATCH)
+    res = {"card": card}
+    net, tm, res["k4"] = tm_timed(torch, np, pc, ResNet50, GROUP_K,
+                                  TM_STEPS, bf)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["checkpoint"] = checkpoint_times(torch, net, tmp)
+    del net, tm
+    torch.cuda.empty_cache()
+    net, tm, res["k1"] = tm_timed(torch, np, pc, ResNet50, 1, TM_K1_STEPS,
+                                  bf)
+    del net, tm, data, bf
+    torch.cuda.empty_cache()
+    for kind in ("k4", "k1"):
+        r = res[kind]
+        r["over_run_group"] = r["ms_per_step"] / group_ms
+        log(f"tm {kind}: TrainingMaster(steps_per_dispatch={r['k']}) at "
+            f"batch {TRAIN_BATCH}, {r['steps']} steps after warm-up: "
+            f"{r['ms_per_step']:.2f} ms/step (host clock, sync at the end), "
+            f"{r['img_per_s']:.1f} img/s, {r['over_run_group']:.4f}x phase "
+            f"5b's run_group({GROUP_K}) {group_ms:.2f} ms/step"
+            + (f", steady {r['steady_ms_per_step']:.2f} ms/step (CUDA "
+               "events between group ends)" if "steady_ms_per_step" in r
+               else "")
+            + ", device busy "
+            + ("not measured" if r["busy_ms"] is None
+               else f"{r['busy_ms']:.2f} ms per step, idle share "
+               f"{r['idle_share']:.4f}")
+            + f"; launches per step {r['launches_per_step']} (wgmma "
+            f"{r['wgmma_per_step']})"
+            + (f", per replay {r['launches_per_replay']}"
+               if "launches_per_replay" in r else "")
+            + f"; loss {r['loss_first']:.4f} -> {r['loss_last']:.4f} (mean "
+            f"over the first and the last pass through the {TM_DATA} "
+            "batches); "
+            f"captures {r['captures']} [{card}]")
+    c = res["checkpoint"]
+    log(f"tm checkpoint of the flagship ({c['params']} params, nesterovs, "
+        f"BN states): {c['bytes']} bytes; save s {c['save_s']}, restore s "
+        f"{c['restore_s']} [{card}]")
+    torch.backends.cudnn.deterministic = det
+    with tempfile.TemporaryDirectory() as tmp:
+        res.update(tm_resume_checks(torch, np, ResNet50, tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        res.update(pw_checks(torch, np, ResNet50, tmp))
+    torch.backends.cudnn.deterministic = False
+    return res
+
+
 # ------------------------------------------------------------ phase 6
 
 
@@ -2092,6 +2458,14 @@ def main():
     mln = mln_phase(torch, np, pc, card)
     log(f"mln phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5d. TrainingMaster (timed at k=GROUP_K and k=1, checkpoints, resume,
+    # torn write, guard), ParallelWrapper and EarlyStoppingParallelTrainer
+    t0 = time.perf_counter()
+    tm = tm_phase(torch, np, pc, ResNet50, card,
+                  engine["pallas"]["group"]["ms_per_step"],
+                  engine["group_check"]["deterministic"])
+    log(f"tm phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -2138,6 +2512,8 @@ def main():
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
             else "operations",
             "library_ms": t["library_ms"],
+            "tm_launches": tm["k4"]["launches"][name],
+            "tm_launches_per_replay": tm["k4"]["launches_per_replay"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2148,14 +2524,17 @@ def main():
                        "train_step_totals": train_totals,
                        "serving": serving, "reference": reference,
                        "forward_ms": fwd, "step_check": step,
-                       "train": train, "engine": engine, "mln": mln},
+                       "train": train, "engine": engine, "mln": mln,
+                       "tm": tm},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
         f"kernel calls of one batch-{BATCH} forward (fused_conv*) or of one "
         f"batch-{TRAIN_BATCH} train step (dgrad/wgrad); launches are from "
         f"the serving run (fused_conv*) and the {TRAIN_STEPS}-step "
-        "training run (dgrad/wgrad)")
+        "training run (dgrad/wgrad); tm_launches from the "
+        f"{TM_STEPS}-step TrainingMaster fit at steps_per_dispatch="
+        f"{GROUP_K}, tm_launches_per_replay from one of its replays")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

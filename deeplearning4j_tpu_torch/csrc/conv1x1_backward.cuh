@@ -149,7 +149,8 @@ struct TileAffineW {
     if (has_x2)
       v = __hadd2_rn(
           v, aff2 ? __hadd2_rn(__hmul2_rn(x2, s2h[j]), t2h[j]) : x2);
-    return relu ? __hmax2(v, __float2bfloat162_rn(0.0f)) : v;
+    // _nan: a NaN stays NaN, as in the forward's prologue
+    return relu ? __hmax2_nan(v, __float2bfloat162_rn(0.0f)) : v;
   }
 };
 using TileAffine = TileAffineW<BN>;

@@ -86,7 +86,9 @@ __device__ __forceinline__ float prologue(float x, bool affine, float s,
     v = rnd<T>(__fadd_rn(v, t));
   }
   if (has_add) v = rnd<T>(__fadd_rn(v, a));
-  if (relu) v = fmaxf(v, 0.0f);
+  // a NaN stays NaN, as in torch.relu and jnp.maximum (fmaxf alone
+  // would return 0 and hide a poisoned batch from the loss)
+  if (relu && !isnan(v)) v = fmaxf(v, 0.0f);
   return v;
 }
 

@@ -65,7 +65,8 @@ struct AffinePairs {
                                           t[p0 + q])
                              : v[q];
       if (has_add) r = __hadd2_rn(r, a[q]);
-      if (relu) r = __hmax2(r, __float2bfloat162_rn(0.0f));
+      // _nan: a NaN stays NaN, as in torch.relu and jnp.maximum
+      if (relu) r = __hmax2_nan(r, __float2bfloat162_rn(0.0f));
       v[q] = r;
     }
     return x;

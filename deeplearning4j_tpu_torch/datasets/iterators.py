@@ -8,7 +8,8 @@ the next batches on the card while the current step runs: pinned host
 memory, a copy with `non_blocking=True` on a side CUDA stream, and an
 event the consumer's stream waits on. The host half of staging
 (`host_stage`: dtype conversion and the copy into pinned memory) can run
-on the producer thread, so the consumer only issues the copy.
+on the producer thread, so the consumer only issues the copy
+(`DeviceStage`, which TrainingMaster and ParallelWrapper also use).
 """
 
 from __future__ import annotations
@@ -119,6 +120,51 @@ def _pinned(a, dtype):
         return t
     out = torch.empty(t.shape, dtype=dt, pin_memory=True)
     return out.copy_(t)
+
+
+class DeviceStage:
+    """The device half of staging: `put(host_batch)` sends each array of
+    a HostBatch to `device` with `non_blocking=True` copies on a side
+    CUDA stream and records an event after them; `take(entry)` makes the
+    current stream wait on that event and calls `record_stream` on every
+    staged tensor, so the caching allocator cannot hand a tensor's memory
+    to another allocation before the consumer's kernels are done with
+    it. The pinned sources stay alive until their copies end (PyTorch's
+    pinned-memory allocator records the copy). On the CPU both are
+    pass-throughs. One owner thread."""
+
+    def __init__(self, device):
+        self.device = device
+        self._stream = None
+
+    def put(self, item):
+        if self.device.type == "cpu":
+            return tuple(item), None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stream):
+            staged = tuple(None if a is None else
+                           a.to(self.device, non_blocking=True)
+                           for a in item)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return staged, ready
+
+    def take(self, entry):
+        staged, ready = entry
+        if ready is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ready)
+            for t in staged:
+                if t is not None:
+                    t.record_stream(cur)
+        return staged
+
+    def __call__(self, item):
+        """`take(put(item))`: the copies run on the side stream, after
+        whatever the side stream holds, and the current stream's later
+        work waits for them."""
+        return self.take(self.put(item))
 
 
 class AsyncDataSetIterator(DataSetIterator):
@@ -255,10 +301,6 @@ class AsyncDataSetIterator(DataSetIterator):
         self._q = None
         self._exhausted = True
 
-    def join(self, timeout_s: float = 5.0) -> None:
-        """Alias for close(): stop + join the prefetch thread."""
-        self.close(timeout_s=timeout_s)
-
     def __enter__(self) -> "AsyncDataSetIterator":
         return self
 
@@ -275,15 +317,9 @@ class DevicePrefetchIterator(DataSetIterator):
     On CUDA each host array is converted to `dtype` (floating arrays
     only) and copied into pinned memory (`host_stage`; a batch that
     arrives as a HostBatch, staged so by a producer thread, skips this),
-    then sent with `non_blocking=True` on a side stream; an event
-    recorded after the copies gates the consumer: `__next__` makes the
-    current stream wait on it and calls `record_stream` on every staged
-    tensor, so the caching allocator cannot hand the tensor's memory to
-    another allocation before the consumer's kernels are done with it.
-    The pinned source buffers stay alive until their copy ends
-    (PyTorch's pinned-memory allocator records the copy). On the CPU
-    staging is a plain pass-through: the host arrays are yielded as they
-    are.
+    then sent to the card by a DeviceStage (side stream, an event the
+    consumer's stream waits on in `__next__`). On the CPU staging is a
+    plain pass-through: the host arrays are yielded as they are.
 
     `transform(batch) -> batch` optionally maps the host batch before
     staging. `device` follows the port's policy: "cuda" unless the
@@ -299,7 +335,7 @@ class DevicePrefetchIterator(DataSetIterator):
         self.transform = transform
         self.device = resolve_device(device)
         self.dtype = dtype
-        self._stream = None
+        self._stage = DeviceStage(self.device)
         self._src = None
         self._staged = None
         self._src_done = False
@@ -307,27 +343,7 @@ class DevicePrefetchIterator(DataSetIterator):
     def _put(self, item):
         if not isinstance(item, HostBatch):
             item = host_stage(item, self.transform, self.device, self.dtype)
-        if self.device.type == "cpu":
-            return tuple(item), None
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._stream):
-            staged = tuple(None if a is None else
-                           a.to(self.device, non_blocking=True)
-                           for a in item)
-            ready = torch.cuda.Event()
-            ready.record(self._stream)
-        return staged, ready
-
-    def _take(self, entry):
-        staged, ready = entry
-        if ready is not None:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(ready)
-            for t in staged:
-                if t is not None:
-                    t.record_stream(cur)
-        return staged
+        return self._stage.put(item)
 
     def reset(self):
         if hasattr(self.base, "reset"):
@@ -375,7 +391,7 @@ class DevicePrefetchIterator(DataSetIterator):
                 self._staged.append(self._put(next(self._src)))
             except StopIteration:
                 self._src_done = True
-        return self._take(out)
+        return self._stage.take(out)
 
     # -------------------------------------------------------- shutdown
     def close(self, timeout_s: float = 5.0) -> None:

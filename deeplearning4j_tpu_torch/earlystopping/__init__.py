@@ -1,5 +1,4 @@
-"""Early stopping (counterpart of deeplearning4j_tpu/earlystopping/).
-EarlyStoppingParallelTrainer waits for ParallelWrapper (ROADMAP queue 9)."""
+"""Early stopping (counterpart of deeplearning4j_tpu/earlystopping/)."""
 
 from deeplearning4j_tpu_torch.earlystopping.config import (  # noqa: F401
     EarlyStoppingConfiguration,
@@ -23,4 +22,7 @@ from deeplearning4j_tpu_torch.earlystopping.trainer import (  # noqa: F401
 )
 from deeplearning4j_tpu_torch.earlystopping.score_calc import (  # noqa: F401
     DataSetLossCalculator,
+)
+from deeplearning4j_tpu_torch.earlystopping.parallel_trainer import (  # noqa: F401
+    EarlyStoppingParallelTrainer,
 )

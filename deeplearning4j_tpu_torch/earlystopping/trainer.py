@@ -3,7 +3,8 @@ deeplearning4j_tpu/earlystopping/trainer.py; parity: earlystopping/trainer/
 EarlyStoppingTrainer.java / BaseEarlyStoppingTrainer.java): epoch loop
 with per-iteration abort conditions, per-epoch held-out scoring, best-
 model checkpointing, on the engine's StepHarness. EarlyStoppingParallelTrainer
-waits for ParallelWrapper (ROADMAP queue 9)."""
+(earlystopping/parallel_trainer.py) overrides its batch and end-of-epoch
+hooks to train through ParallelWrapper."""
 
 from __future__ import annotations
 
@@ -60,10 +61,17 @@ class EarlyStoppingTrainer:
     def _pipeline_enabled(self) -> bool:
         return True if self.pipeline is None else bool(self.pipeline)
 
+    def _pipeline_host_only(self) -> bool:
+        """Device staging suits the plain trainer (fit_batch consumes
+        the staged tuple directly); the parallel trainer re-buffers
+        host batches for its wrapper and overrides this to True."""
+        return False
+
     def _fit_batch(self, batch):
         """One training batch through the shared StepProgram (full
-        fit_batch semantics). Uses the fit_batch path so the net's epoch
-        counter stays under THIS trainer's control."""
+        fit_batch semantics); EarlyStoppingParallelTrainer overrides it
+        to route through ParallelWrapper. Uses the fit_batch path so the
+        net's epoch counter stays under THIS trainer's control."""
         self._harness.program.run_batch(batch)
 
     def _fit_batch_guarded(self, batch) -> bool:
@@ -76,6 +84,10 @@ class EarlyStoppingTrainer:
         return self._harness.guarded(
             lambda: self._fit_batch(batch),
             context=f"at epoch {self.net.epoch}", observe=False)
+
+    def _on_epoch_data_end(self):
+        """Hook after the epoch's batch loop (the parallel trainer
+        flushes its buffered batches here)."""
 
     def fit(self) -> EarlyStoppingResult:
         cfg = self.config
@@ -98,7 +110,8 @@ class EarlyStoppingTrainer:
         self._data = self.train_iterator
         if self._pipeline_enabled():
             self._data = self._harness.build_iterator_pipeline(
-                self.train_iterator, depth=self.pipeline_depth)
+                self.train_iterator, depth=self.pipeline_depth,
+                host_only=self._pipeline_host_only())
         else:
             self._harness.attach_data(self.train_iterator)
         with self._harness.session():
@@ -132,8 +145,9 @@ class EarlyStoppingTrainer:
                     continue   # guard rejected the batch: state restored
                 score = net.score()
                 if score is None:
-                    # the iteration conditions are only defined on real
-                    # scores
+                    # no step has run yet (the parallel trainer buffers
+                    # batches): the iteration conditions are only
+                    # defined on real scores
                     continue
                 for c in cfg.iteration_termination_conditions:
                     if c.terminate(score):
@@ -144,6 +158,7 @@ class EarlyStoppingTrainer:
                     break
             if reason:
                 break
+            self._on_epoch_data_end()
 
             if epoch % cfg.evaluate_every_n_epochs == 0:
                 if cfg.score_calculator is not None:

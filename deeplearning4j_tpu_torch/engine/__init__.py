@@ -13,11 +13,14 @@ program + ONE host supervisor.
                 dispatch (skip / rollback / abort), preemption checks,
                 the StepAccumulator every per-step metric batches
                 through, the input pipeline, and teardown (flush, close
-                attached data iterators). EarlyStoppingTrainer is a thin
-                adapter over it.
+                attached data iterators). TrainingMaster,
+                ParallelWrapper and EarlyStoppingTrainer drive their
+                loops through it.
   pipeline      the harness-owned input pipeline (engine/pipeline.py):
-                StepPrefetcher / IteratorPipeline run fetch and
-                host-to-device staging ahead of the compute.
+                StepPrefetcher (TrainingMaster's batch_fn) and
+                IteratorPipeline (iterator-driven fits) run fetch and
+                host-side staging ahead of the compute; stack_staged
+                stacks a k-window on the card.
 
 The mesh/sharding subsystem (ZeRO-1) and the decode program wait
 (ROADMAP queues 9 and 6).

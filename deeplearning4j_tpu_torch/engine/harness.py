@@ -7,7 +7,8 @@ bounding, counters and log lines), preemption handling, per-step
 telemetry batching, the input pipeline's ownership and session teardown
 live here once; the entry points keep only what is theirs (data
 staging, checkpoint formats, epoch semantics). Rollback targets stay
-pluggable: EarlyStoppingTrainer rolls back to in-memory
+pluggable: TrainingMaster rolls back to its newest valid checkpoint,
+EarlyStoppingTrainer and ParallelWrapper to in-memory
 PeriodicSnapshotter snapshots.
 
 The watchdog, supervisor, tracer and phase profiler are duck-typed hooks
@@ -131,19 +132,19 @@ class StepHarness:
         return p
 
     def build_iterator_pipeline(self, source, *, depth=2, queue_size=4,
-                                stage=None, device=None,
-                                dtype=None, meta=None):
+                                stage=None, host_only=False, meta=None):
         """Own an IteratorPipeline (AsyncDataSetIterator →
         DevicePrefetchIterator) for an iterator-driven fit loop, staging
-        on the net's device in its dtype unless told otherwise; the
-        session teardown closes the whole chain (the wrapped producer
-        thread is joined)."""
+        on the net's device in its dtype (`host_only=True`: no device
+        staging, the host batches as they are); the session teardown
+        closes the whole chain (the wrapped producer thread is
+        joined)."""
         from deeplearning4j_tpu_torch.engine.pipeline import IteratorPipeline
 
         p = IteratorPipeline(
             source, depth=depth, queue_size=queue_size, stage=stage,
-            device=self.net.device if device is None else device,
-            dtype=self.net.dtype if dtype is None else dtype)
+            device=self.net.device, dtype=self.net.dtype,
+            host_only=host_only)
         self.attach_data(p)
         self._pipeline = p
         self._pipeline_meta = dict(meta or {})
@@ -312,8 +313,10 @@ class StepHarness:
         rejected and the rollback/skip target restored — callers skip
         listeners and score checks for rejected steps.
 
-        This is the loop body EarlyStoppingTrainer adapts over (and
-        TrainingMaster and ParallelWrapper will, when ported)."""
+        This is the loop body EarlyStoppingTrainer and ParallelWrapper
+        adapt over; TrainingMaster drives the pieces itself (its guard
+        check is forced on checkpoint steps and localizes a group's
+        poisoned inner step)."""
         g = self.guard
         pp = self.phase_profiler
         step_index = self._guard_steps
@@ -346,9 +349,6 @@ class StepHarness:
         finally:
             if pp is not None:
                 pp.end_step()
-
-    def flush(self) -> None:
-        self.acc.flush()
 
     # ------------------------------------------------------------ stats
     def resilience_stats(self):

@@ -19,6 +19,9 @@ Two shapes, one per fit-loop style:
                      thread also does the host half of staging (dtype
                      conversion, the copy into pinned memory), so the
                      consumer only issues the copy to the card.
+                     `host_only=True` keeps the ETL overlap but skips
+                     device staging (multi-input graphs, buffered
+                     batches restack on the host).
 
 Every yielded batch is freshly staged (one copy per yield, even when the
 base iterator hands out the same host object repeatedly), consumed
@@ -159,12 +162,15 @@ class StepPrefetcher:
         producer's skip_bad_batches policy consumed the fetch failure;
         raises the producer's error for the step whose fetch failed.
         Stale entries (steps the consumer skipped) are discarded; an
-        entry beyond `step` (the consumer rolled back) reseeks."""
+        entry beyond `step` (the consumer rolled back) reseeks, and so
+        does a producer that ran to its stop before the consumer went
+        back (a replay of the run's last window)."""
         if self._closed:
             raise RuntimeError("StepPrefetcher is closed")
         if self._thread is None:
             self._start(step)   # restart after a consumed fetch error
         t0 = time.perf_counter()
+        restarted = False
         while True:
             q, gen = self._q, self._gen
             try:
@@ -174,9 +180,12 @@ class StepPrefetcher:
                     continue   # reseek swapped the queue under us
                 t = self._thread
                 if t is None or not t.is_alive():
-                    raise RuntimeError(
-                        "StepPrefetcher producer exited without "
-                        f"yielding step {step}")
+                    if restarted:
+                        raise RuntimeError(
+                            "StepPrefetcher producer exited without "
+                            f"yielding step {step}")
+                    restarted = True
+                    self.seek(step)
                 continue
             if self._gen != gen:
                 continue       # stale generation: entry already void
@@ -242,23 +251,34 @@ class IteratorPipeline(DataSetIterator):
     training bits, as the synchronous path. `stage` and the host half of
     the device stage (`host_stage`) run on the producer thread; a source
     that is already an AsyncDataSetIterator is not wrapped again, and
-    then the consumer does that half."""
+    then the consumer does that half.
+
+    `host_only=True` keeps the ETL overlap but skips device staging: the
+    consumer receives the host batches (through `stage`), for paths that
+    restack or route them on the host (ParallelWrapper's multi-input
+    graphs, EarlyStoppingParallelTrainer's buffered batches)."""
 
     def __init__(self, source, *, depth: int = 2, queue_size: int = 4,
-                 stage=None, device=None, dtype=torch.float32):
+                 stage=None, device=None, dtype=torch.float32,
+                 host_only: bool = False):
         self.source = source
         self.depth = max(1, int(depth))
+        self.host_only = bool(host_only)
         device = resolve_device(device)
         if isinstance(source, AsyncDataSetIterator):
             self._async = source     # never double-wrap a producer
         else:
+            prepare = stage if self.host_only else functools.partial(
+                host_stage, transform=stage, device=device, dtype=dtype)
             self._async = AsyncDataSetIterator(
                 source, queue_size=max(queue_size, self.depth),
-                prepare=functools.partial(host_stage, transform=stage,
-                                          device=device, dtype=dtype))
-        self._it = DevicePrefetchIterator(
-            self._async, buffer_size=self.depth, transform=stage,
-            device=device, dtype=dtype)
+                prepare=prepare)
+        if self.host_only:
+            self._it = self._async
+        else:
+            self._it = DevicePrefetchIterator(
+                self._async, buffer_size=self.depth, transform=stage,
+                device=device, dtype=dtype)
         self.counters = {"batches": 0, "wait_s": 0.0}
         _obs.set_gauge("dl4j_pipeline_depth", self.depth)
 
@@ -268,9 +288,6 @@ class IteratorPipeline(DataSetIterator):
     def __iter__(self):
         self._it.__iter__()
         return self
-
-    def has_next(self):
-        return self._it.has_next()
 
     def __next__(self):
         t0 = time.perf_counter()
@@ -295,6 +312,7 @@ class IteratorPipeline(DataSetIterator):
 
     def facts(self) -> dict:
         return {"kind": "iterator", "depth": self.depth,
+                "host_only": self.host_only,
                 "batches": self.counters["batches"],
                 "wait_s": round(self.counters["wait_s"], 6)}
 

@@ -16,8 +16,10 @@ helper into a constant-time no-op. Hot single-threaded loops batch
 through a `StepAccumulator`.
 
 `REGISTERED_METRICS` names what the port emits: the training engine's
-`dl4j_train_*`, the input pipeline's `dl4j_pipeline_*` and the model
-writer's `dl4j_checkpoint_*` metrics, under the JAX package's names.
+and TrainingMaster's `dl4j_train_*` (and `dl4j_cluster_world_size`), the
+input pipeline's `dl4j_pipeline_*`, the checkpoint and model writers'
+`dl4j_checkpoint_*` and the retry policies' metrics, under the JAX
+package's names.
 """
 
 from __future__ import annotations
@@ -50,9 +52,20 @@ REGISTERED_METRICS = frozenset({
     "dl4j_train_guard_skipped_steps_total",
     "dl4j_train_guard_rollbacks_total",
     "dl4j_train_preemptions_total",
-    # model writer (util/model_serializer.py)
+    # TrainingMaster (parallel/training_master.py)
+    "dl4j_train_data_wait_seconds",
+    "dl4j_train_data_skipped_steps_total",
+    "dl4j_cluster_world_size",
+    # checkpoints and model files (parallel/training_master.py,
+    # util/model_serializer.py, resilience/checkpoint_integrity.py)
     "dl4j_checkpoint_writes_total",
     "dl4j_checkpoint_write_seconds",
+    "dl4j_checkpoint_restores_total",
+    "dl4j_checkpoint_restore_seconds",
+    "dl4j_checkpoint_validate_failures_total",
+    # retry and circuit breaker (resilience/retry.py)
+    "dl4j_retry_attempts_total",
+    "dl4j_breaker_transitions_total",
     # input pipeline (engine/pipeline.py)
     "dl4j_pipeline_batches_total",
     "dl4j_pipeline_wait_seconds",

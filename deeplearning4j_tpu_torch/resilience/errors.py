@@ -1,5 +1,5 @@
 """Typed failures (a copy of the classes of deeplearning4j_tpu/resilience/errors.py
-that the ported serving, model-loading and training paths raise). Callers
+that the ported serving, model-loading, retry and training paths raise). Callers
 route on type: shed load (Overloaded), surface (Shutdown / Unavailable),
 fail over (integrity), stop training (non-finite, preempted)."""
 
@@ -41,6 +41,23 @@ class InferenceUnavailableError(ResilienceError):
     """The batcher thread died; this front-end can no longer serve."""
 
 
+class CircuitOpenError(ResilienceError):
+    """CircuitBreaker is open — calls are rejected without attempting."""
+
+    def __init__(self, msg: str, retry_after_s: float = 0.0):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+
+
+class RetriesExhaustedError(ResilienceError):
+    """Retry gave up; `cause` is the last underlying exception."""
+
+    def __init__(self, msg: str, cause: Exception, attempts: int):
+        super().__init__(msg)
+        self.cause = cause
+        self.attempts = attempts
+
+
 class CheckpointIntegrityError(ResilienceError):
     """A checkpoint/model file failed checksum or structural validation."""
 
@@ -49,6 +66,12 @@ class NonFiniteLossError(ResilienceError):
     """Non-finite loss/params (or an unrecoverable loss spike) detected
     by the training guard — raised by policy='abort', or when a
     skip/rollback policy exhausted its recovery budget."""
+
+
+class StepHangError(ResilienceError):
+    """The step watchdog saw no heartbeat within its timeout: a hung
+    collective, data iterator, or host sync. TrainingMaster lets it
+    through its data retries as an escalation, not a data failure."""
 
 
 class PreemptedError(ResilienceError):

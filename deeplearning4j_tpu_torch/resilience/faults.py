@@ -11,15 +11,24 @@ test exercises and the one an operator replays are the same string.
 The registry keeps the JAX package's point names, so one chaos string
 drives either package. The port fires, so far:
 
-  checkpoint.write   util/model_serializer.write_model, fired with the
+  checkpoint.write   util/model_serializer.write_model and
+                     TrainingMaster's checkpoint save, fired with the
                      tmp file path *after* bytes are written but
                      *before* the atomic publish — `raise` simulates a
                      kill mid-write, `truncate` a torn/partial write
-                     (detected on load through the sha256 sidecar)
+                     (detected on load through the sha256 sidecar or
+                     manifest)
   train.preempt      engine/harness.StepHarness.check_preemption, once
                      per step boundary — `raise` is consumed as a
                      simulated preemption (checkpoint, then
                      PreemptedError)
+  train.step,        TrainingMaster, once per step (or k-step group):
+  train.hang,        a crash, a hang (`delay`), and a hang with SIGUSR1
+  train.hang_hard    and SIGTERM blocked (resilience.fire_hang_hard)
+  train.grad_nonfinite  TrainingMaster, once per fetched batch: `raise`
+                     is consumed by poisoning the batch with NaN
+  data.next          TrainingMaster, before each batch_fn call (inside
+                     `data_retry`)
   obs.emit           observability/metrics guarded-emission helpers —
                      `raise` simulates a broken telemetry backend; the
                      helpers swallow it (counted as dropped)

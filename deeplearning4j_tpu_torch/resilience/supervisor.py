@@ -1,8 +1,9 @@
 """Self-healing training (counterpart of
 deeplearning4j_tpu/resilience/supervisor.py): the non-finite guard, the
-in-memory rollback snapshotter and the preemption handler. The step
-watchdog and the bounded-restart supervisor wait (ROADMAP queue 8); the
-engine's StepHarness takes any object with their methods.
+in-memory rollback snapshotter, the preemption handler and the
+`train.hang_hard` chaos site. The step watchdog and the bounded-restart
+supervisor wait (ROADMAP queue 8); the engine's StepHarness takes any
+object with their methods.
 
   NonFiniteGuard     post-step all-finite check on loss + params (one
                      host read, only on checked steps — `check_every=N`
@@ -18,6 +19,9 @@ engine's StepHarness takes any object with their methods.
                      at step boundaries and runs checkpoint-then-exit
                      (PreemptedError). The `train.preempt` fault point
                      simulates a preemption deterministically.
+  fire_hang_hard     the `train.hang_hard` site TrainingMaster fires
+                     once per step or group: a `delay` armed there
+                     wedges the loop with SIGUSR1 and SIGTERM blocked.
 
 A snapshot copies the train carry itself (nn/base_network.py's
 `_train_carry`) and the dropout generator's state:
@@ -36,11 +40,34 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.observability import metrics as _obs
+from deeplearning4j_tpu_torch.resilience.faults import fire as _fire
+from deeplearning4j_tpu_torch.resilience.faults import injector
 from deeplearning4j_tpu_torch.util.tree import clone, leaves
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 POLICIES = ("skip_step", "rollback", "abort")
+
+
+def fire_hang_hard() -> None:
+    """`train.hang_hard` chaos site: a `delay` spec armed here wedges
+    the fit loop with SIGUSR1 *and SIGTERM blocked* — immune to a step
+    watchdog's signal escalation AND to a supervisor's polite SIGTERM,
+    the deterministic analogue of a thread stuck inside a native
+    collective. Only a hard exit or an external SIGKILL recovers it."""
+    if not injector().armed or not hasattr(signal, "pthread_sigmask"):
+        # happy path: no chaos armed — skip the two sigmask syscalls,
+        # keep the hit accounting
+        _fire("train.hang_hard")
+        return
+    blocked = {s for s in (getattr(signal, "SIGUSR1", None),
+                           getattr(signal, "SIGTERM", None))
+               if s is not None}
+    old = signal.pthread_sigmask(signal.SIG_BLOCK, blocked)
+    try:
+        _fire("train.hang_hard")
+    finally:
+        signal.pthread_sigmask(signal.SIG_SETMASK, old)
 
 
 class NonFiniteGuard:

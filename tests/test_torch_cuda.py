@@ -310,6 +310,44 @@ def test_cuda_backward_kernels_match_plain(rng, case, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["simple", "wgmma"])
+def test_cuda_relu_prologues_keep_nan_like_their_plain_versions(
+        rng, route, dtype):
+    """A NaN input stays NaN through each kernel's relu prologue (the 1x1
+    and 3x3 forward, wgrad's recomputed u), where it does in the plain
+    versions (torch.clamp_min) and the JAX kernels (jnp.maximum): a
+    poisoned batch reaches the loss. In f32 both shapes take "simple"."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    cuda = lambda v: torch.from_numpy(v).cuda()
+    same_nans = lambda g, r: (torch.equal(torch.isnan(g), torch.isnan(r))
+                              and bool(torch.isnan(r).any()))
+    M, K, N = (1100, 64, 192) if route == "wgmma" else (200, 72, 136)
+    a, kw = _args_1x1(rng, "affine_relu", M, K, N)
+    a["x"][[3, 150]] = np.nan
+    x, w, b = cuda(a["x"]).to(dt), cuda(a["w"]).to(dt), cuda(a["b"])
+    kw = {k: (cuda(v) if isinstance(v, np.ndarray) else v)
+          for k, v in kw.items()}
+    assert same_nans(tpc.fused_conv1x1(x, w, b, **kw)[0],
+                     tpc.ref_fused_conv1x1(x, w, b, **kw)[0])
+    B, H, C, N3 = (1, 7, 128, 256) if route == "wgmma" else (2, 9, 24, 40)
+    x3 = rng.normal(size=(B, H, H, C)).astype(np.float32)
+    x3[0, 2, 3] = np.nan
+    w3 = (rng.normal(size=(3, 3, C, N3)) * 0.1).astype(np.float32)
+    kw3 = {"scale": cuda(np.ones(C, np.float32)),
+           "shift": cuda(np.zeros(C, np.float32)), "relu": True}
+    x3, w3 = cuda(x3).to(dt), cuda(w3).to(dt)
+    b3 = cuda(np.zeros(N3, np.float32))
+    assert same_nans(tpc.fused_conv3x3(x3, w3, b3, **kw3)[0],
+                     tpc.ref_fused_conv3x3(x3, w3, b3, **kw3)[0])
+    shape = SHAPES_BWD[2] if route == "wgmma" else SHAPES_BWD[0]
+    bkw = _wgrad_kw(_bwd_args(rng, *shape, dt, BWD_CASES[1]))
+    bkw["x"][[5, 60]] = float("nan")
+    assert same_nans(tpc.wgrad_conv1x1(**bkw), tpc.ref_wgrad_conv1x1(**bkw))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [SHAPES_BWD[0], SHAPES_BWD[5]],
                          ids=["simple", "wgmma"])
 def test_cuda_backward_kernels_are_bitwise_repeatable(rng, shape):
@@ -579,7 +617,7 @@ def test_cuda_device_prefetch_stages_on_a_side_stream():
     it = DevicePrefetchIterator(data, buffer_size=2)
     got = list(it)
     torch.cuda.synchronize()
-    assert len(got) == 3 and it._stream is not None
+    assert len(got) == 3 and it._stage._stream is not None
     for (x, y), (sx, sy) in zip(data, got):
         assert sx.is_cuda and sx.dtype == torch.float32
         assert np.array_equal(sx.cpu().numpy(), x)
@@ -803,3 +841,114 @@ def test_cuda_lrn_and_zero_padding_match_the_cpu(rng):
             cpu = layer.apply({}, x.to(dt))[0].float()
             gpu = layer.apply({}, x.to(dt).cuda())[0].float().cpu()
             torch.testing.assert_close(gpu, cpu, rtol=tol, atol=1e-6)
+
+
+# ------------------------------------- TrainingMaster and ParallelWrapper
+
+
+def _windows(prog, data, k):
+    """Hand-driven run_group over consecutive k-windows of `data` (a
+    shorter last window runs eagerly, as in a fit)."""
+    for lo in range(0, len(data), k):
+        prog.run_group(*_stacked(data[lo:lo + k]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+def test_cuda_training_master_equals_hand_driven_run_group(
+        deterministic_cudnn, k):
+    """TrainingMaster (pipeline on: pinned batches, a side stream, the
+    window stacked on the card) against hand-driven StepProgram calls on
+    the same batches, bit for bit; at k=3 a 7-step fit replays two
+    groups and runs its 1-step tail eagerly."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster
+
+    data = _engine_batches(7, seed=12)
+    a = _port_mini_resnet("pallas", "bfloat16", **ENGINE_CONF)
+    b = _port_mini_resnet("pallas", "bfloat16", **ENGINE_CONF)
+    tm = TrainingMaster(a, steps_per_dispatch=k)
+    tm.fit(lambda s: data[s], 7)
+    prog = StepProgram(b)
+    if k == 1:
+        for x, y in data:
+            prog.run(x, y)
+    else:
+        _windows(prog, data, k)
+    torch.cuda.synchronize()
+    assert a._flat_train is not None
+    _assert_nets_bitwise(a, b)
+    if k > 1:
+        g = tm._harness.program.group_stats
+        assert (g["captures"], g["replays"], g["eager_windows"]) == (1, 2, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_training_master_resume_is_bitwise(deterministic_cudnn,
+                                                tmp_path):
+    """8 uninterrupted steps (checkpoint_every=4) against a net of
+    another seed that restores step 4 and trains to 8."""
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster
+
+    data = _engine_batches(8, seed=13)
+    a = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+    TrainingMaster(a, checkpoint_dir=str(tmp_path), checkpoint_every=4,
+                   steps_per_dispatch=4).fit(lambda s: data[s], 8)
+    b = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs",
+                          seed=99)
+    tm = TrainingMaster(b, checkpoint_dir=str(tmp_path),
+                        steps_per_dispatch=4)
+    assert tm.load_checkpoint_at(4) == 4 and b.iteration == 4
+    tm.fit(lambda s: data[s], 8, start_step=4)
+    torch.cuda.synchronize()
+    _assert_nets_bitwise(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_rollback_then_replay_needs_no_recapture(deterministic_cudnn,
+                                                      tmp_path):
+    """A poisoned inner step of the second group rolls back to the step-4
+    checkpoint; the window replays without it (eagerly: 3 steps) and the
+    next group replays the graph captured first — one capture — ending
+    bit for bit where eager steps over the clean batches end."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster
+    from deeplearning4j_tpu_torch.resilience import NonFiniteGuard, injector
+
+    data = _engine_batches(12, seed=14)
+    net = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+    tm = TrainingMaster(net, checkpoint_dir=str(tmp_path),
+                        checkpoint_every=4, steps_per_dispatch=4,
+                        guard=NonFiniteGuard("rollback", check_every=1))
+    injector().clear()
+    injector().inject("train.grad_nonfinite", at_hit=6)   # step 5
+    try:
+        tm.fit(lambda s: data[s], 12)
+    finally:
+        injector().clear()
+    g = tm._harness.program.group_stats
+    assert sorted(tm._poisoned_steps) == [5]
+    assert tm.guard.counters["rollbacks"] == 1
+    assert (g["captures"], g["replays"], g["eager_windows"]) == (1, 3, 1)
+    ref = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+    prog = StepProgram(ref)
+    for s in range(12):
+        if s != 5:
+            prog.run(*data[s])
+    torch.cuda.synchronize()
+    _assert_nets_bitwise(net, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_parallel_wrapper_equals_hand_driven_run_group(
+        deterministic_cudnn):
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    data = _engine_batches(8, seed=15)
+    a = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+    b = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+    ParallelWrapper(a, steps_per_dispatch=4).fit(data)
+    _windows(StepProgram(b), data, 4)
+    torch.cuda.synchronize()
+    _assert_nets_bitwise(a, b)
