@@ -99,6 +99,26 @@ Phases, in order; any failure exits non-zero:
      EarlyStoppingParallelTrainer over ES_PARALLEL_EPOCHS epochs with a
      LocalFileGraphSaver (the best model verifies and rescores exactly).
      The bitwise checks run with phase 5b's cuDNN setting;
+  5e. observability on the flagship (lines start "obs"): TrainingMaster
+     (steps_per_dispatch=GROUP_K) at batch 128 with every hook of the
+     observability slice — a Tracer, the default phase profiler, a
+     StepWatchdog, a Supervisor, TelemetryListener, StatsListener and
+     ScoreIterationListener — against the same fit with none, from one
+     seeded state: ms/step of each arm (two fits each, off on on off)
+     and their ratio (fails above OBS_RATIO_MAX), the phase shares and
+     coverage (>= OBS_COVERAGE_MIN), launches per step (30/16/30/30, all
+     "wgmma"), the final state bit for bit; the registry's steps and
+     phase histograms; the CostModel's FLOPs per step (register_perf of
+     the captured group) against 3 x 2 x the net's layer-shape
+     multiply-adds x 128 and its MFU against the fits'; StatsListener's
+     histograms, render_html, export_stats_html and a UIServer GET; at
+     batch 32 a `train.hang` cut by the watchdog and resumed by the
+     Supervisor from the newest checkpoint, bit for bit, the hang instant
+     parented to the hung window, the detection latency; OBS_REQUESTS
+     traced requests through ParallelInference (every request's span
+     chain, the dl4j_serving_* counters) and the device's idle share
+     under SERVE_THREADS clients (a profiler window); the Chrome trace
+     (train_group steps = steps run) and prometheus_text parsed;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -166,6 +186,27 @@ TM_CHECK_BATCH = 32            # the resume, torn-write and guard checks
 TM_CKPT_REPEATS = 2            # timed saves and restores of one checkpoint
 PW_BATCHES = 8                 # ParallelWrapper's bitwise check
 ES_PARALLEL_EPOCHS = 2
+# phase 5e, observability on the flagship
+OBS_STEPS = 20                 # steps per timed fit; two fits per arm
+OBS_RATIO_MAX = 1.10           # hooks-on / hooks-off ms per step
+OBS_COVERAGE_MIN = 0.95        # the phase profiler's attributed share
+# both arms' producer runs two windows ahead: at the default depth (2 <
+# GROUP_K) the profiler's per-window wait leaves the producer pinning the
+# window's last batches after the replay, where no replay hides it
+OBS_PIPELINE_DEPTH = 2 * GROUP_K
+# CostModel FLOPs per step vs 3 x 2 x the zoo ResNet50's layer-shape
+# multiply-adds x 128 (3.858e9 per image: the stride sits on each stage's
+# first 1x1, as in the JAX zoo; bench.py's 4.09e9 is a ResNet-50 whose
+# stride sits on the 3x3), and its MFU vs the same fits' at that count
+OBS_FLOPS_TOL = 0.05
+OBS_WATCHDOG_S = 10.0          # flagship fit: > capture (0.64 s, PR 5)
+                               # and a checkpoint save (1.2 s, PR 7)
+OBS_DRILL_STEPS = 3 * GROUP_K  # the hang drill at TM_CHECK_BATCH
+OBS_DRILL_WATCHDOG_S = 5.0
+OBS_HANG_S = 120.0             # the train.hang delay the watchdog cuts
+OBS_REQUESTS = 50              # sequential mixed-size served requests
+OBS_SERVE_SIZES = (1, 3, 8, 16, 32, 5, 40)
+OBS_IDLE_S = 3.0               # the serving idle-share window
 # The zoo's VGG16 and AlexNet have linear convolutions: ConvolutionLayer's
 # default activation is identity and the JAX package's zoo sets none (the
 # configuration is held to its JSON). Under He init the activations then
@@ -1464,9 +1505,14 @@ def vgg16(VGG16, compute_dtype="bfloat16"):
 def macs_per_image(net):
     """Multiply-adds of one image's forward, from the layer shapes:
     out_h * out_w * kh * kw * c_in * c_out per convolution, n_in * n_out
-    per dense and output layer."""
+    per dense and output layer (a layer list's layers, or a graph's layer
+    nodes)."""
     total = 0
-    for layer, t in zip(net.conf.layers, net.layer_input_types):
+    pairs = ([(n.obj, net._layer_in_types[n.name]) for n in net.topo
+              if n.kind == "layer"]
+             if hasattr(net.conf, "network_inputs")
+             else zip(net.conf.layers, net.layer_input_types))
+    for layer, t in pairs:
         kind = type(layer).__name__
         if kind == "ConvolutionLayer":
             o = layer.output_type(t)
@@ -2184,6 +2230,479 @@ def tm_phase(torch, np, pc, ResNet50, card, group_ms, det):
     return res
 
 
+# ------------------------------------------------------------ phase 5e
+
+
+def obs_hooks(torch, tm_cls, net, tr, storage, **kw):
+    """A TrainingMaster on `net` with every hook of the observability
+    slice: the tracer, the default phase profiler, a StepWatchdog and a
+    Supervisor (attached for its counters), TelemetryListener,
+    StatsListener and ScoreIterationListener on net.listeners."""
+    from deeplearning4j_tpu_torch.observability import TelemetryListener
+    from deeplearning4j_tpu_torch.optimize import ScoreIterationListener
+    from deeplearning4j_tpu_torch.resilience import StepWatchdog, Supervisor
+    from deeplearning4j_tpu_torch.stats import StatsListener
+
+    sup = Supervisor(max_restarts=0)
+    tm = tm_cls(net, steps_per_dispatch=GROUP_K, tracer=tr,
+                phase_profiler=True, supervisor=sup,
+                watchdog=StepWatchdog(timeout_s=OBS_WATCHDOG_S), **kw)
+    net.listeners += [
+        TelemetryListener(frequency=OBS_STEPS, tracer=tr),
+        StatsListener(storage, frequency=OBS_STEPS, session_id="flagship"),
+        ScoreIterationListener(OBS_STEPS)]
+    return tm, sup
+
+
+def obs_fits(torch, np, pc, ResNet50, tr, storage):
+    """The flagship through TrainingMaster(steps_per_dispatch=GROUP_K,
+    pipeline_depth=OBS_PIPELINE_DEPTH) at TRAIN_BATCH from one seeded
+    state, every hook on (obs_hooks, the fit run by its Supervisor) and
+    every hook off: a warm-up fit of OBS_STEPS steps each (the capture;
+    StatsListener's first collection, whose one-off device allocations
+    took ~0.22 s), then two timed fits of OBS_STEPS steps per arm in the
+    order off, on, on, off (host clock, a sync at each end); the
+    launches of the hooks-on fits counted from 0; the CostModel's FLOPs
+    of the captured group (register_perf) against the same fits' time."""
+    from deeplearning4j_tpu_torch.observability import (
+        CostModel,
+        StepPhaseProfiler,
+        get_registry,
+    )
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster
+
+    _, bf = tm_data(np, 51, TRAIN_BATCH)
+    off_net, on_net = (flagship(ResNet50, "pallas") for _ in range(2))
+    tm_off = TrainingMaster(off_net, steps_per_dispatch=GROUP_K,
+                            pipeline_depth=OBS_PIPELINE_DEPTH)
+    tm_on, sup = obs_hooks(torch, TrainingMaster, on_net, tr, storage,
+                           pipeline_depth=OBS_PIPELINE_DEPTH)
+    for tm in (tm_off, tm_on):
+        tm.fit(bf, OBS_STEPS)
+    torch.cuda.synchronize()
+    # the profiler reports the timed fits only (not the capture's window)
+    tm_on.phase_profiler = StepPhaseProfiler()
+    reg = get_registry()
+    secs = {"off": [], "on": []}
+    launches = {n: 0 for n in pc.LAUNCHES}
+    wgmma = {n: 0 for n in pc.LAUNCHES}
+    steps_total, phase_counts = 0.0, {}
+    counter = lambda snap: sum(
+        snap["counters"].get("dl4j_train_steps_total", {}).values())
+    hist = lambda snap: {k: v["count"] for k, v in
+                         snap["histograms"].items()
+                         if k.startswith("dl4j_train_phase_seconds")}
+    at = {"off": OBS_STEPS, "on": OBS_STEPS}
+    first_span = tr.stats()["recorded"]
+    for arm in ("off", "on", "on", "off"):
+        tm = tm_on if arm == "on" else tm_off
+        fit = (lambda a, b: sup.run(tm.fit, bf, b, start_step=a)) \
+            if arm == "on" else (lambda a, b: tm.fit(bf, b, start_step=a))
+        before = reg.snapshot()
+        pc.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit(at[arm], at[arm] + OBS_STEPS)
+        torch.cuda.synchronize()
+        secs[arm].append(time.perf_counter() - t0)
+        at[arm] += OBS_STEPS
+        if arm == "on":
+            # the registry, launches: the hooks-on fits only
+            after = reg.snapshot()
+            steps_total += counter(after) - counter(before)
+            hb = hist(before)
+            for k, v in hist(after).items():
+                phase_counts[k] = phase_counts.get(k, 0) + v - hb.get(k, 0)
+            counts = pc.launch_counts()
+            for n in pc.LAUNCHES:
+                launches[n] += counts[n]
+                wgmma[n] += counts[f"{n}/wgmma"]
+    steps = 2 * OBS_STEPS
+    r = {"steps": steps, "steps_total_delta": steps_total,
+         "phase_counts_delta": phase_counts}
+    for arm in ("off", "on"):
+        r[f"{arm}_ms_per_step"] = sum(secs[arm]) * 1e3 / steps
+        r[f"{arm}_s"] = secs[arm]
+    r["ratio"] = r["on_ms_per_step"] / r["off_ms_per_step"]
+    ms = r["on_ms_per_step"]
+    r["img_per_s"] = TRAIN_BATCH / ms * 1e3
+    r["mfu_2flops"] = (r["img_per_s"] * 3 * 2 * RESNET50_MACS_PER_IMAGE
+                       / BF16_FLOPS_PER_S)
+    r["macs_per_image"] = macs_per_image(on_net)
+    r["mfu_2flops_layers"] = (r["img_per_s"] * 3 * 2 * r["macs_per_image"]
+                              / BF16_FLOPS_PER_S)
+    r["launches_per_step"] = {n: launches[n] / steps for n in launches}
+    r["wgmma_per_step"] = {n: wgmma[n] / steps for n in wgmma}
+    r["launches"] = launches
+    same, count, diff = same_bits(torch, on_net, off_net)
+    r["bitwise"] = {"tensors": count, "differ": diff,
+                    "iterations": (on_net.iteration, off_net.iteration)}
+    r["phases"] = tm_on.phase_profiler.report()
+    # each window's phases (ms), from the profiler's spans
+    r["phase_ms"] = {}
+    for sp in tr.spans()[first_span:]:
+        if sp["name"].startswith("phase:"):
+            r["phase_ms"].setdefault(sp["name"][6:], []).append(
+                round(sp["dur_us"] / 1e3, 2))
+    # the cost model: the captured group's FLOPs, counted outside the
+    # timed fits, against the hooks-on fits' ms per step
+    prog = tm_on._harness.program
+    cm = CostModel(device=DEV)
+    keys = list(prog.group_launches())
+    t0 = time.perf_counter()
+    if keys:   # the captured group: GROUP_K steps per call
+        per_call = GROUP_K
+        entry = prog.register_perf(cm, keys[0])
+    else:      # a CPU rehearsal captures nothing: the k=1 step
+        per_call = 1
+        entry = prog.register_perf(cm, None, *bf(0))
+    r["cost_count_s"] = time.perf_counter() - t0
+    (key,) = cm.keys()
+    perf = cm.perf_report(key, seconds_per_call=ms * per_call / 1e3,
+                          items_per_call=per_call * TRAIN_BATCH)
+    r["cost"] = {k: perf.get(k) for k in (
+        "source", "flops", "bytes_accessed", "arithmetic_intensity",
+        "ridge_point", "bound", "mfu", "device_kind", "peak_flops")}
+    r["cost"]["flops_per_step"] = entry["flops"] / per_call
+    r["resilience"] = tm_on.training_stats()["resilience"]
+    # what one StatsListener collection costs (params and update
+    # summaries, the host read), outside the timed fits
+    (stats,) = [ls for ls in on_net.listeners
+                if hasattr(ls, "_collect_summaries")]
+    r["stats_collect_ms"] = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats._collect_summaries(on_net)
+        r["stats_collect_ms"].append((time.perf_counter() - t0) * 1e3)
+    del off_net, tm_off
+    torch.cuda.empty_cache()
+    return r, on_net, tm_on
+
+
+def obs_drill(torch, np, ResNet50, tr, tmp):
+    """At TM_CHECK_BATCH: TrainingMaster(steps_per_dispatch=GROUP_K,
+    checkpoint_every=GROUP_K) under a Supervisor with a StepWatchdog
+    (OBS_DRILL_WATCHDOG_S) and the tracer; a `train.hang` delay of
+    OBS_HANG_S at the third window's start is cut by the watchdog
+    (SIGUSR1 -> StepHangError), the Supervisor restarts the fit, which
+    resumes from the newest checkpoint; the final state against a run
+    without the fault, bit for bit. Detection latency: the hang instant
+    against the start of the hung window's span."""
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster
+    from deeplearning4j_tpu_torch.resilience import (
+        StepWatchdog,
+        Supervisor,
+        injector,
+    )
+
+    _, bf = tm_data(np, 52, TM_CHECK_BATCH)
+    n = OBS_DRILL_STEPS
+    clean = flagship(ResNet50, "pallas")
+    TrainingMaster(clean, steps_per_dispatch=GROUP_K).fit(bf, n)
+    net = flagship(ResNet50, "pallas")
+    wd = StepWatchdog(timeout_s=OBS_DRILL_WATCHDOG_S)
+    sup = Supervisor(max_restarts=2, initial_backoff_s=0.0)
+    tm = TrainingMaster(net, checkpoint_dir=tmp, checkpoint_every=GROUP_K,
+                        steps_per_dispatch=GROUP_K, watchdog=wd,
+                        supervisor=sup, tracer=tr)
+    injector().inject("train.hang", mode="delay", at_hit=3,
+                      delay_s=OBS_HANG_S)
+    t0 = time.perf_counter()
+    try:
+        sup.run(tm.fit, bf, n)
+    finally:
+        injector().clear()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    same, count, diff = same_bits(torch, net, clean)
+    spans = {s["id"]: s for s in tr.spans()}
+    hangs = [s for s in spans.values() if s["name"] == "watchdog_hang"]
+    parent = spans.get(hangs[0]["parent_id"]) if hangs else None
+    r = {"seconds": secs, "tensors": count, "differ": diff,
+         "iteration": net.iteration, "ledger": sup.restart_ledger,
+         "watchdog": wd.stats(), "checkpoints": tm.list_checkpoints(),
+         "hang_parent": None if parent is None else
+         (parent["name"], parent["args"].get("step")),
+         "detection_s": None if parent is None else
+         (hangs[0]["t0_us"] - parent["t0_us"]) / 1e6}
+    log(f"obs drill at batch {TM_CHECK_BATCH}: train.hang delay "
+        f"{OBS_HANG_S:.0f} s at the third {GROUP_K}-step window, watchdog "
+        f"{OBS_DRILL_WATCHDOG_S:.0f} s, Supervisor: detected after "
+        + ("not measured" if r["detection_s"] is None
+           else f"{r['detection_s']:.3f} s")
+        + f" (hang instant - the hung window's start), parent "
+        f"{r['hang_parent']}, restarts "
+        f"{[e['error_class'] for e in sup.restart_ledger]}, resumed from "
+        f"the newest checkpoint to iteration {net.iteration}; against the "
+        f"run without the fault: {count} tensors, {diff} differ; "
+        f"{secs:.1f} s")
+    if not (same and net.iteration == n and len(hangs) == 1
+            and [e["error_class"] for e in sup.restart_ledger]
+            == ["StepHangError"]
+            and r["hang_parent"] == ("train_group", 2 * GROUP_K)):
+        fail(f"obs drill: the hang was not cut once, parented to the hung "
+             f"window, and resumed bit for bit: {r}")
+    del net, clean, tm
+    torch.cuda.empty_cache()
+    return r
+
+
+def obs_serving(torch, np, net, tr):
+    """ParallelInference(batch_limit=32) with the tracer on the trained
+    flagship: OBS_REQUESTS sequential requests of OBS_SERVE_SIZES rows
+    (one in flight, so each request leads its batches and owns its span
+    chain; 40 rows split into two batches), each checked against a direct
+    output; then SERVE_THREADS closed-loop clients for OBS_IDLE_S under
+    torch.profiler: the device's idle share while serving."""
+    from deeplearning4j_tpu_torch.observability import get_registry
+    from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
+
+    rng = np.random.default_rng(53)
+    pool = {n: serving_inputs(np, rng, n)
+            for n in sorted(set(OBS_SERVE_SIZES) | set(SERVE_SIZES))}
+    sizes = [OBS_SERVE_SIZES[i % len(OBS_SERVE_SIZES)]
+             for i in range(OBS_REQUESTS)]
+    reg = get_registry()
+    before = reg.snapshot()
+    n_spans = len(tr.spans())
+    pi = ParallelInference(net, batch_limit=32, tracer=tr)
+    try:
+        for n in sizes:
+            out = pi.output(pool[n])
+            if out.shape != (n, 1000) or not np.all(np.isfinite(out)):
+                fail(f"obs serving: bad response of shape {out.shape}")
+        mid = reg.snapshot()
+        stop = threading.Event()
+        served = [0]
+
+        def client():
+            i = 0
+            while not stop.is_set():
+                pi.output(pool[SERVE_SIZES[i % len(SERVE_SIZES)]])
+                served[0] += 1
+                i += 1
+
+        threads = [threading.Thread(target=client)
+                   for _ in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)   # the clients' first round, outside the window
+        prof = engine_profile(torch, lambda: time.sleep(OBS_IDLE_S), 1)
+        stop.set()
+        for t in threads:
+            t.join()
+    finally:
+        pi.shutdown()
+    spans = tr.spans()[n_spans:]
+    reqs = [s for s in spans if s["name"] == "request"][:OBS_REQUESTS]
+    kids = {}
+    for s in spans:
+        kids.setdefault(s["parent_id"], []).append(s)
+    chains = 0
+    for q in reqs:
+        ds = [d for d in kids.get(q["id"], [])
+              if d["name"] == "assemble_dispatch"]
+        if ds and all(any(c["name"] == "complete_deliver"
+                          for c in kids.get(d["id"], [])) for d in ds) \
+                and len(ds) == -(-q["args"]["rows"] // 32):
+            chains += 1
+    delta = lambda name: (sum(mid["counters"].get(name, {}).values())
+                          - sum(before["counters"].get(name, {}).values()))
+    occ = lambda snap: snap["histograms"].get(
+        "dl4j_serving_batch_occupancy", {"count": 0, "sum": 0.0})
+    busy_s = None if prof["busy_ms"] is None else prof["busy_ms"] / 1e3
+    r = {"requests": OBS_REQUESTS, "chains": chains,
+         "batches_expected": sum(-(-n // 32) for n in sizes),
+         "splits_expected": sum(1 for n in sizes if n > 32),
+         "rows": sum(sizes), "concurrent_served": served[0],
+         "idle_share": (None if busy_s is None
+                        else 1.0 - busy_s / (prof["profiled_wall_ms"] / 1e3)),
+         "busy_s": busy_s, "window_s": prof["profiled_wall_ms"] / 1e3}
+    # the sequential part's counters (read before the concurrent window)
+    r["batches_total_delta"] = delta("dl4j_serving_batches_total")
+    r["splits_delta"] = delta("dl4j_serving_bucket_splits_total")
+    r["occupancy_delta"] = (occ(mid)["count"] - occ(before)["count"],
+                            occ(mid)["sum"] - occ(before)["sum"])
+    return r
+
+
+def obs_phase(torch, np, pc, ResNet50, card, det):
+    """Phase 5e: every hook of the observability slice on the flagship
+    (see the module docstring)."""
+    import tempfile
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.observability import (
+        Tracer,
+        get_registry,
+        parse_prometheus,
+    )
+    from deeplearning4j_tpu_torch.stats import (
+        InMemoryStatsStorage,
+        UIServer,
+        render_html,
+    )
+    from deeplearning4j_tpu_torch.stats.listener import _named_leaves
+
+    torch.backends.cudnn.deterministic = det
+    tr = Tracer(max_spans=200000)
+    storage = InMemoryStatsStorage()
+    res = {"card": card}
+    r, net, tm = obs_fits(torch, np, pc, ResNet50, tr, storage)
+    res["fit"] = r
+    phases = r["phases"]
+    shares = {p: round(v["share"], 4) for p, v in phases["phases"].items()}
+    log(f"obs fit: TrainingMaster(steps_per_dispatch={GROUP_K}) at batch "
+        f"{TRAIN_BATCH}, {r['steps']} steps per arm (two fits each, order "
+        f"off on on off): hooks on {r['on_ms_per_step']:.2f} ms/step "
+        f"({r['img_per_s']:.1f} img/s), hooks off "
+        f"{r['off_ms_per_step']:.2f} ms/step: ratio {r['ratio']:.4f} (the "
+        f"JAX package's bar for its telemetry: < 1.02; this run's limit "
+        f"{OBS_RATIO_MAX}); phase shares {shares}, coverage "
+        f"{phases['coverage']:.4f} over {phases['steps']} profiler steps "
+        f"(one per window), per window (ms) {r['phase_ms']}; one "
+        f"StatsListener collection "
+        f"{[round(v, 2) for v in r['stats_collect_ms']]} ms; launches per "
+        f"step {r['launches_per_step']} (wgmma {r['wgmma_per_step']}); "
+        f"hooks on vs off: {r['bitwise']} [{card}]")
+    c = r["cost"]
+    flops_want = 3 * 2 * r["macs_per_image"] * TRAIN_BATCH
+    flops_bench = 3 * 2 * RESNET50_MACS_PER_IMAGE * TRAIN_BATCH
+    log(f"obs cost model: {c['flops_per_step']:.4e} FLOPs per step "
+        f"(a multiply-add is two) = {c['flops_per_step'] / flops_want:.4f}"
+        f" x 3 x 2 x {r['macs_per_image']} x {TRAIN_BATCH} (the net's "
+        f"layer-shape multiply-adds) = "
+        f"{c['flops_per_step'] / flops_bench:.4f} x 3 x 2 x 4.09e9 x "
+        f"{TRAIN_BATCH} (bench.py's count); {c['bytes_accessed']:.4e} "
+        f"bytes per window (op-by-op traffic of the counted route), "
+        f"arithmetic intensity {c['arithmetic_intensity']:.1f} against the "
+        f"ridge {c['ridge_point']:.1f}: {c['bound']}-bound; MFU "
+        f"{c['mfu']:.4f} against the same fits' mfu_2flops "
+        f"{r['mfu_2flops_layers']:.4f} at the layer-shape count "
+        f"({r['mfu_2flops']:.4f} at 4.09e9); counted in "
+        f"{r['cost_count_s']:.1f} s ({c['source']}) [{card}]")
+    want = {"fused_conv1x1": 30, "fused_conv3x3": 16, "dgrad_conv1x1": 30,
+            "wgrad_conv1x1": 30}
+    windows = r["steps"] // GROUP_K
+    problems = []
+    if r["ratio"] > OBS_RATIO_MAX:
+        problems.append(f"hooks-on/off ratio {r['ratio']:.4f}")
+    if phases["coverage"] < OBS_COVERAGE_MIN:
+        problems.append(f"coverage {phases['coverage']:.4f}")
+    if r["bitwise"]["differ"] or len(set(r["bitwise"]["iterations"])) != 1:
+        problems.append(f"hooks moved the state {r['bitwise']}")
+    for n, v in want.items():
+        if r["launches_per_step"][n] != v or r["wgmma_per_step"][n] != v:
+            problems.append(f"{n} launches {r['launches_per_step'][n]}")
+    if abs(c["flops_per_step"] / flops_want - 1) > OBS_FLOPS_TOL:
+        problems.append(f"cost model FLOPs {c['flops_per_step']:.4e}")
+    if abs(c["mfu"] / r["mfu_2flops_layers"] - 1) > OBS_FLOPS_TOL:
+        problems.append(f"cost model MFU {c['mfu']:.4f}")
+    # TrainingMaster counts each window's steps, TelemetryListener one per
+    # iteration_done (once per window); the profiler one per window
+    if r["steps_total_delta"] != r["steps"] + windows:
+        problems.append(f"dl4j_train_steps_total moved "
+                        f"{r['steps_total_delta']}")
+    if any(v != windows for v in r["phase_counts_delta"].values()
+           if v) or not r["phase_counts_delta"]:
+        problems.append(f"phase histograms {r['phase_counts_delta']}")
+    if problems:
+        fail("obs fit: " + "; ".join(problems))
+
+    reps = storage.reports("flagship")
+    rep = reps[-1]
+    sizes = {n: t.numel() for n, t in _named_leaves(net._params_view())}
+    bad = [n for n, h in rep.param_histograms.items()
+           if sum(h.counts) != sizes[n]]
+    # a conv bias in front of a BatchNorm has a zero gradient up to
+    # rounding; weights, gamma and beta must move
+    zero = [n for n, v in rep.update_mean_magnitudes.items()
+            if not v > 0 and not n.endswith("/b")]
+    with tempfile.TemporaryDirectory() as tmp:
+        page = render_html(storage, path=os.path.join(tmp, "stats.html"),
+                           telemetry=get_registry())
+        tm.export_stats_html(os.path.join(tmp, "timeline.html"))
+        srv = UIServer(port=0).attach(storage).start()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/", timeout=30) as resp:
+                status, body = resp.status, resp.read()
+        finally:
+            srv.stop()
+    res["stats"] = {"reports": len(reps), "groups": len(sizes),
+                    "bad_counts": bad, "zero_updates": zero,
+                    "zero_bias_updates": sum(
+                        1 for v in rep.update_mean_magnitudes.values()
+                        if not v > 0),
+                    "page_bytes": len(page), "get_status": status,
+                    "get_bytes": len(body)}
+    log(f"obs stats: {len(reps)} StatsListener reports of {len(sizes)} "
+        f"parameter groups (32-bin histograms and mean |x| of the params "
+        f"and of each window's update, summarized on the card); render_html "
+        f"{len(page)} bytes; UIServer GET {status}, {len(body)} bytes")
+    if bad or zero or not reps or status != 200:
+        fail(f"obs stats: {res['stats']}")
+    del net, tm
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res["drill"] = obs_drill(torch, np, ResNet50, tr, tmp)
+    torch.backends.cudnn.deterministic = False
+    net = flagship(ResNet50, "pallas")
+    randomize_batchnorm(torch, net, seed=1)
+    res["serving"] = s = obs_serving(torch, np, net, tr)
+    del net
+    torch.cuda.empty_cache()
+    log(f"obs serving: {s['requests']} sequential requests (rows "
+        f"{OBS_SERVE_SIZES} in turn) through ParallelInference with the "
+        f"tracer: {s['chains']} full span chains (request -> "
+        f"assemble_dispatch -> complete_deliver, per batch of the "
+        f"request); dl4j_serving_batches_total +{s['batches_total_delta']}"
+        f" (expected {s['batches_expected']}), bucket splits "
+        f"+{s['splits_delta']} (expected {s['splits_expected']}), "
+        f"occupancy (count, rows) +{s['occupancy_delta']} (rows "
+        f"{s['rows']}); device idle share while "
+        f"{SERVE_THREADS} clients were served for {s['window_s']:.2f} s "
+        "under the profiler: "
+        + ("not measured" if s["idle_share"] is None
+           else f"{s['idle_share']:.4f}")
+        + f" ({s['concurrent_served']} requests) [{card}]")
+    if (s["chains"] != OBS_REQUESTS
+            or s["splits_delta"] != s["splits_expected"]
+            or s["batches_total_delta"] != s["batches_expected"]
+            or s["occupancy_delta"] != (s["batches_expected"], s["rows"])):
+        fail(f"obs serving: {s}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        tr.export_chrome_trace(path)
+        nbytes = os.path.getsize(path)
+        with open(path) as f:
+            doc = json.load(f)
+    events = doc["traceEvents"]
+    group_steps = sum(e["args"].get("steps", 0) for e in events
+                      if e.get("name") == "train_group")
+    ran = OBS_STEPS + r["steps"] + OBS_DRILL_STEPS
+    hang = [e for e in events if e.get("name") == "watchdog_hang"]
+    text = get_registry().prometheus_text()
+    flat = parse_prometheus(text)
+    res["trace"] = {"events": len(events), "bytes": nbytes,
+                    "spans": tr.stats()["recorded"],
+                    "train_group_steps": group_steps, "steps_run": ran,
+                    "hang_parented": bool(hang)
+                    and "parent_id" in hang[0]["args"]}
+    res["prometheus"] = {"bytes": len(text), "samples": len(flat)}
+    log(f"obs trace: {res['trace']['spans']} spans, Chrome export "
+        f"{nbytes} bytes, {len(events)} events; train_group steps "
+        f"{group_steps} of {ran} run; hang instant parented "
+        f"{res['trace']['hang_parented']}; prometheus_text {len(text)} "
+        f"bytes, {len(flat)} samples parsed")
+    if group_steps != ran or not res["trace"]["hang_parented"] \
+            or not flat or "dl4j_train_steps_total" not in flat:
+        fail(f"obs trace/prometheus: {res['trace']}")
+    return res
+
+
 # ------------------------------------------------------------ phase 6
 
 
@@ -2466,6 +2985,13 @@ def main():
                   engine["group_check"]["deterministic"])
     log(f"tm phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5e. observability on the flagship: every hook on against every hook
+    # off, the cost model, the watchdog drill, traced serving, stats
+    t0 = time.perf_counter()
+    obs = obs_phase(torch, np, pc, ResNet50, card,
+                    engine["group_check"]["deterministic"])
+    log(f"obs phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -2514,6 +3040,7 @@ def main():
             "library_ms": t["library_ms"],
             "tm_launches": tm["k4"]["launches"][name],
             "tm_launches_per_replay": tm["k4"]["launches_per_replay"][name],
+            "obs_launches": obs["fit"]["launches"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2525,7 +3052,7 @@ def main():
                        "serving": serving, "reference": reference,
                        "forward_ms": fwd, "step_check": step,
                        "train": train, "engine": engine, "mln": mln,
-                       "tm": tm},
+                       "tm": tm, "obs": obs},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -2534,7 +3061,9 @@ def main():
         f"the serving run (fused_conv*) and the {TRAIN_STEPS}-step "
         "training run (dgrad/wgrad); tm_launches from the "
         f"{TM_STEPS}-step TrainingMaster fit at steps_per_dispatch="
-        f"{GROUP_K}, tm_launches_per_replay from one of its replays")
+        f"{GROUP_K}, tm_launches_per_replay from one of its replays, "
+        f"obs_launches from phase 5e's two hooks-on fits ({2 * OBS_STEPS} "
+        "steps)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 The JAX package `deeplearning4j_tpu` is the reference; this package mirrors
 its module layout (nn/, nn/conf/, nn/layers/, nn/helpers/, zoo/, util/,
-parallel/, resilience/) so every module has a findable counterpart. It
+parallel/, resilience/, observability/, stats/, optimize/) so every module
+has a findable counterpart. It
 imports torch, numpy and the standard library only — never jax, and never
 anything of the JAX package.
 
@@ -19,8 +20,12 @@ updaters and schedules), the model files (util/model_serializer.py:
 the JAX package's zips both ways), batched serving
 (parallel/inference.py), and the training engine: engine/ (StepProgram,
 whose run_group replays a CUDA graph of k captured steps; StepHarness;
-the input pipeline), resilience/ (the non-finite guard), datasets/,
-observability/metrics.py and earlystopping/.
+the input pipeline), resilience/ (the non-finite guard, the step
+watchdog, the Supervisor), datasets/, earlystopping/, MultiLayerNetwork,
+TrainingMaster and ParallelWrapper on one card, and observability
+(observability/: metrics with Prometheus text, tracing, the phase
+profiler, the cost model; stats/: StatsListener and the dashboard;
+optimize/listeners.py).
 """
 
 from deeplearning4j_tpu_torch.device import resolve_device  # noqa: F401

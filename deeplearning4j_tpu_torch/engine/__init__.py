@@ -12,8 +12,9 @@ program + ONE host supervisor.
   StepHarness   the host half — one supervisor owning the guard-verdict
                 dispatch (skip / rollback / abort), preemption checks,
                 the StepAccumulator every per-step metric batches
-                through, the input pipeline, and teardown (flush, close
-                attached data iterators). TrainingMaster,
+                through, the watchdog, tracer and phase-profiler hooks,
+                the input pipeline, and teardown (flush, close attached
+                data iterators). TrainingMaster,
                 ParallelWrapper and EarlyStoppingTrainer drive their
                 loops through it.
   pipeline      the harness-owned input pipeline (engine/pipeline.py):

@@ -11,8 +11,11 @@ pluggable: TrainingMaster rolls back to its newest valid checkpoint,
 EarlyStoppingTrainer and ParallelWrapper to in-memory
 PeriodicSnapshotter snapshots.
 
-The watchdog, supervisor, tracer and phase profiler are duck-typed hooks
-that default to None; their ports wait (ROADMAP queue 8).
+The watchdog (resilience.StepWatchdog), supervisor (resilience.Supervisor),
+tracer (observability.Tracer) and phase profiler
+(observability.perf.StepPhaseProfiler; `phase_profiler=True` builds the
+default one) are duck-typed hooks that default to None: any object with
+their methods serves.
 """
 
 from __future__ import annotations
@@ -58,12 +61,15 @@ class StepHarness:
         self.supervisor = supervisor
         self.tracer = tracer
         self.acc = accumulator or _obs.StepAccumulator()
+        # opt-in phase attribution: True builds the default profiler;
+        # its emission rides THIS harness's accumulator so the phase
+        # histograms cost container appends, not registry locks
         if phase_profiler is True:
-            raise NotImplementedError(
-                "the default StepPhaseProfiler is not ported yet (ROADMAP "
-                "queue 8); pass a profiler object or None")
-        # duck-typed hooks (watchdog, supervisor, tracer, phase
-        # profiler): any object with their methods; their ports wait
+            from deeplearning4j_tpu_torch.observability.perf import (
+                StepPhaseProfiler,
+            )
+
+            phase_profiler = StepPhaseProfiler()
         self.phase_profiler = phase_profiler
         if self.phase_profiler is not None:
             if self.phase_profiler.accumulator is None:

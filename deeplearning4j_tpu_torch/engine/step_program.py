@@ -56,8 +56,12 @@ How the captured group keeps the eager step's contract:
     outputs cloned out right after it, so no graph reads memory another
     graph's replay may have written.
 
+`register_perf(cost_model, key)` counts a step's FLOPs and bytes into an
+observability.perf.CostModel: the k=1 step, or a captured `run_group(k)`
+group (the counterpart of the JAX package's JitCache entry).
+
 Not ported yet: `attach_mesh` (ZeRO-1, ROADMAP queue 9), `lint_records`
-and `register_perf` (queues 8 and 10), `trainer_program` (queue 9).
+(queue 10) and `trainer_program` (queue 9).
 """
 
 from __future__ import annotations
@@ -68,10 +72,13 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.helpers import pallas_conv
+from deeplearning4j_tpu_torch.resilience.errors import StepHangError
 from deeplearning4j_tpu_torch.util.tree import clone, leaves, tree_map
 
 # captured groups a StepProgram keeps (k-step windows of distinct shapes)
 MAX_GROUPS = 4
+# batch rows of the twin steps register_perf counts and extrapolates from
+COUNT_ROWS = (1, 2)
 
 
 def make_loss_and_apply(net):
@@ -117,6 +124,8 @@ class _CapturedGroup:
             with torch.cuda.graph(self.graph, pool=pool,
                                   capture_error_mode="thread_local"):
                 self.out = body(*self.static)
+        except StepHangError:
+            raise   # the watchdog's escalation: the group is not kept
         except Exception as e:
             raise RuntimeError(
                 "run_group: capturing the k-step group into a CUDA graph "
@@ -304,6 +313,81 @@ class StepProgram:
         self.last_step_losses = losses
         net._score = losses[-1]
         return net._score
+
+    # ------------------------------------------------------------- perf
+    def _step_key(self):
+        return ("train", self._frozen_sig())
+
+    def register_perf(self, cost_model, key=None, *example_args):
+        """Count one train step's cost into `cost_model`
+        (observability.perf.CostModel) and return its entry. `key`
+        defaults to the k=1 step, whose batch `example_args` (x, y)
+        gives; a key of `group_launches()` — (group key, k) of a
+        captured `run_group(k)` — registers k steps at the captured
+        group's batch shapes.
+
+        The hand-written kernels launch through ctypes, invisible to
+        torch's counters, so the step is counted on a twin: a fresh net
+        of the same configuration and dtypes on the same device, with
+        seeded weights (FLOPs and bytes depend on shapes only). On the
+        CPU it keeps the helper mode, whose kernel wrappers run their
+        plain versions there; on a card a "pallas" net's twin runs
+        "fused", the same products as cuDNN and aten ops. Either way
+        every product is an aten op. The twin runs at COUNT_ROWS batch
+        rows and the
+        counts are extrapolated linearly to the real batch (FLOPs are
+        linear in the rows; bytes are linear plus the params' constant
+        part). Counted once, outside any timed window."""
+        from deeplearning4j_tpu_torch.observability.perf import count_cost
+
+        net = self.net
+        if key is None:
+            if len(example_args) < 2:
+                raise ValueError("register_perf: the k=1 step needs an "
+                                 "example batch (x, y)")
+            key, k = self._step_key(), 1
+            x, y = example_args[0], example_args[1]
+            x_shape, y_shape = tuple(np.shape(x)), tuple(np.shape(y))
+        else:
+            grp = self._groups.get(key)
+            if grp is None:
+                raise KeyError(f"register_perf: no captured group {key!r}"
+                               " (see group_launches())")
+            k = key[1]
+            _, inputs, labels, _, _ = grp.static
+            x_shape = tuple(leaves(inputs)[0].shape[1:])
+            y_shape = tuple(leaves(labels)[0].shape[1:])
+        rows = x_shape[0]
+        plan = net._helper_plan()
+        mode = "none" if plan is None else plan.impl
+        conf, dev = net.conf, net.device
+        if mode == "pallas" and dev.type == "cuda":
+            # the kernels launch outside aten: count "fused" (the same
+            # products as cuDNN/aten ops) on the card
+            conf = type(conf).from_json(conf.to_json())
+            conf.helper_mode = mode = "fused"
+        twin = type(net)(conf, dtype=net.dtype,
+                         compute_dtype=net.compute_dtype,
+                         device=dev).init()
+        twin_prog = StepProgram(twin)
+        counts = []
+        for r in COUNT_ROWS:
+            xs = torch.zeros((r,) + x_shape[1:], dtype=torch.float32)
+            ys = torch.zeros((r,) + y_shape[1:], dtype=torch.float32)
+            counts.append(count_cost(lambda: twin_prog.run(xs, ys)))
+        (r1, c1), (r2, c2) = zip(COUNT_ROWS, counts)
+        at = lambda f: k * (c1[f] + (c2[f] - c1[f]) * (rows - r1)
+                            / (r2 - r1))
+        source = (f"counted: {k} x one train step of a {dev.type} twin "
+                  f"({mode} helpers"
+                  + (", plain kernel versions" if mode == "pallas" else "")
+                  + ", compute dtype "
+                  f"{net.compute_dtype or net.dtype}) at rows "
+                  f"{r1},{r2} extrapolated to {rows}; FLOPs by "
+                  "FlopCounterMode (2 per multiply-add), bytes as each "
+                  "aten op's inputs+outputs")
+        return cost_model.register_counted(
+            key, at("flops"), at("bytes_accessed"), source)
 
     def group_launches(self):
         """{(group key, k): kernel launches one replay makes} of the

@@ -12,6 +12,9 @@ engine/harness.py, earlystopping/, resilience/) reads one interface:
   - the step: `_train_carry` / `_set_train_carry`, `_step_scalars`,
     `_step` (forward, `torch.autograd.grad`, `clip_grads`, update on an
     explicit carry), `_train_step`, `_frozen`;
+  - listeners: `listeners`, `set_listeners`, `add_listeners` and `fit`
+    (on_epoch_start/on_epoch_end around each epoch, the fetch time in
+    `_last_etl_ms`; the container's `fit_batch` calls iteration_done);
   - dropout: one `torch.Generator` per network, on its device, seeded
     from the configuration's seed at `init`. Every train-mode layer with
     dropout draws its mask from it, in the network's fixed layer order,
@@ -27,7 +30,8 @@ graph, a list for a layer list), `_loss_fn` and, when it has one,
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple
+import time
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -133,6 +137,68 @@ class BaseNetwork:
         self._score = None
         self._lr_score_factor = 1.0   # lr_policy="score" decay state
         self._best_score = None
+        # training listeners: iteration_done(net, iteration) after each
+        # fit_batch, on_epoch_start/on_epoch_end(net) around fit's epochs
+        self.listeners: List = []
+        self._last_etl_ms = None
+        self._last_batch_size = None
+
+    # --------------------------------------------------------- listeners
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
+        return self
+
+    def _notify_iteration(self) -> None:
+        for listener in self.listeners:
+            listener.iteration_done(self, self.iteration)
+
+    def fit(self, data, labels=None, epochs: int = 1):
+        """Train on a dataset iterator, (x, y) arrays, a (x, y[, fm, lm])
+        tuple (one batch) or an iterable of batches; both containers'
+        fit. Each epoch calls the listeners' on_epoch_start, times each
+        batch's fetch into `_last_etl_ms`, runs `fit_batch` (which
+        notifies iteration_done), advances `epoch` and calls
+        on_epoch_end, as the JAX package's fit does."""
+        if not self._initialized():
+            self.init()
+        if labels is not None:
+            batches: Sequence = [(data, labels)]
+        elif isinstance(data, tuple) or hasattr(data, "features"):
+            batches = [data]
+        elif hasattr(data, "__iter__"):
+            batches = data
+            if epochs > 1 and iter(batches) is batches and not hasattr(
+                    batches, "reset"):
+                raise ValueError(
+                    "fit() got a one-shot iterator with epochs > 1; pass a "
+                    "list or an iterator with reset()")
+        else:
+            batches = [data]
+        for _ in range(epochs):
+            for listener in self.listeners:
+                if hasattr(listener, "on_epoch_start"):
+                    listener.on_epoch_start(self)
+            if hasattr(batches, "reset"):
+                batches.reset()
+            it = iter(batches)
+            while True:
+                # time spent waiting on the data pipeline for this batch
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                self._last_etl_ms = (time.perf_counter() - t0) * 1e3
+                self.fit_batch(batch)
+            self.epoch += 1
+            for listener in self.listeners:
+                if hasattr(listener, "on_epoch_end"):
+                    listener.on_epoch_end(self)
+        return self
 
     # ------------------------------------------------- container hooks
     def _layer_items(self) -> List[Tuple[Any, Any]]:
@@ -381,7 +447,11 @@ class BaseNetwork:
 
     def _train_step(self, inputs, labels, lmasks=None):
         """One forward, backward and update (`_step`) on the net's own
-        carry; advances the iteration and sets the score."""
+        carry; advances the iteration and sets the score (and the batch
+        rows listeners read as `_last_batch_size`)."""
+        first = (inputs if isinstance(inputs, torch.Tensor)
+                 else next(iter(inputs.values())))
+        self._last_batch_size = int(first.shape[0])
         carry, loss = self._step(self._train_carry(), inputs, labels,
                                  lmasks, self._step_scalars(self.iteration)[0])
         self._set_train_carry(carry)

@@ -36,7 +36,7 @@ captured once into a CUDA graph and replayed with new values.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -212,37 +212,15 @@ class ComputationGraph(BaseNetwork):
         return total + reg, new_states
 
     # ------------------------------------------------------------------- fit
-    def fit(self, data, labels=None, epochs: int = 1):
-        """Train on an iterator / list of batches / single batch."""
-        if labels is not None:
-            batches: Sequence = [(data, labels)]
-        elif isinstance(data, tuple) or hasattr(data, "features"):
-            batches = [data]
-        elif hasattr(data, "__iter__"):
-            batches = data
-            if epochs > 1 and iter(batches) is batches and not hasattr(
-                    batches, "reset"):
-                raise ValueError(
-                    "fit() got a one-shot iterator with epochs > 1; pass a "
-                    "list or an iterator with reset()")
-        else:
-            batches = [data]
-        for _ in range(epochs):
-            if hasattr(batches, "reset"):
-                batches.reset()
-            for batch in batches:
-                self.fit_batch(batch)
-            self.epoch += 1
-        return self
-
     def fit_batch(self, batch):
-        """Train on ONE batch; returns the loss (a 0-d tensor on the
-        device, no host sync)."""
+        """Train on ONE batch and notify the listeners' iteration_done;
+        returns the loss (a 0-d tensor on the device, no host sync)."""
         if not self._initialized():
             self.init()
         ins, labs, fms, lms = _as_multi(batch)
         self._require_sgd()
         self._train_step(*self._batch_tensors(ins, labs, fms, lms))
+        self._notify_iteration()
         return self._score
 
     def _batch_tensors(self, ins, labs, fms=None, lms=None):

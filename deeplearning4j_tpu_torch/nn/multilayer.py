@@ -20,8 +20,7 @@ Not ported yet (ROADMAP queue 5): truncated BPTT, the line-search solvers,
 
 from __future__ import annotations
 
-import time
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,7 +65,6 @@ class MultiLayerNetwork(BaseNetwork):
         self.layer_input_types: Optional[List] = None
         if conf.input_type is not None:
             self.layer_input_types = conf.resolve_shapes()
-        self.listeners: List = []
 
     # ------------------------------------------------- BaseNetwork hooks
     def _layer_items(self):
@@ -152,46 +150,6 @@ class MultiLayerNetwork(BaseNetwork):
                 None if lm is None else self._as_input(lm))
 
     # ------------------------------------------------------------------- fit
-    def fit(self, data, labels=None, epochs: int = 1):
-        """Train on a dataset iterator, (x, y) arrays, a (x, y[, fm, lm])
-        tuple (one batch) or an iterable of batches."""
-        if not self._initialized():
-            self.init()
-        if labels is not None:
-            batches: Sequence = [(data, labels)]
-        elif isinstance(data, tuple) or hasattr(data, "features"):
-            batches = [data]
-        elif hasattr(data, "__iter__"):
-            batches = data
-            if epochs > 1 and iter(batches) is batches and not hasattr(
-                    batches, "reset"):
-                raise ValueError(
-                    "fit() got a one-shot iterator with epochs > 1; pass a "
-                    "list or an iterator with reset()")
-        else:
-            batches = [data]
-        for _ in range(epochs):
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_start"):
-                    listener.on_epoch_start(self)
-            if hasattr(batches, "reset"):
-                batches.reset()
-            it = iter(batches)
-            while True:
-                # time spent waiting on the data pipeline for this batch
-                t0 = time.perf_counter()
-                try:
-                    batch = next(it)
-                except StopIteration:
-                    break
-                self._last_etl_ms = (time.perf_counter() - t0) * 1e3
-                self.fit_batch(batch)
-            self.epoch += 1
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_end"):
-                    listener.on_epoch_end(self)
-        return self
-
     def fit_batch(self, batch):
         """Train on ONE batch without fit()'s epoch bookkeeping; returns
         the loss (a 0-d tensor on the device, no host sync)."""
@@ -203,8 +161,7 @@ class MultiLayerNetwork(BaseNetwork):
             raise _not_ported("truncated BPTT")
         self._require_sgd()
         loss = self._train_step(*self._batch_tensors(x, y, fm, lm))
-        for listener in self.listeners:
-            listener.iteration_done(self, self.iteration)
+        self._notify_iteration()
         return loss
 
     # ------------------------------------------------------------- inference
@@ -295,14 +252,6 @@ class MultiLayerNetwork(BaseNetwork):
         raise _not_ported("layerwise pretrain (AutoEncoder, VAE, RBM)")
 
     # -------------------------------------------------------------- plumbing
-    def set_listeners(self, *listeners):
-        self.listeners = list(listeners)
-        return self
-
-    def add_listeners(self, *listeners):
-        self.listeners.extend(listeners)
-        return self
-
     def get_layer(self, i: int) -> Layer:
         return self.conf.layers[i]
 

@@ -1,34 +1,46 @@
-"""MetricsRegistry: one thread-safe substrate for the port's counters (a
-copy of deeplearning4j_tpu/observability/metrics.py without the
-Prometheus text rendering, which waits for the port's serving front end).
+"""MetricsRegistry: one thread-safe substrate for the port's counters,
+with Prometheus text exposition (a copy of
+deeplearning4j_tpu/observability/metrics.py: the same names, the same
+snapshot shape and byte-identical exposition text for the same
+emissions).
 
-  counters    monotonic floats, optional labels
-  gauges      last-write-wins floats
-  histograms  fixed-boundary buckets PLUS a bounded ring buffer of
-              recent raw observations for p50/p90/p99 estimation
+  counters    monotonic floats, optional labels ({"code": "503"})
+  gauges      last-write-wins floats; `gauge_fn` registers a pull-style
+              provider evaluated at snapshot/scrape time
+  histograms  fixed-boundary buckets (Prometheus exposition) PLUS a
+              bounded ring buffer of recent raw observations for
+              p50/p90/p99 estimation
 
 Emission is failure-proof by construction: code emits through the
-module-level `count/observe/count_observe/set_gauge` helpers,
+module-level `count/observe/count_observe/set_gauge/gauge_fn` helpers,
 each of which passes through the `obs.emit` fault point and swallows ANY
 exception (counted in `dl4j_obs_dropped_emissions_total`) — a telemetry
-failure must never break a training step. `enable(False)` turns every
-helper into a constant-time no-op. Hot single-threaded loops batch
-through a `StepAccumulator`.
+failure must never break a training step or drop a request.
+`enable(False)` turns every helper into a constant-time no-op. Hot
+single-threaded loops batch through a `StepAccumulator`.
 
-`REGISTERED_METRICS` names what the port emits: the training engine's
-and TrainingMaster's `dl4j_train_*` (and `dl4j_cluster_world_size`), the
-input pipeline's `dl4j_pipeline_*`, the checkpoint and model writers'
-`dl4j_checkpoint_*` and the retry policies' metrics, under the JAX
-package's names.
+`prometheus_text()` / `render_prometheus(snapshot)` give the text
+exposition format 0.0.4; `parse_prometheus` and
+`parse_prometheus_snapshot` read it back (observability/perf.py merges
+per-process snapshots through the same renderer).
+
+`REGISTERED_METRICS` names what the port emits, under the JAX package's
+names: the training engine's, TrainingMaster's, the watchdog's and the
+Supervisor's `dl4j_train_*` (with the phase profiler's
+`dl4j_train_phase_seconds`), `dl4j_cluster_world_size`, the input
+pipeline's `dl4j_pipeline_*`, the checkpoint and model writers'
+`dl4j_checkpoint_*`, the retry policies', the cost model's `dl4j_perf_*`
+and ParallelInference's `dl4j_serving_*`.
 """
 
 from __future__ import annotations
 
 import bisect
+import re
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from deeplearning4j_tpu_torch.resilience.faults import (
     fire as _fire,
@@ -38,6 +50,8 @@ from deeplearning4j_tpu_torch.resilience.faults import (
 # latency-shaped default boundaries (seconds)
 DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                    0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+# row-count-shaped boundaries (batch occupancy, powers of two)
+COUNT_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
 
 # every metric name the port may emit (tests/test_torch_engine.py pins
 # the emission sites against this registry)
@@ -51,7 +65,9 @@ REGISTERED_METRICS = frozenset({
     "dl4j_train_guard_spikes_total",
     "dl4j_train_guard_skipped_steps_total",
     "dl4j_train_guard_rollbacks_total",
+    "dl4j_train_watchdog_hangs_total",
     "dl4j_train_preemptions_total",
+    "dl4j_train_supervisor_restarts_total",
     # TrainingMaster (parallel/training_master.py)
     "dl4j_train_data_wait_seconds",
     "dl4j_train_data_skipped_steps_total",
@@ -63,6 +79,18 @@ REGISTERED_METRICS = frozenset({
     "dl4j_checkpoint_restores_total",
     "dl4j_checkpoint_restore_seconds",
     "dl4j_checkpoint_validate_failures_total",
+    # serving (parallel/inference.py)
+    "dl4j_serving_queue_depth",
+    "dl4j_serving_inflight_batches",
+    "dl4j_serving_batches_total",
+    "dl4j_serving_batch_occupancy",
+    "dl4j_serving_bucket_splits_total",
+    # performance introspection (observability/perf.py)
+    "dl4j_perf_mfu",
+    "dl4j_perf_program_flops",
+    "dl4j_perf_program_bytes",
+    "dl4j_perf_arithmetic_intensity",
+    "dl4j_train_phase_seconds",
     # retry and circuit breaker (resilience/retry.py)
     "dl4j_retry_attempts_total",
     "dl4j_breaker_transitions_total",
@@ -74,6 +102,10 @@ REGISTERED_METRICS = frozenset({
     # derived by the registry itself (no count()/observe() call site)
     "dl4j_obs_dropped_emissions_total",
 })
+
+# registered names the registry synthesizes internally — the pin test
+# excludes these from the "must have an emission call site" check
+DERIVED_METRICS = frozenset({"dl4j_obs_dropped_emissions_total"})
 
 _LabelKey = Tuple[Tuple[str, str], ...]
 
@@ -118,7 +150,7 @@ class _Hist:
 
 
 class MetricsRegistry:
-    """Thread-safe named counters/gauges/histograms.
+    """Thread-safe named counters/gauges/histograms + exposition.
 
     All mutation happens under one lock — exact totals under concurrent
     emission (pinned by test) beat lock-free approximations here; the
@@ -129,7 +161,8 @@ class MetricsRegistry:
         self._ring_size = int(ring_size)
         self._counters: Dict[str, Dict[_LabelKey, float]] = {}
         self._gauges: Dict[str, Dict[_LabelKey, float]] = {}
-        # histograms are label-aware
+        self._gauge_fns: Dict[str, Callable[[], float]] = {}
+        # histograms are label-aware (dl4j_train_phase_seconds{phase=})
         # — one _Hist per (name, label set), unlabeled = the () key
         self._hists: Dict[str, Dict[_LabelKey, _Hist]] = {}
         self._created = time.monotonic()
@@ -148,6 +181,12 @@ class MetricsRegistry:
         key = _label_key(labels)
         with self._lock:
             self._gauges.setdefault(name, {})[key] = float(value)
+
+    def gauge_fn(self, name: str, fn: Callable[[], float]) -> None:
+        """Register a pull-style gauge provider, evaluated (and
+        swallowed on failure) at snapshot/scrape time."""
+        with self._lock:
+            self._gauge_fns[name] = fn
 
     def _hist(self, name: str, key: _LabelKey, buckets) -> _Hist:
         """The (name, label set) histogram, created on first observe.
@@ -204,6 +243,7 @@ class MetricsRegistry:
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
+            self._gauge_fns.clear()
             self._hists.clear()
             self.dropped = 0
             self._created = time.monotonic()
@@ -215,16 +255,41 @@ class MetricsRegistry:
     def counter_value(self, name: str,
                       labels: Optional[dict] = None) -> float:
         """One series' value; with labels=None the sum over ALL label
-        sets of `name` (the monotonic-total view)."""
+        sets of `name` (the /status monotonic-total view)."""
         with self._lock:
             series = self._counters.get(name, {})
             if labels is None:
                 return float(sum(series.values()))
             return float(series.get(_label_key(labels), 0.0))
 
+    def gauge_value(self, name: str,
+                    labels: Optional[dict] = None) -> Optional[float]:
+        with self._lock:
+            fn = self._gauge_fns.get(name)
+            series = dict(self._gauges.get(name, {}))
+        if fn is not None and labels is None:
+            try:
+                return float(fn())
+            except Exception:   # noqa: BLE001 - provider must not break reads
+                self.note_dropped()
+                return None
+        return series.get(_label_key(labels))
+
+    def _eval_gauge_fns(self) -> Dict[str, float]:
+        with self._lock:
+            fns = dict(self._gauge_fns)
+        out = {}
+        for name, fn in fns.items():
+            try:
+                out[name] = float(fn())
+            except Exception:   # noqa: BLE001 - provider must not break scrape
+                self.note_dropped()
+        return out
+
     def snapshot(self) -> dict:
-        """One coherent dict of everything: the in-process read
-        surface."""
+        """One coherent dict of everything: the dashboard's (and any
+        in-process consumer's) read surface."""
+        pulled = self._eval_gauge_fns()
         with self._lock:
             counters = {
                 name: {_label_str(k): v for k, v in series.items()}
@@ -248,15 +313,152 @@ class MetricsRegistry:
                         "p99": h.quantile(0.99),
                     }
             dropped = self.dropped
+        for name, v in pulled.items():
+            gauges.setdefault(name, {})[""] = v
         counters.setdefault(
             "dl4j_obs_dropped_emissions_total", {})[""] = float(dropped)
         return {"counters": counters, "gauges": gauges,
                 "histograms": hists, "uptime_s": self.uptime_s()}
 
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format 0.0.4 (a GET /metrics
+        body)."""
+        return render_prometheus(self.snapshot())
+
+
+def _fmt(v: float) -> str:
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(v)
+
+
+def _split_hist_name(full: str) -> Tuple[str, str]:
+    """'name{a="b"}' -> ('name', 'a="b"'); bare names -> (name, '')."""
+    base, _, lab = full.partition("{")
+    return base, (lab[:-1] if lab.endswith("}") else lab)
+
+
+def _bucket_order(item) -> float:
+    le = item[0]
+    return float("inf") if le == "+Inf" else float(le)
+
+
+def render_prometheus(snap: dict) -> str:
+    """Render a `MetricsRegistry.snapshot()`-shaped dict to Prometheus
+    text exposition 0.0.4. Module-level so perf.aggregate_snapshots can
+    render a merged fleet-level snapshot through the exact same code
+    path as a single registry's /metrics body."""
+    lines: List[str] = []
+    for name in sorted(snap.get("counters", {})):
+        lines.append(f"# TYPE {name} counter")
+        for lab, v in sorted(snap["counters"][name].items()):
+            lines.append(f"{name}{lab} {_fmt(v)}")
+    for name in sorted(snap.get("gauges", {})):
+        lines.append(f"# TYPE {name} gauge")
+        for lab, v in sorted(snap["gauges"][name].items()):
+            lines.append(f"{name}{lab} {_fmt(v)}")
+    typed = set()
+    for full in sorted(snap.get("histograms", {})):
+        h = snap["histograms"][full]
+        base, inner = _split_hist_name(full)
+        if base not in typed:
+            typed.add(base)
+            lines.append(f"# TYPE {base} histogram")
+        pre = inner + "," if inner else ""
+        suffix = "{" + inner + "}" if inner else ""
+        cum = 0
+        for le, c in sorted(h["buckets"].items(), key=_bucket_order):
+            cum += c
+            lines.append(f'{base}_bucket{{{pre}le="{le}"}} {cum}')
+        lines.append(f"{base}_sum{suffix} {_fmt(h['sum'])}")
+        lines.append(f"{base}_count{suffix} {h['count']}")
+    return "\n".join(lines) + "\n"
+
+
+_LABEL_PAIR = re.compile(r'(\w+)="([^"]*)"')
+
+
+def parse_prometheus_snapshot(text: str) -> dict:
+    """Parse exposition text back into a `MetricsRegistry.snapshot()`-
+    shaped dict — the inverse of `render_prometheus` (ring quantiles
+    cannot survive the wire and come back as None; histogram bucket
+    counts are de-cumulated back to per-bucket form).
+
+    This is the scrape half of fleet-level aggregation: a controller
+    scrapes each replica's /metrics body, rebuilds snapshots with this,
+    and merges them through `perf.aggregate_snapshots` — the same merge
+    path the cross-rank training exposition uses."""
+    types: Dict[str, str] = {}
+    snap: dict = {"counters": {}, "gauges": {}, "histograms": {}}
+    hist_raw: Dict[str, dict] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("#"):
+            parts = line.split()
+            if len(parts) >= 4 and parts[1] == "TYPE":
+                types[parts[2]] = parts[3]
+            continue
+        full, _, val = line.rpartition(" ")
+        try:
+            value = float(val)
+        except ValueError:
+            continue
+        base, lab = _split_hist_name(full)
+        for suffix in ("_bucket", "_sum", "_count"):
+            if base.endswith(suffix) \
+                    and types.get(base[:-len(suffix)]) == "histogram":
+                hname = base[:-len(suffix)]
+                pairs = _LABEL_PAIR.findall(lab)
+                le = dict(pairs).get("le")
+                rest = sorted((k, v) for k, v in pairs if k != "le")
+                series_key = hname + _label_str(tuple(rest))
+                h = hist_raw.setdefault(
+                    series_key, {"count": 0, "sum": 0.0, "cum": []})
+                if suffix == "_bucket" and le is not None:
+                    h["cum"].append((le, value))
+                elif suffix == "_sum":
+                    h["sum"] = value
+                else:
+                    h["count"] = int(value)
+                break
+        else:
+            kind = types.get(base)
+            tgt = snap["gauges"] if kind == "gauge" else snap["counters"]
+            tgt.setdefault(base, {})[
+                "{" + lab + "}" if lab else ""] = value
+    for series_key, h in hist_raw.items():
+        cum = sorted(h["cum"], key=_bucket_order)
+        buckets, prev = {}, 0
+        for le, c in cum:
+            buckets[le] = int(c) - prev
+            prev = int(c)
+        snap["histograms"][series_key] = {
+            "count": h["count"], "sum": h["sum"], "buckets": buckets,
+            "p50": None, "p90": None, "p99": None}
+    return snap
+
+
+def parse_prometheus(text: str) -> Dict[str, float]:
+    """Parse exposition text into {sample_name_with_labels: value} —
+    the flat view tests assert against."""
+    out: Dict[str, float] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        name, _, val = line.rpartition(" ")
+        try:
+            out[name] = float(val)
+        except ValueError:
+            continue
+    return out
+
 
 # ---------------------------------------------------- guarded emission
 # process-global default registry: every subsystem of the port emits
-# here
+# here, prometheus_text() renders it, the dashboard reads it
 _DEFAULT = MetricsRegistry()
 _ENABLED = True
 _INJ = _injector()
@@ -278,7 +480,10 @@ def get_registry() -> MetricsRegistry:
 
 def enable(on: bool = True) -> None:
     """Global kill switch: enable(False) turns every emission helper
-    into a constant-time no-op."""
+    into a constant-time no-op. Hot single-threaded loops (the per-step
+    training sites) batch through a `StepAccumulator` instead: container
+    appends per step, one guarded registry write per flush — the same
+    totals."""
     global _ENABLED
     _ENABLED = bool(on)
 
@@ -349,6 +554,19 @@ def set_gauge(name: str, value: float,
             pass
 
 
+def gauge_fn(name: str, fn: Callable[[], float]) -> None:
+    if not _ENABLED:
+        return
+    try:
+        _maybe_fire()
+        _DEFAULT.gauge_fn(name, fn)
+    except Exception:   # noqa: BLE001 - telemetry must never propagate
+        try:
+            _DEFAULT.note_dropped()
+        except Exception:   # noqa: BLE001
+            pass
+
+
 class StepAccumulator:
     """Client-side aggregation for a single-threaded hot loop (the
     per-step training emissions): appends land in plain dicts/lists —
@@ -358,7 +576,7 @@ class StepAccumulator:
     container appends.
 
     Totals and histogram observations are exactly what per-step
-    emission would have produced; a snapshot between flushes
+    emission would have produced; a /metrics scrape between flushes
     just sees the registry up to `flush_every` steps stale. The flush
     passes the `obs.emit` fault point: an injected emission failure
     drops that flush's aggregate (counted in
@@ -381,12 +599,20 @@ class StepAccumulator:
 
     def observe(self, name: str, value: float,
                 labels: Optional[dict] = None) -> None:
-        """Labeled observations key the
+        """Labeled observations (the phase-attribution site) key the
         pending dict on (name, label-key); apply_batch folds both forms
         into the registry identically."""
         if not _ENABLED:
             return
         key = (name, _label_key(labels)) if labels else name
+        self._hist_vals.setdefault(key, []).append(float(value))
+
+    def observe_keyed(self, key, value: float) -> None:
+        """Pre-resolved (name, label-key) observation — the phase
+        profiler's per-step fast path (no label dict built, no sort
+        per call; the key tuples are computed once at import)."""
+        if not _ENABLED:
+            return
         self._hist_vals.setdefault(key, []).append(float(value))
 
     def count_observe(self, counter_name: str, hist_name: str,

@@ -1,0 +1,457 @@
+"""Span tracing with cross-thread parenting and Chrome trace export (a
+copy of deeplearning4j_tpu/observability/tracing.py; host-only Python).
+
+A `Tracer` records host-side spans — per-step training phases
+(fetch → dispatch → device → fetch-result → checkpoint) and per-request
+serving phases (enqueue → assemble → dispatch → complete → deliver) —
+into a bounded in-memory ring buffer. Two parenting modes:
+
+  implicit   `with tracer.span("outer"): with tracer.span("inner"):`
+             nests via a thread-local stack (same thread);
+  explicit   `tracer.begin("complete", parent=dispatch_span)` parents
+             across threads — the serving pipeline's completion stage
+             and the StepWatchdog's monitor thread both attach their
+             spans to work that STARTED on another thread.
+
+`export_chrome_trace()` writes Chrome trace-event JSON (Perfetto /
+chrome://tracing loadable): "X" complete events on their real thread
+tracks, thread-name metadata, and "s"/"f" flow events binding every
+cross-thread parent→child edge so the handoff renders as an arrow, not
+a coincidence. A `torch.profiler` device trace captured in the same run
+(optimize/listeners.py ProfilerListener) is registered on this timeline
+as a span carrying its trace_dir, so host spans and the device profile
+can be correlated without merging the two clocks (spans use
+`time.perf_counter`; the profiler keeps its own).
+
+Continuous export: `start_background_flush(path, interval_s)` runs a
+daemon thread that periodically DRAINS the ring buffer to a JSONL file
+(one span dict per line) — long-running jobs stop losing spans to ring
+wrap-around, and the export no longer depends on someone remembering
+to call it. `stop_background_flush()` flushes the remainder;
+`load_flushed(path)` reads the file back. The in-memory ring keeps
+feeding `export_chrome_trace()` for ad-hoc snapshots between flushes.
+
+Tracing is opt-in per component (`tracer=None` default everywhere):
+the hot paths pay nothing unless a tracer is attached.
+
+Cross-process requests: a generation that migrates between replicas
+(or is recovered from the journal after a cold restart) leaves one
+trace LEG per process, each tagged with the same `trace` arg (a
+`new_trace_id()` riding the wire meta next to `request_id`).
+`merge_chrome_traces()` folds the per-process exports into ONE
+Perfetto document — distinct pids per leg, clocks aligned via each
+doc's `unix_time_origin_s`, and an "s"/"f" flow arrow binding each
+trace's consecutive legs so the hop renders as an arrow, not two
+unrelated timelines.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import threading
+import time
+import uuid
+from collections import deque
+from contextlib import contextmanager
+from typing import Dict, List, Optional
+
+
+def new_trace_id() -> str:
+    """Fresh 16-hex trace id (traceparent-style, wire-safe). Minted by
+    whichever hop sees the request first (router, server, or engine)
+    and then propagated verbatim alongside `request_id`."""
+    return uuid.uuid4().hex[:16]
+
+
+class Span:
+    """One finished-or-open span. `end()` is idempotent; the span holds
+    its tracer so a handle can be resolved from any thread."""
+
+    __slots__ = ("id", "name", "cat", "tid", "thread_name", "parent_id",
+                 "args", "t0_us", "dur_us", "_tracer", "_done")
+
+    def __init__(self, tracer: "Tracer", span_id: int, name: str,
+                 cat: str, parent_id: Optional[int], t0_us: float,
+                 args: Optional[dict]):
+        self._tracer = tracer
+        self.id = span_id
+        self.name = name
+        self.cat = cat
+        self.parent_id = parent_id
+        t = threading.current_thread()
+        self.tid = t.ident or 0
+        self.thread_name = t.name
+        self.t0_us = t0_us
+        self.dur_us: Optional[float] = None
+        self.args = dict(args) if args else {}
+        self._done = False
+
+    def end(self, **extra_args) -> None:
+        if self._done:
+            return
+        self._done = True
+        if extra_args:
+            self.args.update(extra_args)
+        self._tracer._finish(self)
+
+    def to_dict(self) -> dict:
+        return {"id": self.id, "name": self.name, "cat": self.cat,
+                "tid": self.tid, "thread_name": self.thread_name,
+                "parent_id": self.parent_id, "t0_us": self.t0_us,
+                "dur_us": self.dur_us, "args": dict(self.args)}
+
+
+class Tracer:
+    """Bounded-buffer span recorder (thread-safe)."""
+
+    def __init__(self, max_spans: int = 20000,
+                 flush_path: Optional[str] = None,
+                 flush_interval_s: float = 2.0):
+        """`flush_path` (optional) starts the continuous background
+        flush at construction: every `flush_interval_s` the ring is
+        drained to that JSONL file (and once more on stop)."""
+        self._lock = threading.Lock()
+        self._buf: deque = deque(maxlen=max(1, int(max_spans)))
+        self.max_spans = int(max_spans)
+        self._ids = itertools.count(1)
+        self._recorded = 0
+        self._flushed = 0
+        self._t0 = time.perf_counter()
+        self._wall0 = time.time()
+        self._local = threading.local()
+        self._flush_path: Optional[str] = None
+        self._flush_interval_s = float(flush_interval_s)
+        self._flush_stop = threading.Event()
+        self._flush_wake = threading.Event()
+        self._flush_thread: Optional[threading.Thread] = None
+        self._flush_file_lock = threading.Lock()
+        if flush_path is not None:
+            self.start_background_flush(flush_path, flush_interval_s)
+
+    def _append(self, sp: "Span") -> None:
+        """Buffer a finished span. Under continuous flush the ring
+        never drops: a half-full ring wakes the flusher early, and a
+        FULL ring makes the producer drain it inline (one amortized
+        write per max_spans/2 spans, only when the flusher is starved)
+        — the perfetto-style stall-don't-lose discipline."""
+        with self._lock:
+            full = (self._flush_path is not None
+                    and len(self._buf) >= self.max_spans - 1)
+            self._buf.append(sp)
+            self._recorded += 1
+            pressure = (self._flush_path is not None
+                        and 2 * len(self._buf) >= self.max_spans)
+        if full:
+            self.flush_now()
+        elif pressure:
+            self._flush_wake.set()
+
+    # ------------------------------------------------------------ clock
+    def _now_us(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e6
+
+    def _to_us(self, perf_t: float) -> float:
+        return (perf_t - self._t0) * 1e6
+
+    # ------------------------------------------------------------ stack
+    def _stack(self) -> List[Span]:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def current(self) -> Optional[Span]:
+        """This thread's innermost open span (hand it to another thread
+        as an explicit `parent=`)."""
+        st = self._stack()
+        return st[-1] if st else None
+
+    # ---------------------------------------------------------- record
+    @staticmethod
+    def _parent_id(parent) -> Optional[int]:
+        if parent is None:
+            return None
+        return parent.id if isinstance(parent, Span) else int(parent)
+
+    def begin(self, name: str, cat: str = "host", parent=None,
+              args: Optional[dict] = None) -> Span:
+        """Open a span. `parent` may be a Span (any thread) or id; when
+        None the current thread's stack top parents it implicitly."""
+        pid = self._parent_id(parent)
+        if pid is None:
+            cur = self.current()
+            pid = cur.id if cur is not None else None
+        return Span(self, next(self._ids), name, cat, pid,
+                    self._now_us(), args)
+
+    def _finish(self, span: Span) -> None:
+        if span.dur_us is None:
+            span.dur_us = max(0.0, self._now_us() - span.t0_us)
+        self._append(span)
+
+    @contextmanager
+    def span(self, name: str, cat: str = "host", parent=None,
+             args: Optional[dict] = None):
+        sp = self.begin(name, cat=cat, parent=parent, args=args)
+        st = self._stack()
+        st.append(sp)
+        try:
+            yield sp
+        finally:
+            if st and st[-1] is sp:
+                st.pop()
+            sp.end()
+
+    def record(self, name: str, start_perf: float, end_perf: float,
+               cat: str = "host", parent=None,
+               args: Optional[dict] = None) -> Span:
+        """Record an already-measured interval (perf_counter values) —
+        the fit loops already time their phases, so the span rides the
+        same two clock reads."""
+        sp = Span(self, next(self._ids), name, cat,
+                  self._parent_id(parent), self._to_us(start_perf), args)
+        sp.dur_us = max(0.0, (end_perf - start_perf) * 1e6)
+        sp._done = True
+        self._append(sp)
+        return sp
+
+    def instant(self, name: str, cat: str = "host", parent=None,
+                args: Optional[dict] = None) -> Span:
+        sp = self.begin(name, cat=cat, parent=parent, args=args)
+        sp.dur_us = 0.0
+        sp._done = True
+        self._append(sp)
+        return sp
+
+    # ------------------------------------------------------------ reads
+    def spans(self) -> List[dict]:
+        with self._lock:
+            return [s.to_dict() for s in self._buf]
+
+    def stats(self) -> dict:
+        with self._lock:
+            buffered = len(self._buf)
+            recorded = self._recorded
+            flushed = self._flushed
+        return {"recorded": recorded, "buffered": buffered,
+                "flushed": flushed,
+                "dropped": recorded - buffered - flushed,
+                "max_spans": self.max_spans,
+                "flush_path": self._flush_path,
+                "flush_running": (
+                    self._flush_thread is not None
+                    and self._flush_thread.is_alive())}
+
+    # ------------------------------------------------- continuous flush
+    def start_background_flush(self, path: str,
+                               interval_s: Optional[float] = None
+                               ) -> None:
+        """Start (or retarget) the continuous flush: a daemon thread
+        drains the ring to `path` as JSONL every `interval_s` seconds,
+        so spans survive ring wrap-around without manual exports.
+        Idempotent per path; `stop_background_flush()` flushes the
+        remainder and joins the thread."""
+        if interval_s is not None:
+            self._flush_interval_s = float(interval_s)
+        self._flush_path = path
+        if self._flush_thread is not None \
+                and self._flush_thread.is_alive():
+            return
+        self._flush_stop.clear()
+        self._flush_thread = threading.Thread(
+            target=self._flush_loop, daemon=True,
+            name="Tracer-span-flush")
+        self._flush_thread.start()
+
+    def stop_background_flush(self) -> int:
+        """Stop the flush thread and flush whatever is still buffered
+        (the flush-on-stop half of the contract). Returns the number
+        of spans written by the final flush. Safe to call twice."""
+        self._flush_stop.set()
+        self._flush_wake.set()   # unblock the interval wait
+        t, self._flush_thread = self._flush_thread, None
+        if t is not None and t.is_alive():
+            t.join(timeout=5.0)
+        self._flush_stop.clear()   # a later start() can restart
+        return self.flush_now()
+
+    def flush_now(self) -> int:
+        """Drain every completed span in the ring to the flush file
+        (JSONL, one span dict per line). Returns spans written; no-op
+        without a flush path."""
+        if self._flush_path is None:
+            return 0
+        with self._lock:
+            spans = [s.to_dict() for s in self._buf]
+            self._buf.clear()
+            self._flushed += len(spans)
+        if not spans:
+            return 0
+        try:
+            with self._flush_file_lock:
+                with open(self._flush_path, "a") as f:
+                    for s in spans:
+                        f.write(json.dumps(s) + "\n")
+        except OSError:
+            # a full disk must not take down the job — the spans are
+            # simply lost (still counted as flushed, not buffered)
+            pass
+        return len(spans)
+
+    def _flush_loop(self) -> None:
+        while True:
+            self._flush_wake.wait(self._flush_interval_s)
+            self._flush_wake.clear()
+            if self._flush_stop.is_set():
+                return   # stop_background_flush does the final drain
+            self.flush_now()
+
+    @staticmethod
+    def load_flushed(path: str) -> List[dict]:
+        """Read a flush file back into span dicts (skips torn tail
+        lines from a crash mid-write)."""
+        out: List[dict] = []
+        try:
+            with open(path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        out.append(json.loads(line))
+                    except ValueError:
+                        continue
+        except OSError:
+            pass
+        return out
+
+    # ----------------------------------------------------------- export
+    def export_chrome_trace(self, path: Optional[str] = None) -> dict:
+        """Chrome trace-event JSON (Perfetto-loadable). Every span is an
+        "X" complete event on its real thread; cross-thread parent→child
+        edges additionally emit an "s"/"f" flow pair so the handoff is
+        drawn as an arrow between tracks."""
+        pid = os.getpid()
+        with self._lock:
+            spans = list(self._buf)
+        by_id: Dict[int, Span] = {s.id: s for s in spans}
+        events: List[dict] = []
+        seen_tids: Dict[int, str] = {}
+        for s in spans:
+            seen_tids.setdefault(s.tid, s.thread_name)
+        for tid, tname in seen_tids.items():
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid, "args": {"name": tname}})
+        for s in spans:
+            args = dict(s.args)
+            if s.parent_id is not None:
+                args["parent_id"] = s.parent_id
+            events.append({
+                "ph": "X", "name": s.name, "cat": s.cat, "pid": pid,
+                "tid": s.tid, "ts": round(s.t0_us, 3),
+                "dur": round(s.dur_us or 0.0, 3), "args": args})
+            parent = (by_id.get(s.parent_id)
+                      if s.parent_id is not None else None)
+            if parent is not None and parent.tid != s.tid:
+                # flow: start at the parent, finish (enclosing-slice
+                # binding) at the child — the cross-thread arrow
+                events.append({
+                    "ph": "s", "id": s.id, "name": "handoff",
+                    "cat": "flow", "pid": pid, "tid": parent.tid,
+                    "ts": round(parent.t0_us, 3)})
+                events.append({
+                    "ph": "f", "bp": "e", "id": s.id, "name": "handoff",
+                    "cat": "flow", "pid": pid, "tid": s.tid,
+                    "ts": round(s.t0_us, 3)})
+        doc = {"traceEvents": events, "displayTimeUnit": "ms",
+               "otherData": {"unix_time_origin_s": self._wall0,
+                             "exporter": "deeplearning4j_tpu_torch"}}
+        if path:
+            with open(path, "w") as f:
+                json.dump(doc, f)
+        return doc
+
+
+# ------------------------------------------------- cross-process merge
+def _load_trace_doc(doc_or_path):
+    if isinstance(doc_or_path, str):
+        with open(doc_or_path) as f:
+            return json.load(f)
+    return doc_or_path
+
+
+def merge_chrome_traces(docs, path: Optional[str] = None,
+                        labels: Optional[List[str]] = None) -> dict:
+    """Merge per-process `export_chrome_trace()` docs into ONE
+    Perfetto-loadable document (the snapshot-aggregation pattern,
+    applied to traces).
+
+    Each input doc becomes a distinct pid (its process_name from
+    `labels`, else "proc<i>"), timestamps are rebased onto a shared
+    origin using each doc's `otherData.unix_time_origin_s` wall clock,
+    and per-doc flow ids are remapped so they cannot collide. Then, for
+    every trace id seen (the `trace` span arg), the legs — one group of
+    spans per input doc — are ordered by start time and consecutive
+    legs are bound with an "s"/"f" flow pair named "trace-leg": the
+    migration (or journal-recovery) hop renders as an arrow from the
+    end of the last span of one replica's leg to the first span of the
+    next replica's leg. Accepts doc dicts or file paths."""
+    loaded = [_load_trace_doc(d) for d in docs]
+    origins = [float((d.get("otherData") or {})
+                     .get("unix_time_origin_s", 0.0)) for d in loaded]
+    base = min(origins) if origins else 0.0
+    events: List[dict] = []
+    # per-trace-id legs: {trace_id: {doc_idx: [(ts, end_ts, ev), ...]}}
+    legs: Dict[str, Dict[int, List[tuple]]] = {}
+    for i, (doc, origin) in enumerate(zip(loaded, origins)):
+        pid = i + 1
+        shift_us = (origin - base) * 1e6
+        name = (labels[i] if labels and i < len(labels)
+                else f"proc{i}")
+        events.append({"ph": "M", "name": "process_name", "pid": pid,
+                       "tid": 0, "args": {"name": name}})
+        events.append({"ph": "M", "name": "process_sort_index",
+                       "pid": pid, "tid": 0,
+                       "args": {"sort_index": i}})
+        for ev in doc.get("traceEvents", []):
+            ev = dict(ev)
+            ev["pid"] = pid
+            if "ts" in ev:
+                ev["ts"] = round(float(ev["ts"]) + shift_us, 3)
+            if ev.get("cat") == "flow" and "id" in ev:
+                # keep intra-doc flow pairs bound, but namespace them
+                # per doc so two replicas' span ids cannot collide
+                ev["id"] = f"p{pid}.{ev['id']}"
+            events.append(ev)
+            tid = (ev.get("args") or {}).get("trace")
+            if ev.get("ph") == "X" and tid:
+                t0 = float(ev["ts"])
+                t1 = t0 + float(ev.get("dur", 0.0))
+                legs.setdefault(str(tid), {}).setdefault(
+                    i, []).append((t0, t1, ev))
+    flow_ids = itertools.count(1)
+    for trace_id, by_doc in sorted(legs.items()):
+        groups = sorted(by_doc.values(),
+                        key=lambda g: min(t0 for t0, _, _ in g))
+        for prev, nxt in zip(groups, groups[1:]):
+            _, src_end, src = max(prev, key=lambda g: g[1])
+            dst_start, _, dst = min(nxt, key=lambda g: g[0])
+            fid = f"trace.{trace_id}.{next(flow_ids)}"
+            events.append({
+                "ph": "s", "id": fid, "name": "trace-leg",
+                "cat": "flow", "pid": src["pid"], "tid": src["tid"],
+                "ts": round(src_end, 3)})
+            events.append({
+                "ph": "f", "bp": "e", "id": fid, "name": "trace-leg",
+                "cat": "flow", "pid": dst["pid"], "tid": dst["tid"],
+                "ts": round(dst_start, 3)})
+    doc = {"traceEvents": events, "displayTimeUnit": "ms",
+           "otherData": {"unix_time_origin_s": base,
+                         "exporter": "deeplearning4j_tpu_torch",
+                         "merged_docs": len(loaded)}}
+    if path:
+        with open(path, "w") as f:
+            json.dump(doc, f)
+    return doc

@@ -19,7 +19,15 @@ cascades: window full -> assembler stalls -> bounded request queue fills
 Every wait carries a deadline (DeadlineExceededError), a dead pipeline
 thread surfaces as InferenceUnavailableError, and `shutdown()` fails
 queued, in-flight and carried requests fast with ShutdownError.
-Tracer, metrics and lint hooks arrive with the observability slice.
+
+Telemetry, at the JAX package's sites: `dl4j_serving_batches_total` and
+the `dl4j_serving_batch_occupancy` histogram per dispatched batch,
+`dl4j_serving_bucket_splits_total` per split request,
+`dl4j_serving_queue_depth` and `dl4j_serving_inflight_batches` gauges. A
+`tracer` (observability.Tracer) records a "request" span per call, an
+"assemble_dispatch" span per batch parented to its first request's span
+(caller thread -> batcher thread) and a "complete_deliver" span parented
+to that (batcher -> completion thread).
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.observability import metrics as _obs
+from deeplearning4j_tpu_torch.observability.metrics import COUNT_BUCKETS
 from deeplearning4j_tpu_torch.resilience.errors import (
     DeadlineExceededError,
     InferenceUnavailableError,
@@ -75,7 +85,8 @@ class _Pending:
     """One caller's request: equal-row input arrays, delivered possibly
     across several batches (row ranges never overlap, so no lock)."""
 
-    __slots__ = ("xs", "event", "result", "_left", "_out", "priority_idx")
+    __slots__ = ("xs", "event", "result", "_left", "_out", "span",
+                 "priority_idx")
 
     def __init__(self, xs, priority_idx: int = 1):
         self.xs = xs
@@ -83,6 +94,7 @@ class _Pending:
         self.result = None
         self._left = xs[0].shape[0]
         self._out = None
+        self.span = None   # open request span (tracer attached only)
         self.priority_idx = priority_idx
 
     @property
@@ -93,6 +105,13 @@ class _Pending:
         if not self.event.is_set():
             self.result = result
             self.event.set()
+            if self.span is not None:
+                try:
+                    self.span.end(
+                        error=type(result).__name__
+                        if isinstance(result, Exception) else None)
+                except Exception:   # noqa: BLE001 - telemetry best-effort
+                    pass
 
     def deliver(self, start: int, rows_list: List[np.ndarray],
                 multi: bool) -> bool:
@@ -131,8 +150,13 @@ class ParallelInference:
                  warmup: bool = True,
                  adaptive_wait: bool = True,
                  min_wait_ms: float = 0.0,
-                 completion_streams: int = 2):
+                 completion_streams: int = 2,
+                 tracer=None):
+        """`tracer` (observability.Tracer, optional): per-request and
+        per-batch spans on both pipeline stages, parented across the
+        threads (module docstring); None costs the hot path nothing."""
         self.net = net
+        self.tracer = tracer
         self.batch_limit = batch_limit
         self.max_wait_ms = max_wait_ms
         self.min_wait_ms = min_wait_ms
@@ -284,9 +308,18 @@ class ParallelInference:
             timeout_s = self.default_timeout_s
         self._check_available()
         p = _Pending(xs, priority_idx=_PRIORITY_IDX.get(priority, 1))
+        if self.tracer is not None:
+            try:
+                p.span = self.tracer.begin(
+                    "request", cat="serving",
+                    args={"rows": int(xs[0].shape[0])})
+            except Exception:   # noqa: BLE001 - telemetry best-effort
+                p.span = None
         try:
             self._queue.put_nowait(p)
         except queue.Full:
+            if p.span is not None:
+                p.span.end(error="OverloadedError")
             raise OverloadedError(
                 f"inference queue full ({self._queue.maxsize} waiting); "
                 "retry later") from None
@@ -346,7 +379,7 @@ class ParallelInference:
             return
         while True:
             try:
-                _, slots, keys, bufs = self._inflight.get_nowait()
+                _, slots, keys, bufs, _ = self._inflight.get_nowait()
             except queue.Empty:
                 return
             with self._count_lock:
@@ -421,6 +454,7 @@ class ParallelInference:
             rows += take
             if take < first.rows:
                 self._carry = (first, take)
+                _obs.count("dl4j_serving_bucket_splits_total")
                 return slots, rows
         wait_s = self._current_wait_s()
         t0 = time.monotonic()
@@ -450,6 +484,7 @@ class ParallelInference:
             rows += take
             if take < p.rows:
                 self._carry = (p, take)
+                _obs.count("dl4j_serving_bucket_splits_total")
                 break
         return slots, rows
 
@@ -486,11 +521,25 @@ class ParallelInference:
                 slots, rows = self._collect()
                 if not slots:
                     continue
+                # assembler-stage span: explicitly parented to the FIRST
+                # request's span — the request started on a caller
+                # thread, this stage runs on the batcher thread
+                dspan = None
+                if self.tracer is not None:
+                    try:
+                        dspan = self.tracer.begin(
+                            "assemble_dispatch", cat="serving",
+                            parent=slots[0][0].span,
+                            args={"rows": rows, "slots": len(slots)})
+                    except Exception:   # noqa: BLE001 - telemetry
+                        dspan = None
                 try:
                     keys, bufs = self._assemble(slots, rows)
                 except Exception as e:   # per-batch: propagate to callers
                     for p, _, _ in slots:
                         p.resolve(e)
+                    if dspan is not None:
+                        dspan.end(error=type(e).__name__)
                     continue
                 try:
                     with self._lock:
@@ -501,16 +550,26 @@ class ParallelInference:
                     for p, _, _ in slots:
                         p.resolve(e)
                     self._put_buffers(keys, bufs)
+                    if dspan is not None:
+                        dspan.end(error=type(e).__name__)
                     continue
                 self._batches_dispatched += 1
                 agg = self._bucket_fill.setdefault(keys[0][0], [0, 0])
                 agg[0] += 1
                 agg[1] += rows
+                _obs.count_observe(
+                    "dl4j_serving_batches_total",
+                    "dl4j_serving_batch_occupancy", rows,
+                    buckets=COUNT_BUCKETS)
+                _obs.set_gauge("dl4j_serving_queue_depth",
+                               self._queue.qsize())
+                if dspan is not None:
+                    dspan.end()
                 self._adapt_wait(rows)
                 if self._completer is None:
-                    self._complete_batch(out, slots, keys, bufs)
+                    self._complete_batch(out, slots, keys, bufs, dspan)
                 else:
-                    self._submit_inflight((out, slots, keys, bufs))
+                    self._submit_inflight((out, slots, keys, bufs, dspan))
         except BaseException as e:   # noqa: BLE001 - loop-level death
             self._failure = e
         finally:
@@ -526,7 +585,7 @@ class ParallelInference:
         while True:
             if self._stop.is_set() or self._failure is not None or any(
                     not t.is_alive() for t in self._completers):
-                _, slots, keys, bufs = item
+                _, slots, keys, bufs, _ = item
                 err = self._unavailable_error() \
                     if not self._stop.is_set() else ShutdownError(
                         "ParallelInference shut down with requests "
@@ -542,11 +601,24 @@ class ParallelInference:
                 continue
             with self._count_lock:
                 self._inflight_n += 1
+            _obs.set_gauge("dl4j_serving_inflight_batches",
+                           self._inflight_n)
             self._inflight.put(item)
             return
 
     # ------------------------------------------------------- completion
-    def _complete_batch(self, out, slots: List[_Slot], keys, bufs):
+    def _complete_batch(self, out, slots: List[_Slot], keys, bufs,
+                        dspan=None):
+        # completion-stage span: parented to the assembler's dispatch
+        # span — a cross-THREAD edge when the completer is running
+        cspan = None
+        if self.tracer is not None and dspan is not None:
+            try:
+                cspan = self.tracer.begin(
+                    "complete_deliver", cat="serving", parent=dspan,
+                    args={"slots": len(slots)})
+            except Exception:   # noqa: BLE001 - telemetry best-effort
+                cspan = None
         multi = isinstance(out, (list, tuple))
         outs = list(out) if multi else [out]
         try:
@@ -555,6 +627,8 @@ class ParallelInference:
             for p, _, _ in slots:
                 p.resolve(e)
             self._put_buffers(keys, bufs)
+            if cspan is not None:
+                cspan.end(error=type(e).__name__)
             return
         for i, h in enumerate(hosts):
             if any(np.may_share_memory(h, b) for b in bufs):
@@ -570,6 +644,8 @@ class ParallelInference:
         if done:
             with self._count_lock:
                 self._requests_completed += done
+        if cspan is not None:
+            cspan.end()
 
     def _completion_loop(self):
         try:
@@ -583,6 +659,8 @@ class ParallelInference:
                 finally:
                     with self._count_lock:
                         self._inflight_n -= 1
+                    _obs.set_gauge("dl4j_serving_inflight_batches",
+                                   self._inflight_n)
                     self._slot_free.set()
         except BaseException as e:   # noqa: BLE001 - loop-level death
             self._failure = e

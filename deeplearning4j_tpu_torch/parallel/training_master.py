@@ -58,7 +58,19 @@ NotImplementedError naming its ROADMAP queue): a mesh, more than one
 process or device, `averaging_frequency > 1` and
 `threshold_compression` (local SGD), `sharding="zero1"`,
 `per_rank_checkpoints`, `checkpoint_format="orbax"` and
-`initialize_distributed` (queue 9); `export_stats_html` (queue 8).
+`initialize_distributed` (queue 9).
+
+Observability: a `tracer` records a span per step ("train_step", with
+its fetch/dispatch/device-sync/checkpoint children) or per k-window
+("train_group", open while the window runs, so the watchdog's hang
+instant parents to it); `phase_profiler` (True, or a StepPhaseProfiler)
+attributes each step — each window under `steps_per_dispatch=k`, as in
+the JAX package — to phases, its sampled device sync being the only sync
+it adds (for a window: the wait for the previous window's replay, just
+before this one's is launched, so the profiler does not stop the next
+window's staging from overlapping the replay); `training_stats()` carries `phases`, `resilience` (guard,
+watchdog, preemption, supervisor counters) and `profiler` (an attached
+ProfilerListener's trace_dir); `export_stats_html` writes the timeline.
 """
 
 from __future__ import annotations
@@ -377,7 +389,7 @@ class TrainingMaster:
         if tr is not None and (check_now or collect_training_stats):
             tr.record("device_sync", t_disp, t2, cat="train", parent=sp)
         harness.mark("telemetry")
-        for listener in getattr(net, "listeners", ()):
+        for listener in net.listeners:
             listener.iteration_done(net, net.iteration)
         t3 = time.perf_counter()
         if ckpt_due:
@@ -527,131 +539,159 @@ class TrainingMaster:
         ones are downstream contamination) and the window replays
         without it — eagerly, since it is shorter than the captured
         group."""
+        harness = self._harness
+        k = self.steps_per_dispatch
+        every = self.checkpoint_every
+        step = start_step
+        while step < num_steps:
+            self._check_preemption(step)
+            # the window's span is open while it runs: the step span the
+            # watchdog parents a hang to, and the checkpoint's parent
+            sp = (self.tracer.begin("train_group", cat="train",
+                                    args={"step": step})
+                  if self.tracer is not None else None)
+            harness._step_span = sp
+            if harness.watchdog is not None:
+                harness.watchdog.trace_parent = sp
+            try:
+                step = self._fit_window(batch_fn, num_steps, step, k,
+                                        every, collect_training_stats, sp)
+            finally:
+                harness._step_span = None
+                if sp is not None:
+                    sp.end()
+        return self
+
+    def _fit_window(self, batch_fn, num_steps, step, k, every,
+                    collect_training_stats, sp) -> int:
+        """One k-window of `_fit_grouped`: returns the step to continue
+        from (the window's end, or the restored step after a guard's
+        rollback, or the same window minus a condemned inner step). As
+        in the JAX package, only a completed window ends a profiler
+        step."""
         net = self.net
         guard = self.guard
         harness = self._harness
         program = harness.program
-        k = self.steps_per_dispatch
-        every = self.checkpoint_every
         pp = self.phase_profiler
-        step = start_step
-        while step < num_steps:
-            self._check_preemption(step)
-            _fire("train.step")
-            _fire("train.hang")
-            fire_hang_hard()
-            harness.beat("dispatch", step=step)
-            if pp is not None:
-                pp.begin_step(step)
-                pp.mark("data_wait")
-            t0 = time.perf_counter()
-            span = min(step + k, num_steps) - step
-            group, abs_steps = self._fetch_window(batch_fn, step, span)
-            if not group:
-                step += span
-                continue
-            if pp is not None:
-                pp.mark("h2d")
-            xs, ys = self._stack_window(group)
-            t1 = time.perf_counter()
-            # guard at group granularity: one check per dispatch
-            check_now = guard is not None and guard.check_every > 0
-            snap = harness.pre_step_snapshot(check_now)
-            if pp is not None:
-                pp.mark("dispatch")
-            program.run_group(xs, ys)
-            harness.beat("fetch", step=step)
-            if pp is not None:
-                pp.mark("host_sync")
-            if check_now:
-                finite = torch.isfinite(
-                    program.last_step_losses).cpu().numpy()
-                bad = ([abs_steps[int(np.argmax(~finite))]]
-                       if not finite.all() else [])
-                if bad:
-                    guard.counters["checks"] += 1
-                    guard.counters["nonfinite"] += 1
-                    _obs.count("dl4j_train_guard_checks_total")
-                    _obs.count("dl4j_train_guard_nonfinite_total")
-                    self._poisoned_steps.update(bad)
-                    restored = {}
+        _fire("train.step")
+        _fire("train.hang")
+        fire_hang_hard()
+        harness.beat("dispatch", step=step)
+        if pp is not None:
+            pp.begin_step(step)
+            pp.mark("data_wait")
+        t0 = time.perf_counter()
+        span = min(step + k, num_steps) - step
+        group, abs_steps = self._fetch_window(batch_fn, step, span)
+        if not group:
+            return step + span
+        if pp is not None:
+            pp.mark("h2d")
+        xs, ys = self._stack_window(group)
+        t1 = time.perf_counter()
+        # guard at group granularity: one check per dispatch
+        check_now = guard is not None and guard.check_every > 0
+        snap = harness.pre_step_snapshot(check_now)
+        if pp is not None:
+            # the sampled wait on the replay's stream (device_compute) is
+            # for the previous window's replay, taken just before this
+            # window's is launched: this window's fetch and staging still
+            # ran under it, as they do without the profiler
+            pp.sync(program.last_step_losses)
+            pp.mark("dispatch")
+        program.run_group(xs, ys)
+        harness.beat("fetch", step=step)
+        if pp is not None:
+            pp.mark("host_sync")
+        if check_now:
+            finite = torch.isfinite(
+                program.last_step_losses).cpu().numpy()
+            bad = ([abs_steps[int(np.argmax(~finite))]]
+                   if not finite.all() else [])
+            if bad:
+                guard.counters["checks"] += 1
+                guard.counters["nonfinite"] += 1
+                _obs.count("dl4j_train_guard_checks_total")
+                _obs.count("dl4j_train_guard_nonfinite_total")
+                self._poisoned_steps.update(bad)
+                restored = {}
 
-                    def _rollback_group():
-                        restored["step"] = self.load_latest_checkpoint()
+                def _rollback_group():
+                    restored["step"] = self.load_latest_checkpoint()
 
-                    action = harness.dispatch_verdict(
-                        "nonfinite", snap=snap,
-                        restore_rollback=_rollback_group,
-                        context=f"at inner step(s) {bad} of group at "
-                                f"step {step}")
-                    if action == "skip":
-                        logger.warning(
-                            "guard: non-finite inner step(s) %s — "
-                            "window replayed without them", bad)
-                    else:   # rollback
-                        step = restored["step"]
-                    continue   # re-enter the window minus `bad`
-                verdict = guard.post_step(net)
-                if verdict != "ok":
-                    restored = {}
+                action = harness.dispatch_verdict(
+                    "nonfinite", snap=snap,
+                    restore_rollback=_rollback_group,
+                    context=f"at inner step(s) {bad} of group at "
+                            f"step {step}")
+                if action == "skip":
+                    logger.warning(
+                        "guard: non-finite inner step(s) %s — "
+                        "window replayed without them", bad)
+                    return step   # re-enter the window minus `bad`
+                return restored["step"]
+            verdict = guard.post_step(net)
+            if verdict != "ok":
+                restored = {}
 
-                    def _rollback_window():
-                        self._poisoned_steps.update(
-                            range(step, step + span))
-                        restored["step"] = self.load_latest_checkpoint()
+                def _rollback_window():
+                    self._poisoned_steps.update(
+                        range(step, step + span))
+                    restored["step"] = self.load_latest_checkpoint()
 
-                    action = harness.dispatch_verdict(
-                        verdict, snap=snap,
-                        restore_rollback=_rollback_window,
-                        context=f"in group at step {step}")
-                    step = step + span if action == "skip" \
-                        else restored["step"]
-                    continue
-            if collect_training_stats:
-                float(net.score())   # host read: the group's barrier
-            t2 = time.perf_counter()
-            # group telemetry: steps_total counts the inner steps
-            # actually trained; step_seconds stays in per-step units
-            self._obs_acc.count_observe(
-                "dl4j_train_steps_total", "dl4j_train_step_seconds",
-                (t2 - t0) / max(1, len(abs_steps)), n=len(abs_steps))
-            if self.tracer is not None:
-                self.tracer.record(
-                    "train_group", t0, t2, cat="train",
-                    args={"step": step, "steps": len(abs_steps)})
-            for listener in getattr(net, "listeners", ()):
-                listener.iteration_done(net, net.iteration)
-            prev = step
-            step += span
-            # checkpoint when the group CROSSES a cadence boundary
-            # (group ends rarely align with checkpoint_every)
-            if (self.checkpoint_dir and every
-                    and prev // every != step // every):
-                if pp is not None:
-                    pp.mark("checkpoint")
-                self.save_checkpoint(step)
+                action = harness.dispatch_verdict(
+                    verdict, snap=snap,
+                    restore_rollback=_rollback_window,
+                    context=f"in group at step {step}")
+                return step + span if action == "skip" \
+                    else restored["step"]
+        if collect_training_stats:
+            float(net.score())   # host read: the group's barrier
+        t2 = time.perf_counter()
+        # group telemetry: steps_total counts the inner steps
+        # actually trained; step_seconds stays in per-step units
+        self._obs_acc.count_observe(
+            "dl4j_train_steps_total", "dl4j_train_step_seconds",
+            (t2 - t0) / max(1, len(abs_steps)), n=len(abs_steps))
+        if sp is not None:
+            sp.args["steps"] = len(abs_steps)
+        for listener in net.listeners:
+            listener.iteration_done(net, net.iteration)
+        prev = step
+        step += span
+        # checkpoint when the group CROSSES a cadence boundary
+        # (group ends rarely align with checkpoint_every)
+        if (self.checkpoint_dir and every
+                and prev // every != step // every):
             if pp is not None:
-                pp.end_step()
-            if collect_training_stats:
-                self._stats.append({
-                    "step": prev,
-                    "data_ms": (t1 - t0) * 1e3,
-                    "fit_ms": (t2 - t1) * 1e3,
-                    "listener_ms": 0.0,
-                    "checkpoint_ms": (time.perf_counter() - t2) * 1e3,
-                })
-        return self
+                pp.mark("checkpoint")
+            self.save_checkpoint(step)
+        if collect_training_stats:
+            self._stats.append({
+                "step": prev,
+                "data_ms": (t1 - t0) * 1e3,
+                "fit_ms": (t2 - t1) * 1e3,
+                "listener_ms": 0.0,
+                "checkpoint_ms": (time.perf_counter() - t2) * 1e3,
+            })
+        if pp is not None:
+            pp.end_step()   # a completed window is one profiler step
+        return step
 
     # ------------------------------------------------------------ stats
     def training_stats(self):
         """Per-step phase timings recorded when fit(...,
         collect_training_stats=True): a list of dicts plus an aggregate
-        row, the `resilience` block (guard / preemption / supervisor
-        counters) and the `pipeline` facts. `wire` (local SGD) and
-        `profiler` stay None until their ports (ROADMAP queues 9, 8)."""
+        row, the `resilience` block (guard / watchdog / preemption /
+        supervisor counters), the phase profiler's report (`phases`), an
+        attached ProfilerListener's trace facts (`profiler`) and the
+        `pipeline` facts. `wire` (local SGD) stays None until its port
+        (ROADMAP queue 9)."""
         stats = list(getattr(self, "_stats", []))
         out = {"steps": stats, "summary": {}, "wire": None,
-               "resilience": self.resilience_stats(), "profiler": None,
+               "resilience": self.resilience_stats(),
+               "profiler": self._profiler_stats(),
                "phases": (self.phase_profiler.report()
                           if self.phase_profiler is not None else None),
                "pipeline": self._harness.pipeline_stats()}
@@ -662,13 +702,47 @@ class TrainingMaster:
                           "checkpoint_ms")}
         return out
 
+    def _profiler_stats(self):
+        """An attached ProfilerListener's device-trace facts (its
+        trace_dir, log_dir, whether a trace is open or done)."""
+        for listener in self.net.listeners:
+            if hasattr(listener, "trace_dir") \
+                    and hasattr(listener, "log_dir"):
+                return {"trace_dir": listener.trace_dir,
+                        "log_dir": listener.log_dir,
+                        "active": bool(getattr(listener, "_active",
+                                               False)),
+                        "done": bool(getattr(listener, "_done", False))}
+        return None
+
     def resilience_stats(self):
         """Guard / watchdog / preemption / restart counters (None when
         no self-healing hook is attached and nothing was counted)."""
         return self._harness.resilience_stats()
 
     def export_stats_html(self, path: str):
-        raise _not_ported("export_stats_html (the stats/ package)", 8)
+        """Timeline HTML export (ref StatsUtils.exportStatsAsHtml): the
+        recorded steps, the summary and the resilience block."""
+        data = self.training_stats()
+        rows = "".join(
+            f"<tr><td>{s['step']}</td><td>{s['data_ms']:.2f}</td>"
+            f"<td>{s['fit_ms']:.2f}</td>"
+            f"<td>{s['checkpoint_ms']:.2f}</td></tr>"
+            for s in data["steps"])
+        resil = ("" if data.get("resilience") is None else
+                 f"<p>resilience: {json.dumps(data['resilience'])}</p>")
+        page = (
+            "<!DOCTYPE html><html><head><meta charset='utf-8'>"
+            "<title>training timeline</title></head><body>"
+            f"<h1>TrainingMaster timeline</h1>"
+            f"<p>summary: {json.dumps(data['summary'])}</p>"
+            f"{resil}"
+            "<table border='1'><tr><th>step</th><th>data ms</th>"
+            "<th>fit ms</th><th>checkpoint ms</th></tr>"
+            f"{rows}</table></body></html>")
+        with open(path, "w") as f:
+            f.write(page)
+        return path
 
     # ------------------------------------------------------------ evaluate
     def evaluate(self, batch_fn: Callable[[int], Tuple], num_steps: int,

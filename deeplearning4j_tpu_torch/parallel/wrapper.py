@@ -156,7 +156,7 @@ class ParallelWrapper:
 
     def _listeners_done(self):
         net = self.net
-        for listener in getattr(net, "listeners", ()):
+        for listener in net.listeners:
             listener.iteration_done(net, net.iteration)
 
     def _fit_loop(self, batches, epochs, pre_staged=False):

@@ -1,8 +1,8 @@
 """Resilience (counterpart of deeplearning4j_tpu/resilience/): typed
 errors, fault injection, Retry/CircuitBreaker, crash-safe checkpoint
-integrity (single host) and the training guard, snapshotter and
-preemption handler. The step watchdog, Supervisor and the cluster
-supervisor wait (ROADMAP queues 8-9)."""
+integrity (single host), the training guard, snapshotter, step watchdog,
+preemption handler and Supervisor. The cluster supervisor waits (ROADMAP
+queues 8-9)."""
 
 from deeplearning4j_tpu_torch.resilience.errors import (  # noqa: F401
     CheckpointIntegrityError,
@@ -14,6 +14,7 @@ from deeplearning4j_tpu_torch.resilience.errors import (  # noqa: F401
     OverloadedError,
     PreemptedError,
     ResilienceError,
+    RestartsExhaustedError,
     RetriesExhaustedError,
     ShutdownError,
     StepHangError,
@@ -53,5 +54,7 @@ from deeplearning4j_tpu_torch.resilience.supervisor import (  # noqa: F401
     NonFiniteGuard,
     PeriodicSnapshotter,
     PreemptionHandler,
+    StepWatchdog,
+    Supervisor,
     fire_hang_hard,
 )

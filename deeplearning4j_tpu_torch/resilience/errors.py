@@ -81,3 +81,14 @@ class PreemptedError(ResilienceError):
     def __init__(self, msg: str, step: int | None = None):
         super().__init__(msg)
         self.step = step
+
+
+class RestartsExhaustedError(ResilienceError):
+    """The Supervisor's restart budget is spent: `cause` is the final
+    crash, `ledger` the full restart history."""
+
+    def __init__(self, msg: str, cause: Exception | None = None,
+                 ledger: list | None = None):
+        super().__init__(msg)
+        self.cause = cause
+        self.ledger = ledger or []

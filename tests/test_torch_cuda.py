@@ -952,3 +952,88 @@ def test_cuda_parallel_wrapper_equals_hand_driven_run_group(
     _windows(StepProgram(b), data, 4)
     torch.cuda.synchronize()
     _assert_nets_bitwise(a, b)
+
+
+# ------------------------------------------- observability and supervision
+
+
+@pytest.mark.cuda
+def test_cuda_hang_during_capture_keeps_no_group(deterministic_cudnn):
+    """A StepHangError (the watchdog's escalation) raised while a group
+    is being captured passes through as itself, keeps no half-captured
+    graph, and the next run_group captures afresh and equals eager
+    steps bit for bit."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.resilience import StepHangError
+
+    data = _engine_batches(6, seed=16)
+    net = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+    prog = StepProgram(net)
+    step, calls = net._step, {"n": 0}
+
+    def hung_in_capture(*args):
+        calls["n"] += 1
+        if calls["n"] == 2:          # the warm-up is call 1
+            raise StepHangError("watchdog")
+        return step(*args)
+
+    net._step = hung_in_capture
+    with pytest.raises(StepHangError):
+        prog.run_group(*_stacked(data[:3]))
+    del net._step
+    assert prog.group_launches() == {} and net.iteration == 0
+    prog.run_group(*_stacked(data[:3]))
+    prog.run_group(*_stacked(data[3:]))
+    ref = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+    rprog = StepProgram(ref)
+    for x, y in data:
+        rprog.run(x, y)
+    torch.cuda.synchronize()
+    assert prog.group_stats["captures"] == 1
+    _assert_nets_bitwise(net, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_register_perf_counts_a_fused_twin_on_the_card():
+    """On the card a "pallas" net's step is counted on a "fused" twin
+    (every product an aten op): within 1% of the CPU twin's plain-version
+    count, k times it for a captured group."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.observability import CostModel
+
+    _need_cuda()
+    data = _engine_batches(3, seed=17)
+    net = _port_mini_resnet("pallas")
+    prog = StepProgram(net)
+    cm = CostModel()
+    e1 = prog.register_perf(cm, None, *data[0])
+    assert "cuda twin (fused helpers" in e1["source"]
+    cpu = ComputationGraph(net.conf, device="cpu").init()
+    ec = StepProgram(cpu).register_perf(CostModel(device="cpu"), None,
+                                        *data[0])
+    assert abs(e1["flops"] / ec["flops"] - 1) < 0.01
+    prog.run_group(*_stacked(data))
+    (key,) = prog.group_launches()
+    eg = prog.register_perf(cm, key)
+    assert eg["flops"] == pytest.approx(3 * e1["flops"], rel=1e-9)
+    assert cm.device_kind == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.cuda
+def test_cuda_stats_summaries_equal_the_cpus(rng):
+    """StatsListener's device summaries (min, max, mean |x|, 32-bin
+    counts by numpy's rule) on the card equal the CPU's: the same f32
+    edges and comparisons, mean |x| within f32 summation order."""
+    from deeplearning4j_tpu_torch.stats.listener import summarize
+
+    _need_cuda()
+    named = [(f"g{i}", torch.from_numpy(
+        rng.normal(size=n).astype(np.float32))) for i, n in
+        enumerate((1, 7, 1000, 300_000))]
+    named.append(("const", torch.full((9,), 3.0)))
+    cpu = summarize(named, 32)
+    gpu = summarize([(n, t.cuda()) for n, t in named], 32).cpu()
+    torch.testing.assert_close(gpu[:, :2], cpu[:, :2], rtol=0, atol=0)
+    torch.testing.assert_close(gpu[:, 3:], cpu[:, 3:], rtol=0, atol=0)
+    torch.testing.assert_close(gpu[:, 2], cpu[:, 2], rtol=1e-5, atol=0)

@@ -558,8 +558,14 @@ def test_preemption_fault_checkpoints_then_raises():
 
 
 def test_harness_rejects_the_unported_default_profiler():
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        StepHarness(_port_net(), phase_profiler=True)
+    """The default profiler was unported and raised; since the
+    observability slice `phase_profiler=True` builds it, bound to the
+    harness's accumulator."""
+    from deeplearning4j_tpu_torch.observability.perf import StepPhaseProfiler
+
+    h = StepHarness(_port_net(), phase_profiler=True)
+    assert isinstance(h.phase_profiler, StepPhaseProfiler)
+    assert h.phase_profiler.accumulator is h.acc
 
 
 # ----------------------------------------------- serializer, write side
