@@ -52,8 +52,9 @@ Phases, in order; any failure exits non-zero:
      ms/step (CUDA events), img/s, host img/s, capture time (outside the
      window), peak memory, launches per step (30/16/30/30, all "wgmma",
      under "pallas"), the idle share (profiler window against the
-     unprofiled ms/step) and MFU (img/s x 3 x 4.09e9 / 989e12, which
-     counts a multiply-add as one FLOP; twice that at two), with a
+     unprofiled ms/step) and MFU (img/s x 3 x the net's layer-shape
+     multiply-adds per image / 989e12, which counts a multiply-add as one
+     FLOP; twice that at two), with a
      finite, falling loss; EarlyStoppingTrainer end to end (ES_BATCHES
      batches of 128 through the input pipeline, DataSetLossCalculator,
      ES_EPOCHS epochs, NonFiniteGuard skip_step, LocalFileGraphSaver):
@@ -119,6 +120,28 @@ Phases, in order; any failure exits non-zero:
      chain, the dl4j_serving_* counters) and the device's idle share
      under SERVE_THREADS clients (a profiler window); the Chrome trace
      (train_group steps = steps run) and prometheus_text parsed;
+  5f. recurrent networks (lines start "rnn"; TF32 off; no kernel of csrc/
+     on the path: the launch counters, zeroed before it, must read 0
+     after it): the zoo's TextGenerationLSTM at bench.py:196 bench_lstm's
+     configuration (2x GravesLSTM(256), vocab 98, sequence 256, bf16
+     policy, rmsprop, truncated BPTT 50: five chunks of 50 and one of 6)
+     on a seeded learnable one-hot character stream, through
+     StepProgram.run at batch 64 and 2048 (and 2048 with bptt_remat):
+     tokens/s, ms per batch and per 50-step chunk (CUDA events), peak
+     memory, MFU from the layer shapes' multiply-adds per token, the idle
+     share (a profiler window over one 50-step chunk's step against its
+     unprofiled ms) and the top device kernels, a finite loss whose
+     first-chunk score falls; at batch 64 greedy generation of
+     RNN_GENERATE characters after a
+     RNN_PROMPT-character prompt through rnn_time_step (ms per
+     character); rnn_time_step step by step against output() on one
+     sequence (f32: RNN_STREAM_TOL; the bf16 policy's output against the
+     f32 stream: RNN_BF16_LOGP_TOL); the yardstick, a non-peephole LSTM
+     layer against torch.nn.LSTM (cuDNN) with the weights mapped
+     [i,f,o,g] -> [i,f,g,o], at RNN_YARDSTICK_SHAPES: f32 outputs within
+     RNN_YARDSTICK_TOL, forward and forward+backward ms (f32 and bf16);
+     tests/fixtures/golden_graph.zip restored on the card against its
+     expected outputs within RNN_GOLDEN_TOL;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -162,11 +185,11 @@ ENGINE_STEPS = 20              # timed steps: 20 run() calls, 5 replays
 ENGINE_PROFILE_STEPS = 4       # steps under torch.profiler, after those
 ES_BATCHES = 4                 # EarlyStoppingTrainer: batches per epoch
 ES_EPOCHS = 3
-# ResNet-50 forward at 224x224: 4.09e9 multiply-adds per image, the
-# constant bench.py:57-63 calls FLOPs; a train step is 3x the forward.
-# "mfu" counts one multiply-add as one FLOP, as bench.py does;
-# "mfu_2flops" counts it as two, the FLOPs the card's peak counts.
-RESNET50_MACS_PER_IMAGE = 4.09e9
+# MFU: a train step is 3x the forward's multiply-adds, counted from the
+# layer shapes (macs_per_image); "mfu" counts one multiply-add as one
+# FLOP, as bench.py does; "mfu_2flops" counts it as two, the FLOPs the
+# card's peak counts. (bench.py:57-63's 4.09e9 per image is a ResNet-50
+# whose stage stride sits on the 3x3; the zoo's has 3.858e9.)
 # phase 5c, MultiLayerNetwork: the zoo's VGG16 at full width (bench.py:506
 # bench_vgg16's batch) and AlexNet
 MLN_BATCH = 32
@@ -186,6 +209,29 @@ TM_CHECK_BATCH = 32            # the resume, torn-write and guard checks
 TM_CKPT_REPEATS = 2            # timed saves and restores of one checkpoint
 PW_BATCHES = 8                 # ParallelWrapper's bitwise check
 ES_PARALLEL_EPOCHS = 2
+# phase 5f, recurrent networks: the zoo's TextGenerationLSTM at
+# bench.py:196 bench_lstm's configuration
+RNN_VOCAB = 98
+RNN_SEQ = 256
+RNN_BATCHES = (64, 2048)       # bench_lstm's default; the README's batch
+RNN_REMAT_BATCH = 2048         # bench.py lstm 2048 remat
+RNN_FOLLOW = 0.9               # share of characters that follow the rule
+RNN_WARMUP = 1                 # fit_batch calls before the timed ones
+RNN_STEPS = 3                  # timed fit_batch calls (6 chunks each)
+RNN_CHUNK_CALLS = 4            # timed calls of one 50-step chunk's step
+RNN_PROMPT = 32                # greedy generation at batch 64
+RNN_GENERATE = 256
+RNN_CHECK_STEPS = 64           # the stream-vs-output check's sequence
+# rnn_time_step against output() in f32: the JAX package's bar
+# (tests/test_smoke.py::test_rnn_time_step_matches_full_forward)
+RNN_STREAM_TOL = {"rtol": 1e-4, "atol": 1e-5}
+# the bf16 policy's output() against the f32 stream, max |log p - log
+# p_ref|: readings 0.0288-0.0297 in three runs (PERF.md, PR 9), margin 3.4x
+RNN_BF16_LOGP_TOL = 0.1
+RNN_YARDSTICK_SHAPES = ((64, 50, 256), (2048, 50, 256))
+RNN_YARDSTICK_TOL = 1e-5       # f32, TF32 off: max |port - cuDNN|
+RNN_YARDSTICK_CALLS = 10
+RNN_GOLDEN_TOL = 1e-5          # golden_graph.zip, max abs error
 # phase 5e, observability on the flagship
 OBS_STEPS = 20                 # steps per timed fit; two fits per arm
 OBS_RATIO_MAX = 1.10           # hooks-on / hooks-off ms per step
@@ -195,9 +241,7 @@ OBS_COVERAGE_MIN = 0.95        # the phase profiler's attributed share
 # window's last batches after the replay, where no replay hides it
 OBS_PIPELINE_DEPTH = 2 * GROUP_K
 # CostModel FLOPs per step vs 3 x 2 x the zoo ResNet50's layer-shape
-# multiply-adds x 128 (3.858e9 per image: the stride sits on each stage's
-# first 1x1, as in the JAX zoo; bench.py's 4.09e9 is a ResNet-50 whose
-# stride sits on the 3x3), and its MFU vs the same fits' at that count
+# multiply-adds x 128, and its MFU vs the same fits' at that count
 OBS_FLOPS_TOL = 0.05
 OBS_WATCHDOG_S = 10.0          # flagship fit: > capture (0.64 s, PR 5)
                                # and a checkpoint save (1.2 s, PR 7)
@@ -1252,7 +1296,7 @@ def engine_timed(torch, np, pc, ResNet50, mode):
     """StepProgram.run (k=1) and run_group(GROUP_K) under `mode`, each for
     ENGINE_STEPS steps on one fixed seeded batch of TRAIN_BATCH after
     warm-up (and, for the group, capture), on one net: `timed_steps`'
-    readings (MFU from bench.py:63's multiply-add count) and the kernel
+    readings (MFU from the net's layer-shape multiply-adds) and the kernel
     launches per step."""
     from deeplearning4j_tpu_torch.engine import StepProgram
 
@@ -1274,13 +1318,14 @@ def engine_timed(torch, np, pc, ResNet50, mode):
                 "counts": counts}
 
     out, losses = {}, []
+    macs = macs_per_image(net)
     for kind in ("run", "group"):
         call = (lambda: prog.run(x, y)) if kind == "run" \
             else (lambda: prog.run_group(xs, ys))
         r, ls = timed_steps(
             torch, prog, kind, call, steps=ENGINE_STEPS,
             warmup=ENGINE_WARMUP if kind == "run" else 1,
-            batch=TRAIN_BATCH, macs=RESNET50_MACS_PER_IMAGE,
+            batch=TRAIN_BATCH, macs=macs,
             profile_steps=ENGINE_PROFILE_STEPS,
             on_start=pc.reset_launch_counts, on_end=launches)
         losses.extend(ls)
@@ -1291,7 +1336,9 @@ def engine_timed(torch, np, pc, ResNet50, mode):
                                         if "/" not in k}
         out[kind] = r
         log(f"engine {mode}" + timed_line(r, kind, TRAIN_BATCH, ENGINE_STEPS)
-            + f" (bench.py:63); launches per step {r['launches_per_step']}")
+            + f" (at {macs:.4e} multiply-adds per image, "
+            f"the layer shapes'); launches per step "
+            f"{r['launches_per_step']}")
         if any(counts[k] != v * ENGINE_STEPS for k, v in want.items()):
             fail(f"engine {mode} {kind}: launches {counts} != {want} per "
                  f"step x {ENGINE_STEPS}")
@@ -1320,7 +1367,7 @@ def view_score_reading(torch, net, batch):
     from deeplearning4j_tpu_torch.util.tree import clone, leaves
 
     views = net._params_view()
-    inputs, labels, lmasks = net._batch_tensors([batch[0]], [batch[1]])
+    inputs, labels, lmasks, _ = net._batch_tensors([batch[0]], [batch[1]])
     out = {"views_not_16B_aligned": sum(
         1 for t in leaves(views) if t.data_ptr() % 16),
         "views": len(leaves(views))}
@@ -2325,11 +2372,9 @@ def obs_fits(torch, np, pc, ResNet50, tr, storage):
     r["ratio"] = r["on_ms_per_step"] / r["off_ms_per_step"]
     ms = r["on_ms_per_step"]
     r["img_per_s"] = TRAIN_BATCH / ms * 1e3
-    r["mfu_2flops"] = (r["img_per_s"] * 3 * 2 * RESNET50_MACS_PER_IMAGE
-                       / BF16_FLOPS_PER_S)
     r["macs_per_image"] = macs_per_image(on_net)
-    r["mfu_2flops_layers"] = (r["img_per_s"] * 3 * 2 * r["macs_per_image"]
-                              / BF16_FLOPS_PER_S)
+    r["mfu_2flops"] = (r["img_per_s"] * 3 * 2 * r["macs_per_image"]
+                       / BF16_FLOPS_PER_S)
     r["launches_per_step"] = {n: launches[n] / steps for n in launches}
     r["wgmma_per_step"] = {n: wgmma[n] / steps for n in wgmma}
     r["launches"] = launches
@@ -2567,19 +2612,15 @@ def obs_phase(torch, np, pc, ResNet50, card, det):
         f"hooks on vs off: {r['bitwise']} [{card}]")
     c = r["cost"]
     flops_want = 3 * 2 * r["macs_per_image"] * TRAIN_BATCH
-    flops_bench = 3 * 2 * RESNET50_MACS_PER_IMAGE * TRAIN_BATCH
     log(f"obs cost model: {c['flops_per_step']:.4e} FLOPs per step "
         f"(a multiply-add is two) = {c['flops_per_step'] / flops_want:.4f}"
         f" x 3 x 2 x {r['macs_per_image']} x {TRAIN_BATCH} (the net's "
-        f"layer-shape multiply-adds) = "
-        f"{c['flops_per_step'] / flops_bench:.4f} x 3 x 2 x 4.09e9 x "
-        f"{TRAIN_BATCH} (bench.py's count); {c['bytes_accessed']:.4e} "
+        f"layer-shape multiply-adds); {c['bytes_accessed']:.4e} "
         f"bytes per window (op-by-op traffic of the counted route), "
         f"arithmetic intensity {c['arithmetic_intensity']:.1f} against the "
         f"ridge {c['ridge_point']:.1f}: {c['bound']}-bound; MFU "
         f"{c['mfu']:.4f} against the same fits' mfu_2flops "
-        f"{r['mfu_2flops_layers']:.4f} at the layer-shape count "
-        f"({r['mfu_2flops']:.4f} at 4.09e9); counted in "
+        f"{r['mfu_2flops']:.4f} at the layer-shape count; counted in "
         f"{r['cost_count_s']:.1f} s ({c['source']}) [{card}]")
     want = {"fused_conv1x1": 30, "fused_conv3x3": 16, "dgrad_conv1x1": 30,
             "wgrad_conv1x1": 30}
@@ -2596,7 +2637,7 @@ def obs_phase(torch, np, pc, ResNet50, card, det):
             problems.append(f"{n} launches {r['launches_per_step'][n]}")
     if abs(c["flops_per_step"] / flops_want - 1) > OBS_FLOPS_TOL:
         problems.append(f"cost model FLOPs {c['flops_per_step']:.4e}")
-    if abs(c["mfu"] / r["mfu_2flops_layers"] - 1) > OBS_FLOPS_TOL:
+    if abs(c["mfu"] / r["mfu_2flops"] - 1) > OBS_FLOPS_TOL:
         problems.append(f"cost model MFU {c['mfu']:.4f}")
     # TrainingMaster counts each window's steps, TelemetryListener one per
     # iteration_done (once per window); the profiler one per window
@@ -2700,6 +2741,379 @@ def obs_phase(torch, np, pc, ResNet50, card, det):
     if group_steps != ran or not res["trace"]["hang_parented"] \
             or not flat or "dl4j_train_steps_total" not in flat:
         fail(f"obs trace/prometheus: {res['trace']}")
+    return res
+
+
+# ------------------------------------------------------------ phase 5f
+
+
+def text_model(TextGenerationLSTM, compute_dtype="bfloat16", remat=False):
+    """The zoo's TextGenerationLSTM at bench_lstm's configuration, seeded
+    random weights, on the card."""
+    zm = TextGenerationLSTM(num_classes=RNN_VOCAB,
+                            input_shape=(RNN_SEQ, RNN_VOCAB),
+                            compute_dtype=compute_dtype)
+    zm.bptt_remat = remat
+    return zm.init_model(device=DEV)
+
+
+def macs_per_token(net):
+    """Multiply-adds of one timestep of one sequence's forward, from the
+    layer shapes: 4H x (nIn + H) per LSTM layer (the four gates' input and
+    recurrent products), nIn x nOut per output layer."""
+    total = 0
+    for layer in net.conf.layers:
+        kind = type(layer).__name__
+        if kind in ("LSTM", "GravesLSTM"):
+            total += 4 * layer.n_out * (layer.n_in + layer.n_out)
+        elif kind in ("RnnOutputLayer", "OutputLayer", "DenseLayer"):
+            total += layer.n_in * layer.n_out
+    return total
+
+
+def rnn_data(torch, np, seed, batch):
+    """A seeded learnable character stream on the card: each sequence
+    starts at a random character, and each next one is perm[current]
+    with probability RNN_FOLLOW, else random. One-hot x [B, T, V] and
+    y, the next characters; and the rule `perm`."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(RNN_VOCAB)
+    ids = np.empty((batch, RNN_SEQ + 1), np.int64)
+    ids[:, 0] = rng.integers(0, RNN_VOCAB, batch)
+    follow = rng.random((batch, RNN_SEQ)) < RNN_FOLLOW
+    rand = rng.integers(0, RNN_VOCAB, (batch, RNN_SEQ))
+    for t in range(RNN_SEQ):
+        ids[:, t + 1] = np.where(follow[:, t], perm[ids[:, t]], rand[:, t])
+    ids = torch.from_numpy(ids).to(DEV)
+    eye = torch.eye(RNN_VOCAB, device=DEV)
+    return eye[ids[:, :-1]], eye[ids[:, 1:]], perm
+
+
+def events_ms(torch, calls, n):
+    """ms per call of `calls()` over n calls between CUDA events, after
+    one untimed call."""
+    calls()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        calls()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def rnn_timed(torch, np, TextGenerationLSTM, batch, remat=False):
+    """One TextGenerationLSTM trained through StepProgram.run on one
+    seeded batch of `batch` sequences: RNN_WARMUP calls, RNN_STEPS calls
+    timed by CUDA events (each a truncated-BPTT batch of six chunks), the
+    step of one 50-step chunk timed alone (RNN_CHUNK_CALLS calls of the
+    train step the chunks run, from zero carries) and then under the
+    profiler (one call: the idle share is its device busy time against
+    the unprofiled chunk's; a whole batch's ~35k kernels would keep the
+    profiler's host side busy for many seconds); the eval-mode score of
+    the first chunk before and after. Returns (result, net, data)."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    net = text_model(TextGenerationLSTM, remat=remat)
+    prog = StepProgram(net)
+    x, y, perm = rnn_data(torch, np, 71, batch)
+    L = net.conf.tbptt_fwd_length
+    chunks = -(-RNN_SEQ // L)
+    score0 = net.score((x[:, :L], y[:, :L]))
+    losses = [prog.run(x, y) for _ in range(RNN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(RNN_STEPS + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(RNN_STEPS):
+        losses.append(prog.run(x, y))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = sum(events[i].elapsed_time(events[i + 1])
+             for i in range(RNN_STEPS)) / RNN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    carries = net._initial_carries(batch)
+    xc, yc = x[:, :L], y[:, :L]
+    chunk = lambda: net._train_step(xc, yc, rnn_carries=carries)
+    chunk_ms = events_ms(torch, chunk, RNN_CHUNK_CALLS)
+    prof = engine_profile(torch, chunk, 1)
+    score1 = net.score((x[:, :L], y[:, :L]))
+    vals = [float(v) for v in losses]
+    macs = macs_per_token(net)
+    tok_s = batch * RNN_SEQ / ms * 1e3
+    busy = prof["busy_ms"]
+    r = {"batch": batch, "remat": remat, "chunks": chunks,
+         "ms_per_batch": ms, "ms_per_chunk": ms / chunks,
+         "ms_per_50_step_chunk": chunk_ms, "tokens_per_s": tok_s,
+         "host_tokens_per_s": batch * RNN_SEQ * RNN_STEPS / wall,
+         "max_memory_gib": peak, "macs_per_token": macs,
+         "mfu": tok_s * 3 * macs / BF16_FLOPS_PER_S,
+         "chunk_busy_ms": busy,
+         "idle_share": None if busy is None else 1.0 - busy / chunk_ms,
+         "top_kernels": prof["top"], "batch_losses": vals,
+         "score_first_chunk": (score0, score1),
+         "iteration": net.iteration}
+    r["mfu_2flops"] = 2 * r["mfu"]
+    log(f"rnn train batch {batch}" + (" bptt_remat" if remat else "")
+        + f": {ms:.2f} ms per batch of {RNN_SEQ} steps ({chunks} chunks, "
+        f"{ms / chunks:.2f} ms per chunk; one 50-step chunk's step alone "
+        f"{chunk_ms:.2f} ms; CUDA events), {tok_s:.1f} tokens/s, host "
+        f"{r['host_tokens_per_s']:.1f} tokens/s, peak memory {peak:.2f} "
+        f"GiB, device busy "
+        + ("not measured" if busy is None else f"{busy:.2f} ms per 50-step "
+           f"chunk, idle share {r['idle_share']:.4f}")
+        + f", MFU {r['mfu']:.5f} at {macs} multiply-adds per token x 3 "
+        f"(one FLOP each), {r['mfu_2flops']:.5f} at two; batch losses "
+        f"{[round(v, 3) for v in vals]}; first-chunk score "
+        f"{score0:.3f} -> {score1:.3f}; top kernels "
+        f"{[(k, round(v, 3)) for k, v in prof['top'][:6]]}")
+    if not all(np.isfinite(vals + [score0, score1])) or not score1 < score0:
+        fail(f"rnn batch {batch}: loss not finite and falling: {vals}, "
+             f"first-chunk score {score0} -> {score1}")
+    want = chunks * (RNN_WARMUP + RNN_STEPS) + RNN_CHUNK_CALLS + 2
+    if net.iteration != want:
+        fail(f"rnn batch {batch}: {net.iteration} iterations, not {want}")
+    return r, net, (x, y, perm)
+
+
+def rnn_serving(torch, np, net, perm):
+    """Greedy generation at batch 64 through rnn_time_step: a seeded
+    RNN_PROMPT-character prompt as one chunk, then RNN_GENERATE single
+    steps, each fed the argmax of the last; no host read inside the
+    loop. ms per character by CUDA events, and the share of generated
+    transitions that follow the training stream's rule."""
+    B = RNN_BATCHES[0]
+    eye = torch.eye(RNN_VOCAB, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    prompt = torch.randint(0, RNN_VOCAB, (B, RNN_PROMPT), generator=gen,
+                           device=DEV)
+    net.clear_rnn_state()
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e[0].record()
+    out = net.rnn_time_step(eye[prompt])
+    nxt = out[:, -1].argmax(-1)
+    e[1].record()
+    chars = [nxt]
+    for _ in range(RNN_GENERATE):
+        out = net.rnn_time_step(eye[nxt])
+        nxt = out.argmax(-1)
+        chars.append(nxt)
+    e[2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = torch.stack(chars, 1).cpu().numpy()
+    last = out.float().cpu().numpy()
+    if (text.shape != (B, RNN_GENERATE + 1) or last.shape != (B, RNN_VOCAB)
+            or not np.isfinite(last).all()
+            or not np.allclose(last.sum(-1), 1.0, atol=1e-4)):
+        fail(f"rnn generation: shapes {text.shape}, {last.shape} or "
+             "non-finite / non-normalized outputs")
+    follows = float(np.mean(perm[text[:, :-1]] == text[:, 1:]))
+    r = {"batch": B, "prompt": RNN_PROMPT, "generated": RNN_GENERATE,
+         "prompt_ms": e[0].elapsed_time(e[1]),
+         "ms_per_char": e[1].elapsed_time(e[2]) / RNN_GENERATE,
+         "host_ms_per_char": wall * 1e3 / RNN_GENERATE,
+         "follows_rule": follows}
+    log(f"rnn generate: batch {B}, prompt {RNN_PROMPT} chars as one chunk "
+        f"{r['prompt_ms']:.2f} ms, then {RNN_GENERATE} chars at "
+        f"{r['ms_per_char']:.3f} ms per char (CUDA events; host clock "
+        f"{r['host_ms_per_char']:.3f}), {follows:.3f} of the generated "
+        f"transitions follow the training stream's rule")
+    return r
+
+
+def rnn_stream_checks(torch, np, TextGenerationLSTM, net, x):
+    """rnn_time_step one step at a time against output() on the first
+    RNN_CHECK_STEPS steps of `x` (batch 64): on an f32 twin with the same
+    weights (RNN_STREAM_TOL), and the bf16 policy's output() against the
+    stream, which runs the f32 params as the JAX package's does
+    (RNN_BF16_LOGP_TOL)."""
+    from deeplearning4j_tpu_torch.util.tree import clone
+
+    seq = x[:RNN_BATCHES[0], :RNN_CHECK_STEPS]
+    twin = text_model(TextGenerationLSTM, compute_dtype=None)
+    twin.params = clone(net.params)
+    r = {}
+    for name, n in (("f32", twin), ("bf16", net)):
+        full = n.output(seq).float().cpu().numpy()
+        n.clear_rnn_state()
+        steps = np.stack([n.rnn_time_step(seq[:, t]).float().cpu().numpy()
+                          for t in range(seq.shape[1])], 1)
+        r[name] = {"max_abs": float(np.abs(steps - full).max()),
+                   "logp_gap": logp_gap(np, full, steps)}
+        if name == "f32":
+            tol = RNN_STREAM_TOL
+            r[name]["within_tol"] = bool(np.all(
+                np.abs(steps - full) <= tol["atol"] + tol["rtol"]
+                * np.abs(full)))
+    log(f"rnn stream vs output over {RNN_CHECK_STEPS} steps at batch "
+        f"{seq.shape[0]}: f32 max |diff| {r['f32']['max_abs']:.3e} (limit "
+        f"rtol {RNN_STREAM_TOL['rtol']} / atol {RNN_STREAM_TOL['atol']}); "
+        f"bf16 policy output vs the f32 stream max |log p - log p_ref| "
+        f"{r['bf16']['logp_gap']:.4f} (limit {RNN_BF16_LOGP_TOL}), max "
+        f"|diff| {r['bf16']['max_abs']:.3e}")
+    if not r["f32"]["within_tol"]:
+        fail(f"rnn stream f32: {r['f32']}")
+    if not r["bf16"]["logp_gap"] <= RNN_BF16_LOGP_TOL:
+        fail(f"rnn stream bf16: {r['bf16']}")
+    del twin
+    return r
+
+
+def rnn_yardstick(torch, np):
+    """A non-peephole LSTM layer of the port against torch.nn.LSTM
+    (cuDNN) on the same weights ([i,f,o,g] -> cuDNN's [i,f,g,o], bias_hh
+    zero) at RNN_YARDSTICK_SHAPES [B, T, H]: the f32 outputs, and forward
+    and forward+backward ms of both in f32 and bf16 (CUDA events). cuDNN
+    appears here only, never on the port's path."""
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import LSTM
+
+    out = []
+    for b, t, h in RNN_YARDSTICK_SHAPES:
+        layer = LSTM(n_in=h, n_out=h, weight_init="xavier")
+        p32 = {k: v.to(DEV) for k, v in layer.init_params(
+            torch.Generator().manual_seed(3),
+            InputType.recurrent(h, t)).items()}
+        order = lambda w: torch.cat([w[..., :2 * h], w[..., 3 * h:],
+                                     w[..., 2 * h:3 * h]], -1)
+        ref32 = torch.nn.LSTM(h, h, batch_first=True).to(DEV)
+        with torch.no_grad():
+            ref32.weight_ih_l0.copy_(order(p32["W"]).T)
+            ref32.weight_hh_l0.copy_(order(p32["RW"]).T)
+            ref32.bias_ih_l0.copy_(order(p32["b"]))
+            ref32.bias_hh_l0.zero_()
+        ref32.flatten_parameters()
+        gen = torch.Generator(device=DEV).manual_seed(4)
+        x32 = torch.randn((b, t, h), generator=gen, device=DEV)
+        g32 = torch.randn((b, t, h), generator=gen, device=DEV)
+        with torch.no_grad():
+            err = float((layer.apply(p32, x32)[0]
+                         - ref32(x32)[0]).abs().max())
+        row = {"shape": (b, t, h), "f32_max_abs_err": err}
+        for dt in ("float32", "bfloat16"):
+            d = getattr(torch, dt)
+            p = {k: v.to(d).requires_grad_() for k, v in p32.items()}
+            ref = torch.nn.LSTM(h, h, batch_first=True).to(DEV, d)
+            ref.load_state_dict(ref32.state_dict())
+            ref.flatten_parameters()
+            x, g = x32.to(d), g32.to(d)
+            keys = sorted(p)
+
+            def port_fwd():
+                with torch.no_grad():
+                    layer.apply(p, x)
+
+            def port_fb():
+                torch.autograd.grad(layer.apply(p, x)[0],
+                                    [p[k] for k in keys], g)
+
+            def ref_fwd():
+                with torch.no_grad():
+                    ref(x)
+
+            def ref_fb():
+                torch.autograd.grad(ref(x)[0], list(ref.parameters()), g)
+
+            n = RNN_YARDSTICK_CALLS
+            row[dt] = {"port_fwd_ms": events_ms(torch, port_fwd, n),
+                       "port_fwd_bwd_ms": events_ms(torch, port_fb, n),
+                       "cudnn_fwd_ms": events_ms(torch, ref_fwd, n),
+                       "cudnn_fwd_bwd_ms": events_ms(torch, ref_fb, n)}
+        out.append(row)
+        log(f"rnn yardstick LSTM [B,T,H]={list(row['shape'])}: f32 max "
+            f"|port - cuDNN| {err:.3e} (limit {RNN_YARDSTICK_TOL}); "
+            + "; ".join(
+                f"{dt} forward port {row[dt]['port_fwd_ms']:.3f} ms vs "
+                f"cuDNN {row[dt]['cudnn_fwd_ms']:.3f} ms, forward+backward "
+                f"port {row[dt]['port_fwd_bwd_ms']:.3f} vs cuDNN "
+                f"{row[dt]['cudnn_fwd_bwd_ms']:.3f} ms"
+                for dt in ("float32", "bfloat16")))
+        if not err <= RNN_YARDSTICK_TOL:
+            fail(f"rnn yardstick {row['shape']}: port vs cuDNN {err}")
+    return out
+
+
+def rnn_golden(torch, np):
+    """tests/fixtures/golden_graph.zip (the JAX package's recurrent
+    golden graph: two LSTMs, an ElementWiseVertex, a LastTimeStepVertex)
+    restored on the card against its committed outputs."""
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_computation_graph,
+    )
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures")
+    net = restore_computation_graph(os.path.join(fix, "golden_graph.zip"),
+                                    device=DEV)
+    exp = np.load(os.path.join(fix, "golden_graph_expected.npz"))
+    got = net.output(exp["x"]).float().cpu().numpy()
+    err = float(np.abs(got - exp["y"]).max())
+    log(f"rnn golden_graph.zip on the card: max |output - expected| "
+        f"{err:.3e} (limit {RNN_GOLDEN_TOL})")
+    if not err <= RNN_GOLDEN_TOL:
+        fail(f"rnn golden graph: {err}")
+    return {"max_abs_err": err}
+
+
+def rnn_phase(torch, np, pc, card):
+    """Phase 5f: recurrent networks on the card (see the module
+    docstring). The kernel launch counters are set to 0 before it and
+    read after it: no kernel of csrc/ is on the recurrent path."""
+    from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
+
+    pc.reset_launch_counts()
+    res = {"card": card, "train": {}, "seconds": {}}
+    serve_net = serve_data = None
+    for batch, remat in [(b, False) for b in RNN_BATCHES] + [
+            (RNN_REMAT_BATCH, True)]:
+        t0 = time.perf_counter()
+        r, net, data = rnn_timed(torch, np, TextGenerationLSTM, batch,
+                                 remat)
+        key = "remat" if remat else batch
+        res["train"][key] = r
+        res["seconds"][key] = time.perf_counter() - t0
+        if batch == RNN_BATCHES[0]:
+            serve_net, serve_data = net, data
+        del net, data
+        torch.cuda.empty_cache()
+    log(f"model: TextGenerationLSTM (MultiLayerNetwork), "
+        f"{serve_net.num_params()} params, bf16 policy, truncated BPTT "
+        f"{serve_net.conf.tbptt_fwd_length}")
+    for key, run in (
+            ("serving", lambda: rnn_serving(torch, np, serve_net,
+                                            serve_data[2])),
+            ("stream", lambda: rnn_stream_checks(
+                torch, np, TextGenerationLSTM, serve_net, serve_data[0])),
+            ("yardstick", lambda: rnn_yardstick(torch, np)),
+            ("golden", lambda: rnn_golden(torch, np))):
+        t0 = time.perf_counter()
+        res[key] = run()
+        res["seconds"][key] = time.perf_counter() - t0
+    del serve_net, serve_data
+    torch.cuda.empty_cache()
+    counts = pc.launch_counts()
+    res["launches"] = {k: counts[k] for k in pc.LAUNCHES}
+    t = res["train"]
+    log(f"rnn summary on {card}: tokens/s "
+        + ", ".join(f"batch {b} {t[b]['tokens_per_s']:.1f} (idle share "
+                    f"{t[b]['idle_share']})" for b in RNN_BATCHES)
+        + f", batch {RNN_REMAT_BATCH} bptt_remat "
+        f"{t['remat']['tokens_per_s']:.1f}; generation "
+        f"{res['serving']['ms_per_char']:.3f} ms per char at batch "
+        f"{RNN_BATCHES[0]}; kernel launches on the recurrent path "
+        f"{res['launches']}; seconds per part "
+        f"{ {k: round(v, 1) for k, v in res['seconds'].items()} }")
+    if any(res["launches"].values()):
+        fail(f"rnn: a csrc/ kernel launched on the recurrent path: "
+             f"{res['launches']}")
     return res
 
 
@@ -2992,6 +3406,12 @@ def main():
                     engine["group_check"]["deterministic"])
     log(f"obs phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5f. recurrent networks: TextGenerationLSTM trained (TBPTT) and
+    # generating, the cuDNN yardstick, the recurrent golden graph
+    t0 = time.perf_counter()
+    rnn = rnn_phase(torch, np, pc, card)
+    log(f"rnn phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -3041,6 +3461,7 @@ def main():
             "tm_launches": tm["k4"]["launches"][name],
             "tm_launches_per_replay": tm["k4"]["launches_per_replay"][name],
             "obs_launches": obs["fit"]["launches"][name],
+            "rnn_launches": rnn["launches"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -3052,7 +3473,7 @@ def main():
                        "serving": serving, "reference": reference,
                        "forward_ms": fwd, "step_check": step,
                        "train": train, "engine": engine, "mln": mln,
-                       "tm": tm, "obs": obs},
+                       "tm": tm, "obs": obs, "rnn": rnn},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -3063,7 +3484,7 @@ def main():
         f"{TM_STEPS}-step TrainingMaster fit at steps_per_dispatch="
         f"{GROUP_K}, tm_launches_per_replay from one of its replays, "
         f"obs_launches from phase 5e's two hooks-on fits ({2 * OBS_STEPS} "
-        "steps)")
+        "steps), rnn_launches from phase 5f (the recurrent path)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

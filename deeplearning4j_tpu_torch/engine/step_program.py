@@ -10,12 +10,14 @@ both carry nn/base_network.py's train-step contract) and owns:
     one source of step math for every grouping;
   - `run(x, y)`: one training step in the canonical (x, y, fm, lm) batch
     shape, adapted to a graph's named inputs where the net is a graph
-    (the net's own `_train_step`);
+    (the net's own `_fit_one`: one `_train_step`, or for a truncated-BPTT
+    net on a 3-D batch its chunks, each a step);
   - `run_batch(batch)`: one step with full `fit_batch` semantics (the
     EarlyStoppingTrainer entry);
   - `run_group(xs, ys)`: k steps on stacked [k, ...] data in one
-    dispatch. On the CPU the group body (k calls of the net's `_step`)
-    runs directly. On CUDA the same body is captured once into a
+    dispatch (not for a truncated-BPTT net: it raises, as the JAX
+    package's does). On the CPU the group body (k calls of the net's
+    `_step`) runs directly. On CUDA the same body is captured once into a
     `torch.cuda.CUDAGraph` per group key and replayed: the counterpart of
     the JAX package's `lax.scan` group under one `jax.jit`. A window of
     fewer steps than a group already captured for the same key runs as
@@ -87,11 +89,17 @@ def make_loss_and_apply(net):
 
     `loss_for_grad(params, states, inputs, labels, lmasks)` returns
     (loss, new_states) with the net's mixed-precision policy applied
-    (compute-dtype params/inputs, f32 master params and loss).
+    (compute-dtype params/inputs, f32 master params and loss), starting
+    every recurrent layer from zeros.
     `apply_updates(params, upd_states, grads, lr, step)` runs the flat
     chain's rule (params one flat tensor) or the per-layer rules with
     their lr factors and frozen flags; `lr` and `step` may be tensors."""
-    return net._loss_for_grad, net._apply_updates
+    def loss_for_grad(params, states, inputs, labels, lmasks):
+        loss, new_states, _ = net._loss_for_grad(params, states, inputs,
+                                                 labels, lmasks)
+        return loss, new_states
+
+    return loss_for_grad, net._apply_updates
 
 
 class _CapturedGroup:
@@ -205,12 +213,10 @@ class StepProgram:
         return net._batch_tensors(x, y, fm, lm)
 
     def run(self, x, y, fm=None, lm=None):
-        """One training step on a canonical (x, y[, fm, lm]) batch.
-        Returns the device loss (0-d tensor, no host sync)."""
-        if self.is_tbptt and getattr(x, "ndim", 0) == 3:
-            raise NotImplementedError(
-                "truncated BPTT is not ported yet (ROADMAP queue 5)")
-        return self.net._train_step(*self._tensors(x, y, fm, lm))
+        """One training step on a canonical (x, y[, fm, lm]) batch — for a
+        truncated-BPTT net on a 3-D batch, one step per chunk. Returns the
+        (last) device loss (0-d tensor, no host sync)."""
+        return self.net._fit_one(*self._tensors(x, y, fm, lm))
 
     def run_batch(self, batch):
         """One step on a batch in any container shape ((x, y), DataSet,
@@ -222,21 +228,22 @@ class StepProgram:
     def _frozen_sig(self):
         return tuple(sorted(self.net._frozen()))
 
-    def group_key(self, inputs, labels, lmasks, flat: bool):
+    def group_key(self, inputs, labels, lmasks, fmasks, flat: bool):
         """Cache key of a captured group, k aside: the per-step shapes and
-        dtypes of inputs, labels and label masks (None kept in place),
-        frozen signature, helper mode, compute dtype, whether the carry
-        is the flat chain's and whether dropout draws masks."""
+        dtypes of inputs, labels, label and feature masks (None kept in
+        place), frozen signature, helper mode, compute dtype, whether the
+        carry is the flat chain's and whether dropout draws masks."""
         net = self.net
         plan = net._helper_plan()
         sig = lambda ts: repr(tree_map(
             lambda t: (tuple(t.shape[1:]), str(t.dtype)), ts))
         return ("engine_group", sig(inputs), sig(labels), sig(lmasks),
-                self._frozen_sig(), "none" if plan is None else plan.impl,
+                sig(fmasks), self._frozen_sig(),
+                "none" if plan is None else plan.impl,
                 str(net.compute_dtype), flat, net._has_dropout())
 
     def _group_body(self, carry, inputs, labels, lmasks, scalars,
-                    steps=None):
+                    fmasks=None, steps=None):
         """`steps` (default: all k) calls of the net's `_step` over the
         stacked inputs. Returns (carry, [steps] losses)."""
         net = self.net
@@ -244,8 +251,8 @@ class StepProgram:
         losses = []
         for i in range(k):
             at = lambda ts: tree_map(lambda t: t[i], ts)
-            carry, loss = net._step(carry, at(inputs), at(labels),
-                                    at(lmasks), scalars[i])
+            carry, loss, _ = net._step(carry, at(inputs), at(labels),
+                                       at(lmasks), scalars[i], at(fmasks))
             losses.append(loss)
         return carry, torch.stack(losses)
 
@@ -292,15 +299,15 @@ class StepProgram:
                 "(the decay factor is host state updated per step); "
                 "use steps_per_dispatch=1")
         k = int(np.shape(xs)[0])
-        inputs, labels, lmasks = self._tensors(xs, ys, fms, lms)
+        inputs, labels, lmasks, fmasks = self._tensors(xs, ys, fms, lms)
         carry = net._train_carry()
         scalars = net._step_scalars(net.iteration, k)
-        args = (carry, inputs, labels, lmasks, scalars)
+        args = (carry, inputs, labels, lmasks, scalars, fmasks)
         grp = None
         if net.device.type != "cpu":
             grp = self._captured(self.group_key(
-                inputs, labels, lmasks, isinstance(carry[0], torch.Tensor)),
-                k, args)
+                inputs, labels, lmasks, fmasks,
+                isinstance(carry[0], torch.Tensor)), k, args)
             if grp is None:
                 self.group_stats["eager_windows"] += 1
         if grp is None:
@@ -354,7 +361,7 @@ class StepProgram:
                 raise KeyError(f"register_perf: no captured group {key!r}"
                                " (see group_launches())")
             k = key[1]
-            _, inputs, labels, _, _ = grp.static
+            _, inputs, labels, *_ = grp.static
             x_shape = tuple(leaves(inputs)[0].shape[1:])
             y_shape = tuple(leaves(labels)[0].shape[1:])
         rows = x_shape[0]

@@ -12,6 +12,12 @@ engine/harness.py, earlystopping/, resilience/) reads one interface:
   - the step: `_train_carry` / `_set_train_carry`, `_step_scalars`,
     `_step` (forward, `torch.autograd.grad`, `clip_grads`, update on an
     explicit carry), `_train_step`, `_frozen`;
+  - recurrent state: feature masks and RNN carries go through `_step`
+    beside the train carry, never inside it; `_fit_one` runs a batch as
+    one step or, for a truncated-BPTT net on 3-D input, as `_fit_tbptt`'s
+    chunks (each a full `_train_step`, the carries detached between
+    them); `rnn_states` holds `rnn_time_step`'s streaming carries, apart
+    from any chunk's;
   - listeners: `listeners`, `set_listeners`, `add_listeners` and `fit`
     (on_epoch_start/on_epoch_end around each epoch, the fetch time in
     `_last_etl_ms`; the container's `fit_batch` calls iteration_done);
@@ -24,7 +30,8 @@ engine/harness.py, earlystopping/, resilience/) reads one interface:
 A container supplies `_layer_items()` (its (key, layer) pairs in
 parameter order: node names for a graph, indices for a layer list),
 `_pack(values)` (a per-layer container in that order: a dict for a
-graph, a list for a layer list), `_loss_fn` and, when it has one,
+graph, a list for a layer list), `_loss_fn` (returning (loss,
+(new_states, new_carries)), as the JAX package's) and, when it has one,
 `_build_flat_chain`.
 """
 
@@ -37,7 +44,12 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn.conf.network import BackpropType
 from deeplearning4j_tpu_torch.nn.dtype import canonical_dtype, cast_floating
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    RECURRENT_LAYERS,
+    GravesBidirectionalLSTM,
+)
 from deeplearning4j_tpu_torch.nn.updater import (
     apply_score_decay,
     fused_apply,
@@ -132,6 +144,7 @@ class BaseNetwork:
         self._flat_chain = "uninit"   # grad-over-flat carrier (updater/)
         self._cast_params = None      # params in the compute dtype (cache)
         self._drop_gen: Optional[torch.Generator] = None
+        self.rnn_states = None        # rnn_time_step's carries
         self.iteration = 0
         self.epoch = 0
         self._score = None
@@ -259,6 +272,7 @@ class BaseNetwork:
         self._init_updaters()
         self._drop_gen = torch.Generator(device=self.device).manual_seed(
             _rng_seed(seed))
+        self.clear_rnn_state()
         return self
 
     def _init_updaters(self):
@@ -313,22 +327,26 @@ class BaseNetwork:
     def _frozen(self):
         return {k for k, l in self._layer_items() if l.frozen}
 
-    def _loss_for_grad(self, params, states, inputs, labels, lmasks):
-        """The train loss under the mixed-precision policy: params and
-        inputs cast to the compute dtype inside autograd (so gradients
-        reach the f32 master params in f32), the loss cast back, dropout
-        masks drawn from the network's generator. Returns (loss,
-        new_states)."""
+    def _loss_for_grad(self, params, states, inputs, labels, lmasks,
+                       fmasks=None, rnn_carries=None):
+        """The train loss under the mixed-precision policy: params, inputs
+        and RNN carries cast to the compute dtype inside autograd (so
+        gradients reach the f32 master params in f32), the loss and the
+        new carries cast back to the master dtype, dropout masks drawn
+        from the network's generator; feature masks, labels and label
+        masks are not cast. Returns (loss, new_states, new_carries)."""
         cd = self.compute_dtype
         if cd is not None:
             params = cast_floating(params, cd)
             inputs = cast_floating(inputs, cd)
-        loss, new_states = self._loss_fn(params, states, inputs, labels,
-                                         lmasks, train=True,
-                                         rng=self._train_rng())
+            rnn_carries = cast_floating(rnn_carries, cd)
+        loss, (new_states, new_carries) = self._loss_fn(
+            params, states, inputs, labels, lmasks, train=True,
+            rng=self._train_rng(), fmasks=fmasks, rnn_carries=rnn_carries)
         if cd is not None:
             loss = loss.to(self.dtype)
-        return loss, new_states
+            new_carries = cast_floating(new_carries, self.dtype)
+        return loss, new_states, new_carries
 
     def _train_carry(self):
         """The state a train step reads: (params, updater state, BN
@@ -414,15 +432,19 @@ class BaseNetwork:
               grads[k], upd[k]) for k, l in self._layer_items()], lr, step)
         return self._pack(np_list), self._pack(nu_list)
 
-    def _step(self, carry, inputs, labels, lmasks, scalars):
+    def _step(self, carry, inputs, labels, lmasks, scalars, fmasks=None,
+              rnn_carries=None):
         """ONE train step on an explicit carry — the step math every
-        caller shares: forward (`_loss_for_grad`), `torch.autograd.grad`,
-        `clip_grads` and the update (`_apply_updates`). `scalars` is one
-        row of `_step_scalars` ([2]: lr, step index, as tensors, so no
-        Python number of the step reaches a kernel). Returns (new carry,
-        loss); reads no value back to the host, allocates only on the
-        device, and of the net's state touches only the dropout
-        generator, which its masks advance."""
+        caller shares (`run`, `run_group`, each truncated-BPTT chunk):
+        forward (`_loss_for_grad`), `torch.autograd.grad`, `clip_grads`
+        and the update (`_apply_updates`). `scalars` is one row of
+        `_step_scalars` ([2]: lr, step index, as tensors, so no Python
+        number of the step reaches a kernel); `fmasks` the feature masks,
+        `rnn_carries` the recurrent layers' carries to start from (None:
+        zeros). Returns (new carry, loss, new RNN carries, detached);
+        reads no value back to the host, allocates only on the device,
+        and of the net's state touches only the dropout generator, which
+        its masks advance."""
         params, upd, states = carry
         flat = isinstance(params, torch.Tensor)
         if flat:
@@ -432,9 +454,9 @@ class BaseNetwork:
             leaf = tree_map(lambda t: t.detach().requires_grad_(), params)
             ps = leaves(leaf)
         with torch.enable_grad():
-            loss, new_states = self._loss_for_grad(
+            loss, new_states, new_rnn = self._loss_for_grad(
                 self._flat_chain.unravel(leaf) if flat else leaf, states,
-                inputs, labels, lmasks)
+                inputs, labels, lmasks, fmasks, rnn_carries)
             gs = torch.autograd.grad(loss, ps, allow_unused=True)
         with torch.no_grad():
             gs = [torch.zeros_like(p) if g is None else g
@@ -443,22 +465,79 @@ class BaseNetwork:
                                else unflatten(leaf, gs)[0])
             new_p, new_u = self._apply_updates(params, upd, grads,
                                                scalars[0], scalars[1])
-        return (new_p, new_u, new_states), loss.detach()
+        new_rnn = tree_map(lambda t: t.detach(), new_rnn)
+        return (new_p, new_u, new_states), loss.detach(), new_rnn
 
-    def _train_step(self, inputs, labels, lmasks=None):
+    def _train_step(self, inputs, labels, lmasks=None, fmasks=None,
+                    rnn_carries=None):
         """One forward, backward and update (`_step`) on the net's own
         carry; advances the iteration and sets the score (and the batch
-        rows listeners read as `_last_batch_size`)."""
-        first = (inputs if isinstance(inputs, torch.Tensor)
-                 else next(iter(inputs.values())))
-        self._last_batch_size = int(first.shape[0])
-        carry, loss = self._step(self._train_carry(), inputs, labels,
-                                 lmasks, self._step_scalars(self.iteration)[0])
+        rows listeners read as `_last_batch_size`). Returns (loss, new RNN
+        carries)."""
+        self._last_batch_size = int(leaves(inputs)[0].shape[0])
+        carry, loss, new_rnn = self._step(
+            self._train_carry(), inputs, labels, lmasks,
+            self._step_scalars(self.iteration)[0], fmasks, rnn_carries)
         self._set_train_carry(carry)
         self.iteration += 1
         self._score = loss
         apply_score_decay(self, self._score)
-        return self._score
+        return self._score, new_rnn
+
+    # --------------------------------------------------- recurrent training
+    def _fit_one(self, inputs, labels, lmasks=None, fmasks=None):
+        """Train on one batch of tensors (as `_batch_tensors` gives them):
+        truncated BPTT for a TBPTT net whose every input is 3-D, else one
+        `_train_step`. Returns the (last chunk's) loss."""
+        if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
+                and all(t.ndim == 3 for t in leaves(inputs))):
+            return self._fit_tbptt(inputs, labels, lmasks, fmasks)
+        return self._train_step(inputs, labels, lmasks, fmasks)[0]
+
+    def _fit_tbptt(self, inputs, labels, lmasks, fmasks):
+        """Truncated BPTT: the time axis cut into chunks of
+        `tbptt_fwd_length` (the last may be shorter), each chunk one full
+        train step (iteration, updater step, lr schedule and dropout draw
+        advance per chunk) that starts from the previous chunk's RNN
+        carries, detached, so gradients stay within a chunk. Inputs and
+        masks whose axis 1 is the time axis are sliced with it, labels
+        when they are 3-D. Returns the last chunk's loss."""
+        first = leaves(inputs)[0]
+        batch, T = int(first.shape[0]), int(first.shape[1])
+        L = self.conf.tbptt_fwd_length
+        carries = self._initial_carries(batch)
+        loss = None
+        for start in range(0, T, L):
+            timed = lambda t, s=slice(start, start + L): (
+                t[:, s] if t.ndim >= 2 and t.shape[1] == T else t)
+            loss, carries = self._train_step(
+                tree_map(timed, inputs),
+                tree_map(lambda y, s=slice(start, start + L):
+                         y[:, s] if y.ndim == 3 else y, labels),
+                tree_map(timed, lmasks), tree_map(timed, fmasks),
+                rnn_carries=carries)
+        return loss
+
+    def _initial_carries(self, batch_size):
+        """Zero carries, in the master dtype, for every recurrent layer
+        (None for the others), packed per layer."""
+        return self._pack([
+            layer.initial_carry(batch_size, self.dtype, self.device)
+            if isinstance(layer, RECURRENT_LAYERS) else None
+            for _, layer in self._layer_items()])
+
+    def _check_streamable(self):
+        if any(isinstance(layer, GravesBidirectionalLSTM)
+               for _, layer in self._layer_items()):
+            # the backward direction needs the whole sequence
+            raise ValueError(
+                "rnn_time_step is not supported for bidirectional RNN "
+                "layers; use output() on the full sequence")
+
+    def clear_rnn_state(self):
+        """Forget `rnn_time_step`'s carries; the next call starts from
+        zeros."""
+        self.rnn_states = None
 
     def _require_sgd(self):
         if self.conf.optimization_algo not in (

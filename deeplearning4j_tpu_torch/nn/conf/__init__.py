@@ -7,3 +7,19 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (  # noqa: F401
     ComputationGraphConfiguration,
     GraphBuilder,
 )
+from deeplearning4j_tpu_torch.nn.conf.graph_vertices import (  # noqa: F401
+    DuplicateToTimeSeriesVertex,
+    ElementWiseVertex,
+    L2NormalizeVertex,
+    L2Vertex,
+    LastTimeStepVertex,
+    MergeVertex,
+    PoolHelperVertex,
+    PreprocessorVertex,
+    ReshapeVertex,
+    ScaleVertex,
+    ShiftVertex,
+    StackVertex,
+    SubsetVertex,
+    UnstackVertex,
+)

@@ -15,6 +15,7 @@ from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.nn.conf.graph_vertices import (
+    DuplicateToTimeSeriesVertex,
     GraphVertex,
     MergeVertex,
     vertex_from_dict,
@@ -260,8 +261,14 @@ class GraphBuilder:
 
     def add_vertex(self, name: str, vertex: GraphVertex,
                    *inputs: str) -> "GraphBuilder":
+        inputs = list(inputs)
+        if (isinstance(vertex, DuplicateToTimeSeriesVertex)
+                and vertex.ts_input and vertex.ts_input not in inputs):
+            # the reference time series becomes an input edge, so topo
+            # order and shape inference see the dependency
+            inputs.append(vertex.ts_input)
         self._conf.nodes.append(GraphNode(
-            name=name, kind="vertex", obj=vertex, inputs=list(inputs)))
+            name=name, kind="vertex", obj=vertex, inputs=inputs))
         return self
 
     def set_outputs(self, *names: str) -> "GraphBuilder":

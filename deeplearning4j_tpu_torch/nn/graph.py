@@ -31,6 +31,12 @@ index) that lives on the device. `_train_step` (fit_batch,
 engine.StepProgram.run) and the k-step group of engine.StepProgram.run_group
 both call it; since the scalars are tensors, the same step can be
 captured once into a CUDA graph and replayed with new values.
+
+Recurrent graphs: feature masks (one per network input) follow the nodes
+— a layer passes its input's on, a vertex the first of its inputs'
+(LastTimeStepVertex reads the mask of its `mask_input`, or its input's,
+and passes none on); truncated BPTT and the RNN carries are
+base_network's; `rnn_time_step` streams as MultiLayerNetwork's does.
 """
 
 from __future__ import annotations
@@ -45,8 +51,10 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration,
     GraphNode,
 )
+from deeplearning4j_tpu_torch.nn.conf.graph_vertices import LastTimeStepVertex
 from deeplearning4j_tpu_torch.nn.dtype import cast_floating
 from deeplearning4j_tpu_torch.nn.layers.core import BaseOutputLayer
+from deeplearning4j_tpu_torch.nn.layers.recurrent import RECURRENT_LAYERS
 
 
 def _as_multi(data):
@@ -139,51 +147,84 @@ class ComputationGraph(BaseNetwork):
 
     def _forward(self, params, states, inputs: Dict[str, Any], *,
                  train: bool = False, materialize_all: bool = False,
-                 rng=None):
-        """Forward over the DAG. Returns (activations, new_states); in
-        train mode BatchNorm normalizes with batch statistics and
-        new_states carries the updated running statistics, and layers
-        with dropout draw their masks from `rng` in topological order."""
+                 rng=None, input_masks: Optional[Dict[str, Any]] = None,
+                 rnn_carries: Optional[Dict[str, Any]] = None):
+        """Forward over the DAG. Returns (activations, new_states,
+        new_carries); in train mode BatchNorm normalizes with batch
+        statistics and new_states carries the updated running statistics,
+        and layers with dropout draw their masks from `rng` in topological
+        order. `input_masks`: feature masks by network input; a recurrent
+        layer starts from its entry of `rnn_carries` (zeros without one)
+        and its new carry lands in new_carries."""
+        masks: Dict[str, Any] = dict(input_masks or {})
+        new_carries: Dict[str, Any] = {}
         if self._helper_plan() is not None:
             from deeplearning4j_tpu_torch.nn.helpers.fused_graph import (
                 fused_forward,
             )
-            return fused_forward(self, params, states, inputs, train=train,
-                                 materialize_all=materialize_all, rng=rng)
+            acts, new_states = fused_forward(
+                self, params, states, inputs, train=train,
+                materialize_all=materialize_all, rng=rng, masks=masks,
+                rnn_carries=rnn_carries, new_carries=new_carries)
+            return acts, new_states, new_carries
         acts: Dict[str, Any] = dict(inputs)
         new_states: Dict[str, Any] = {}
         for node in self.topo:
             self._exec_node(node, [acts[s] for s in node.inputs], params,
-                            states, acts, train, new_states, rng)
-        return acts, new_states
+                            states, acts, train, new_states, rng, masks,
+                            rnn_carries, new_carries)
+        return acts, new_states, new_carries
 
     def _exec_node(self, node, xs, params, states, acts, train=False,
-                   new_states=None, rng=None):
+                   new_states=None, rng=None, masks=None, rnn_carries=None,
+                   new_carries=None):
         """Execute ONE node with resolved inputs, writing its activation
-        (and, given `new_states`, its state). Shared by the default loop
-        and the fused executor's fallback."""
+        (and, given `new_states`, its state; given `masks`, its feature
+        mask; given `new_carries`, a recurrent layer's carry). Shared by
+        the default loop and the fused executor's fallback."""
+        masks = {} if masks is None else masks
+        in_masks = [masks.get(s) for s in node.inputs]
+        layer = node.obj
         if node.kind == "layer":
-            x = xs[0]
+            x, m = xs[0], in_masks[0]
             if node.preprocessor is not None:
                 x = node.preprocessor.preprocess(x)
-            st = states[node.name] if states[node.name] else None
-            out, ns = node.obj.apply(params[node.name], x, train=train,
-                                     rng=rng, state=st)
+                m = node.preprocessor.feed_forward_mask(m, None)
+            if isinstance(layer, RECURRENT_LAYERS):
+                out, nc = layer.apply(
+                    params[node.name], x, train=train, rng=rng, mask=m,
+                    state=(None if rnn_carries is None
+                           else rnn_carries.get(node.name)))
+                ns = None
+                if new_carries is not None:
+                    new_carries[node.name] = nc
+            else:
+                st = states[node.name] if states[node.name] else None
+                out, ns = layer.apply(params[node.name], x, train=train,
+                                      rng=rng, state=st, mask=m)
             acts[node.name] = out
+            masks[node.name] = layer.feed_forward_mask(m, None)
             if new_states is not None:
                 new_states[node.name] = (ns if ns is not None
                                          else states[node.name])
         else:
-            acts[node.name] = node.obj.apply(xs)
+            if isinstance(layer, LastTimeStepVertex):
+                m = masks.get(layer.mask_input) if layer.mask_input \
+                    else in_masks[0]
+                acts[node.name] = layer.apply(xs, mask=m)
+            else:
+                acts[node.name] = layer.apply(xs)
+            masks[node.name] = layer.feed_forward_mask(in_masks, None)
 
     # ------------------------------------------------------------------ loss
     def _output_layer_nodes(self) -> List[GraphNode]:
         return [self.conf.node(n) for n in self.conf.network_outputs]
 
     def _loss_fn(self, params, states, inputs, labels, label_masks=None,
-                 train=True, rng=None):
+                 train=True, rng=None, fmasks=None, rnn_carries=None):
         """Sum of output-layer losses + regularization (the JAX package's
-        ComputationGraph._loss_fn). Returns (loss, new_states)."""
+        ComputationGraph._loss_fn). Returns (loss, (new_states,
+        new_carries))."""
         conf = self.conf
         out_nodes = self._output_layer_nodes()
         for n in out_nodes:
@@ -191,8 +232,9 @@ class ComputationGraph(BaseNetwork):
                 raise ValueError(
                     f"network output '{n.name}' must be an output layer "
                     f"to train; got {type(n.obj).__name__}")
-        acts, new_states = self._forward(params, states, inputs, train=train,
-                                         rng=rng)
+        acts, new_states, new_carries = self._forward(
+            params, states, inputs, train=train, rng=rng,
+            input_masks=fmasks, rnn_carries=rnn_carries)
         total = 0.0
         for oi, node in enumerate(out_nodes):
             # the output layer's per-example loss, from its input
@@ -209,7 +251,7 @@ class ComputationGraph(BaseNetwork):
         for node in self.topo:
             if node.kind == "layer":
                 reg = reg + node.obj.regularization_loss(params[node.name])
-        return total + reg, new_states
+        return total + reg, (new_states, new_carries)
 
     # ------------------------------------------------------------------- fit
     def fit_batch(self, batch):
@@ -219,23 +261,24 @@ class ComputationGraph(BaseNetwork):
             self.init()
         ins, labs, fms, lms = _as_multi(batch)
         self._require_sgd()
-        self._train_step(*self._batch_tensors(ins, labs, fms, lms))
+        self._fit_one(*self._batch_tensors(ins, labs, fms, lms))
         self._notify_iteration()
         return self._score
 
     def _batch_tensors(self, ins, labs, fms=None, lms=None):
-        """(inputs dict, labels list, label masks) of a labelled batch as
-        tensors on the device in the net's dtype, from per-input lists."""
+        """(inputs dict, labels list, label masks, feature masks dict by
+        network input) of a labelled batch as tensors on the device in
+        the net's dtype, from per-input lists."""
         if labs is None:
             raise ValueError("fit needs labels")
-        if fms is not None and any(m is not None for m in fms):
-            raise NotImplementedError("feature masks are not ported yet")
-        inputs = {name: self._as_input(x)
-                  for name, x in zip(self.conf.network_inputs, ins)}
+        opt = lambda m: None if m is None else self._as_input(m)
+        names = self.conf.network_inputs
+        inputs = {name: self._as_input(x) for name, x in zip(names, ins)}
         labels = [self._as_input(y) for y in labs]
-        lmasks = (None if lms is None else
-                  [None if m is None else self._as_input(m) for m in lms])
-        return inputs, labels, lmasks
+        lmasks = None if lms is None else [opt(m) for m in lms]
+        fmasks = (None if fms is None else
+                  {name: opt(m) for name, m in zip(names, fms)})
+        return inputs, labels, lmasks, fmasks
 
     def score(self, data=None):
         """The last training loss, or the eval-mode loss on `data` (with
@@ -243,12 +286,12 @@ class ComputationGraph(BaseNetwork):
         live the params are read as views of it; the carry stays live."""
         if data is None:
             return None if self._score is None else float(self._score)
-        ins, labs, _, lms = _as_multi(data)
-        inputs, labels, lmasks = self._batch_tensors(ins, labs, None, lms)
+        inputs, labels, lmasks, fmasks = self._batch_tensors(
+            *_as_multi(data))
         with torch.no_grad():
             params = self._params_view()
             loss, _ = self._loss_fn(params, self.states, inputs, labels,
-                                    lmasks, train=False)
+                                    lmasks, train=False, fmasks=fmasks)
         return float(loss)
 
     # ------------------------------------------------------------- inference
@@ -265,9 +308,34 @@ class ComputationGraph(BaseNetwork):
             params = self._compute_params()
             if cd is not None:
                 inputs = cast_floating(inputs, cd)
-            acts, _ = self._forward(params, self.states, inputs)
+            acts, _, _ = self._forward(params, self.states, inputs)
             outs = [acts[n].to(self.dtype) if cd is not None else acts[n]
                     for n in conf.network_outputs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_time_step(self, *xs):
+        """Stateful streaming inference over the network inputs (each
+        [B, nIn] for one step or [B, T, nIn] for a chunk), as
+        MultiLayerNetwork.rnn_time_step: the recurrent layers start from
+        `rnn_states` and leave their new carries there; with a one-step
+        input the outputs are that step's."""
+        self._check_streamable()
+        with torch.no_grad():
+            inputs, single = {}, False
+            for name, x in zip(self.conf.network_inputs, xs):
+                x = self._as_input(x)
+                if x.ndim == 2:
+                    single, x = True, x[:, None, :]
+                inputs[name] = x
+            if self.rnn_states is None:
+                self.rnn_states = self._initial_carries(
+                    next(iter(inputs.values())).shape[0])
+            acts, _, new = self._forward(self._params_view(), self.states,
+                                         inputs, rnn_carries=self.rnn_states)
+            self.rnn_states.update(new)
+            outs = [acts[n] for n in self.conf.network_outputs]
+        if single:
+            outs = [o[:, -1, :] if o.ndim == 3 else o for o in outs]
         return outs[0] if len(outs) == 1 else outs
 
     def feed_forward(self, *xs):
@@ -275,6 +343,6 @@ class ComputationGraph(BaseNetwork):
         with torch.inference_mode():
             inputs = {name: self._as_input(x)
                       for name, x in zip(self.conf.network_inputs, xs)}
-            acts, _ = self._forward(self.params, self.states, inputs,
-                                    materialize_all=True)
+            acts, _, _ = self._forward(self.params, self.states, inputs,
+                                       materialize_all=True)
             return acts

@@ -143,11 +143,15 @@ def _materialize(expr: _Expr):
 
 
 def fused_forward(net, params, states, inputs, *, train=False,
-                  materialize_all=False, rng=None):
+                  materialize_all=False, rng=None, masks=None,
+                  rnn_carries=None, new_carries=None):
     """Forward over the DAG when a fusion plan is active. Non-planned
     nodes run through ComputationGraph._exec_node (layers with dropout
-    are never planned; they draw from `rng` there). Returns (activations,
-    new_states)."""
+    are never planned; they draw from `rng` there; recurrent layers read
+    `rnn_carries` and write `new_carries` there). A planned node passes
+    its input's feature mask in `masks` on unchanged. Returns
+    (activations, new_states)."""
+    masks = {} if masks is None else masks
     plan: Plan = net._fusion_plan
     by_name = {n.name: n for n in net.topo}
     acts: Dict[str, object] = dict(inputs)
@@ -168,6 +172,9 @@ def fused_forward(net, params, states, inputs, *, train=False,
 
     for node in net.topo:
         name = node.name
+        if name in plan.conv or name in plan.bn or name in plan.vact \
+                or name in plan.vadd:
+            masks[name] = masks.get(node.inputs[0])
         if name in plan.conv:
             spec = plan.conv[name]
             src = node.inputs[0]
@@ -238,7 +245,7 @@ def fused_forward(net, params, states, inputs, *, train=False,
             continue
         xs = [resolve(s) for s in node.inputs]
         net._exec_node(node, xs, params, states, acts, train, new_states,
-                       rng)
+                       rng, masks, rnn_carries, new_carries)
 
     if materialize_all:
         for name, y in raws.items():

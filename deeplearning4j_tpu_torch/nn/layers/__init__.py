@@ -1,15 +1,26 @@
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, BaseLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
     ActivationLayer,
+    CenterLossOutputLayer,
     DenseLayer,
     DropoutLayer,
+    EmbeddingLayer,
     GlobalPoolingLayer,
+    LossLayer,
     OutputLayer,
+    RnnOutputLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.conv import (  # noqa: F401
+    Convolution1DLayer,
     ConvolutionLayer,
     LocalResponseNormalization,
+    Subsampling1DLayer,
     SubsamplingLayer,
     ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.norm import BatchNormalization  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
+    LSTM,
+    GravesBidirectionalLSTM,
+    GravesLSTM,
+)

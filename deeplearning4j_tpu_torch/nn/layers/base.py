@@ -61,10 +61,19 @@ class Layer:
         return False
 
     # ---- forward ----
-    def apply(self, params, x, *, train=False, rng=None, state=None):
+    def apply(self, params, x, *, train=False, rng=None, state=None,
+              mask=None):
         """Returns (output, new_state). `rng`: the network's dropout
-        generator (train mode only)."""
+        generator (train mode only); `mask`: the [B] or [B, T] feature
+        mask reaching this layer (used by the recurrent layers and
+        GlobalPoolingLayer)."""
         raise NotImplementedError
+
+    # ---- masking ----
+    def feed_forward_mask(self, mask, input_type):
+        """The feature mask this layer passes on (the input's, unless
+        the layer reduces the time axis away)."""
+        return mask
 
     # ---- regularization ----
     def regularization_loss(self, params):

@@ -1,5 +1,6 @@
-"""ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer and
-LocalResponseNormalization (counterpart of
+"""ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer,
+LocalResponseNormalization, and Convolution1DLayer / Subsampling1DLayer
+over recurrent [B, T, C] input (counterpart of
 deeplearning4j_tpu/nn/layers/conv.py).
 
 Activations are NHWC and kernels HWIO, as in the JAX package. Torch's
@@ -26,6 +27,7 @@ from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputType,
     InputTypeConvolutional,
+    InputTypeRecurrent,
 )
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayer, Layer
 from deeplearning4j_tpu_torch.nn.weights import init_weights
@@ -126,12 +128,59 @@ class ConvolutionLayer(BaseLayer):
         b = torch.full((self.n_out,), self.bias_init, dtype=dtype)
         return {"W": W, "b": b}
 
-    def apply(self, params, x, *, train=False, rng=None, state=None):
+    def apply(self, params, x, *, train=False, rng=None, state=None,
+              mask=None):
         x = self._maybe_dropout_input(x, train, rng)
         y = conv2d_nhwc(x, params["W"], _pair(self.stride),
                         self.lax_padding(), _pair(self.dilation))
         y = y + params["b"]
         return get_activation(self.activation)(y), state
+
+
+@dataclass(kw_only=True)
+class Convolution1DLayer(BaseLayer):
+    """1D convolution over [B, T, C] input: W [k, nIn, nOut], lax
+    semantics ("same" pads as lax "SAME", else `padding` on both
+    sides)."""
+
+    kernel_size: int = 3
+    stride: int = 1
+    padding: int = 0
+    convolution_mode: str = "same"
+    activation: Optional[str] = "identity"
+
+    def set_n_in(self, input_type: InputType) -> None:
+        if not isinstance(input_type, InputTypeRecurrent):
+            raise ValueError(
+                f"Convolution1D needs recurrent input, got {input_type}")
+        self.n_in = input_type.size
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timeseries_length
+        if t is not None:
+            t = _out_dim(t, self.kernel_size, self.stride, self.padding,
+                         self.convolution_mode)
+        return InputType.recurrent(self.n_out, t)
+
+    def init_params(self, gen, input_type, dtype=torch.float32):
+        k = self.kernel_size
+        W = init_weights(self.weight_init, gen, (k, self.n_in, self.n_out),
+                         fan_in=self.n_in * k, fan_out=self.n_out * k,
+                         dtype=dtype)
+        b = torch.full((self.n_out,), self.bias_init, dtype=dtype)
+        return {"W": W, "b": b}
+
+    def apply(self, params, x, *, train=False, rng=None, state=None,
+              mask=None):
+        x = self._maybe_dropout_input(x, train, rng)
+        if self.convolution_mode == "same":
+            lo, hi = same_pads(x.shape[1], self.kernel_size, self.stride)
+        else:
+            lo = hi = self.padding
+        xc = F.pad(x.transpose(1, 2), (lo, hi))               # [B, C, T]
+        y = F.conv1d(xc, params["W"].permute(2, 1, 0), stride=self.stride)
+        return get_activation(self.activation)(
+            y.transpose(1, 2) + params["b"]), state
 
 
 @dataclass(kw_only=True)
@@ -155,7 +204,8 @@ class SubsamplingLayer(Layer):
         w = _out_dim(input_type.width, kw, sw, pw, self.convolution_mode)
         return InputType.convolutional(h, w, input_type.channels)
 
-    def apply(self, params, x, *, train=False, rng=None, state=None):
+    def apply(self, params, x, *, train=False, rng=None, state=None,
+              mask=None):
         kh, kw = _pair(self.kernel_size)
         sh, sw = _pair(self.stride)
         if self.convolution_mode == "same":
@@ -189,6 +239,48 @@ class SubsamplingLayer(Layer):
 
 
 @dataclass(kw_only=True)
+class Subsampling1DLayer(Layer):
+    """Temporal pooling over [B, T, C] (max/avg/sum/pnorm), `padding`
+    on both sides, lax.reduce_window semantics (avg divides by the
+    whole window)."""
+
+    pooling_type: str = "max"
+    kernel_size: int = 2
+    stride: int = 2
+    padding: int = 0
+    pnorm: int = 2
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timeseries_length
+        if t is not None:
+            t = _out_dim(t, self.kernel_size, self.stride, self.padding,
+                         "truncate")
+        return InputType.recurrent(input_type.size, t)
+
+    def apply(self, params, x, *, train=False, rng=None, state=None,
+              mask=None):
+        pt = self.pooling_type.lower()
+        if pt not in ("max", "avg", "sum", "pnorm"):
+            raise ValueError(
+                f"Unknown pooling_type '{self.pooling_type}' "
+                "(known: max, avg, sum, pnorm)")
+        k, s, p = self.kernel_size, self.stride, self.padding
+        if pt == "pnorm":
+            x = torch.abs(x) ** float(self.pnorm)
+        xc = F.pad(x.transpose(1, 2), (p, p),
+                   value=float("-inf") if pt == "max" else 0.0)
+        if pt == "max":
+            y = F.max_pool1d(xc, k, s)
+        else:
+            y = F.avg_pool1d(xc, k, s)
+            if pt != "avg":
+                y = y * k
+            if pt == "pnorm":
+                y = y ** (1.0 / float(self.pnorm))
+        return y.transpose(1, 2), state
+
+
+@dataclass(kw_only=True)
 class ZeroPaddingLayer(Layer):
     """Zero-pads the spatial dims of NHWC input. padding = (top, bottom,
     left, right), or (h, w) for symmetric padding."""
@@ -209,7 +301,8 @@ class ZeroPaddingLayer(Layer):
             input_type.height + t + b, input_type.width + l + r,
             input_type.channels)
 
-    def apply(self, params, x, *, train=False, rng=None, state=None):
+    def apply(self, params, x, *, train=False, rng=None, state=None,
+              mask=None):
         t, b, l, r = self._pads()
         return F.pad(x, (0, 0, l, r, t, b)), state
 
@@ -227,7 +320,8 @@ class LocalResponseNormalization(Layer):
     alpha: float = 1e-4
     beta: float = 0.75
 
-    def apply(self, params, x, *, train=False, rng=None, state=None):
+    def apply(self, params, x, *, train=False, rng=None, state=None,
+              mask=None):
         half = self.n // 2
         c = x.shape[-1]
         sq = F.pad(x * x, (half, half))

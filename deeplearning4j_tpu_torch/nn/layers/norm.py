@@ -126,7 +126,8 @@ class BatchNormalization(Layer):
         return {"mean": torch.zeros((c,), dtype=dtype),
                 "var": torch.ones((c,), dtype=dtype)}
 
-    def apply(self, params, x, *, train=False, rng=None, state=None):
+    def apply(self, params, x, *, train=False, rng=None, state=None,
+              mask=None):
         in_dtype = x.dtype
         stat_dtype = torch.float32 if is_low_precision(in_dtype) else in_dtype
         axes = tuple(range(x.ndim - 1))

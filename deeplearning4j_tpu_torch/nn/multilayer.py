@@ -14,8 +14,14 @@ generator in layer order, the output layer's input mask last, once per
 train step. With `compute_dtype` the JAX package's mixed-precision policy
 holds (nn/dtype.py).
 
-Not ported yet (ROADMAP queue 5): truncated BPTT, the line-search solvers,
-`rnn_time_step` and layerwise `pretrain`; they raise.
+Recurrent nets: a [B, T] feature mask follows the layers (each layer's
+`feed_forward_mask`, each preprocessor's); truncated BPTT and the carries
+are base_network's; `rnn_time_step` streams one step or chunk at a time
+from `rnn_states`, under no_grad, with the f32 params, as the JAX
+package's does.
+
+Not ported yet (ROADMAP queue 5): the line-search solvers and layerwise
+`pretrain`; they raise.
 """
 
 from __future__ import annotations
@@ -26,12 +32,10 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.base_network import BaseNetwork, batch_loss
-from deeplearning4j_tpu_torch.nn.conf.network import (
-    BackpropType,
-    MultiLayerConfiguration,
-)
+from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
 from deeplearning4j_tpu_torch.nn.layers.core import BaseOutputLayer
+from deeplearning4j_tpu_torch.nn.layers.recurrent import RECURRENT_LAYERS
 from deeplearning4j_tpu_torch.util.tree import leaves
 
 
@@ -96,29 +100,46 @@ class MultiLayerNetwork(BaseNetwork):
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, states, x, *, train=False, rng=None,
-                 layers_to: Optional[int] = None):
+                 layers_to: Optional[int] = None, mask=None,
+                 rnn_carries=None):
         """Forward through layers [0, layers_to). Returns (out,
-        new_states); in train mode BatchNorm uses batch statistics and
-        layers with dropout draw their masks from `rng`, in layer order."""
+        new_states, new_carries); in train mode BatchNorm uses batch
+        statistics and layers with dropout draw their masks from `rng`, in
+        layer order. `mask` is the [B, T] feature mask; a recurrent layer
+        starts from its entry of `rnn_carries` (zeros without one) and
+        its new carry lands in new_carries (None for other layers)."""
         conf = self.conf
         n = len(conf.layers) if layers_to is None else layers_to
-        new_states = []
-        cur = x
+        new_states, new_carries = [], []
+        cur, cur_mask = x, mask
         for i, layer in enumerate(conf.layers[:n]):
             if i in conf.preprocessors:
-                cur = conf.preprocessors[i].preprocess(cur)
-            cur, ns = layer.apply(params[i], cur, train=train, rng=rng,
-                                  state=states[i] if states[i] else None)
-            new_states.append(ns if ns is not None else states[i])
+                pre = conf.preprocessors[i]
+                cur = pre.preprocess(cur)
+                cur_mask = pre.feed_forward_mask(cur_mask, None)
+            if isinstance(layer, RECURRENT_LAYERS):
+                cur, nc = layer.apply(
+                    params[i], cur, train=train, rng=rng, mask=cur_mask,
+                    state=None if rnn_carries is None else rnn_carries[i])
+                new_states.append(states[i])
+            else:
+                cur, ns = layer.apply(params[i], cur, train=train, rng=rng,
+                                      state=states[i] if states[i] else None,
+                                      mask=cur_mask)
+                new_states.append(ns if ns is not None else states[i])
+                nc = None
+            new_carries.append(nc)
+            cur_mask = layer.feed_forward_mask(cur_mask, None)
         new_states.extend(states[n:])
-        return cur, new_states
+        return cur, new_states, new_carries
 
     # ------------------------------------------------------------------ loss
     def _loss_fn(self, params, states, x, y, lmask=None, train=True,
-                 rng=None):
+                 rng=None, fmasks=None, rnn_carries=None):
         """Score = the output layer's per-example loss reduced over the
         batch (`batch_loss`) + L1/L2 (the JAX package's
-        MultiLayerNetwork._loss_fn). Returns (loss, new_states)."""
+        MultiLayerNetwork._loss_fn). Returns (loss, (new_states,
+        new_carries)), the carries one per layer."""
         conf = self.conf
         out_layer = conf.layers[-1]
         if not isinstance(out_layer, BaseOutputLayer):
@@ -126,8 +147,9 @@ class MultiLayerNetwork(BaseNetwork):
                 "Last layer must be an OutputLayer to compute a training "
                 f"loss; got {type(out_layer).__name__}")
         n_hidden = len(conf.layers) - 1
-        cur, new_states = self._forward(params, states, x, train=train,
-                                        rng=rng, layers_to=n_hidden)
+        cur, new_states, new_carries = self._forward(
+            params, states, x, train=train, rng=rng, layers_to=n_hidden,
+            mask=fmasks, rnn_carries=rnn_carries)
         if n_hidden in conf.preprocessors:
             cur = conf.preprocessors[n_hidden].preprocess(cur)
         cur = out_layer._maybe_dropout_input(cur, train, rng)
@@ -136,18 +158,16 @@ class MultiLayerNetwork(BaseNetwork):
         reg = 0.0
         for layer, p in zip(conf.layers, params):
             reg = reg + layer.regularization_loss(p)
-        return batch_loss(conf, per_ex, lmask) + reg, new_states
+        return (batch_loss(conf, per_ex, lmask) + reg,
+                (new_states, new_carries + [None]))
 
     def _batch_tensors(self, x, y, fm=None, lm=None):
-        """(x, y, label mask) of a labelled batch as tensors on the device
-        in the net's dtype."""
+        """(x, y, label mask, feature mask) of a labelled batch as tensors
+        on the device in the net's dtype."""
         if y is None:
             raise ValueError("fit needs labels")
-        if fm is not None:
-            raise NotImplementedError(
-                "feature masks are not ported yet (ROADMAP queue 5)")
-        return (self._as_input(x), self._as_input(y),
-                None if lm is None else self._as_input(lm))
+        opt = lambda m: None if m is None else self._as_input(m)
+        return self._as_input(x), self._as_input(y), opt(lm), opt(fm)
 
     # ------------------------------------------------------------------- fit
     def fit_batch(self, batch):
@@ -156,11 +176,8 @@ class MultiLayerNetwork(BaseNetwork):
         if not self._initialized():
             self.init()
         x, y, fm, lm = _as_batch(batch)
-        if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
-                and getattr(x, "ndim", 0) == 3):
-            raise _not_ported("truncated BPTT")
         self._require_sgd()
-        loss = self._train_step(*self._batch_tensors(x, y, fm, lm))
+        loss = self._fit_one(*self._batch_tensors(x, y, fm, lm))
         self._notify_iteration()
         return loss
 
@@ -173,7 +190,7 @@ class MultiLayerNetwork(BaseNetwork):
             cd = self.compute_dtype
             if cd is not None:
                 x = x.to(cd)
-            out, _ = self._forward(self._compute_params(), self.states, x)
+            out, _, _ = self._forward(self._compute_params(), self.states, x)
             return out.to(self.dtype) if cd is not None else out
 
     def feed_forward(self, x):
@@ -205,10 +222,10 @@ class MultiLayerNetwork(BaseNetwork):
             return None if self._score is None else float(self._score)
         x, y, fm, lm = _as_batch((data, labels) if labels is not None
                                  else data)
-        x, y, lm = self._batch_tensors(x, y, fm, lm)
+        x, y, lm, fm = self._batch_tensors(x, y, fm, lm)
         with torch.no_grad():
             loss, _ = self._loss_fn(self._params_view(), self.states, x, y,
-                                    lm, train=False)
+                                    lm, train=False, fmasks=fm)
         return float(loss)
 
     def evaluate(self, iterator, evaluation=None):
@@ -246,7 +263,25 @@ class MultiLayerNetwork(BaseNetwork):
         return "\n".join(lines)
 
     def rnn_time_step(self, x):
-        raise _not_ported("rnn_time_step (recurrent layers)")
+        """Stateful streaming inference: x [B, nIn] (one step; returns
+        [B, nOut]) or [B, T, nIn] (a chunk; returns [B, T, nOut]). The
+        recurrent layers start from `rnn_states` (zeros after init or
+        `clear_rnn_state`) and leave their new carries there. Runs under
+        no_grad with the f32 params, as the JAX package's does; raises
+        ValueError for a bidirectional layer."""
+        self._check_streamable()
+        with torch.no_grad():
+            x = self._as_input(x)
+            single = x.ndim == 2
+            if single:
+                x = x[:, None, :]
+            if self.rnn_states is None:
+                self.rnn_states = self._initial_carries(x.shape[0])
+            out, _, new = self._forward(self._params_view(), self.states,
+                                        x, rnn_carries=self.rnn_states)
+            self.rnn_states = [n if n is not None else o
+                               for n, o in zip(new, self.rnn_states)]
+        return out[:, -1, :] if single and out.ndim == 3 else out
 
     def pretrain(self, data_iterator, epochs: int = 1):
         raise _not_ported("layerwise pretrain (AutoEncoder, VAE, RBM)")

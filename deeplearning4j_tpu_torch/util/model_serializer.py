@@ -16,8 +16,9 @@ lists with one dict per layer (`{}`, no leaf, for a layer without
 params).
 
 Layouts need no change: both packages keep conv kernels HWIO, dense
-weights [n_in, n_out] and activations NHWC, so the bridge only converts
-arrays to tensors on the target device and dtype.
+weights [n_in, n_out], LSTM weights [n_in, 4H] in [i, f, o, g] gate
+order and activations NHWC, so the bridge only converts arrays to
+tensors on the target device and dtype.
 
 `write_model` writes the same layout in the same leaf order, so the JAX
 package's `restore_computation_graph` reads a port-written zip. The write
@@ -68,9 +69,11 @@ def params_from_jax(params, states=None, device=None, dtype=torch.float32,
                     updater_states=None) -> Tuple[dict, ...]:
     """Carry the JAX package's param/state trees (a graph's dicts keyed by
     node name or a MultiLayerNetwork's per-layer lists, of numpy or jax
-    arrays: conv W/b, BN gamma/beta and mean/var, dense and output W/b)
-    into the port's tensors on `device` (default "cuda"; pass "cpu"
-    explicitly), in the same structure.
+    arrays: conv W/b, BN gamma/beta and mean/var, dense, output and
+    embedding W/b, LSTM W/RW/b and the Graves peepholes P, the
+    bidirectional layer's {"bwd", "fwd"} pair) into the port's tensors on
+    `device` (default "cuda"; pass "cpu" explicitly), in the same
+    structure.
     Returns (params, states), and the updater states (e.g. nesterovs'
     {"v": {...}} per layer) as a third item when they are given."""
     from deeplearning4j_tpu_torch.device import resolve_device

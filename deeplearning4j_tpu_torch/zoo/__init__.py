@@ -6,4 +6,5 @@ from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
     LeNet,
     ResNet50,
     SimpleCNN,
+    TextGenerationLSTM,
 )

@@ -1,8 +1,8 @@
 """Zoo architectures (counterpart of deeplearning4j_tpu/zoo/models.py).
 
-Ported: the layer-list models LeNet, SimpleCNN, AlexNet, VGG16 and VGG19
-(MultiLayerNetwork) and the graph model ResNet50 with the `_conv_bn`
-block it is built from. Each configuration serializes to the JAX
+Ported: the layer-list models LeNet, SimpleCNN, AlexNet, VGG16, VGG19 and
+TextGenerationLSTM (MultiLayerNetwork) and the graph model ResNet50 with
+the `_conv_bn` block it is built from. Each configuration serializes to the JAX
 package's JSON exactly.
 """
 
@@ -16,8 +16,10 @@ from deeplearning4j_tpu_torch.nn.layers import (
     ConvolutionLayer,
     DenseLayer,
     GlobalPoolingLayer,
+    GravesLSTM,
     LocalResponseNormalization,
     OutputLayer,
+    RnnOutputLayer,
     SubsamplingLayer,
 )
 from deeplearning4j_tpu_torch.zoo.base import ZooModel
@@ -134,6 +136,31 @@ class VGG19(ZooModel):
 
     def conf(self):
         return _vgg([(2, 64), (2, 128), (4, 256), (4, 512), (4, 512)], self)
+
+
+class TextGenerationLSTM(ZooModel):
+    """Char-level text generation: 2x GravesLSTM(256) + RnnOutputLayer
+    (mcxent), rmsprop, truncated BPTT 50/50."""
+
+    num_classes = 26          # vocab size
+    input_shape = (50, 26)    # (max length, vocab)
+    bptt_remat = False        # LSTM.bptt_remat; set before init_model
+
+    def conf(self):
+        t, v = self.input_shape
+        return (NeuralNetConfiguration.Builder()
+                .seed(self.seed).updater("rmsprop")
+                .learning_rate(self.learning_rate)
+                .activation("tanh").weight_init("xavier")
+                .list()
+                .layer(GravesLSTM(n_out=256, bptt_remat=self.bptt_remat))
+                .layer(GravesLSTM(n_out=256, bptt_remat=self.bptt_remat))
+                .layer(RnnOutputLayer(n_out=self.num_classes, loss="mcxent"))
+                .backprop_type("truncated_bptt")
+                .t_bptt_forward_length(50)
+                .t_bptt_backward_length(50)
+                .set_input_type(InputType.recurrent(v, t))
+                .build())
 
 
 def _graph_builder(self):

@@ -330,7 +330,7 @@ def test_make_loss_and_apply_halves_compose_to_one_step():
     a, b = _port_net(updater="nesterovs"), _port_net(updater="nesterovs")
     StepProgram(a).run(x, y)
     loss_for_grad, apply_updates = make_loss_and_apply(b)
-    ins, labs, lms = b._batch_tensors([x], [y])
+    ins, labs, lms, _ = b._batch_tensors([x], [y])
     flat, upd, states = b._train_carry()
     leaf = flat.detach().requires_grad_()
     with torch.enable_grad():

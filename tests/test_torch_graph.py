@@ -1,7 +1,9 @@
 """The port's ComputationGraph inference path against the JAX package:
 the `_mini_resnet` graph of tests/test_helpers.py carried over through
 `to_json()` and the weight bridge, in every helper mode, in f32 and under
-the bf16 policy; the ResNet-50 configuration; the model-zip bridge."""
+the bf16 policy; the ResNet-50 configuration; the model-zip bridge,
+including the JAX package's recurrent golden graph (LSTM,
+ElementWiseVertex, LastTimeStepVertex)."""
 
 import json
 import os
@@ -231,3 +233,18 @@ def test_restore_jax_model_zip(tmp_path, trained_jax_nets):
     )
     with pytest.raises(CheckpointIntegrityError):
         restore_computation_graph(path, device="cpu")
+
+
+def test_golden_graph_restores_in_port():
+    """tests/fixtures/golden_graph.zip (two LSTMs, an ElementWiseVertex
+    add, a LastTimeStepVertex, nesterovs state) restores through the port
+    and predicts the committed outputs at the JAX test's own bar
+    (tests/test_parity_extras.py: rtol 1e-5 / atol 1e-6)."""
+    fix = os.path.join(os.path.dirname(__file__), "fixtures")
+    net = restore_computation_graph(os.path.join(fix, "golden_graph.zip"),
+                                    device="cpu")
+    exp = np.load(os.path.join(fix, "golden_graph_expected.npz"))
+    np.testing.assert_allclose(net.output(exp["x"]).numpy(), exp["y"],
+                               rtol=1e-5, atol=1e-6)
+    assert net.iteration == 2
+    assert set(net.updater_states["l1"]["v"]) == {"RW", "W", "b"}

@@ -133,7 +133,8 @@ def test_golden_mln_restores_in_port():
 # -------------------------------------------------------- configurations
 
 
-ZOO = ("LeNet", "SimpleCNN", "AlexNet", "VGG16", "VGG19")
+ZOO = ("LeNet", "SimpleCNN", "AlexNet", "VGG16", "VGG19",
+       "TextGenerationLSTM")
 
 
 @pytest.mark.parametrize("name", ZOO)
@@ -439,13 +440,30 @@ def test_evaluate_matches_jax_evaluation():
 
 def test_unported_paths_name_their_queue():
     net = _lenet()
-    for call in (lambda: net.rnn_time_step(np.zeros((1, 3))),
-                 lambda: net.pretrain([])):
-        with pytest.raises(NotImplementedError, match="queue 5"):
-            call()
+    with pytest.raises(NotImplementedError, match="queue 5"):
+        net.pretrain([])
     net.conf.optimization_algo = "lbfgs"
     with pytest.raises(NotImplementedError, match="queue 5"):
         net.fit_batch(_data(20, (12, 12, 1), 10))
     assert "Total parameters" in net.summary()
     assert net.n_layers() == 6 and isinstance(net.get_layer(0),
                                               ConvolutionLayer)
+
+
+def test_rnn_time_step_streams_the_zoo_text_model():
+    """rnn_time_step (which raised before the recurrent slice) on the
+    zoo's TextGenerationLSTM: one character at a time equals output() on
+    the whole sequence at the JAX package's bar for it
+    (tests/test_smoke.py: rtol 1e-4 / atol 1e-5); a feed-forward net
+    streams as its plain output."""
+    net = tzoo.TextGenerationLSTM(num_classes=7, input_shape=(9, 7)) \
+        .init_model(device="cpu")
+    rng = np.random.default_rng(21)
+    x = np.eye(7, dtype=np.float32)[rng.integers(0, 7, (2, 9))]
+    full = _np(net.output(x))
+    steps = np.stack([_np(net.rnn_time_step(x[:, t])) for t in range(9)], 1)
+    np.testing.assert_allclose(steps, full, rtol=1e-4, atol=1e-5)
+    lenet = _lenet()
+    img, _ = _data(22, (12, 12, 1), 10, rows=2)
+    np.testing.assert_array_equal(_np(lenet.rnn_time_step(img)),
+                                  _np(lenet.output(img)))
