@@ -142,6 +142,36 @@ Phases, in order; any failure exits non-zero:
      RNN_YARDSTICK_TOL, forward and forward+backward ms (f32 and bf16);
      tests/fixtures/golden_graph.zip restored on the card against its
      expected outputs within RNN_GOLDEN_TOL;
+  5g. the graph zoo and transfer learning (lines start "zoo ", "tl ",
+     "solver ", "pretrain "): GoogLeNet (224x224x3), InceptionResNetV1
+     (160x160x3) and FaceNetNN4Small2 (96x96x3), 1000 classes, bf16,
+     helpers="pallas", zoo defaults (nesterovs lr 1e-2), batch ZOO_BATCH
+     — the forward against "fused" on the same weights (bf16 and f32,
+     ZOO_LOGP_TOL); every kernel call of a batch-BATCH forward and of a
+     train step counted by kernel and route against the counts derived
+     from the layer shapes (path_launches), and each distinct call (the
+     forward's, the step's 1x1 backwards) against its plain version in
+     its dtype on the route its shape takes and in f32 on "simple"; for
+     GoogLeNet every routed 1x1 backward of a batch-ZOO_CHECK_BATCH step
+     against the composed backward (ROUTE_TOL), one run_group(GROUP_K)
+     replay against eager steps bit for bit with dropout on, ZOO_STEPS
+     timed steps through run_group(GROUP_K) under "pallas" and "fused",
+     and its kernel calls timed (card, plain, library, bound) and summed
+     per route; for the two embedding nets ZOO_SMALL_STEPS steps, the
+     embedding rows' norms (EMBED_NORM_TOL) and the center-loss centers
+     moving; ModelSelector.select("cnn"): every CNN zoo model at its
+     full input size, one forward at batch 1; the ResNet-50 transfer
+     (TransferLearning.GraphBuilder, frozen through "s4b5_out", nesterovs
+     lr 1e-3): TL_STEPS steps, frozen params bit for bit, launches per
+     step 30/16/5/5, ms/step against phase 5b's full step, write_model
+     and ModelGuesser.load_model_guess scoring the same bits; VGG16
+     transfer at VGG_TL_BATCH (frozen through its last pooling layer,
+     the head's width replaced): frozen-base and full fine-tune ms/step,
+     and TransferLearningHelper's featurized fit against the frozen
+     net's fit (TL_HELPER_TOL); LeNet at MNIST width, f32: SOLVER_ITERS
+     iterations of each line-search solver, a falling loss; an RBM ->
+     AutoEncoder -> VAE -> softmax MLN pretrained PRETRAIN_EPOCHS epochs
+     of PRETRAIN_BATCHES batches, each layer's loss falling;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -160,6 +190,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -292,6 +323,24 @@ BWD_VARIANTS = ("plain", "affine_relu", "affine_x2_relu", "affine_affx2_relu")
 # bf16: one rounding of the output to bf16 (2^-8 relative) may land on
 # either side when the f32 sums differ in their last bits.
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# phase 5g: the graph zoo at full input size (GoogLeNet 224, Inception-
+# ResNet v1 160, FaceNet NN4.small2 96), trained at ZOO_BATCH
+ZOO_HW = {"GoogLeNet": 224, "InceptionResNetV1": 160,
+          "FaceNetNN4Small2": 96}
+ZOO_BATCH = TRAIN_BATCH
+ZOO_STEPS = 20                 # GoogLeNet: timed steps, 5 replays
+ZOO_SMALL_STEPS = 8            # InceptionResNetV1, FaceNetNN4Small2
+ZOO_CHECK_BATCH = 32           # the routed-backward and replay checks
+ZOO_PROFILE_STEPS = 4
+TL_STEPS = 20                  # ResNet-50 transfer: timed steps
+VGG_TL_BATCH = 32              # bench.py:506 bench_vgg16's batch
+VGG_TL_STEPS = 8
+VGG_TL_CLASSES = 100           # the replaced head's width
+SOLVER_BATCH = 128
+SOLVER_ITERS = 10
+PRETRAIN_BATCH = 128
+PRETRAIN_BATCHES = 8
+PRETRAIN_EPOCHS = 2
 # End-to-end limits on max |log p - log p_ref| over every class of every
 # row (log-probabilities weigh small and large probabilities alike). Set
 # from the readings of earlier runs (PERF.md) with a margin of 2-4x: the
@@ -324,6 +373,24 @@ LOGP_TOL = {"served": 0.3, "bf16_vs_torch": 0.3, "bf16_vs_f32": 1.0,
 ROUTE_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 STEP_TOL = {"float32": {"loss": 1e-6, "overall": 1e-2},
             "bfloat16": {"loss": 1e-3}}
+# Phase 5g: the zoo graphs' "pallas" forward against "fused" on the same
+# weights, max |log p - log p_ref|, under the bf16 policy (per model) and
+# in f32 (TF32 off). With seeded random weights a deep bf16 graph's logits
+# carry errors of O(1): its features grow large and positive, and the
+# rescaled head sums them with cancellation (any bf16 mode of GoogLeNet
+# against f32 reads 3.3 at 64x64 on the CPU). Limits from the readings of
+# the first chip run (PERF.md, PR 10): bf16 GoogLeNet 1.99 (margin 2x),
+# InceptionResNetV1 0.027 and FaceNetNN4Small2 0.028 (3.6x); f32 1.07e-4
+# at most (4.7x). Embedding rows: norms 1 within 2^-6 (readings 4.1e-3,
+# 3.6e-3: a few bf16 roundings of 2^-9). The TransferLearningHelper's
+# tail against the frozen net's own fit on the same batches (norm_err):
+# the same kernels on the same bf16 values, read bit for bit (0.0) on
+# the H100 and the CPU; the limit leaves room for a library that picks
+# another algorithm for the tail's own calls.
+ZOO_LOGP_TOL = {"GoogLeNet": 4.0, "InceptionResNetV1": 0.1,
+                "FaceNetNN4Small2": 0.1, "float32": 5e-4}
+EMBED_NORM_TOL = 2.0 ** -6
+TL_HELPER_TOL = 1e-6
 
 
 def fail(msg):
@@ -580,12 +647,13 @@ def backward_kernel_phase(torch, pc, batch):
 # ------------------------------------------------------------ phase 4
 
 
-def randomize_batchnorm(torch, net, seed):
+def randomize_batchnorm(torch, net, seed, hw=None):
     """Seeded random gamma/beta, and running statistics near the real
-    per-channel statistics of each conv output on a seeded batch (so the
-    network's activations stay at a realistic scale), scaled/offset by
-    seeded noise (var > 0): the affine prologues are not the identity.
-    The output layer is rescaled so the logits have unit spread."""
+    per-channel statistics of each conv output on a seeded batch of
+    `hw`-sized images (default HW; so the network's activations stay at a
+    realistic scale), scaled/offset by seeded noise (var > 0): the affine
+    prologues are not the identity. The output layer is rescaled so the
+    logits have unit spread."""
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.layers import BatchNormalization
 
@@ -609,15 +677,16 @@ def randomize_batchnorm(torch, net, seed):
     twin.params = params
     twin.states = {k: ({} if k in {n.name for n in bn_nodes} else v)
                    for k, v in net.states.items()}
-    x = torch.randn(8, HW, HW, 3, generator=gen).to(DEV)
+    hw = hw or HW
+    x = torch.randn(8, hw, hw, 3, generator=gen).to(DEV)
     acts = twin.feed_forward(x)
     # output layer scaled so the logits have unit spread: softmax then is
     # not saturated and a comparison of probabilities means something
     out_name = net.conf.network_outputs[0]
     feats = acts[net.conf.node(out_name).inputs[0]].float()
     logits = feats @ params[out_name]["W"] + params[out_name]["b"]
-    params[out_name] = {"W": params[out_name]["W"] / float(logits.std()),
-                        "b": params[out_name]["b"]}
+    params[out_name] = dict(params[out_name],
+                            W=params[out_name]["W"] / float(logits.std()))
     states = dict(net.states)
     for node in bn_nodes:
         a = acts[node.inputs[0]].float()
@@ -633,12 +702,13 @@ def randomize_batchnorm(torch, net, seed):
     net.states = states
 
 
-def serving_inputs(np, rng, rows):
-    """Seeded images; each row gets its own brightness and contrast, so
-    distinct rows give distinct outputs."""
+def serving_inputs(np, rng, rows, hw=None):
+    """Seeded `hw`-sized images (default HW); each row gets its own
+    brightness and contrast, so distinct rows give distinct outputs."""
+    hw = hw or HW
     loc = rng.uniform(-1.0, 1.0, size=(rows, 1, 1, 1))
     scale = rng.uniform(0.5, 2.0, size=(rows, 1, 1, 1))
-    return (loc + scale * rng.normal(size=(rows, HW, HW, 3))).astype(
+    return (loc + scale * rng.normal(size=(rows, hw, hw, 3))).astype(
         np.float32)
 
 
@@ -896,7 +966,7 @@ def routed_backward_check(torch, pc, run):
     def both(*args):
         got = orig(*args)
         ref = fused_ops._bwd_composed(*args[:13], (1, 1), "VALID", args[13],
-                                      int(args[10] is not None))
+                                      int(args[10] is not None), args[14])
         calls.append(route_errors(torch, pc, args, got, ref))
         return got
 
@@ -1093,12 +1163,13 @@ def same_bits(torch, a, b):
     return len(sa) == len(sb) and diff == 0, len(sa), diff
 
 
-def engine_batches(np, seed, n, batch, ncls):
-    """n seeded host batches (x f32 NHWC, one-hot y)."""
+def engine_batches(np, seed, n, batch, ncls, hw=None):
+    """n seeded host batches (x f32 NHWC of `hw`-sized images, default HW;
+    one-hot y)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        x = serving_inputs(np, rng, batch)
+        x = serving_inputs(np, rng, batch, hw)
         y = np.eye(ncls, dtype=np.float32)[rng.integers(0, ncls, batch)]
         out.append((x, y))
     return out
@@ -3117,6 +3188,769 @@ def rnn_phase(torch, np, pc, card):
     return res
 
 
+# ------------------------------------------------------------ phase 5g
+
+
+def zoo_net(cls, mode, compute_dtype="bfloat16", hw=None, **kw):
+    """A graph-zoo model (zoo defaults: nesterovs lr 1e-2, 1000 classes)
+    at `hw` (default: ZOO_HW of its class, its full input size), bf16
+    policy, helper mode `mode`, seeded init, on the card."""
+    hw = hw or ZOO_HW[cls.__name__]
+    return cls(input_shape=(hw, hw, 3), compute_dtype=compute_dtype,
+               helpers=mode, **kw).init_model(device=DEV)
+
+
+def trains_from(net):
+    """Names of the graph's nodes whose value depends on a param that
+    trains (a layer with params that is not frozen, or any descendant)."""
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    params = net._params_view()
+    out = set()
+    for node in net.topo:
+        own = (node.kind == "layer" and not node.obj.frozen
+               and bool(leaves(params[node.name])))
+        if own or any(s in out for s in node.inputs):
+            out.add(node.name)
+    return out
+
+
+def path_launches(pc, net, batch, train):
+    """Kernel launches of one forward (train False) or one train step of
+    the fused graph `net` at `batch`, by kernel and by "kernel/route",
+    derived from its layer shapes: a stride-1 1x1 (3x3 SAME) conv of the
+    fusion plan launches fused_conv1x1 (fused_conv3x3) on the route
+    forward_route gives its shape; in a train step a 1x1 conv also
+    launches wgrad_conv1x1 unless it is frozen, and dgrad_conv1x1 when its
+    input depends on a param that trains (backward_route)."""
+    from deeplearning4j_tpu_torch.nn.helpers.fused_ops import kernel_route
+
+    plan = net._helper_plan()
+    dt = net.compute_dtype or net.dtype
+    trains = trains_from(net) if train else set()
+    counts = {k: 0 for k in pc.launch_counts()}
+
+    def add(name, route):
+        counts[name] += 1
+        counts[f"{name}/{route}"] += 1
+
+    for name, spec in plan.conv.items():
+        node = net.conf.node(name)
+        t = net._layer_in_types[name]
+        h, w, c, n = t.height, t.width, t.channels, node.obj.n_out
+        route = kernel_route(node.obj.kernel_size, spec.stride, spec.padding,
+                             (h, w))
+        m = batch * h * w
+        if route == "conv3x3":
+            add("fused_conv3x3", pc.forward_route(dt, m, c, n, width=w))
+        elif route == "conv1x1":
+            add("fused_conv1x1", pc.forward_route(dt, m, c, n))
+            if node.inputs[0] in trains:
+                add("dgrad_conv1x1", pc.backward_route(dt, m, c, n))
+            if train and not node.obj.frozen:
+                add("wgrad_conv1x1", pc.backward_route(dt, m, c, n))
+    return counts
+
+
+def calls_by_route(pc, calls):
+    """record_kernel_calls' list counted as path_launches counts: by
+    kernel and "kernel/route", each call's route from its shape."""
+    counts = {k: 0 for k in pc.launch_counts()}
+    for key in calls:
+        counts[key[0]] += 1
+        counts[f"{key[0]}/{key_route(pc, key)}"] += 1
+    return counts
+
+
+def key_route(pc, key):
+    """The route a recorded kernel call (record_kernel_calls' key) takes:
+    forward_route or backward_route of its dtype and shape (fresh
+    tensors: aligned)."""
+    name, shape, dt = key[:3]
+    if name == "fused_conv3x3":
+        b, h, w, c, n = shape
+        return pc.forward_route(dt, b * h * w, c, n, width=w)
+    if name == "fused_conv1x1":
+        return pc.forward_route(dt, *shape)
+    return pc.backward_route(dt, *shape)
+
+
+def zoo_kernel_checks(torch, pc, calls, label, worst):
+    """Every distinct kernel call of `calls` (record_kernel_calls' keys:
+    shape and prologue flags) against its plain version on fresh seeded
+    inputs: in its own dtype on the route its shape takes, and in f32 on
+    "simple"; error max |kernel - plain| / max(max |plain|, 1) over every
+    output within TOL. Updates `worst` (max |y|, |dx| or |dW| error per
+    kernel) and returns the keys checked per (kernel, dtype, route)."""
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    r = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    done = {}
+    for key in dict.fromkeys(calls):
+        for dt in dict.fromkeys((key[2], torch.float32)):
+            k = key[:2] + (dt,) + key[3:]
+            name, dtype = k[0], str(dt).replace("torch.", "")
+            case = forward_case if name.startswith("fused") else backward_case
+            _, _, make, kern_f, plain_f, _ = case(torch, pc, r, k)
+            a = make()
+            pc.reset_launch_counts()
+            got, ref = kern_f(a), plain_f(a)
+            torch.cuda.synchronize()
+            route, want = launched_routes(pc)[name], key_route(pc, k)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            if any((g is None) != (q is None) for g, q in zip(got, ref)):
+                fail(f"{label}: {name} {k[1]}: an output is absent in one "
+                     "version")
+            errs = [norm_err(g, q) for g, q in zip(got, ref) if g is not None]
+            abs_err = float((got[0].float() - ref[0].float()).abs().max())
+            worst[name] = max(worst.get(name, 0.0), abs_err)
+            ok = (route == want and max(errs) <= TOL[dtype]
+                  and bool(torch.isfinite(got[0]).all()))
+            done.setdefault((name, dtype, route), []).append(k[1])
+            if not ok:
+                fail(f"{label}: {name} {dtype} {k[1]} flags {k[3:]}: error "
+                     f"{max(errs):.2e} (limit {TOL[dtype]:g}), route {route} "
+                     f"(want {want})")
+            del a, got, ref
+    log(f"{label}: distinct kernel calls against their plain versions, "
+        "each within TOL: " + ", ".join(
+            f"{n} {d} {rt} x{len(v)}" for (n, d, rt), v in done.items()))
+    return {f"{n}/{d}/{rt}": len(v) for (n, d, rt), v in done.items()}
+
+
+def backward_calls(calls):
+    """The dgrad/wgrad calls of a recorded train step."""
+    return [c for c in calls if c[0] in ("dgrad_conv1x1", "wgrad_conv1x1")]
+
+
+def route_sums(rows):
+    """timing_phase's rows summed per (kernel, route): card, plain,
+    library and bound ms over the calls of one forward or step."""
+    out = {}
+    for row in rows:
+        t = out.setdefault(f"{row['name']}/{row['route']}",
+                           {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
+                            "library_ms": 0.0, "bound_ms": 0.0})
+        t["calls"] += row["count"]
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            t[k] += row["count"] * row[k]
+    return out
+
+
+def zoo_forward_check(torch, np, net, hw, label, type_name):
+    """The "pallas" forward of the zoo model `type_name` against the same
+    weights through "fused" (cuDNN convolutions) on 8 seeded images, under
+    the bf16 policy and in f32: max |log p - log p_ref| within
+    ZOO_LOGP_TOL."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    x = serving_inputs(np, np.random.default_rng(13), 8, hw)
+    gaps = {}
+    saved = net.conf.helper_mode
+    try:
+        for cd in (torch.bfloat16, None):
+            outs = {}
+            for mode in ("pallas", "fused"):
+                net.conf.helper_mode = mode
+                twin = ComputationGraph(net.conf, compute_dtype=cd,
+                                        device=DEV)
+                twin.params, twin.states = net.params, net.states
+                o = outs[mode] = twin.output(x).float().cpu().numpy()
+                if not np.isfinite(o).all():
+                    fail(f"{label} forward {mode}: non-finite output")
+            gaps["float32" if cd is None else "bfloat16"] = logp_gap(
+                np, outs["pallas"], outs["fused"])
+    finally:
+        net.conf.helper_mode = saved
+    limits = {"bfloat16": ZOO_LOGP_TOL[type_name],
+              "float32": ZOO_LOGP_TOL["float32"]}
+    log(f"{label} forward, pallas against fused on 8 images: max |log p - "
+        "log p_ref| " + ", ".join(f"{k} {v:.3e} (limit {limits[k]:g})"
+                                  for k, v in gaps.items()))
+    if any(v > limits[k] for k, v in gaps.items()):
+        fail(f"{label}: the pallas forward departs from fused: {gaps}")
+    return gaps
+
+
+def check_launches(label, got, want):
+    if got != want:
+        fail(f"{label}: launches {got} != derived from the shapes {want}")
+
+
+def zoo_group_check(torch, np, cls, hw, det):
+    """From one seeded state at ZOO_CHECK_BATCH, GROUP_K eager
+    StepProgram.run calls against one run_group(GROUP_K) replay, dropout
+    on: params, updater state, BN states, losses and the dropout
+    generator's state bit for bit (cuDNN as phase 5b found it)."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    data = engine_batches(np, 61, GROUP_K, ZOO_CHECK_BATCH, 1000, hw)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = det
+    try:
+        e, g = zoo_net(cls, "pallas", hw=hw), zoo_net(cls, "pallas", hw=hw)
+        pe, pg = StepProgram(e), StepProgram(g)
+        losses = torch.stack([pe.run(x, y) for x, y in data])
+        pg.run_group(np.stack([d[0] for d in data]),
+                     np.stack([d[1] for d in data]))
+        torch.cuda.synchronize()
+        same, n, diff = same_bits(torch, e, g)
+        ok = (same and bits_equal(torch, losses, pg.last_step_losses)
+              and torch.equal(e._rng_state(), g._rng_state()))
+    finally:
+        torch.backends.cudnn.deterministic = old
+    log(f"zoo {cls.__name__} group check, batch {ZOO_CHECK_BATCH}, dropout "
+        f"on: run_group({GROUP_K}) against {GROUP_K} eager run() calls: {n} "
+        f"tensors, {diff} differ; losses and generator state equal {ok}")
+    if not ok:
+        fail(f"zoo {cls.__name__}: run_group differs from eager steps")
+    del e, g, pe, pg
+    torch.cuda.empty_cache()
+    return {"tensors": n}
+
+
+def zoo_train(torch, np, pc, cls, hw, steps, label, mode="pallas"):
+    """`steps` steps of `cls` at ZOO_BATCH through run_group(GROUP_K) on
+    one fixed batch on the card (timed_steps: ms/step, img/s, MFU from the
+    layer shapes, idle share, peak memory, top kernels), launches per step
+    by kernel and route against path_launches, a finite loss that falls.
+    Returns (readings, the net, the batch)."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    ((x, y),) = [(torch.from_numpy(a).to(DEV), torch.from_numpy(b).to(DEV))
+                 for a, b in engine_batches(np, 63, 1, ZOO_BATCH, 1000, hw)]
+    net = zoo_net(cls, mode, hw=hw)
+    prog = StepProgram(net)
+    xs, ys = torch.stack([x] * GROUP_K), torch.stack([y] * GROUP_K)
+    macs = macs_per_image(net)
+    r, losses = timed_steps(
+        torch, prog, "group", lambda: prog.run_group(xs, ys), steps=steps,
+        warmup=1, batch=ZOO_BATCH, macs=macs,
+        profile_steps=ZOO_PROFILE_STEPS, on_start=pc.reset_launch_counts,
+        on_end=lambda: {"counts": pc.launch_counts()})
+    counts = r["launches"] = r.pop("counts")
+    r["launches_per_step"] = {k: v / steps for k, v in counts.items() if v}
+    vals = [float(v) for v in losses]
+    r.update(macs_per_image=macs, loss_first=vals[0], loss_last=vals[-1])
+    log(f"{label} {mode}" + timed_line(r, "group", ZOO_BATCH, steps)
+        + f" ({macs / 1e9:.4f}e9 multiply-adds per image); launches per "
+        f"step {r['launches_per_step']}; loss {vals[0]:.4f} -> "
+        f"{vals[-1]:.4f}; top kernels (ms per step): " + ", ".join(
+            f"{n} {t:.3f}" for n, t in r["top_kernels"]))
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"{label} {mode}: loss not finite and falling: {vals}")
+    want = (path_launches(pc, net, ZOO_BATCH, True) if mode == "pallas"
+            else {k: 0 for k in counts})
+    check_launches(f"{label} {mode}", counts,
+                   {k: v * steps for k, v in want.items()})
+    del prog
+    return r, net, (x, y)
+
+
+def zoo_googlenet(torch, np, pc, GoogLeNet, det, worst):
+    """GoogLeNet at full width (ZOO_HW, 1000 classes, bf16, "pallas", zoo
+    defaults, batch ZOO_BATCH): the forward against "fused"; its kernel
+    calls (a batch-BATCH forward, a batch-ZOO_BATCH train step) counted
+    against the shapes and each distinct one against its plain version on
+    both routes; every routed 1x1 backward of a batch-ZOO_CHECK_BATCH step
+    against the composed backward; the replay check; ZOO_STEPS timed steps
+    under "pallas" and "fused"; the kernel calls timed (card, plain,
+    library, bound), summed per route."""
+    hw = ZOO_HW["GoogLeNet"]
+    out = {}
+    net = zoo_net(GoogLeNet, "pallas")
+    randomize_batchnorm(torch, net, seed=3, hw=hw)
+    out["logp_gap"] = zoo_forward_check(torch, np, net, hw, "zoo GoogLeNet",
+                                        "GoogLeNet")
+    x32 = torch.from_numpy(serving_inputs(np, np.random.default_rng(14),
+                                          BATCH, hw)).to(DEV)
+    fcalls = record_kernel_calls(torch, pc, lambda: net.output(x32))
+    check_launches("zoo GoogLeNet forward", calls_by_route(pc, fcalls),
+                   path_launches(pc, net, BATCH, False))
+    del net
+    torch.cuda.empty_cache()
+
+    train, tnet, (x, y) = zoo_train(torch, np, pc, GoogLeNet, hw, ZOO_STEPS,
+                                    "zoo GoogLeNet")
+    out["train"] = train
+    tcalls = record_kernel_calls(torch, pc,
+                                 lambda: tnet.fit_batch(([x], [y])))
+    check_launches("zoo GoogLeNet train step", calls_by_route(pc, tcalls),
+                   path_launches(pc, tnet, ZOO_BATCH, True))
+    out["checked"] = zoo_kernel_checks(torch, pc, fcalls + backward_calls(
+        tcalls), "zoo GoogLeNet kernels", worst)
+    # the routed 1x1 backwards of one step at ZOO_CHECK_BATCH (bf16)
+    twin = twin_of(tnet, "pallas", torch.bfloat16)
+    del tnet
+    torch.cuda.empty_cache()
+    xb, yb = x[:ZOO_CHECK_BATCH], y[:ZOO_CHECK_BATCH]
+    routes = routed_backward_check(torch, pc,
+                                   lambda: twin.fit_batch(([xb], [yb])))
+    want = path_launches(pc, twin, ZOO_CHECK_BATCH, True)["dgrad_conv1x1"]
+    route_worst = {k: max(c[k] for c in routes if k in c)
+                   for k in BWD_OUTPUTS if any(k in c for c in routes)}
+    log(f"zoo GoogLeNet step check, bf16, batch {ZOO_CHECK_BATCH}: "
+        f"{len(routes)} routed 1x1 backwards against the composed backward, "
+        "worst " + " ".join(f"{k}={v:.2e}" for k, v in route_worst.items())
+        + f" (limit {ROUTE_TOL['bfloat16']:.3g})")
+    if len(routes) != want or \
+            max(route_worst.values()) > ROUTE_TOL["bfloat16"]:
+        fail("zoo GoogLeNet: a routed 1x1 backward departs from the "
+             "composed backward")
+    out["route_worst"] = route_worst
+    del twin
+    torch.cuda.empty_cache()
+    out["group_check"] = zoo_group_check(torch, np, GoogLeNet, hw, det)
+    out["fused"], fnet, _ = zoo_train(torch, np, pc, GoogLeNet, hw,
+                                      ZOO_STEPS, "zoo GoogLeNet", "fused")
+    del fnet
+    torch.cuda.empty_cache()
+    out["pallas_over_fused_ms"] = (train["ms_per_step"]
+                                   / out["fused"]["ms_per_step"])
+    out["kernel_calls"] = {"forward": len(fcalls), "step": len(tcalls)}
+    for what, cs in (("forward", fcalls), ("step", tcalls)):
+        _, rows = timing_phase(torch, pc, cs)
+        sums = out[f"{what}_route_sums"] = route_sums(rows)
+        for k, t in sums.items():
+            log(f"zoo GoogLeNet {what} at batch "
+                f"{BATCH if what == 'forward' else ZOO_BATCH}, {k} summed "
+                f"over its {t['calls']} calls: {t['ms']:.3f} ms (bound "
+                f"{t['bound_ms']:.3f} ms, {t['ms'] / t['bound_ms']:.1f}x; "
+                f"plain {t['plain_ms']:.3f} ms; library "
+                f"{t['library_ms']:.3f} ms)")
+    return out
+
+
+def embedding_norms(torch, net, x):
+    """L2 norms of the "embeddings" vertex's rows under the bf16 policy."""
+    from deeplearning4j_tpu_torch.nn.dtype import cast_floating
+
+    with torch.inference_mode():
+        cd = net.compute_dtype
+        acts, _, _ = net._forward(net._compute_params(), net.states,
+                                  {"input": cast_floating(x, cd)})
+        return acts["embeddings"].float().norm(dim=1)
+
+
+def zoo_embedding_net(torch, np, pc, cls, worst):
+    """InceptionResNetV1 or FaceNetNN4Small2 at full width (ZOO_HW), as
+    GoogLeNet otherwise: the forward against "fused", the kernel calls
+    counted and checked on both routes, ZOO_SMALL_STEPS timed steps, the
+    embedding rows' norms (1 within EMBED_NORM_TOL) and the center-loss
+    centers moving per step."""
+    name = cls.__name__
+    hw = ZOO_HW[name]
+    out = {}
+    net = zoo_net(cls, "pallas")
+    randomize_batchnorm(torch, net, seed=4, hw=hw)
+    out["logp_gap"] = zoo_forward_check(torch, np, net, hw, f"zoo {name}",
+                                        name)
+    x32 = torch.from_numpy(serving_inputs(np, np.random.default_rng(15),
+                                          BATCH, hw)).to(DEV)
+    norms = embedding_norms(torch, net, x32)
+    out["embedding_norm_err"] = float((norms - 1.0).abs().max())
+    log(f"zoo {name}: {BATCH} embedding rows (bf16), max |norm - 1| = "
+        f"{out['embedding_norm_err']:.3e} (limit {EMBED_NORM_TOL:g})")
+    if out["embedding_norm_err"] > EMBED_NORM_TOL:
+        fail(f"zoo {name}: embeddings are not L2-normalized")
+    fcalls = record_kernel_calls(torch, pc, lambda: net.output(x32))
+    check_launches(f"zoo {name} forward", calls_by_route(pc, fcalls),
+                   path_launches(pc, net, BATCH, False))
+    del net
+    torch.cuda.empty_cache()
+    out["train"], tnet, (x, y) = zoo_train(torch, np, pc, cls, hw,
+                                           ZOO_SMALL_STEPS, f"zoo {name}")
+    head = tnet.conf.network_outputs[0]
+    c0 = tnet._params_view()[head]["centers"].clone()
+    tcalls = record_kernel_calls(torch, pc,
+                                 lambda: tnet.fit_batch(([x], [y])))
+    moved = float((tnet._params_view()[head]["centers"] - c0).abs().max())
+    log(f"zoo {name}: the center-loss centers move by {moved:.3e} in one "
+        "step")
+    if not moved > 0:
+        fail(f"zoo {name}: the centers did not move")
+    check_launches(f"zoo {name} train step", calls_by_route(pc, tcalls),
+                   path_launches(pc, tnet, ZOO_BATCH, True))
+    out["checked"] = zoo_kernel_checks(torch, pc, fcalls + backward_calls(
+        tcalls), f"zoo {name} kernels", worst)
+    del tnet
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_selector(torch, ModelSelector):
+    """ModelSelector.select("cnn"): every CNN zoo model built on the card
+    at its own full input size (bf16 policy), one forward at batch 1 of
+    the right shape and finite."""
+    out = {}
+    for name, model in ModelSelector.select("cnn",
+                                            compute_dtype="bfloat16").items():
+        net = model.init_model(device=DEV)
+        x = torch.zeros((1,) + tuple(model.input_shape), device=DEV)
+        y = net.output(x)
+        shape = tuple(y.shape)
+        if shape != (1, model.num_classes) or not torch.isfinite(y).all():
+            fail(f"zoo select cnn: {name} gave {shape}")
+        out[name] = {"input": list(model.input_shape), "output": list(shape),
+                     "params": net.num_params()}
+        del net
+    torch.cuda.empty_cache()
+    log("zoo ModelSelector.select('cnn'): " + ", ".join(
+        f"{n} {v['input']} -> {v['output']} ({v['params']:,} params)"
+        for n, v in out.items()))
+    return out
+
+
+def tl_resnet(torch, np, pc, ResNet50, card, full_ms, det, tmp):
+    """TransferLearning.GraphBuilder on the flagship ResNet-50 (bf16,
+    "pallas", batch TRAIN_BATCH): everything up to "s4b5_out" frozen,
+    nesterovs at 1e-3 (a FineTuneConfiguration). TL_STEPS steps through
+    run_group(GROUP_K) on one fixed batch; every frozen param bit for
+    bit, the stage-5 and head params moved; launches per step 30/16/5/5
+    (derived from the shapes, too); ms/step against phase 5b's full step;
+    write_model, then ModelGuesser.load_model_guess on the card: the
+    reloaded net scores the same bits."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration,
+        TransferLearning,
+    )
+    from deeplearning4j_tpu_torch.util.model_guesser import ModelGuesser
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+
+    src = flagship(ResNet50, "pallas")
+    net = (TransferLearning.GraphBuilder(src)
+           .fine_tune_configuration(FineTuneConfiguration.Builder()
+                                    .updater("nesterovs").learning_rate(1e-3)
+                                    .build())
+           .set_feature_extractor("s4b5_out").build())
+    del src
+    frozen = net._frozen()
+    before = {k: [t.clone() for t in v.values()]
+              for k, v in net.params.items()}
+    ((x, y),) = [(torch.from_numpy(a).to(DEV), torch.from_numpy(b).to(DEV))
+                 for a, b in engine_batches(np, 65, 1, TRAIN_BATCH, 1000)]
+    prog = StepProgram(net)
+    xs, ys = torch.stack([x] * GROUP_K), torch.stack([y] * GROUP_K)
+    r, losses = timed_steps(
+        torch, prog, "group", lambda: prog.run_group(xs, ys), steps=TL_STEPS,
+        warmup=1, batch=TRAIN_BATCH, macs=macs_per_image(net),
+        profile_steps=ZOO_PROFILE_STEPS, on_start=pc.reset_launch_counts,
+        on_end=lambda: {"counts": pc.launch_counts()})
+    counts = r["launches"] = r.pop("counts")
+    per_step = {k: counts[k] / TL_STEPS for k in pc.LAUNCHES}
+    (per_replay,) = prog.group_launches().values() or ({},)
+    r.update(launches_per_step=per_step,
+             launches_per_replay={k: v for k, v in per_replay.items()
+                                  if "/" not in k},
+             ratio_to_full_step=r["ms_per_step"] / full_ms,
+             frozen_layers=len(frozen))
+    vals = [float(v) for v in losses]
+    r["loss_first"], r["loss_last"] = vals[0], vals[-1]
+    want = {"fused_conv1x1": 30, "fused_conv3x3": 16, "dgrad_conv1x1": 5,
+            "wgrad_conv1x1": 5}
+    derived = path_launches(pc, net, TRAIN_BATCH, True)
+    log(f"tl ResNet-50, frozen through s4b5_out ({len(frozen)} of "
+        f"{len(net.params)} layers)" + timed_line(r, "group", TRAIN_BATCH,
+                                                   TL_STEPS)
+        + f"; {r['ratio_to_full_step']:.3f}x phase 5b's full step "
+        f"({full_ms:.2f} ms); launches per step {per_step} (full step "
+        f"30/16/30/30), per replay {r['launches_per_replay']}; loss "
+        f"{vals[0]:.4f} -> {vals[-1]:.4f} [{card}]")
+    if per_step != want or any(derived[k] != v for k, v in want.items()):
+        fail(f"tl ResNet-50: launches per step {per_step} (derived "
+             f"{derived}) != {want}")
+    check_launches("tl ResNet-50", counts,
+                   {k: v * TL_STEPS for k, v in derived.items()})
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"tl ResNet-50: loss not finite and falling: {vals}")
+    params = net._params_view()
+    changed = {k for k, ts in before.items()
+               if any(not bits_equal(torch, a, b)
+                      for a, b in zip(ts, params[k].values()))}
+    trainable = {k for k in before if k not in frozen and before[k]}
+    r["frozen_bitwise"] = not (changed & frozen)
+    r["moved"] = sorted(changed)
+    log(f"tl ResNet-50: frozen params bit for bit {r['frozen_bitwise']}; "
+        f"{len(changed)} of {len(trainable)} trainable layers moved")
+    if changed & frozen or changed != trainable:
+        fail(f"tl ResNet-50: frozen params moved ({sorted(changed & frozen)}"
+             f") or trainable ones did not ({sorted(trainable - changed)})")
+    path = os.path.join(tmp, "tl_resnet50.zip")
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = det
+    try:
+        write_model(net, path)
+        back = ModelGuesser.load_model_guess(path, device=DEV,
+                                             compute_dtype=net.compute_dtype)
+        batch = ([x[:ZOO_CHECK_BATCH]], [y[:ZOO_CHECK_BATCH]])
+        s0, s1 = net.score(batch), back.score(batch)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    r.update(zip_bytes=os.path.getsize(path), score=s0, reloaded_score=s1)
+    log(f"tl ResNet-50: write_model ({r['zip_bytes']} bytes), "
+        f"ModelGuesser.load_model_guess on the card ({type(back).__name__}, "
+        f"{len(back._frozen())} frozen layers): score {s0!r} against "
+        f"{s1!r}")
+    if s0 != s1 or back._frozen() != frozen:
+        fail("tl ResNet-50: the reloaded net scores other bits")
+    del net, back, prog
+    torch.cuda.empty_cache()
+    return r
+
+
+def tl_vgg16(torch, np, pc, VGG16, card):
+    """BASELINE config 4 without the Keras import: the zoo's VGG16 (bf16,
+    phase 5c's input scale and rate) through TransferLearning.Builder,
+    frozen through its last pooling layer, the head's width replaced
+    (n_out_replace, VGG_TL_CLASSES); frozen-base against full fine-tune
+    ms/step at VGG_TL_BATCH through run_group(GROUP_K) (bench_vgg16's two
+    numbers). Then TransferLearningHelper: featurize once on the card,
+    fit_featurized, against a fit of the frozen net on the same batches:
+    the tail's params within TL_HELPER_TOL."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.nn.layers import SubsamplingLayer
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        TransferLearning,
+        TransferLearningHelper,
+    )
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    src = vgg16(VGG16)
+    layers = src.conf.layers
+    last_pool = max(i for i, l in enumerate(layers)
+                    if isinstance(l, SubsamplingLayer))
+    head = len(layers) - 1
+
+    def build(freeze):
+        b = TransferLearning.Builder(src).n_out_replace(head, VGG_TL_CLASSES)
+        return (b.set_feature_extractor(last_pool) if freeze else b).build()
+
+    data = mln_batches(np, 67, GROUP_K, VGG_TL_BATCH, VGG_TL_CLASSES)
+    xs = torch.stack([torch.from_numpy(d[0]) for d in data]).to(DEV)
+    ys = torch.stack([torch.from_numpy(d[1]) for d in data]).to(DEV)
+    out = {"last_pool": last_pool, "classes": VGG_TL_CLASSES}
+    for kind in ("frozen", "full"):
+        net = build(kind == "frozen")
+        prog = StepProgram(net)
+        r, losses = timed_steps(
+            torch, prog, "group", lambda: prog.run_group(xs, ys),
+            steps=VGG_TL_STEPS, warmup=1, batch=VGG_TL_BATCH,
+            macs=macs_per_image(net), profile_steps=ZOO_PROFILE_STEPS)
+        vals = [float(v) for v in losses]
+        r.update(loss_first=vals[0], loss_last=vals[-1],
+                 frozen_layers=len(net._frozen()))
+        out[kind] = r
+        log(f"tl VGG16 {kind}" + timed_line(r, "group", VGG_TL_BATCH,
+                                            VGG_TL_STEPS)
+            + f"; {r['frozen_layers']} frozen layers; loss {vals[0]:.4f} -> "
+            f"{vals[-1]:.4f} [{card}]")
+        if not all(np.isfinite(vals)):
+            fail(f"tl VGG16 {kind}: non-finite loss {vals}")
+        del net, prog
+        torch.cuda.empty_cache()
+    out["frozen_over_full_ms"] = (out["frozen"]["ms_per_step"]
+                                  / out["full"]["ms_per_step"])
+    log(f"tl VGG16: frozen base {out['frozen']['ms_per_step']:.2f} ms/step, "
+        f"full fine-tune {out['full']['ms_per_step']:.2f} ms/step "
+        f"({out['frozen_over_full_ms']:.3f}x) at batch {VGG_TL_BATCH}")
+    # featurize once, fit the tail; against the frozen net's own fit
+    a, b = build(True), build(True)
+    del src
+    helper = TransferLearningHelper(a, frozen_up_to=last_pool)
+    t0 = time.perf_counter()
+    feats = [(helper.featurize(x), y) for x, y in zip(xs, ys)]
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    helper.fit_featurized(feats)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    b.fit(list(zip(xs, ys)))
+    tail = slice(last_pool + 1, None)
+    errs = [norm_err(p, q) for p, q in zip(leaves(a.params[tail]),
+                                           leaves(b.params[tail]))]
+    out["helper"] = {"featurize_s": t_feat, "fit_featurized_s": t_fit,
+                     "tail_err": max(errs), "batches": len(feats)}
+    log(f"tl VGG16 TransferLearningHelper: featurize {len(feats)} batches "
+        f"{t_feat:.3f} s, fit_featurized {t_fit:.3f} s; the tail's params "
+        f"against the frozen net's fit on the same batches: max error "
+        f"{max(errs):.3e} (limit {TL_HELPER_TOL:g})")
+    if max(errs) > TL_HELPER_TOL:
+        fail("tl VGG16: fit_featurized departs from the frozen net's fit")
+    del a, b, helper, feats
+    torch.cuda.empty_cache()
+    return out
+
+
+def solver_phase(torch, np, LeNet, card):
+    """LeNet at MNIST width (28x28x1, 10 classes; BASELINE config 1), f32,
+    SOLVER_BATCH rows: SOLVER_ITERS iterations of each line-search solver
+    on one seeded batch, timed by the host clock (a solver reads its
+    losses on the host); a finite falling loss."""
+    rng = np.random.default_rng(69)
+    x = rng.normal(size=(SOLVER_BATCH, 28, 28, 1)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, SOLVER_BATCH)]
+    xt, yt = torch.from_numpy(x).to(DEV), torch.from_numpy(y).to(DEV)
+    out = {}
+    for algo in ("lbfgs", "conjugate_gradient", "line_gradient_descent"):
+        model = LeNet()
+        conf = model.conf()
+        conf.optimization_algo = algo
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        net = MultiLayerNetwork(conf, device=DEV).init()
+        net.fit_batch((xt, yt))           # builds the solver
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = [float(net.fit_batch((xt, yt)))
+                for _ in range(SOLVER_ITERS)]
+        ms = (time.perf_counter() - t0) * 1e3 / SOLVER_ITERS
+        out[algo] = {"ms_per_iteration": ms, "losses": vals}
+        log(f"solver {algo}: LeNet f32, batch {SOLVER_BATCH}, "
+            f"{SOLVER_ITERS} iterations after one: {ms:.2f} ms per "
+            f"iteration (host clock), loss {vals[0]:.4f} -> {vals[-1]:.4f} "
+            f"[{card}]")
+        if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+            fail(f"solver {algo}: loss not finite and falling: {vals}")
+        del net
+    return out
+
+
+def pretrain_data(np, seed):
+    """PRETRAIN_BATCHES seeded batches of 28x28 binary images, each a few
+    lit rows and columns (structure an RBM can model), flattened to 784,
+    with one-hot labels."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(PRETRAIN_BATCHES):
+        img = np.zeros((PRETRAIN_BATCH, 28, 28), np.float32)
+        for i in range(PRETRAIN_BATCH):
+            img[i, rng.integers(0, 28, 2), :] = 1.0
+            img[i, :, rng.integers(0, 28, 2)] = 1.0
+        out.append((img.reshape(PRETRAIN_BATCH, 784),
+                    np.eye(10, dtype=np.float32)[
+                        rng.integers(0, 10, PRETRAIN_BATCH)]))
+    return out
+
+
+def pretrain_phase(torch, np, card):
+    """An MLN of RBM 784->500, AutoEncoder 500->250, VAE 250->(latent 32)
+    and a softmax head, `pretrain` for PRETRAIN_EPOCHS epochs of
+    PRETRAIN_BATCHES batches of PRETRAIN_BATCH on the card: each layer's
+    pretrain loss (recorded per step) falls (the mean of its last 4
+    steps under the mean of its first 4)."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        RBM,
+        AutoEncoder,
+        OutputLayer,
+        VariationalAutoencoder,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.Builder().seed(71).updater("adam")
+            .learning_rate(1e-3).weight_init("xavier").list()
+            .layer(RBM(n_out=500))
+            .layer(AutoEncoder(n_out=250))
+            .layer(VariationalAutoencoder(n_out=32, latent_size=32,
+                                          encoder_layer_sizes=(128,),
+                                          decoder_layer_sizes=(128,),
+                                          reconstruction_distribution=
+                                          "bernoulli"))
+            .layer(OutputLayer(n_out=10, loss="mcxent"))
+            .set_input_type(InputType.feed_forward(784)).build())
+    net = MultiLayerNetwork(conf, device=DEV).init()
+    seen = {}
+    for i, layer in enumerate(net.conf.layers[:-1]):
+        orig = layer.pretrain_loss
+
+        def rec(p, x, g, orig=orig, i=i):
+            v = orig(p, x, g)
+            seen.setdefault(i, []).append(v.detach())
+            return v
+
+        layer.pretrain_loss = rec
+    data = [(torch.from_numpy(a).to(DEV), torch.from_numpy(b).to(DEV))
+            for a, b in pretrain_data(np, 72)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(data, epochs=PRETRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"seconds": wall, "steps_per_layer": PRETRAIN_EPOCHS
+           * PRETRAIN_BATCHES}
+    for i, vals in seen.items():
+        vals = [float(v) for v in vals]
+        name = type(net.conf.layers[i]).__name__
+        first, last = float(np.mean(vals[:4])), float(np.mean(vals[-4:]))
+        out[name] = {"first": vals[0], "last": vals[-1], "first4": first,
+                     "last4": last}
+        log(f"pretrain {name}: {len(vals)} steps, loss {vals[0]:.4f} -> "
+            f"{vals[-1]:.4f} (mean of the first 4 {first:.4f}, of the last "
+            f"4 {last:.4f})")
+        if not all(np.isfinite(vals)) or not last < first:
+            fail(f"pretrain {name}: loss not finite and falling: {vals}")
+    log(f"pretrain: {PRETRAIN_EPOCHS} epochs of {PRETRAIN_BATCHES} batches "
+        f"of {PRETRAIN_BATCH}, 3 layers, {wall:.2f} s (host clock) [{card}]")
+    return out
+
+
+def zoo_phase(torch, np, pc, card, engine, tmp):
+    """Phase 5g: the graph zoo, transfer learning, the solvers and
+    pretraining (lines start "zoo ", "tl ", "solver ", "pretrain ").
+    Returns the readings, the launches of the zoo path (the three graphs'
+    timed "pallas" steps) and of the TL path (the ResNet-50 transfer's
+    timed steps), and the per-kernel worst errors of its kernel checks."""
+    from deeplearning4j_tpu_torch.zoo import (
+        VGG16,
+        FaceNetNN4Small2,
+        GoogLeNet,
+        InceptionResNetV1,
+        LeNet,
+        ModelSelector,
+        ResNet50,
+    )
+
+    det = engine["group_check"]["deterministic"]
+    worst, out, secs = {}, {}, {}
+    parts = [
+        ("googlenet", lambda: zoo_googlenet(torch, np, pc, GoogLeNet, det,
+                                            worst)),
+        ("inceptionresnetv1", lambda: zoo_embedding_net(
+            torch, np, pc, InceptionResNetV1, worst)),
+        ("facenetnn4small2", lambda: zoo_embedding_net(
+            torch, np, pc, FaceNetNN4Small2, worst)),
+        ("select_cnn", lambda: zoo_selector(torch, ModelSelector)),
+        ("tl_resnet50", lambda: tl_resnet(
+            torch, np, pc, ResNet50, card,
+            engine["pallas"]["group"]["ms_per_step"], det, tmp)),
+        ("tl_vgg16", lambda: tl_vgg16(torch, np, pc, VGG16, card)),
+        ("solvers", lambda: solver_phase(torch, np, LeNet, card)),
+        ("pretrain", lambda: pretrain_phase(torch, np, card)),
+    ]
+    for name, run in parts:
+        t0 = time.perf_counter()
+        out[name] = run()
+        secs[name] = time.perf_counter() - t0
+    # the zoo path: the three graphs' timed "pallas" steps; the TL path:
+    # the ResNet-50 transfer's
+    zoo_launches = {k: sum(out[m]["train"]["launches"][k]
+                           for m in ("googlenet", "inceptionresnetv1",
+                                     "facenetnn4small2"))
+                    for k in pc.launch_counts()}
+    tl_launches = out["tl_resnet50"]["launches"]
+    out.update(seconds=secs, zoo_launches=zoo_launches,
+               tl_launches=tl_launches, worst=worst)
+    log(f"zoo phase: launches on the zoo path {zoo_launches}, on the TL "
+        f"path {tl_launches}; seconds per part "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return out
+
+
 # ------------------------------------------------------------ phase 6
 
 
@@ -3412,6 +4246,16 @@ def main():
     rnn = rnn_phase(torch, np, pc, card)
     log(f"rnn phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5g. the graph zoo (GoogLeNet, InceptionResNetV1, FaceNetNN4Small2),
+    # ModelSelector, transfer learning (ResNet-50, VGG16), the line-search
+    # solvers and layerwise pretraining
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo = zoo_phase(torch, np, pc, card, engine, tmp)
+    for name, v in zoo["worst"].items():
+        worst[name] = max(worst[name], v)
+    log(f"zoo phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -3462,6 +4306,11 @@ def main():
             "tm_launches_per_replay": tm["k4"]["launches_per_replay"][name],
             "obs_launches": obs["fit"]["launches"][name],
             "rnn_launches": rnn["launches"][name],
+            "zoo_launches": zoo["zoo_launches"][name],
+            "zoo_launches_by_route": {
+                r: zoo["zoo_launches"][f"{name}/{r}"]
+                for r in ("wgmma", "simple")},
+            "tl_launches": zoo["tl_launches"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -3473,7 +4322,7 @@ def main():
                        "serving": serving, "reference": reference,
                        "forward_ms": fwd, "step_check": step,
                        "train": train, "engine": engine, "mln": mln,
-                       "tm": tm, "obs": obs, "rnn": rnn},
+                       "tm": tm, "obs": obs, "rnn": rnn, "zoo": zoo},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -3484,7 +4333,11 @@ def main():
         f"{TM_STEPS}-step TrainingMaster fit at steps_per_dispatch="
         f"{GROUP_K}, tm_launches_per_replay from one of its replays, "
         f"obs_launches from phase 5e's two hooks-on fits ({2 * OBS_STEPS} "
-        "steps), rnn_launches from phase 5f (the recurrent path)")
+        "steps), rnn_launches from phase 5f (the recurrent path), "
+        f"zoo_launches from phase 5g's timed \"pallas\" steps of GoogLeNet "
+        f"({ZOO_STEPS}), InceptionResNetV1 and FaceNetNN4Small2 "
+        f"({ZOO_SMALL_STEPS} each), tl_launches from its {TL_STEPS} "
+        "ResNet-50 transfer steps")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,10 +22,13 @@ the JAX package's zips both ways), batched serving
 whose run_group replays a CUDA graph of k captured steps; StepHarness;
 the input pipeline), resilience/ (the non-finite guard, the step
 watchdog, the Supervisor), datasets/, earlystopping/, MultiLayerNetwork,
-TrainingMaster and ParallelWrapper on one card, and observability
+TrainingMaster and ParallelWrapper on one card, observability
 (observability/: metrics with Prometheus text, tracing, the phase
 profiler, the cost model; stats/: StatsListener and the dashboard;
-optimize/listeners.py).
+optimize/listeners.py), recurrent networks, the graph zoo with
+ModelSelector and pretrained loading, transfer learning
+(nn/transferlearning.py), gradient checks (gradientcheck.py), the
+line-search solvers (optimize/solvers.py) and layerwise pretraining.
 """
 
 from deeplearning4j_tpu_torch.device import resolve_device  # noqa: F401

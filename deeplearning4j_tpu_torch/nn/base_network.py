@@ -70,10 +70,12 @@ def _grad_norm(tree):
 
 
 def _per_layer(fn, grads):
-    """fn over each layer's grads of a dict (graph) or list (layer list)."""
+    """fn over each layer's grads of a dict (graph) or list (layer list);
+    a layer without gradients (no params, or frozen) passes through."""
+    apply = lambda lg: fn(lg) if leaves(lg) else lg
     if isinstance(grads, dict):
-        return {k: fn(lg) for k, lg in grads.items()}
-    return [fn(lg) for lg in grads]
+        return {k: apply(lg) for k, lg in grads.items()}
+    return [apply(lg) for lg in grads]
 
 
 def clip_grads(conf, grads):
@@ -142,6 +144,7 @@ class BaseNetwork:
         self._updaters = None
         self._flat_train = None       # (flat params, flat updater state)
         self._flat_chain = "uninit"   # grad-over-flat carrier (updater/)
+        self._solver = None           # line-search solver (optimize/)
         self._cast_params = None      # params in the compute dtype (cache)
         self._drop_gen: Optional[torch.Generator] = None
         self.rnn_states = None        # rnn_time_step's carries
@@ -432,6 +435,19 @@ class BaseNetwork:
               grads[k], upd[k]) for k, l in self._layer_items()], lr, step)
         return self._pack(np_list), self._pack(nu_list)
 
+    def _grad_leaves(self, params):
+        """The per-layer params as the train step differentiates them:
+        detached, and autograd leaves except in frozen layers, so the
+        backward stops at the frozen boundary and runs nothing for a
+        frozen prefix. A global-norm clip (`max_grad_norm`) sums the
+        frozen layers' gradients too, as the JAX package's does, so
+        under it every layer is a leaf."""
+        frozen = set() if self.conf.max_grad_norm else self._frozen()
+        return self._pack([
+            tree_map(lambda t: t.detach() if k in frozen
+                     else t.detach().requires_grad_(), params[k])
+            for k, _ in self._layer_items()])
+
     def _step(self, carry, inputs, labels, lmasks, scalars, fmasks=None,
               rnn_carries=None):
         """ONE train step on an explicit carry — the step math every
@@ -451,18 +467,25 @@ class BaseNetwork:
             leaf = params.detach().requires_grad_()
             ps = [leaf]
         else:
-            leaf = tree_map(lambda t: t.detach().requires_grad_(), params)
-            ps = leaves(leaf)
+            leaf = self._grad_leaves(params)
+            ps = [t for t in leaves(leaf) if t.requires_grad]
         with torch.enable_grad():
             loss, new_states, new_rnn = self._loss_for_grad(
                 self._flat_chain.unravel(leaf) if flat else leaf, states,
                 inputs, labels, lmasks, fmasks, rnn_carries)
-            gs = torch.autograd.grad(loss, ps, allow_unused=True)
+            gs = (torch.autograd.grad(loss, ps, allow_unused=True)
+                  if ps else ())
         with torch.no_grad():
-            gs = [torch.zeros_like(p) if g is None else g
-                  for p, g in zip(ps, gs)]
-            grads = clip_grads(self.conf, gs[0] if flat
-                               else unflatten(leaf, gs)[0])
+            gs = iter([torch.zeros_like(p) if g is None else g
+                       for p, g in zip(ps, gs)])
+            if flat:
+                grads = next(gs)
+            else:
+                # a frozen layer has no gradient: None leaves, which the
+                # clip passes over and the update never reads
+                grads = unflatten(leaf, [next(gs) if t.requires_grad
+                                         else None for t in leaves(leaf)])[0]
+            grads = clip_grads(self.conf, grads)
             new_p, new_u = self._apply_updates(params, upd, grads,
                                                scalars[0], scalars[1])
         new_rnn = tree_map(lambda t: t.detach(), new_rnn)
@@ -488,11 +511,34 @@ class BaseNetwork:
     def _fit_one(self, inputs, labels, lmasks=None, fmasks=None):
         """Train on one batch of tensors (as `_batch_tensors` gives them):
         truncated BPTT for a TBPTT net whose every input is 3-D, else one
-        `_train_step`. Returns the (last chunk's) loss."""
+        line-search solver iteration when the configuration names a
+        solver, else one `_train_step`. Returns the (last chunk's) loss."""
         if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
                 and all(t.ndim == 3 for t in leaves(inputs))):
             return self._fit_tbptt(inputs, labels, lmasks, fmasks)
+        if self._use_solver():
+            return self._solver_step(inputs, labels, lmasks, fmasks)
         return self._train_step(inputs, labels, lmasks, fmasks)[0]
+
+    def _use_solver(self) -> bool:
+        return getattr(self.conf, "optimization_algo",
+                       "stochastic_gradient_descent") not in (
+            "stochastic_gradient_descent", "sgd")
+
+    def _solver_step(self, inputs, labels, lmasks, fmasks):
+        """One iteration of the configuration's line-search solver
+        (optimize/solvers.py, built on first use and kept, with its
+        history, across batches); advances the iteration and sets the
+        score."""
+        from deeplearning4j_tpu_torch.optimize.solvers import make_solver
+
+        if self._solver is None:
+            self._solver = make_solver(self.conf.optimization_algo, self)
+        self._last_batch_size = int(leaves(inputs)[0].shape[0])
+        loss = self._solver.step(inputs, labels, lmasks, fmasks)
+        self.iteration += 1
+        self._score = torch.tensor(loss, dtype=self.dtype, device=self.device)
+        return self._score
 
     def _fit_tbptt(self, inputs, labels, lmasks, fmasks):
         """Truncated BPTT: the time axis cut into chunks of
@@ -538,11 +584,3 @@ class BaseNetwork:
         """Forget `rnn_time_step`'s carries; the next call starts from
         zeros."""
         self.rnn_states = None
-
-    def _require_sgd(self):
-        if self.conf.optimization_algo not in (
-                "stochastic_gradient_descent", "sgd"):
-            raise NotImplementedError(
-                f"optimization_algo {self.conf.optimization_algo!r} is not "
-                f"ported yet (ROADMAP queue 5)")
-

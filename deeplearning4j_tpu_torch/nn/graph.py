@@ -260,7 +260,6 @@ class ComputationGraph(BaseNetwork):
         if not self._initialized():
             self.init()
         ins, labs, fms, lms = _as_multi(batch)
-        self._require_sgd()
         self._fit_one(*self._batch_tensors(ins, labs, fms, lms))
         self._notify_iteration()
         return self._score

@@ -30,7 +30,9 @@ The backward of a 1x1 stride-1 conv with statistics of the full batch
 (with_stats <= 1) runs on the dgrad_conv1x1/wgrad_conv1x1 kernels under
 "pallas"; every other backward is the composed one, with torch's
 convolution gradients on the recomputed u (the JAX package computes
-those outside Pallas too).
+those outside Pallas too). Either computes only the gradients autograd
+asks for (`ctx.needs_input_grad`): a conv whose input comes from frozen
+layers forms no du (no dgrad launch), a frozen conv no dW.
 """
 
 from __future__ import annotations
@@ -127,15 +129,18 @@ class FusedConv(torch.autograd.Function):
             zero = lambda v: torch.zeros(n, dtype=torch.float32,
                                          device=y.device) if v is None else v
             dssum, dssq = zero(dssum), zero(dssq)
+        # the gradients autograd asks for: an input from a frozen layer
+        # (or none at all) needs no dx, its affine no ds/dt
+        need = tuple(ctx.needs_input_grad[:8])
         if (impl == "pallas" and with_stats <= 1 and kernel_route(
                 w.shape, stride, padding, x.shape[1:3]) == "conv1x1"):
             grads = _bwd_pallas_1x1(x, w, b, scale, shift, x2, scale2,
                                     shift2, y, dy, dssum, dssq, du_out,
-                                    relu)
+                                    relu, need)
         else:
             grads = _bwd_composed(x, w, b, scale, shift, x2, scale2, shift2,
                                   y, dy, dssum, dssq, du_out, stride,
-                                  padding, relu, with_stats)
+                                  padding, relu, with_stats, need)
         return grads + (None,) * 6
 
 
@@ -203,9 +208,15 @@ def _fwd_kernel(route, x, w, b, scale, shift, x2, scale2, shift2, relu,
 # --------------------------------------------------------------- backward
 
 
-def _conv_grads(u, w, ybar, stride, padding):
+# of FusedConv's eight differentiable inputs (x, w, b, scale, shift, x2,
+# scale2, shift2), the ones whose gradients need du
+_INPUT_SIDE = (0, 3, 4, 5, 6, 7)
+
+
+def _conv_grads(u, w, ybar, stride, padding, need_du=True, need_dw=True):
     """(du, dw) of conv2d_nhwc(u, w, stride, padding) for the cotangent
-    ybar: torch's convolution backward on the explicitly padded u."""
+    ybar: torch's convolution backward on the explicitly padded u; a
+    gradient not asked for is None and not computed."""
     kh, kw = int(w.shape[0]), int(w.shape[1])
     h, wd = u.shape[1], u.shape[2]
     (pt, pb), (pl, pr) = resolve_padding(padding, h, wd, kh, kw, *stride)
@@ -213,16 +224,24 @@ def _conv_grads(u, w, ybar, stride, padding):
     gi, gw, _ = torch.ops.aten.convolution_backward(
         ybar.permute(0, 3, 1, 2), up.permute(0, 3, 1, 2),
         w.permute(3, 2, 0, 1), None, list(stride), [0, 0], [1, 1], False,
-        [0, 0], 1, [True, True, False])
-    du = gi.permute(0, 2, 3, 1)[:, pt:pt + h, pl:pl + wd, :]
-    return du, gw.permute(2, 3, 1, 0)
+        [0, 0], 1, [need_du, need_dw, False])
+    du = None if gi is None else \
+        gi.permute(0, 2, 3, 1)[:, pt:pt + h, pl:pl + wd, :]
+    return du, None if gw is None else gw.permute(2, 3, 1, 0)
+
+
+def _keep(grads, need):
+    """`grads` with each one not asked for replaced by None."""
+    return tuple(g if n else None for g, n in zip(grads, need))
 
 
 def _bwd_composed(x, w, b, scale, shift, x2, scale2, shift2, y, dy, dssum,
-                  dssq, du_out, stride, padding, relu, with_stats):
+                  dssq, du_out, stride, padding, relu, with_stats, need):
     """The JAX package's composed backward (fused_ops.py _fused_conv_bwd):
     ybar rounded to the compute dtype, u recomputed, torch's convolution
-    gradients, then the relu mask and the two branches' affine grads."""
+    gradients, then the relu mask and the two branches' affine grads.
+    `need`: which of the eight gradients to compute (`ctx.needs_input_grad`;
+    the rest are None); without an input-side gradient no du is formed."""
     dtype = x.dtype
     ybar = dy
     if dssum is not None:
@@ -236,8 +255,13 @@ def _bwd_composed(x, w, b, scale, shift, x2, scale2, shift2, y, dy, dssum,
             corr = corr.to(dtype)
             ybar = torch.cat([dy[:nb] + corr, dy[nb:]])
     u = _prologue(x, scale, shift, x2, scale2, shift2, relu)
-    db = None if b is None else to_acc(ybar).sum((0, 1, 2)).to(b.dtype)
-    du, dw = _conv_grads(u, w, ybar, stride, padding)
+    db = None if b is None or not need[2] else \
+        to_acc(ybar).sum((0, 1, 2)).to(b.dtype)
+    need_du = any(need[i] for i in _INPUT_SIDE)
+    du, dw = (_conv_grads(u, w, ybar, stride, padding, need_du, need[1])
+              if need_du or need[1] else (None, None))
+    if not need_du:
+        return None, dw, db, None, None, None, None, None
     if du_out is not None:
         du = du + du_out.to(du.dtype)
     if relu:
@@ -252,25 +276,35 @@ def _bwd_composed(x, w, b, scale, shift, x2, scale2, shift2, y, dy, dssum,
 
     dx, ds1, dt1 = branch(x, scale)
     dx2, ds2, dt2 = (None,) * 3 if x2 is None else branch(x2, scale2)
-    return dx, dw, db, ds1, dt1, dx2, ds2, dt2
+    return _keep((dx, dw, db, ds1, dt1, dx2, ds2, dt2), need)
 
 
 def _bwd_pallas_1x1(x, w, b, scale, shift, x2, scale2, shift2, y, dy,
-                    dssum, dssq, du_out, relu):
+                    dssum, dssq, du_out, relu, need):
     """Backward on the dgrad/wgrad kernels: each big tensor is read once
-    per kernel; ybar and du never round-trip device memory."""
+    per kernel; ybar and du never round-trip device memory. `need` as
+    `_bwd_composed`'s: dgrad runs only for an input-side gradient (it
+    also sums db; without it torch sums db, as the composed backward
+    does), wgrad only for dW."""
     bsz, h, wd, k = x.shape
     m, n = bsz * h * wd, w.shape[-1]
     rows = lambda t, c: None if t is None else t.reshape(m, c).contiguous()
     dy2, y2, x1, xx2 = rows(dy, n), rows(y, n), rows(x, k), rows(x2, k)
-    dx1, dx2, ds1, dt1, ds2, dt2, db = pallas_conv.dgrad_conv1x1(
-        dy2, y2, w.reshape(k, n).contiguous(), x1, xx2, rows(du_out, k),
-        scale, shift, scale2, shift2, dssum, dssq, relu)
-    dw = pallas_conv.wgrad_conv1x1(dy2, y2, x1, xx2, scale, shift, scale2,
-                                   shift2, dssum, dssq, relu)
-    return (dx1.reshape(x.shape), dw.reshape(w.shape).to(w.dtype),
-            None if b is None else db.to(b.dtype), ds1, dt1,
-            None if x2 is None else dx2.reshape(x2.shape), ds2, dt2)
+    dx1 = dx2 = ds1 = dt1 = ds2 = dt2 = db = dw = None
+    if any(need[i] for i in _INPUT_SIDE):
+        dx1, dx2, ds1, dt1, ds2, dt2, db = pallas_conv.dgrad_conv1x1(
+            dy2, y2, w.reshape(k, n).contiguous(), x1, xx2, rows(du_out, k),
+            scale, shift, scale2, shift2, dssum, dssq, relu)
+        dx1 = dx1.reshape(x.shape)
+        dx2 = None if x2 is None else dx2.reshape(x2.shape)
+    elif b is not None and need[2]:
+        db = pallas_conv.ybar_acc(dy2, y2, dssum, dssq).sum(0)
+    if need[1]:
+        dw = pallas_conv.wgrad_conv1x1(
+            dy2, y2, x1, xx2, scale, shift, scale2, shift2, dssum, dssq,
+            relu).reshape(w.shape).to(w.dtype)
+    return _keep((dx1, dw, None if b is None or db is None
+                  else db.to(b.dtype), ds1, dt1, dx2, ds2, dt2), need)
 
 
 # ---------------------------------------------------------------- helpers

@@ -24,3 +24,8 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
     GravesBidirectionalLSTM,
     GravesLSTM,
 )
+from deeplearning4j_tpu_torch.nn.layers.feedforward import AutoEncoder  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers.rbm import RBM  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers.variational import (  # noqa: F401
+    VariationalAutoencoder,
+)

@@ -168,7 +168,10 @@ class CenterLossOutputLayer(OutputLayer):
         lab2d = labels if labels.ndim == 2 else labels.reshape(
             -1, labels.shape[-1])
         x2d = x if x.ndim == 2 else x.reshape(-1, x.shape[-1])
-        cy = lab2d @ params["centers"]                   # [B, nIn]
+        # mixed dtypes (f32 labels, bf16 centers and features under the
+        # bf16 policy) promote to the wider one, as jnp's matmul does
+        dt = torch.promote_types(lab2d.dtype, params["centers"].dtype)
+        cy = lab2d.to(dt) @ params["centers"].to(dt)     # [B, nIn]
         center = (0.5 * torch.sum((x2d - cy) ** 2, dim=-1)).reshape(
             base.shape)
         if mask is not None:

@@ -20,8 +20,10 @@ are base_network's; `rnn_time_step` streams one step or chunk at a time
 from `rnn_states`, under no_grad, with the f32 params, as the JAX
 package's does.
 
-Not ported yet (ROADMAP queue 5): the line-search solvers and layerwise
-`pretrain`; they raise.
+Beside the updater step: the line-search solvers (optimize/solvers.py,
+selected by `optimization_algo`, run by base_network's `_fit_one`) and
+layerwise `pretrain` of the AutoEncoder, VariationalAutoencoder and RBM
+layers.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
 from deeplearning4j_tpu_torch.nn.layers.core import BaseOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RECURRENT_LAYERS
-from deeplearning4j_tpu_torch.util.tree import leaves
+from deeplearning4j_tpu_torch.nn.updater import get_updater, schedule_lr
+from deeplearning4j_tpu_torch.util.tree import leaves, tree_map, unflatten
 
 
 def _as_batch(data) -> Tuple:
@@ -49,10 +52,6 @@ def _as_batch(data) -> Tuple:
         get = lambda i: data[i] if len(data) > i else None
         return data[0], get(1), get(2), get(3)
     return data, None, None, None
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 5)")
 
 
 class MultiLayerNetwork(BaseNetwork):
@@ -176,7 +175,6 @@ class MultiLayerNetwork(BaseNetwork):
         if not self._initialized():
             self.init()
         x, y, fm, lm = _as_batch(batch)
-        self._require_sgd()
         loss = self._fit_one(*self._batch_tensors(x, y, fm, lm))
         self._notify_iteration()
         return loss
@@ -284,7 +282,63 @@ class MultiLayerNetwork(BaseNetwork):
         return out[:, -1, :] if single and out.ndim == 3 else out
 
     def pretrain(self, data_iterator, epochs: int = 1):
-        raise _not_ported("layerwise pretrain (AutoEncoder, VAE, RBM)")
+        """Greedy layerwise unsupervised pretraining of the AutoEncoder,
+        VariationalAutoencoder and RBM layers, in layer order (frozen
+        ones skipped): each trains on its `pretrain_loss` over the
+        batches' features fed through the layers before it in inference
+        mode, for `epochs` passes, with its own updater state (the
+        configuration's updater, fresh per layer) and the configuration's
+        rate schedule counted from 0 per layer. Sampling (corruption,
+        Gibbs chains, reparameterization noise) draws from the network's
+        generator, so a seed gives one result. Returns self."""
+        from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+            AutoEncoder,
+        )
+        from deeplearning4j_tpu_torch.nn.layers.rbm import RBM
+        from deeplearning4j_tpu_torch.nn.layers.variational import (
+            VariationalAutoencoder,
+        )
+
+        if not self._initialized():
+            self.init()
+        conf = self.conf
+        params = list(self.params)
+        for li, layer in enumerate(conf.layers):
+            if layer.frozen or not isinstance(
+                    layer, (AutoEncoder, VariationalAutoencoder, RBM)):
+                continue
+            upd = get_updater(layer.updater or conf.updater, conf)
+            upd_state = upd.init(params[li])
+            step = 0
+            for _ in range(epochs):
+                if hasattr(data_iterator, "reset"):
+                    data_iterator.reset()
+                for batch in data_iterator:
+                    with torch.no_grad():
+                        cur = self._as_input(_as_batch(batch)[0])
+                        for j in range(li):
+                            if j in conf.preprocessors:
+                                cur = conf.preprocessors[j].preprocess(cur)
+                            cur, _ = conf.layers[j].apply(
+                                params[j], cur, train=False,
+                                state=self.states[j] or None)
+                        if li in conf.preprocessors:
+                            cur = conf.preprocessors[li].preprocess(cur)
+                    lp = tree_map(lambda t: t.detach().requires_grad_(),
+                                  params[li])
+                    with torch.enable_grad():
+                        loss = layer.pretrain_loss(lp, cur, self._drop_gen)
+                        grads = torch.autograd.grad(loss, leaves(lp))
+                    with torch.no_grad():
+                        grads = unflatten(lp, list(grads))[0]
+                        deltas, upd_state = upd.update(
+                            grads, upd_state, lp, schedule_lr(conf, step),
+                            step)
+                        params[li] = tree_map(lambda p, d: p.detach() + d,
+                                              lp, deltas)
+                    step += 1
+            self.params = params
+        return self
 
     # -------------------------------------------------------------- plumbing
     def get_layer(self, i: int) -> Layer:

@@ -71,7 +71,9 @@ def params_from_jax(params, states=None, device=None, dtype=torch.float32,
     node name or a MultiLayerNetwork's per-layer lists, of numpy or jax
     arrays: conv W/b, BN gamma/beta and mean/var, dense, output and
     embedding W/b, LSTM W/RW/b and the Graves peepholes P, the
-    bidirectional layer's {"bwd", "fwd"} pair) into the port's tensors on
+    bidirectional layer's {"bwd", "fwd"} pair, the center-loss head's
+    centers, AutoEncoder/RBM W/b/vb, the VAE's encoder/decoder lists of
+    {W, b} and its mu/logvar/out heads) into the port's tensors on
     `device` (default "cuda"; pass "cpu" explicitly), in the same
     structure.
     Returns (params, states), and the updater states (e.g. nesterovs'
@@ -254,3 +256,16 @@ def restore_model(path, device=None, compute_dtype=None):
     """Load whichever network a model zip holds: a MultiLayerNetwork when
     its configuration is a layer list, else a ComputationGraph."""
     return _restore(path, None, device, compute_dtype)
+
+
+class ModelSerializer:
+    """Static facade over this module, as the JAX package's (no
+    `read_normalizer`: the normalizers are not ported yet, ROADMAP queue
+    1 item 10)."""
+
+    writeModel = write_model = staticmethod(write_model)
+    verify_model = staticmethod(verify_model)
+    restoreMultiLayerNetwork = restore_multi_layer_network = staticmethod(
+        restore_multi_layer_network)
+    restoreComputationGraph = restore_computation_graph = staticmethod(
+        restore_computation_graph)

@@ -1037,3 +1037,107 @@ def test_cuda_stats_summaries_equal_the_cpus(rng):
     torch.testing.assert_close(gpu[:, :2], cpu[:, :2], rtol=0, atol=0)
     torch.testing.assert_close(gpu[:, 3:], cpu[:, 3:], rtol=0, atol=0)
     torch.testing.assert_close(gpu[:, 2], cpu[:, 2], rtol=1e-5, atol=0)
+
+
+# Graph-zoo shapes on the "simple" route in bf16 (channel counts that are
+# not multiples of 64): GoogLeNet's i3a_5x5r (192 -> 16 at 28x28) and
+# i4a_5x5r (480 -> 16 at 14x14), i4e's 528 -> 32, and 3x3s with C != N
+# (96 -> 128 at 28x28, 112 -> 224 at 14x14); 64 -> 192 at 56x56 takes the
+# wgmma route. Batch 2 keeps the test small. Bound: the kernel phase's
+# normalized one, max |kernel - plain| / max(max |plain|, 1) <= 1e-2 in
+# bf16 (one output rounding may land on either side).
+ZOO_1X1 = [(2 * 28 * 28, 192, 16), (2 * 14 * 14, 480, 16),
+           (2 * 14 * 14, 528, 32)]
+ZOO_3X3 = [(2, 28, 96, 128), (2, 14, 112, 224), (2, 56, 64, 192)]
+ZOO_TOL = 1e-2
+
+
+def _norm_err(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("1x1", s) for s in ZOO_1X1]
+                         + [("3x3", s) for s in ZOO_3X3],
+                         ids=["k192_n16", "k480_n16", "k528_n32",
+                              "c96_n128", "c112_n224", "c64_n192"])
+def test_cuda_zoo_forward_shapes_match_plain_in_bf16(rng, case):
+    _need_cuda()
+    kind, shape = case
+    x, w, b, kw = _fwd_inputs(rng, kind, shape)
+    m, k, n = ((shape[0], shape[1], shape[2]) if kind == "1x1" else
+               (shape[0] * shape[1] ** 2, shape[2], shape[3]))
+    want = tpc.forward_route(torch.bfloat16, m, k, n,
+                             width=None if kind == "1x1" else shape[1])
+    assert want == ("wgmma" if k % 64 == 0 and n % 64 == 0 else "simple")
+    tpc.reset_launch_counts()
+    got = _fwd(kind)(x, w, b, **kw)
+    ref = (tpc.ref_fused_conv1x1 if kind == "1x1"
+           else tpc.ref_fused_conv3x3)(x, w, b, **kw)
+    torch.cuda.synchronize()
+    name = "fused_conv1x1" if kind == "1x1" else "fused_conv3x3"
+    assert tpc.FORWARD_ROUTES[name][want] == 1
+    for g, r in zip(got[:3], ref[:3]):
+        assert _norm_err(g, r) <= ZOO_TOL
+    if kind == "1x1":
+        assert torch.equal(got[3], ref[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ZOO_1X1, ids=["k192_n16", "k480_n16",
+                                                "k528_n32"])
+def test_cuda_zoo_backward_shapes_match_plain_in_bf16(rng, shape):
+    _need_cuda()
+    kw = _bwd_args(rng, *shape, torch.bfloat16, BWD_CASES[2])
+    assert tpc.backward_route(torch.bfloat16, *shape) == "simple"
+    got, again = tpc.dgrad_conv1x1(**kw), tpc.dgrad_conv1x1(**kw)
+    ref = tpc.ref_dgrad_conv1x1(**kw)
+    gw = tpc.wgrad_conv1x1(**_wgrad_kw(kw))
+    rw = tpc.ref_wgrad_conv1x1(**_wgrad_kw(kw))
+    torch.cuda.synchronize()
+    for g, r, a in zip(got, ref, again):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert _norm_err(g, r) <= ZOO_TOL and torch.equal(g, a)
+    assert _norm_err(gw, rw) <= ZOO_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_frozen_prefix_replays_bitwise_without_its_backward(
+        deterministic_cudnn):
+    """The mini ResNet with its conv block frozen (TransferLearning
+    .GraphBuilder): run_group(3) equals three eager runs bit for bit, the
+    frozen params keep their bits, and a replay launches the backward
+    kernels of the unfrozen block only (b1a: wgrad; b1c: dgrad and
+    wgrad)."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        TransferLearning,
+    )
+
+    def frozen_net():
+        return (TransferLearning.GraphBuilder(_port_mini_resnet("pallas"))
+                .set_feature_extractor("b0_out").build())
+
+    data = _engine_batches(3)
+    a, b = frozen_net(), frozen_net()
+    frozen = sorted(a._frozen())
+    before = {k: [t.clone() for t in a.params[k].values()] for k in frozen}
+    pa, pb = StepProgram(a), StepProgram(b)
+    tpc.reset_launch_counts()
+    losses = torch.stack([pa.run(x, y) for x, y in data])
+    torch.cuda.synchronize()
+    eager = dict(tpc.LAUNCHES)
+    pb.run_group(*_stacked(data))
+    torch.cuda.synchronize()
+    assert torch.equal(losses, pb.last_step_losses)
+    _assert_nets_bitwise(a, b)
+    for net in (a, b):
+        for k in frozen:
+            assert all(torch.equal(t, u) for t, u in
+                       zip(before[k], net.params[k].values()))
+    assert eager["dgrad_conv1x1"] == 3 and eager["wgrad_conv1x1"] == 6
+    (per_replay,) = pb.group_launches().values()
+    assert per_replay["dgrad_conv1x1"] == 3
+    assert per_replay["wgrad_conv1x1"] == 6

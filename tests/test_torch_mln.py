@@ -439,11 +439,19 @@ def test_evaluate_matches_jax_evaluation():
 
 
 def test_unported_paths_name_their_queue():
+    """The paths that raised until the slice that ported them: layerwise
+    pretrain leaves a net without pretrain layers as it is, a line-search
+    solver trains, and an unknown algorithm names the known ones."""
     net = _lenet()
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        net.pretrain([])
+    before = [t.clone() for t in leaves(net.params)]
+    assert net.pretrain([_data(20, (12, 12, 1), 10)]) is net
+    assert all(torch.equal(a, b) for a, b in zip(before, leaves(net.params)))
     net.conf.optimization_algo = "lbfgs"
-    with pytest.raises(NotImplementedError, match="queue 5"):
+    assert np.isfinite(float(net.fit_batch(_data(20, (12, 12, 1), 10))))
+    assert net.iteration == 1
+    net.conf.optimization_algo = "newton"
+    net._solver = None
+    with pytest.raises(ValueError, match="Unknown optimization"):
         net.fit_batch(_data(20, (12, 12, 1), 10))
     assert "Total parameters" in net.summary()
     assert net.n_layers() == 6 and isinstance(net.get_layer(0),
