@@ -172,6 +172,32 @@ Phases, in order; any failure exits non-zero:
      iterations of each line-search solver, a falling loss; an RBM ->
      AutoEncoder -> VAE -> softmax MLN pretrained PRETRAIN_EPOCHS epochs
      of PRETRAIN_BATCHES batches, each layer's loss falling;
+  5h. Keras import and data (lines start "keras " and "data: "; no
+     h5py needed: the port reads HDF5 itself): the seven
+     tests/fixtures/*.h5 imported onto the card in f32 against their
+     expected outputs (KERAS_TOL); canonical Keras VGG16 (BASELINE config
+     4; relu convolutions) and Keras ResNet50, their committed
+     tf.keras configurations (tests/fixtures/torch/) with weights seeded
+     from --seed written into a whole-model .h5 by this script's HDF5
+     writer (write_keras_h5) and imported (seconds, GB/s, every weight bit
+     for bit); VGG16 with VGG16ImagePreProcessor on 0-255 images at
+     KERAS_VGG_BATCH, bf16, run_group(GROUP_K): frozen through
+     block5_pool and full fine-tune (ms/step, img/s, idle share, peak
+     memory, a falling loss, the frozen params bit for bit), the
+     fine-tuned net written with its normalizer and read back (the same
+     normalizer, the same output bits and score), Evaluation,
+     ROCMultiClass and EvaluationCalibration of a held batch on the card
+     against the same fed CPU copies; ResNet50 under "pallas" and bf16:
+     the forward against "fused" (bf16 and f32, ZOO_LOGP_TOL), its kernel
+     calls (a batch-BATCH forward, a batch-KERAS_RESNET_BATCH train step)
+     counted against path_launches and each distinct one against its
+     plain version (TOL), KERAS_RESNET_STEPS timed steps beside phase
+     5b's zoo ResNet-50; the native host library available, a seeded
+     CSV of CSV_ROWS x CSV_COLS parsed by the C++ path and the NumPy
+     fallback (bit for bit, rows/s) and fed through
+     RecordReaderDataSetIterator into batches on the card; LeNet
+     (BASELINE config 1) on MnistDataSetIterator's stand-in, LENET_STEPS
+     steps through run_group(GROUP_K), a falling loss;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -188,6 +214,7 @@ prints no result.
 import argparse
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -373,6 +400,30 @@ LOGP_TOL = {"served": 0.3, "bf16_vs_torch": 0.3, "bf16_vs_f32": 1.0,
 ROUTE_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 STEP_TOL = {"float32": {"loss": 1e-6, "overall": 1e-2},
             "bfloat16": {"loss": 1e-3}}
+# phase 5h: Keras import and data. The seven Keras fixtures against their
+# expected outputs at tests/test_modelimport.py's bars; canonical Keras
+# VGG16 (BASELINE config 4, bench.py:506 bench_vgg16: batch 32, frozen
+# through block5_pool and full fine-tune) and Keras ResNet50 (the forward
+# at BATCH, KERAS_RESNET_STEPS train steps at KERAS_RESNET_BATCH) written
+# with seeded weights and imported; a CSV of CSV_ROWS x CSV_COLS; LeNet
+# (BASELINE config 1) on the MNIST stand-in. The Keras models take HW-sized
+# images (their configurations' own 224 unless a CPU rehearsal lowers HW).
+KERAS_FIXTURES = ("seq_cnn", "func_merge", "lstm_seq", "func_cnn_merge",
+                  "lstm_encoder", "conv1d_stack", "lrn_cnn")
+KERAS_TOL = {"rtol": 1e-4, "atol": 1e-5}
+KERAS_VGG_BATCH = 32
+KERAS_VGG_STEPS = 8
+KERAS_RESNET_BATCH = TRAIN_BATCH
+KERAS_RESNET_STEPS = 20
+# the bf16 "pallas" forward against "fused", max |log p - log p_ref|, of
+# the imported ResNet50 (its f32 limit is ZOO_LOGP_TOL's): the first chip
+# reading was 0.169 (f32 1.9e-5; PERF.md, phase 5h), margin 3x
+KERAS_RESNET_BF16_LOGP_TOL = 0.5
+CSV_ROWS = 1_000_000
+CSV_COLS = 11
+CSV_BATCH = 4096
+LENET_BATCH = 64
+LENET_STEPS = 20
 # Phase 5g: the zoo graphs' "pallas" forward against "fused" on the same
 # weights, max |log p - log p_ref|, under the bf16 policy (per model) and
 # in f32 (TF32 off). With seeded random weights a deep bf16 graph's logits
@@ -388,7 +439,8 @@ STEP_TOL = {"float32": {"loss": 1e-6, "overall": 1e-2},
 # the H100 and the CPU; the limit leaves room for a library that picks
 # another algorithm for the tail's own calls.
 ZOO_LOGP_TOL = {"GoogLeNet": 4.0, "InceptionResNetV1": 0.1,
-                "FaceNetNN4Small2": 0.1, "float32": 5e-4}
+                "FaceNetNN4Small2": 0.1, "float32": 5e-4,
+                "KerasResNet50": KERAS_RESNET_BF16_LOGP_TOL}
 EMBED_NORM_TOL = 2.0 ** -6
 TL_HELPER_TOL = 1e-6
 
@@ -663,10 +715,11 @@ def randomize_batchnorm(torch, net, seed, hw=None):
     params = {k: dict(v) for k, v in net.params.items()}
     for node in bn_nodes:
         c = params[node.name]["gamma"].shape[0]
-        # the last BN of each residual branch gets a small gamma, as in
-        # trained ResNets: blocks stay near the identity, so the random
-        # network does not amplify rounding differences layer by layer
-        g0 = 0.2 if node.name.endswith("_c_bn") else 1.0
+        # the last BN of each residual branch (the zoo's "_c_bn", Keras
+        # ResNet50's "_3_bn") gets a small gamma, as in trained ResNets:
+        # blocks stay near the identity, so the random network does not
+        # amplify rounding differences layer by layer
+        g0 = 0.2 if node.name.endswith(("_c_bn", "_3_bn")) else 1.0
         params[node.name]["gamma"] = (
             g0 * (1.0 + 0.1 * torch.randn(c, generator=gen))).to(DEV)
         params[node.name]["beta"] = (0.1 * torch.randn(c, generator=gen)).to(DEV)
@@ -2645,8 +2698,8 @@ def obs_serving(torch, np, net, tr):
 def obs_phase(torch, np, pc, ResNet50, card, det):
     """Phase 5e: every hook of the observability slice on the flagship
     (see the module docstring)."""
+    import http.client
     import tempfile
-    import urllib.request
 
     from deeplearning4j_tpu_torch.observability import (
         Tracer,
@@ -2736,9 +2789,14 @@ def obs_phase(torch, np, pc, ResNet50, card, det):
         tm.export_stats_html(os.path.join(tmp, "timeline.html"))
         srv = UIServer(port=0).attach(storage).start()
         try:
-            with urllib.request.urlopen(
-                    f"http://127.0.0.1:{srv.port}/", timeout=30) as resp:
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                              timeout=30)
+            try:
+                conn.request("GET", "/")
+                resp = conn.getresponse()
                 status, body = resp.status, resp.read()
+            finally:
+                conn.close()
         finally:
             srv.stop()
     res["stats"] = {"reports": len(reps), "groups": len(sizes),
@@ -3409,42 +3467,52 @@ def zoo_group_check(torch, np, cls, hw, det):
     return {"tensors": n}
 
 
-def zoo_train(torch, np, pc, cls, hw, steps, label, mode="pallas"):
-    """`steps` steps of `cls` at ZOO_BATCH through run_group(GROUP_K) on
-    one fixed batch on the card (timed_steps: ms/step, img/s, MFU from the
-    layer shapes, idle share, peak memory, top kernels), launches per step
-    by kernel and route against path_launches, a finite loss that falls.
-    Returns (readings, the net, the batch)."""
+def graph_train(torch, np, pc, net, batch, steps, label, mode="pallas",
+                hw=None):
+    """`steps` steps of the graph `net` at `batch` through
+    run_group(GROUP_K) on one fixed seeded batch on the card
+    (timed_steps: ms/step, img/s, MFU from the layer shapes, idle share,
+    peak memory, top kernels), launches per step by kernel and route
+    against path_launches, a finite loss that falls. Returns (readings,
+    the batch)."""
     from deeplearning4j_tpu_torch.engine import StepProgram
 
     ((x, y),) = [(torch.from_numpy(a).to(DEV), torch.from_numpy(b).to(DEV))
-                 for a, b in engine_batches(np, 63, 1, ZOO_BATCH, 1000, hw)]
-    net = zoo_net(cls, mode, hw=hw)
+                 for a, b in engine_batches(np, 63, 1, batch, 1000, hw)]
     prog = StepProgram(net)
     xs, ys = torch.stack([x] * GROUP_K), torch.stack([y] * GROUP_K)
     macs = macs_per_image(net)
     r, losses = timed_steps(
         torch, prog, "group", lambda: prog.run_group(xs, ys), steps=steps,
-        warmup=1, batch=ZOO_BATCH, macs=macs,
+        warmup=1, batch=batch, macs=macs,
         profile_steps=ZOO_PROFILE_STEPS, on_start=pc.reset_launch_counts,
         on_end=lambda: {"counts": pc.launch_counts()})
     counts = r["launches"] = r.pop("counts")
     r["launches_per_step"] = {k: v / steps for k, v in counts.items() if v}
     vals = [float(v) for v in losses]
     r.update(macs_per_image=macs, loss_first=vals[0], loss_last=vals[-1])
-    log(f"{label} {mode}" + timed_line(r, "group", ZOO_BATCH, steps)
+    log(f"{label} {mode}" + timed_line(r, "group", batch, steps)
         + f" ({macs / 1e9:.4f}e9 multiply-adds per image); launches per "
         f"step {r['launches_per_step']}; loss {vals[0]:.4f} -> "
         f"{vals[-1]:.4f}; top kernels (ms per step): " + ", ".join(
             f"{n} {t:.3f}" for n, t in r["top_kernels"]))
     if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
         fail(f"{label} {mode}: loss not finite and falling: {vals}")
-    want = (path_launches(pc, net, ZOO_BATCH, True) if mode == "pallas"
+    want = (path_launches(pc, net, batch, True) if mode == "pallas"
             else {k: 0 for k in counts})
     check_launches(f"{label} {mode}", counts,
                    {k: v * steps for k, v in want.items()})
     del prog
-    return r, net, (x, y)
+    return r, (x, y)
+
+
+def zoo_train(torch, np, pc, cls, hw, steps, label, mode="pallas"):
+    """`steps` steps of `cls` at ZOO_BATCH through run_group(GROUP_K)
+    (graph_train). Returns (readings, the net, the batch)."""
+    net = zoo_net(cls, mode, hw=hw)
+    r, batch = graph_train(torch, np, pc, net, ZOO_BATCH, steps, label, mode,
+                           hw)
+    return r, net, batch
 
 
 def zoo_googlenet(torch, np, pc, GoogLeNet, det, worst):
@@ -3951,6 +4019,677 @@ def zoo_phase(torch, np, pc, card, engine, tmp):
     return out
 
 
+# ------------------------------------------------------------ phase 5h
+# A minimal HDF5 writer (the file format specification's superblock v0,
+# version 1 object headers, symbol-table groups, contiguous datasets):
+# the script needs no h5py, and phase 5h imports full-width Keras files
+# whose weights (553 MB for VGG16) it makes at run time from a seed.
+H5_UNDEF = 0xFFFFFFFFFFFFFFFF
+H5_INTERNAL_K = 16
+
+
+def _h5_pad8(b):
+    return bytes(b) + b"\0" * (-len(b) % 8)
+
+
+def _h5_dtype(a):
+    """The datatype message of a float32, float64 or int64 array: little
+    endian IEEE floats (implied leading mantissa bit, sign bit on top) or
+    a signed 64-bit integer."""
+    if a.dtype.kind == "i":
+        return struct.pack("<B3sIHH", 0x10, b"\x08\0\0", 8, 0, 64)
+    n = a.dtype.itemsize
+    exp_at, exp_bits, bias = {4: (23, 8, 127), 8: (52, 11, 1023)}[n]
+    bits = (0x20 | ((8 * n - 1) << 8)).to_bytes(3, "little")
+    return struct.pack("<B3sIHHBBBBI", 0x11, bits, n, 0, 8 * n, exp_at,
+                       exp_bits, 0, exp_at, bias)
+
+
+def _h5_space(shape):
+    return struct.pack("<BBBB4x", 1, len(shape), 0, 0) + b"".join(
+        struct.pack("<Q", d) for d in shape)
+
+
+def _h5_msg(mtype, body):
+    body = _h5_pad8(body)
+    return struct.pack("<HHB3x", mtype, len(body), 0) + body
+
+
+def _h5_groups(tree):
+    yield tree
+    for v in tree["members"].values():
+        if isinstance(v, dict):
+            yield from _h5_groups(v)
+
+
+def write_keras_h5(np, path, tree):
+    """Write `tree` ({"attrs": {...}, "members": {name: tree | array}})
+    as an HDF5 file: the arrays (float32, float64 or int64) as contiguous
+    datasets written straight from memory, then the metadata — each group
+    one B-tree node over one symbol table node (the leaf K large enough
+    for the largest group), a local heap of names, and a version 1 object
+    header with its attributes. An attribute is a str (a variable-length
+    UTF-8 string in the global heap, as Keras writes model_config), a
+    list of str (fixed-length null-padded strings, as Keras 2 wrote
+    layer_names) or a numpy array. Returns the dataset bytes written."""
+    groups = list(_h5_groups(tree))
+    leaf_k = max(4, max((len(g["members"]) + 1) // 2 for g in groups))
+    strings = [v.encode() for g in groups for v in g["attrs"].values()
+               if isinstance(v, str)]
+    arrays = [a for g in groups for a in g["members"].values()
+              if not isinstance(a, dict)]
+    with open(path, "wb") as f:
+        f.write(b"\0" * 96)                    # the superblock, at the end
+        data_at = {}
+        for a in arrays:
+            f.write(b"\0" * (-f.tell() % 64))
+            data_at[id(a)] = f.tell()
+            np.ascontiguousarray(a).tofile(f)
+        f.write(b"\0" * (-f.tell() % 8))
+        base, meta = f.tell(), bytearray()
+
+        def alloc(b):
+            addr = base + len(meta)
+            meta.extend(_h5_pad8(b))
+            return addr
+
+        # the global heap collection: every variable-length string, from
+        # index 1, then the free-space object (its size counts its header)
+        objs = b"".join(struct.pack("<HH4xQ", i, 1, len(s)) + _h5_pad8(s)
+                        for i, s in enumerate(strings, 1))
+        size = max(4096, 16 + len(objs) + 16)
+        free = size - 16 - len(objs)
+        gcol = alloc(b"GCOL" + struct.pack("<B3xQ", 1, size) + objs
+                     + struct.pack("<HH4xQ", 0, 0, free) + b"\0" * (free - 16))
+
+        def attr(name, value):
+            if isinstance(value, str):
+                raw = value.encode()
+                dt = (struct.pack("<B3sI", 0x19, b"\x01\x01\0", 16)
+                      + struct.pack("<B3sIHH", 0x10, b"\0\0\0", 1, 0, 8))
+                space = _h5_space(())
+                data = struct.pack("<IQI", len(raw), gcol,
+                                   strings.index(raw) + 1)
+            elif isinstance(value, list):
+                enc = [s.encode() for s in value]
+                n = max([len(s) for s in enc] + [1])
+                dt = struct.pack("<B3sI", 0x13, b"\x01\0\0", n)
+                space = _h5_space((len(enc),))
+                data = b"".join(s.ljust(n, b"\0") for s in enc)
+            else:
+                a = np.ascontiguousarray(value)
+                dt, space, data = _h5_dtype(a), _h5_space(a.shape), a.tobytes()
+            nb = name.encode() + b"\0"
+            return _h5_msg(0x000C, struct.pack(
+                "<BxHHH", 1, len(nb), len(dt), len(space)) + _h5_pad8(nb)
+                + _h5_pad8(dt) + _h5_pad8(space) + data)
+
+        def header(msgs):
+            body = b"".join(msgs)
+            return alloc(struct.pack("<BBHII4x", 1, 0, len(msgs), 1,
+                                     len(body)) + body)
+
+        def group(t):
+            """Write group `t` bottom up: (header, B-tree, local heap)."""
+            names = sorted(t["members"], key=str.encode)
+            entries = []
+            for name in names:
+                v = t["members"][name]
+                if isinstance(v, dict):
+                    hdr, bt, hp = group(v)
+                    entries.append((name, hdr, 1, struct.pack("<QQ", bt, hp)))
+                else:
+                    hdr = header([
+                        _h5_msg(0x0001, _h5_space(v.shape)),
+                        _h5_msg(0x0003, _h5_dtype(v)),
+                        _h5_msg(0x0005, bytes([2, 1, 2, 0])),
+                        _h5_msg(0x0008, struct.pack("<BBQQ", 3, 1,
+                                                    data_at[id(v)], v.nbytes))])
+                    entries.append((name, hdr, 0, b"\0" * 16))
+            heap_data, offsets = bytearray(8), {}
+            for name in names:
+                offsets[name] = len(heap_data)
+                heap_data.extend(_h5_pad8(name.encode() + b"\0"))
+            # free-list offset 1: the library's "no free block"
+            heap = alloc(b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data),
+                                               1, alloc(heap_data)))
+            child = last = 0
+            if names:
+                child = alloc(
+                    b"SNOD" + struct.pack("<BxH", 1, len(names))
+                    + b"".join(struct.pack("<QQI4x", offsets[n], h, c) + s
+                               for n, h, c, s in entries)
+                    + b"\0" * (40 * (2 * leaf_k - len(names))))
+                last = offsets[names[-1]]
+            btree = alloc(b"TREE" + struct.pack(
+                "<BBHQQQQQ", 0, 0, 1 if names else 0, H5_UNDEF, H5_UNDEF, 0,
+                child, last) + b"\0" * (32 * H5_INTERNAL_K - 16))
+            return (header([_h5_msg(0x0011, struct.pack("<QQ", btree, heap))]
+                           + [attr(k, v) for k, v in t["attrs"].items()]),
+                    btree, heap)
+
+        root, btree, heap = group(tree)
+        f.write(meta)
+        eof = f.tell()
+        f.seek(0)
+        f.write(b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+                + struct.pack("<HHI", leaf_k, H5_INTERNAL_K, 0)
+                + struct.pack("<QQQQ", 0, H5_UNDEF, eof, H5_UNDEF)
+                + struct.pack("<QQI4xQQ", 0, root, 1, btree, heap))
+    return sum(a.nbytes for a in arrays)
+
+
+def keras_h5_tree(np, model_config, weights):
+    """The tree `write_keras_h5` writes for a whole-model Keras file, in
+    tf.keras 2's layout: the model_config JSON text on the root,
+    model_weights with a layer_names attribute and one group per layer,
+    its weights at <layer>/<layer>/<weight>:0 and named in its
+    weight_names attribute ("<layer>/<weight>:0"; an empty float64 array
+    where it has none). `weights`: {layer: {weight: array}} for every
+    layer, in order."""
+    mw = {"attrs": {"layer_names": list(weights), "backend": "tensorflow",
+                    "keras_version": "2.15.0"}, "members": {}}
+    for layer, ws in weights.items():
+        names = [f"{layer}/{w}:0" for w in ws]
+        mw["members"][layer] = {
+            "attrs": {"weight_names": names if names else np.zeros(0)},
+            "members": ({layer: {"attrs": {}, "members": {
+                f"{w}:0": a for w, a in ws.items()}}} if ws else {})}
+    return {"attrs": {"model_config": model_config,
+                      "backend": "tensorflow", "keras_version": "2.15.0"},
+            "members": {"model_weights": mw}}
+
+
+def keras_config(name, hw=224):
+    """The committed tf.keras model_config JSON text of
+    tests/fixtures/torch/keras_<name>_config.json; for an `hw` other than
+    the configurations' 224, its input layer's image size replaced (a CPU
+    rehearsal's smaller image)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "torch", f"keras_{name}_config.json")
+    with open(path) as f:
+        text = f.read()
+    if hw == 224:
+        return text
+    cfg = json.loads(text)
+
+    def rescale(v, old):
+        # the tensor shapes Keras 3 records on a Flatten's inbound node
+        if isinstance(v, dict):
+            if isinstance(v.get("shape"), list) and len(v["shape"]) == 4:
+                v["shape"][1:3] = [d * hw // old for d in v["shape"][1:3]]
+            for u in v.values():
+                rescale(u, old)
+        elif isinstance(v, list):
+            for u in v:
+                rescale(u, old)
+
+    for layer in cfg["config"]["layers"]:
+        if layer["class_name"] == "InputLayer":
+            old = layer["config"]["batch_shape"][1]
+            layer["config"]["batch_shape"][1:3] = [hw, hw]
+        elif layer["class_name"] == "Flatten":
+            rescale(layer["inbound_nodes"], old)
+    return json.dumps(cfg)
+
+
+def keras_weights(np, text, seed):
+    """Seeded weights for every layer of a Keras model_config, in its
+    order and with Keras's weight names: convolution and dense kernels
+    He-normal (std sqrt(2 / fan_in)), zero biases; BatchNormalization
+    gamma 1, beta 0, moving mean 0, moving variance 1. Shapes come from
+    the port's import of the configuration alone."""
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config.h5")
+        write_keras_h5(np, path, {"attrs": {"model_config": text},
+                                  "members": {}})
+        conf = KerasModelImport.import_keras_model_configuration(path)
+    conf.resolve_shapes()
+    rng = np.random.default_rng(seed)
+    out = {}
+    for lc in json.loads(text)["config"]["layers"]:
+        name, cls, c = lc["config"]["name"], lc["class_name"], lc["config"]
+        ws = out[name] = {}
+        if cls in ("Conv2D", "Dense"):
+            layer = conf.node(name).obj
+            shape = ((*layer.kernel_size, layer.n_in, layer.n_out)
+                     if cls == "Conv2D" else (layer.n_in, layer.n_out))
+            std = np.sqrt(2.0 / np.prod(shape[:-1]))
+            ws["kernel"] = (rng.standard_normal(shape, np.float32)
+                            * np.float32(std))
+            if c.get("use_bias", True):
+                ws["bias"] = np.zeros(shape[-1], np.float32)
+        elif cls == "BatchNormalization":
+            n = conf.node(name).obj.n_out
+            ws.update(gamma=np.ones(n, np.float32), beta=np.zeros(n, np.float32),
+                      moving_mean=np.zeros(n, np.float32),
+                      moving_variance=np.ones(n, np.float32))
+    return out
+
+
+KERAS_PARAM = {"kernel": "W", "bias": "b", "gamma": "gamma", "beta": "beta"}
+KERAS_STATE = {"moving_mean": "mean", "moving_variance": "var"}
+
+
+def keras_bits_check(torch, net, weights):
+    """(weights compared, weights that differ): every array written into
+    the file against the imported net's param or BN state."""
+    n = bad = 0
+    params = net.params
+    for layer, ws in weights.items():
+        for w, a in ws.items():
+            got = (params[layer][KERAS_PARAM[w]] if w in KERAS_PARAM
+                   else net.states[layer][KERAS_STATE[w]])
+            n += 1
+            bad += not bits_equal(torch, got.cpu(), torch.from_numpy(a))
+    return n, bad
+
+
+def keras_import(torch, np, name, seed, tmp):
+    """Write the Keras file of `name` (its committed config, seeded
+    weights) into `tmp`, import it on the card and check every weight bit
+    for bit. Returns (net, readings)."""
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+
+    text = keras_config(name, HW)
+    weights = keras_weights(np, text, seed)
+    path = os.path.join(tmp, f"keras_{name}.h5")
+    t0 = time.perf_counter()
+    nbytes = write_keras_h5(np, path, keras_h5_tree(np, text, weights))
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = KerasModelImport.import_keras_model_and_weights(
+        path, device=DEV, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n, bad = keras_bits_check(torch, net, weights)
+    r = {"file_bytes": os.path.getsize(path), "weight_bytes": nbytes,
+         "write_s": write_s, "import_s": secs,
+         "import_gb_per_s": os.path.getsize(path) / secs / 1e9,
+         "params": net.num_params(), "weights_checked": n,
+         "weights_differ": bad}
+    log(f"keras {name}: {r['file_bytes']} bytes written in {write_s:.2f} s "
+        f"by the script's HDF5 writer; import_keras_model_and_weights onto "
+        f"the card in {secs:.3f} s ({r['import_gb_per_s']:.3f} GB/s of file), "
+        f"{r['params']} params; {n} weights against what was written: {bad} "
+        "differ")
+    if bad or not n:
+        fail(f"keras {name}: imported weights differ from the file's")
+    os.remove(path)
+    return net, r
+
+
+def unit_activations(torch, net, x):
+    """Rescale each weight layer of the graph `net` in turn (topological
+    order) so that on the batch `x` its relu outputs have a second moment
+    of 1/2 (unit-variance pre-activations) and the output layer's logits
+    a unit spread: a seeded random VGG16's max pools would otherwise
+    grow the activations tenfold and saturate the softmax."""
+    names = [n.name for n in net.topo if n.kind == "layer"
+             and "W" in net.params[n.name]]
+    out_name = net.conf.network_outputs[0]
+    with torch.no_grad():
+        for name in names:
+            params = net.params
+            acts = net.feed_forward(x)
+            if name == out_name:
+                feats = acts[net.conf.node(name).inputs[0]].float()
+                s = float((feats @ params[name]["W"]
+                           + params[name]["b"]).std())
+            else:
+                s = float((2.0 * acts[name].float().pow(2).mean()).sqrt())
+            params[name] = {k: v / s for k, v in params[name].items()}
+            net.params = params
+
+
+def keras_fixtures(torch, np):
+    """The seven committed Keras fixtures read by the port's HDF5 reader
+    (without h5py) and imported onto the card in f32, against
+    their expected outputs at KERAS_TOL."""
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures")
+    out = {}
+    for name in KERAS_FIXTURES:
+        path = os.path.join(fix, name + ".h5")
+        exp = np.load(path.replace(".h5", "_expected.npz"))
+        net = KerasModelImport.import_keras_model_and_weights(path,
+                                                              device=DEV)
+        got = net.output(exp["x"]).float().cpu().numpy()
+        err = float(np.abs(got - exp["y"]).max())
+        ok = bool(np.allclose(got, exp["y"], **KERAS_TOL))
+        out[name] = {"type": type(net).__name__, "max_abs_err": err, "ok": ok}
+        if not ok:
+            fail(f"keras fixture {name}: output departs from Keras's "
+                 f"(max abs error {err:.3e})")
+    log("keras fixtures: " + ", ".join(
+        f"{k} {v['type']} max abs error {v['max_abs_err']:.2e}"
+        for k, v in out.items()) + f", each within rtol {KERAS_TOL['rtol']:g}"
+        f" / atol {KERAS_TOL['atol']:g}")
+    return out
+
+
+def vgg_images(torch, np, seed, batch):
+    """A seeded batch of 0-255 images (float32) and one-hot labels of
+    1000 classes, on the card."""
+    rng = np.random.default_rng(seed)
+    hw = HW
+    x = rng.uniform(0, 255, (batch, hw, hw, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, batch)]
+    return torch.from_numpy(x).to(DEV), torch.from_numpy(y).to(DEV)
+
+
+def keras_vgg16(torch, np, card, seed, tmp):
+    """BASELINE config 4: canonical Keras VGG16 (relu convolutions)
+    imported from a whole-model .h5, VGG16ImagePreProcessor on 0-255
+    images (no scaling), frozen through block5_pool against full
+    fine-tune at KERAS_VGG_BATCH through run_group(GROUP_K) on one fixed
+    batch; then the fine-tuned net written with its normalizer and read
+    back, and the evaluations on the card against the CPU."""
+    from deeplearning4j_tpu_torch.datasets import VGG16ImagePreProcessor
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.eval import (
+        Evaluation,
+        EvaluationCalibration,
+        ROCMultiClass,
+    )
+    from deeplearning4j_tpu_torch.nn.transferlearning import TransferLearning
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        read_normalizer,
+        restore_computation_graph,
+        write_model,
+    )
+
+    net, out = keras_import(torch, np, "vgg16", seed, tmp)
+    pre = VGG16ImagePreProcessor()
+    x, y = vgg_images(torch, np, seed + 1, KERAS_VGG_BATCH)
+    x = pre.transform(x)
+    unit_activations(torch, net, pre.transform(
+        vgg_images(torch, np, seed + 3, 8)[0]))
+    xs, ys = torch.stack([x] * GROUP_K), torch.stack([y] * GROUP_K)
+    macs = macs_per_image(net)
+    frozen = (TransferLearning.GraphBuilder(net)
+              .set_feature_extractor("block5_pool").build())
+    names = sorted(frozen._frozen())
+    before = {k: [t.clone() for t in frozen.params[k].values()]
+              for k in names}
+    for kind, model in (("frozen", frozen), ("full", net)):
+        prog = StepProgram(model)
+        r, losses = timed_steps(
+            torch, prog, "group", lambda: prog.run_group(xs, ys),
+            steps=KERAS_VGG_STEPS, warmup=1, batch=KERAS_VGG_BATCH,
+            macs=macs, profile_steps=ZOO_PROFILE_STEPS)
+        vals = [float(v) for v in losses]
+        r.update(loss_first=vals[0], loss_last=vals[-1],
+                 frozen_layers=len(model._frozen()))
+        out[kind] = r
+        log(f"keras VGG16 {kind}" + timed_line(r, "group", KERAS_VGG_BATCH,
+                                               KERAS_VGG_STEPS)
+            + f"; {r['frozen_layers']} frozen layers; loss {vals[0]:.4f} -> "
+            f"{vals[-1]:.4f} [{card}]")
+        if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+            fail(f"keras VGG16 {kind}: loss not finite and falling: {vals}")
+        del prog
+    same = all(bits_equal(torch, t, u) for k in names
+               for t, u in zip(before[k], frozen.params[k].values()))
+    convs = sum(1 for k in names if frozen.params[k])
+    log(f"keras VGG16 frozen: {len(names)} frozen layers ({convs} with "
+        f"params) bit for bit after {KERAS_VGG_STEPS + GROUP_K} steps: {same}")
+    if not same or convs != 13:
+        fail("keras VGG16: a frozen param moved, or the frozen prefix is not "
+             "the 13 convolutions")
+    del frozen, before
+    torch.cuda.empty_cache()
+    out["frozen_over_full_ms"] = (out["frozen"]["ms_per_step"]
+                                  / out["full"]["ms_per_step"])
+    # the fine-tuned net with its normalizer, written and read back
+    held_x, held_y = vgg_images(torch, np, seed + 2, KERAS_VGG_BATCH)
+    held_x = pre.transform(held_x)
+    path = os.path.join(tmp, "vgg16_tuned.zip")
+    t0 = time.perf_counter()
+    write_model(net, path, normalizer=pre)
+    write_s = time.perf_counter() - t0
+    back = restore_computation_graph(path, device=DEV,
+                                     compute_dtype=torch.bfloat16)
+    norm = read_normalizer(path)
+    probs = net.output(held_x)
+    same_out = bits_equal(torch, probs, back.output(held_x))
+    same_score = net.score((held_x, held_y)) == back.score((held_x, held_y))
+    same_mean = (type(norm) is VGG16ImagePreProcessor
+                 and np.array_equal(np.asarray(norm.mean, np.float32),
+                                    pre.mean))
+    out["zip"] = {"bytes": os.path.getsize(path), "write_s": write_s,
+                  "same_output": same_out, "same_score": same_score,
+                  "same_normalizer": same_mean}
+    log(f"keras VGG16 write_model(normalizer=VGG16ImagePreProcessor): "
+        f"{out['zip']['bytes']} bytes in {write_s:.2f} s; restored: output "
+        f"bit for bit {same_out}, score equal {same_score}, read_normalizer "
+        f"mean equal {same_mean}")
+    if not (same_out and same_score and same_mean):
+        fail("keras VGG16: the restored net or normalizer differs")
+    os.remove(path)
+    del back
+    # the evaluations on the card's outputs against the CPU copies
+    evals = {}
+    for cls, kw in ((Evaluation, {}), (ROCMultiClass, {"device": DEV}),
+                    (EvaluationCalibration, {"device": DEV})):
+        a = cls(**kw)
+        b = cls(**({"device": "cpu"} if kw else {}))
+        a.eval(held_y, probs)
+        b.eval(held_y.cpu(), probs.cpu())
+        if cls is Evaluation:
+            va, vb = a.accuracy(), b.accuracy()
+            ok = (va == vb and np.array_equal(a.confusion.matrix,
+                                              b.confusion.matrix))
+        elif cls is ROCMultiClass:
+            va, vb = a.average_auc(), b.average_auc()
+            ok = va == vb
+        else:
+            va, vb = (a.expected_calibration_error(),
+                      b.expected_calibration_error())
+            ok = all(np.array_equal(u, v)
+                     for c in range(a.num_classes)
+                     for u, v in zip(a.reliability_info(c)[1:],
+                                     b.reliability_info(c)[1:])) \
+                and abs(va - vb) <= 1e-12 * max(abs(vb), 1e-300)
+        evals[cls.__name__] = {"card": va, "cpu": vb, "equal": ok}
+        if not ok:
+            fail(f"keras VGG16: {cls.__name__} on the card {va!r} != on the "
+                 f"CPU {vb!r}")
+    out["evals"] = evals
+    log("keras VGG16 held batch: " + ", ".join(
+        f"{k} {v['card']:.6g} (card) == {v['cpu']:.6g} (CPU copies)"
+        for k, v in evals.items()))
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def keras_resnet50(torch, np, pc, card, seed, tmp, zoo_ms, worst):
+    """Keras ResNet50 (tf.keras.applications, weights=None: convolutions
+    with bias, BN epsilon 1.001e-5, a ZeroPadding2D stem, the stage
+    stride on the first 1x1 and the shortcut) imported with seeded
+    weights, helpers="pallas", bf16: the forward against "fused" (bf16
+    and f32), its kernel calls at batch BATCH and of a train step at
+    KERAS_RESNET_BATCH counted by kernel and route against path_launches
+    and each distinct one against its plain version (TOL), then
+    KERAS_RESNET_STEPS steps through run_group(GROUP_K) beside the zoo
+    flagship's phase 5b ms/step."""
+    net, out = keras_import(torch, np, "resnet50", seed + 10, tmp)
+    net.conf.helper_mode = "pallas"
+    hw = HW
+    randomize_batchnorm(torch, net, seed=seed + 11, hw=hw)
+    out["logp_gap"] = zoo_forward_check(torch, np, net, hw, "keras ResNet50",
+                                        "KerasResNet50")
+    x32 = torch.from_numpy(serving_inputs(np, np.random.default_rng(15),
+                                          BATCH, hw)).to(DEV)
+    fcalls = record_kernel_calls(torch, pc, lambda: net.output(x32))
+    check_launches("keras ResNet50 forward", calls_by_route(pc, fcalls),
+                   path_launches(pc, net, BATCH, False))
+    train, (x, y) = graph_train(torch, np, pc, net, KERAS_RESNET_BATCH,
+                                KERAS_RESNET_STEPS, "keras ResNet50", hw=hw)
+    out["train"] = train
+    tcalls = record_kernel_calls(torch, pc,
+                                 lambda: net.fit_batch(([x], [y])))
+    check_launches("keras ResNet50 train step", calls_by_route(pc, tcalls),
+                   path_launches(pc, net, KERAS_RESNET_BATCH, True))
+    out["checked"] = zoo_kernel_checks(torch, pc, fcalls + backward_calls(
+        tcalls), "keras ResNet50 kernels", worst)
+    out["kernel_calls"] = {"forward": len(fcalls), "step": len(tcalls)}
+    out["zoo_ms_per_step"] = zoo_ms
+    out["over_zoo_ms"] = train["ms_per_step"] / zoo_ms
+    log(f"keras ResNet50: {train['ms_per_step']:.2f} ms/step against the zoo "
+        f"ResNet-50's {zoo_ms:.2f} (phase 5b, run_group({GROUP_K})): "
+        f"{out['over_zoo_ms']:.3f}x [{card}]")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def csv_data(torch, np, card, seed, tmp):
+    """The native host library is available; a seeded numeric CSV of
+    CSV_ROWS rows x CSV_COLS columns (the last a class label) parsed by
+    CSVRecordReader.to_matrix (the C++ path) and by the NumPy fallback,
+    equal bit for bit, rows/s of each; then RecordReaderDataSetIterator's
+    batches of CSV_BATCH staged on the card."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets import (
+        CSVRecordReader,
+        RecordReaderDataSetIterator,
+    )
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    log(f"data: native host library available {ok} (build and load "
+        f"{build_s:.2f} s)")
+    if not ok:
+        fail("data: the port's native host library did not build or load")
+    rng = np.random.default_rng(seed + 20)
+    feats = rng.normal(size=(CSV_ROWS, CSV_COLS - 1)) * 10.0
+    labels = rng.integers(0, 10, CSV_ROWS)
+    path = os.path.join(tmp, "data.csv")
+    t0 = time.perf_counter()
+    np.savetxt(path, np.column_stack([feats, labels]), delimiter=",",
+               fmt=["%.6g"] * (CSV_COLS - 1) + ["%d"])
+    gen_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    reader = CSVRecordReader(path)
+    t0 = time.perf_counter()
+    m = reader.to_matrix()
+    native_s = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        raw = f.read()
+    t0 = time.perf_counter()
+    ref = native.parse_csv_fallback(raw)
+    numpy_s = time.perf_counter() - t0
+    same = m is not None and bits_equal(torch, torch.from_numpy(m),
+                                        torch.from_numpy(ref))
+    it = RecordReaderDataSetIterator(reader, batch_size=CSV_BATCH,
+                                     label_index=CSV_COLS - 1,
+                                     num_classes=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = batches = 0
+    for ds in it:
+        xb = torch.from_numpy(ds.features).to(DEV, non_blocking=True)
+        yb = torch.from_numpy(ds.labels).to(DEV, non_blocking=True)
+        rows += xb.shape[0]
+        batches += 1
+    torch.cuda.synchronize()
+    iter_s = time.perf_counter() - t0
+    out = {"rows": CSV_ROWS, "cols": CSV_COLS, "bytes": size,
+           "generate_s": gen_s, "native_s": native_s, "numpy_s": numpy_s,
+           "native_rows_per_s": CSV_ROWS / native_s,
+           "numpy_rows_per_s": CSV_ROWS / numpy_s, "bit_equal": same,
+           "iterator_s": iter_s, "iterator_rows_per_s": rows / iter_s,
+           "batches": batches, "last_batch": list(xb.shape) + list(yb.shape)}
+    log(f"data: CSV {CSV_ROWS} x {CSV_COLS} ({size} bytes, written in "
+        f"{gen_s:.2f} s): to_matrix (C++) {native_s:.3f} s = "
+        f"{out['native_rows_per_s']:.0f} rows/s, NumPy fallback "
+        f"{numpy_s:.3f} s = {out['numpy_rows_per_s']:.0f} rows/s, bit for "
+        f"bit {same}; RecordReaderDataSetIterator: {batches} batches of "
+        f"{CSV_BATCH} on the card in {iter_s:.3f} s "
+        f"({out['iterator_rows_per_s']:.0f} rows/s) [{card}]")
+    if not same or rows != CSV_ROWS:
+        fail("data: the C++ CSV path departs from the NumPy fallback, or "
+             "the iterator lost rows")
+    os.remove(path)
+    return out
+
+
+def lenet_mnist(torch, np, card):
+    """BASELINE config 1: LeNet on MnistDataSetIterator (no file on this
+    machine: the seeded synthetic stand-in), LENET_STEPS steps at
+    LENET_BATCH through run_group(GROUP_K), each group GROUP_K distinct
+    batches; the mean loss of the last group under the first's."""
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.datasets import fetchers
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    found = os.path.exists(os.path.join(fetchers.data_dir(),
+                                        "mnist_train_images.gz"))
+    it = MnistDataSetIterator(LENET_BATCH, num_examples=LENET_BATCH
+                              * LENET_STEPS)
+    batches = list(it)
+    xs = torch.from_numpy(np.stack([b.features for b in batches])).to(DEV)
+    ys = torch.from_numpy(np.stack([b.labels for b in batches])).to(DEV)
+    net = LeNet().init_model(device=DEV)
+    prog = StepProgram(net)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in range(0, LENET_STEPS, GROUP_K):
+        prog.run_group(xs[g:g + GROUP_K], ys[g:g + GROUP_K])
+        losses.extend(float(v) for v in prog.last_step_losses)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    first = float(np.mean(losses[:GROUP_K]))
+    last = float(np.mean(losses[-GROUP_K:]))
+    out = {"local_file": found, "steps": LENET_STEPS, "batch": LENET_BATCH,
+           "seconds": wall, "loss_first_group": first,
+           "loss_last_group": last, "losses": losses}
+    log(f"data: LeNet on MnistDataSetIterator ({'local file' if found else 'synthetic stand-in'}), "
+        f"{LENET_STEPS} steps at batch {LENET_BATCH} through "
+        f"run_group({GROUP_K}) in {wall:.2f} s (host clock, captures "
+        f"included); mean loss of the first group {first:.4f} -> of the last "
+        f"{last:.4f} [{card}]")
+    if not all(np.isfinite(losses)) or not last < first:
+        fail(f"data: LeNet on MNIST: loss not finite and falling: {losses}")
+    return out
+
+
+def keras_phase(torch, np, pc, card, seed, engine):
+    """Phase 5h: Keras import and data (lines start "keras " and "data:").
+    Returns the readings, the launches of its path (the Keras ResNet50's
+    timed steps) and the per-kernel worst errors of its kernel checks."""
+    worst, out, secs = {}, {}, {}
+    zoo_ms = engine["pallas"]["group"]["ms_per_step"]
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = [
+            ("fixtures", lambda: keras_fixtures(torch, np)),
+            ("vgg16", lambda: keras_vgg16(torch, np, card, seed, tmp)),
+            ("resnet50", lambda: keras_resnet50(torch, np, pc, card, seed,
+                                                tmp, zoo_ms, worst)),
+            ("csv", lambda: csv_data(torch, np, card, seed, tmp)),
+            ("lenet_mnist", lambda: lenet_mnist(torch, np, card)),
+        ]
+        for name, run in parts:
+            t0 = time.perf_counter()
+            out[name] = run()
+            secs[name] = time.perf_counter() - t0
+    launches = out["resnet50"]["train"]["launches"]
+    out.update(seconds=secs, launches=launches, worst=worst)
+    log(f"keras phase: launches on the Keras path {launches}; seconds per "
+        "part " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return out
+
+
 # ------------------------------------------------------------ phase 6
 
 
@@ -4139,6 +4878,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 5h's Keras weights and data")
     args = ap.parse_args()
 
     import numpy as np
@@ -4256,6 +4997,15 @@ def main():
         worst[name] = max(worst[name], v)
     log(f"zoo phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5h. Keras import (the seven fixtures, canonical VGG16 with its two
+    # config-4 steps, Keras ResNet50 through the kernels), the native CSV
+    # path and LeNet on the MNIST stand-in
+    t0 = time.perf_counter()
+    keras = keras_phase(torch, np, pc, card, args.seed, engine)
+    for name, v in keras["worst"].items():
+        worst[name] = max(worst[name], v)
+    log(f"keras phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -4311,6 +5061,10 @@ def main():
                 r: zoo["zoo_launches"][f"{name}/{r}"]
                 for r in ("wgmma", "simple")},
             "tl_launches": zoo["tl_launches"][name],
+            "keras_launches": keras["launches"][name],
+            "keras_launches_by_route": {
+                r: keras["launches"][f"{name}/{r}"]
+                for r in ("wgmma", "simple")},
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -4322,7 +5076,8 @@ def main():
                        "serving": serving, "reference": reference,
                        "forward_ms": fwd, "step_check": step,
                        "train": train, "engine": engine, "mln": mln,
-                       "tm": tm, "obs": obs, "rnn": rnn, "zoo": zoo},
+                       "tm": tm, "obs": obs, "rnn": rnn, "zoo": zoo,
+                       "keras": keras},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -4337,7 +5092,8 @@ def main():
         f"zoo_launches from phase 5g's timed \"pallas\" steps of GoogLeNet "
         f"({ZOO_STEPS}), InceptionResNetV1 and FaceNetNN4Small2 "
         f"({ZOO_SMALL_STEPS} each), tl_launches from its {TL_STEPS} "
-        "ResNet-50 transfer steps")
+        "ResNet-50 transfer steps, keras_launches from phase 5h's "
+        f"{KERAS_RESNET_STEPS} timed Keras ResNet50 steps")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

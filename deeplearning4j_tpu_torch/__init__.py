@@ -2,7 +2,8 @@
 
 The JAX package `deeplearning4j_tpu` is the reference; this package mirrors
 its module layout (nn/, nn/conf/, nn/layers/, nn/helpers/, zoo/, util/,
-parallel/, resilience/, observability/, stats/, optimize/) so every module
+parallel/, resilience/, observability/, stats/, optimize/, modelimport/,
+datasets/, eval/, native/) so every module
 has a findable counterpart. It
 imports torch, numpy and the standard library only — never jax, and never
 anything of the JAX package.
@@ -28,7 +29,10 @@ profiler, the cost model; stats/: StatsListener and the dashboard;
 optimize/listeners.py), recurrent networks, the graph zoo with
 ModelSelector and pretrained loading, transfer learning
 (nn/transferlearning.py), gradient checks (gradientcheck.py), the
-line-search solvers (optimize/solvers.py) and layerwise pretraining.
+line-search solvers (optimize/solvers.py), layerwise pretraining, Keras
+import through the port's own HDF5 reader (modelimport/), the
+normalizers, record readers and fetchers (datasets/), the native host
+library's loader (native/) and the rest of eval/.
 """
 
 from deeplearning4j_tpu_torch.device import resolve_device  # noqa: F401

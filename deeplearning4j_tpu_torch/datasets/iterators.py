@@ -1,6 +1,7 @@
 """DataSet iterators (counterpart of deeplearning4j_tpu/datasets/iterators.py:
 DataSetIterator, ListDataSetIterator, AsyncDataSetIterator,
-DevicePrefetchIterator).
+MultipleEpochsIterator, EarlyTerminationDataSetIterator,
+BenchmarkDataSetIterator, DevicePrefetchIterator).
 
 AsyncDataSetIterator keeps the host side ahead of the card (a daemon
 thread prefetching into a bounded queue); DevicePrefetchIterator stages
@@ -306,6 +307,90 @@ class AsyncDataSetIterator(DataSetIterator):
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """Replays a base iterator N times (ref: MultipleEpochsIterator.java)."""
+
+    def __init__(self, epochs: int, base):
+        self.epochs = epochs
+        self.base = base
+        self._epoch = 0
+        self._inner = None
+
+    def reset(self):
+        self._epoch = 0
+        self._inner = None
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+
+    def __next__(self):
+        if self._inner is None:
+            self._inner = iter(self.base)
+        while True:
+            try:
+                return next(self._inner)
+            except StopIteration:
+                self._epoch += 1
+                if self._epoch >= self.epochs:
+                    raise
+                if hasattr(self.base, "reset"):
+                    self.base.reset()
+                self._inner = iter(self.base)
+
+
+class EarlyTerminationDataSetIterator(DataSetIterator):
+    """Caps the number of batches (ref: EarlyTerminationDataSetIterator.java)."""
+
+    def __init__(self, base, max_batches: int):
+        self.base = base
+        self.max_batches = max_batches
+        self._count = 0
+        self._inner = None
+
+    def reset(self):
+        self._count = 0
+        self._inner = None
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+
+    def __next__(self):
+        if self._count >= self.max_batches:
+            raise StopIteration
+        if self._inner is None:
+            self._inner = iter(self.base)
+        self._count += 1
+        return next(self._inner)
+
+
+class BenchmarkDataSetIterator(DataSetIterator):
+    """Yields the same synthetic batch N times — zero-ETL throughput
+    harness (ref: impl/BenchmarkDataSetIterator.java)."""
+
+    def __init__(self, feature_shape, num_classes: int, num_batches: int,
+                 seed: int = 0, label_shape=None):
+        rng = np.random.default_rng(seed)
+        x = rng.normal(size=feature_shape).astype(np.float32)
+        if label_shape is not None:
+            y = rng.normal(size=label_shape).astype(np.float32)
+        else:
+            y = np.eye(num_classes, dtype=np.float32)[
+                rng.integers(0, num_classes, feature_shape[0])]
+        self.batch = DataSet(x, y)
+        self.num_batches = num_batches
+        self._pos = 0
+
+    def reset(self):
+        self._pos = 0
+
+    def has_next(self):
+        return self._pos < self.num_batches
+
+    def __next__(self):
+        if not self.has_next():
+            raise StopIteration
+        self._pos += 1
+        return self.batch
 
 
 class DevicePrefetchIterator(DataSetIterator):

@@ -15,6 +15,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.eval._tensors import host
+
 
 class ConfusionMatrix:
     def __init__(self, num_classes: int):
@@ -62,8 +64,10 @@ class Evaluation:
     def eval(self, labels, predictions, mask=None, top_n: int = 1):
         """Accumulate a batch. labels/predictions: [N, C] (one-hot / prob)
         or [N, T, C] time series with optional [N, T] mask."""
-        labels = np.asarray(labels)
-        predictions = np.asarray(predictions)
+        labels = host(labels)
+        predictions = host(predictions)
+        if mask is not None:
+            mask = host(mask)
         if labels.ndim == 3:
             if mask is not None:
                 m = np.asarray(mask).reshape(-1).astype(bool)

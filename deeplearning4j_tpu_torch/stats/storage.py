@@ -120,20 +120,31 @@ class RemoteStatsStorageRouter(StatsStorage):
         self.retry_count = retry_count
 
     def put_report(self, report: StatsReport) -> None:
-        import urllib.request
+        import http.client
 
+        scheme, _, rest = self.url.partition("://")
+        if scheme not in ("http", "https") or not rest:
+            raise ValueError(f"not an http(s) URL: {self.url!r}")
+        host, _, path = rest.partition("/")
+        conn_cls = (http.client.HTTPSConnection if scheme == "https"
+                    else http.client.HTTPConnection)
         body = report.to_json().encode()
-        req = urllib.request.Request(
-            self.url, data=body,
-            headers={"Content-Type": "application/json"})
         last = None
         for _ in range(max(1, self.retry_count)):
+            conn = conn_cls(host, timeout=self.timeout)
             try:
-                urllib.request.urlopen(req, timeout=self.timeout)
-                self._notify(report)
-                return
-            except Exception as e:   # noqa: BLE001 - retried
+                conn.request("POST", "/" + path, body=body, headers={
+                    "Content-Type": "application/json"})
+                resp = conn.getresponse()
+                resp.read()
+                if resp.status < 400:
+                    self._notify(report)
+                    return
+                last = f"HTTP {resp.status} {resp.reason}"
+            except (OSError, http.client.HTTPException) as e:   # retried
                 last = e
+            finally:
+                conn.close()
         raise IOError(f"failed to POST stats report to {self.url}: {last}")
 
     def session_ids(self):

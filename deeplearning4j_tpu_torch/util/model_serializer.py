@@ -5,7 +5,8 @@ param trees into the port, and `write_model`, which writes the same zip.
 A JAX model zip holds `configuration.json` (ComputationGraphConfiguration
 JSON, helper_mode included, or MultiLayerConfiguration JSON),
 `coefficients.npz`, `states.npz`,
-`updaterState.npz` (optimizer state, when saved) and `meta.json` (the
+`updaterState.npz` (optimizer state, when saved), `normalizer.json` (a
+data normalizer's `to_dict`, when one is saved) and `meta.json` (the
 iteration and epoch). The arrays are stored as `leaf_i` in jax.tree_util
 flatten order: nested dict keys sorted at every level, list/tuple items
 in order, and no leaf for None or an empty dict. `_flatten` rebuilds that
@@ -55,6 +56,7 @@ CONFIG_ENTRY = "configuration.json"
 COEFFICIENTS_ENTRY = "coefficients.npz"
 STATES_ENTRY = "states.npz"
 UPDATER_ENTRY = "updaterState.npz"
+NORMALIZER_ENTRY = "normalizer.json"
 META_ENTRY = "meta.json"
 
 
@@ -136,12 +138,15 @@ def _tree_to_npz_bytes(tree) -> bytes:
     return buf.getvalue()
 
 
-def write_model(net, path, save_updater: bool = True) -> None:
+def write_model(net, path, save_updater: bool = True,
+                normalizer=None) -> None:
     """Save a ComputationGraph or MultiLayerNetwork to a zip file the JAX
     package's `restore_computation_graph` / `restore_multi_layer_network`
     reads: configuration.json,
     coefficients.npz, states.npz, updaterState.npz (unless
-    `save_updater` is False) and meta.json (iteration, epoch).
+    `save_updater` is False), normalizer.json (the `to_dict` of
+    `normalizer`, when given; `read_normalizer` of either package reads
+    it) and meta.json (iteration, epoch).
 
     Crash-safe: the zip is assembled in a tmp file and published with
     fsync + os.replace (a kill mid-write never leaves a partial model at
@@ -161,6 +166,9 @@ def write_model(net, path, save_updater: bool = True) -> None:
             upd = net._upd_view()
             if save_updater and upd is not None:
                 z.writestr(UPDATER_ENTRY, _tree_to_npz_bytes(upd))
+            if normalizer is not None:
+                z.writestr(NORMALIZER_ENTRY,
+                           json.dumps(normalizer.to_dict()))
             z.writestr(META_ENTRY, json.dumps({
                 "format": "deeplearning4j_tpu",
                 "version": 1,
@@ -258,10 +266,21 @@ def restore_model(path, device=None, compute_dtype=None):
     return _restore(path, None, device, compute_dtype)
 
 
+def read_normalizer(path):
+    """The data normalizer a model zip holds (its normalizer.json, written
+    by either package's `write_model(..., normalizer=)`), or None."""
+    from deeplearning4j_tpu_torch.datasets.normalizers import (
+        normalizer_from_dict,
+    )
+
+    with zipfile.ZipFile(path, "r") as z:
+        if NORMALIZER_ENTRY not in z.namelist():
+            return None
+        return normalizer_from_dict(json.loads(z.read(NORMALIZER_ENTRY)))
+
+
 class ModelSerializer:
-    """Static facade over this module, as the JAX package's (no
-    `read_normalizer`: the normalizers are not ported yet, ROADMAP queue
-    1 item 10)."""
+    """Static facade over this module, as the JAX package's."""
 
     writeModel = write_model = staticmethod(write_model)
     verify_model = staticmethod(verify_model)
@@ -269,3 +288,4 @@ class ModelSerializer:
         restore_multi_layer_network)
     restoreComputationGraph = restore_computation_graph = staticmethod(
         restore_computation_graph)
+    readNormalizer = read_normalizer = staticmethod(read_normalizer)

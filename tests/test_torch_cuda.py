@@ -1141,3 +1141,89 @@ def test_cuda_frozen_prefix_replays_bitwise_without_its_backward(
     (per_replay,) = pb.group_launches().values()
     assert per_replay["dgrad_conv1x1"] == 3
     assert per_replay["wgrad_conv1x1"] == 6
+
+
+# ------------------------------------------- Keras import, data, eval
+
+KERAS_FIXTURES = ["seq_cnn", "func_merge", "lstm_seq", "func_cnn_merge",
+                  "lstm_encoder", "conv1d_stack", "lrn_cnn",
+                  "torch/keras_resblock"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", KERAS_FIXTURES)
+def test_cuda_keras_fixture_imports_onto_the_card(name):
+    """Each Keras fixture read by the port's own HDF5 reader (no h5py)
+    and imported onto the card in f32 matches Keras's outputs at
+    tests/test_modelimport.py's bars; the residual block also in
+    "pallas", through the kernels."""
+    import os
+
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    path = os.path.join(os.path.dirname(__file__), "fixtures", name + ".h5")
+    exp = np.load(path.replace(".h5", "_expected.npz"))
+    for mode in (("none", "pallas") if "resblock" in name else ("none",)):
+        net = KerasModelImport.import_keras_model_and_weights(path)
+        assert net.device.type == "cuda"
+        net.conf.helper_mode = mode
+        tpc.reset_launch_counts()
+        out = net.output(exp["x"]).cpu().numpy()
+        np.testing.assert_allclose(out, exp["y"], rtol=1e-4, atol=1e-5)
+        if mode == "pallas":
+            assert tpc.LAUNCHES["fused_conv1x1"] == 3
+            assert tpc.LAUNCHES["fused_conv3x3"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_evaluations_on_card_tensors_equal_the_cpus(rng):
+    """Every evaluation fed tensors on the card equals the same evaluation
+    fed the tensors copied to the CPU: counts, curves and AUCs exactly;
+    float64 sums within 1e-12."""
+    from deeplearning4j_tpu_torch import eval as ev
+    from deeplearning4j_tpu_torch.datasets import VGG16ImagePreProcessor
+
+    _need_cuda()
+    logits = torch.from_numpy(rng.normal(size=(512, 10)) * 2)
+    p = torch.softmax(logits, -1).float().cuda()
+    lab = torch.eye(10)[torch.from_numpy(rng.integers(0, 10, 512))].cuda()
+    mask = torch.from_numpy(rng.random(512) > 0.2).cuda()
+    for make, kw in ((ev.ROCMultiClass, {}), (ev.ROCBinary, {}),
+                     (ev.EvaluationCalibration, {}),
+                     (ev.EvaluationBinary, {})):
+        a, b = make(device="cuda"), make(device="cpu")
+        a.eval(lab, p, mask)
+        b.eval(lab.cpu(), p.cpu(), mask.cpu())
+        if hasattr(a, "average_auc"):
+            assert a.average_auc() == b.average_auc()
+        elif hasattr(a, "expected_calibration_error"):
+            for c in range(10):
+                for u, v in zip(a.reliability_info(c)[1:],
+                                b.reliability_info(c)[1:]):
+                    np.testing.assert_array_equal(u, v)
+            np.testing.assert_allclose(a.expected_calibration_error(),
+                                       b.expected_calibration_error(),
+                                       rtol=1e-12)
+        else:
+            assert a.stats() == b.stats()
+    roc_a, roc_b = ev.ROC(device="cuda"), ev.ROC(device="cpu")
+    roc_a.eval(lab[:, :2], p[:, :2])
+    roc_b.eval(lab[:, :2].cpu(), p[:, :2].cpu())
+    assert roc_a.calculate_auc() == roc_b.calculate_auc()
+    reg_a, reg_b = (ev.RegressionEvaluation(device="cuda"),
+                    ev.RegressionEvaluation(device="cpu"))
+    reg_a.eval(lab, p)
+    reg_b.eval(lab.cpu(), p.cpu())
+    for c in range(10):
+        np.testing.assert_allclose(reg_a.r_squared(c), reg_b.r_squared(c),
+                                   rtol=1e-12)
+    e_a, e_b = ev.Evaluation(), ev.Evaluation()
+    e_a.eval(lab, p)
+    e_b.eval(lab.cpu(), p.cpu())
+    np.testing.assert_array_equal(e_a.confusion.matrix, e_b.confusion.matrix)
+    img = torch.rand(2, 8, 8, 3).mul(255).cuda()
+    vgg = VGG16ImagePreProcessor()
+    assert torch.equal(vgg.transform(img).cpu(), vgg.transform(img.cpu()))

@@ -1,6 +1,9 @@
 """The port's standing rules: deeplearning4j_tpu_torch and chip_smoke.py
 import neither jax nor the JAX package (the port keeps its own copy of
-what it needs), and importing the port leaves jax out of sys.modules."""
+what it needs), nor h5py or tensorflow (the port runs where neither is
+installed: Keras files go through its own HDF5 reader), nor urllib (the
+port never downloads), and importing the port leaves jax, h5py and tensorflow
+out of sys.modules (torch itself loads urllib)."""
 
 import ast
 import os
@@ -12,7 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "deeplearning4j_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
+FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu", "h5py", "tensorflow")
+FORBIDDEN_IMPORTS = FORBIDDEN + ("urllib",)
 
 
 def _port_files():
@@ -38,7 +42,7 @@ def _imported_roots(path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_no_jax_or_jax_package(path):
     bad = [(mod, line) for mod, line in _imported_roots(path)
-           if mod in FORBIDDEN]
+           if mod in FORBIDDEN_IMPORTS]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
