@@ -106,7 +106,10 @@ Phases, in order; any failure exits non-zero:
      StepWatchdog, a Supervisor, TelemetryListener, StatsListener and
      ScoreIterationListener — against the same fit with none, from one
      seeded state: ms/step of each arm (two fits each, off on on off)
-     and their ratio (fails above OBS_RATIO_MAX), the phase shares and
+     and their ratio, each window's device time (CUDA events) and the
+     median of the per-window on/off ratios and their mean without the
+     one worst pair (each fails above OBS_RATIO_MAX),
+     the slowest window with its profiler phase, the phase shares and
      coverage (>= OBS_COVERAGE_MIN), launches per step (30/16/30/30, all
      "wgmma"), the final state bit for bit; the registry's steps and
      phase histograms; the CostModel's FLOPs per step (register_perf of
@@ -118,7 +121,8 @@ Phases, in order; any failure exits non-zero:
      parented to the hung window, the detection latency; OBS_REQUESTS
      traced requests through ParallelInference (every request's span
      chain, the dl4j_serving_* counters) and the device's idle share
-     under SERVE_THREADS clients (a profiler window); the Chrome trace
+     under SERVE_THREADS clients (the window's batches, each shape's
+     kernels timed alone under the profiler); the Chrome trace
      (train_group steps = steps run) and prometheus_text parsed;
   5f. recurrent networks (lines start "rnn"; TF32 off; no kernel of csrc/
      on the path: the launch counters, zeroed before it, must read 0
@@ -198,6 +202,38 @@ Phases, in order; any failure exits non-zero:
      RecordReaderDataSetIterator into batches on the card; LeNet
      (BASELINE config 1) on MnistDataSetIterator's stand-in, LENET_STEPS
      steps through run_group(GROUP_K), a falling loss;
+  5i. the decode-serving path (lines start "decode "; f32, TF32 off; no
+     kernel of csrc/ on it: the launch counters, zeroed before it, must
+     read 0 after it): bench_serving.py:1183 bench_decode's configuration
+     (CausalTransformer vocab 512, d 128, 8 heads, 4 layers, ctx 128, seed
+     7; DecodeProgram(max_slots=8, page_size=16)) serving 64 requests from
+     random.Random(--seed) (prompts 4-48, 8-48 new tokens): the naive
+     per-request sequential_decode arm and DecodeEngine(
+     max_prefills_per_step=2), two interleaved reps each, all four token
+     lists identical; tok/s of each and their ratio, decode steps, mean
+     slot occupancy, ms per decode and per chunk dispatch (CUDA events),
+     PyTorch kernel launches per dispatch, the idle share of a profiled
+     window of engine steps; the 64 requests served once more by the
+     engine's own loop thread (start, submit, result, stop), tokens
+     identical; the journal arm (GenerationJournal, fsync_interval_s
+     0.05) against none, tokens identical; the paged drills, each bit for
+     bit against sequential_decode — shared prefix (hits and skipped
+     chunks), copy-on-write, ring wrap past max_ctx, an eviction storm
+     (serving.slot_evict), a decode.nonfinite quarantine and replay, a
+     StepWatchdog restart of the loop thread wedged by decode.hang, a
+     resume_tokens continuation, a cold recovery from the journal of an
+     engine stopped mid-generation — with the three programs' build
+     counts unchanged after warm-up; one chunk's and one decode step's
+     pool and logits on the card against the port on the CPU (same
+     seeded weights and pool; DECODE_CPU_TOL) and the greedy tokens of
+     16 requests against the CPU's where its margin is wide; then
+     GPT-2-small width (vocab 50257, d 768, 12 heads, 12 layers, ctx
+     1024, seeded; DecodeProgram(max_slots=32, page_size=16), a 2.4 GB
+     pool): 64 requests (prompts 64-512, 32-128 new tokens) through the
+     engine, tok/s, peak memory, the engine equal to the oracle on 4 of
+     them, ms per decode step and per chunk beside the step's bound
+     (weights + live K/V over 3.35 TB/s), and one chunk and one step
+     against the CPU as at bench width;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -212,8 +248,10 @@ prints no result.
 """
 
 import argparse
+import faulthandler
 import json
 import os
+import random
 import struct
 import subprocess
 import sys
@@ -292,7 +330,8 @@ RNN_YARDSTICK_CALLS = 10
 RNN_GOLDEN_TOL = 1e-5          # golden_graph.zip, max abs error
 # phase 5e, observability on the flagship
 OBS_STEPS = 20                 # steps per timed fit; two fits per arm
-OBS_RATIO_MAX = 1.10           # hooks-on / hooks-off ms per step
+OBS_RATIO_MAX = 1.10           # hooks-on / hooks-off: the median window
+                               # ratio, and their mean less the worst one
 OBS_COVERAGE_MIN = 0.95        # the phase profiler's attributed share
 # both arms' producer runs two windows ahead: at the default depth (2 <
 # GROUP_K) the profiler's per-window wait leaves the producer pinning the
@@ -424,6 +463,38 @@ CSV_COLS = 11
 CSV_BATCH = 4096
 LENET_BATCH = 64
 LENET_STEPS = 20
+# phase 5i, the decode-serving path: bench_serving.py:1183 bench_decode's
+# configuration and traffic (64 requests, prompts 4-48, 8-48 new tokens,
+# drawn from random.Random(--seed)), then GPT-2-small width
+# (openai-community/gpt2's published config: 12 layers, 12 heads, 768
+# wide, 1024 positions, vocab 50257; seeded weights, nothing downloaded)
+DECODE_BENCH = dict(vocab_size=512, d_model=128, n_heads=8, n_layers=4,
+                    max_ctx=128, seed=7)
+DECODE_SLOTS, DECODE_PAGE = 8, 16
+DECODE_REQUESTS = 64
+DECODE_PROMPT, DECODE_NEW = (4, 48), (8, 48)
+DECODE_PREFILLS = 2            # max_prefills_per_step, as bench_decode
+DECODE_TIMED = 20              # dispatches timed per program
+DECODE_IDLE_SKIP = 60          # engine steps before the profiled window
+DECODE_IDLE_STEPS = 30         # engine steps in the profiled window
+GPT2 = dict(vocab_size=50257, d_model=768, n_heads=12, n_layers=12,
+            max_ctx=1024)
+GPT2_SLOTS, GPT2_PAGE = 32, 16
+GPT2_REQUESTS = 64
+GPT2_PROMPT, GPT2_NEW = (64, 512), (32, 128)
+GPT2_PREFILLS = 4              # chunk dispatches per engine step
+GPT2_ORACLE = 4                # requests checked against sequential_decode
+GPT2_TIMED = 10
+GPT2_BOUND_LIVE = 512          # live cells per slot in the timed step
+# the card against the port on the CPU (which tests/test_torch_decode_
+# parity.py holds to JAX): the largest |card - CPU| allowed on a logit or
+# a pool cell, f32 (that test's TOL), and greedy tokens compared on the
+# requests whose CPU top-1 margin exceeds 100 x it at every step
+DECODE_CPU_TOL = 1e-5
+DECODE_CPU_MARGIN = 100 * DECODE_CPU_TOL
+DECODE_CPU_REQUESTS = 16       # bench-width requests decoded on the CPU
+DECODE_CPU_WIDE_MIN = 4        # wide-margin requests the check needs
+DECODE_POOL_STD = 0.5          # the seeded pool's cells (K/V at init ~0.55)
 # Phase 5g: the zoo graphs' "pallas" forward against "fused" on the same
 # weights, max |log p - log p_ref|, under the bf16 policy (per model) and
 # in f32 (TF32 off). With seeded random weights a deep bf16 graph's logits
@@ -2425,6 +2496,23 @@ def obs_hooks(torch, tm_cls, net, tr, storage, **kw):
     return tm, sup
 
 
+def window_events(torch, tm, marks):
+    """Time `tm`'s k-windows on the card: a CUDA event recorded after
+    each window (the same shim on both arms of phase 5e; with an event
+    recorded before a fit, the events of one fit partition its device
+    timeline, idle gaps included)."""
+    inner = tm._fit_window
+
+    def timed(*a, **kw):
+        out = inner(*a, **kw)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1].append(ev)
+        return out
+
+    tm._fit_window = timed
+
+
 def obs_fits(torch, np, pc, ResNet50, tr, storage):
     """The flagship through TrainingMaster(steps_per_dispatch=GROUP_K,
     pipeline_depth=OBS_PIPELINE_DEPTH) at TRAIN_BATCH from one seeded
@@ -2433,8 +2521,11 @@ def obs_fits(torch, np, pc, ResNet50, tr, storage):
     StatsListener's first collection, whose one-off device allocations
     took ~0.22 s), then two timed fits of OBS_STEPS steps per arm in the
     order off, on, on, off (host clock, a sync at each end); the
-    launches of the hooks-on fits counted from 0; the CostModel's FLOPs
-    of the captured group (register_perf) against the same fits' time."""
+    launches of the hooks-on fits counted from 0; each window's device
+    time (window_events) and the on/off ratio of each pair of windows
+    (the i-th window of the n-th fit of each arm), whose median and mean
+    without the worst pair are the gates; the CostModel's FLOPs of the captured group (register_perf)
+    against the same fits' time."""
     from deeplearning4j_tpu_torch.observability import (
         CostModel,
         StepPhaseProfiler,
@@ -2451,6 +2542,9 @@ def obs_fits(torch, np, pc, ResNet50, tr, storage):
     for tm in (tm_off, tm_on):
         tm.fit(bf, OBS_STEPS)
     torch.cuda.synchronize()
+    marks = {"off": [], "on": []}
+    window_events(torch, tm_off, marks["off"])
+    window_events(torch, tm_on, marks["on"])
     # the profiler reports the timed fits only (not the capture's window)
     tm_on.phase_profiler = StepPhaseProfiler()
     reg = get_registry()
@@ -2471,7 +2565,10 @@ def obs_fits(torch, np, pc, ResNet50, tr, storage):
             if arm == "on" else (lambda a, b: tm.fit(bf, b, start_step=a))
         before = reg.snapshot()
         pc.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        start.record()
+        marks[arm].append([start])
         fit(at[arm], at[arm] + OBS_STEPS)
         torch.cuda.synchronize()
         secs[arm].append(time.perf_counter() - t0)
@@ -2494,6 +2591,28 @@ def obs_fits(torch, np, pc, ResNet50, tr, storage):
         r[f"{arm}_ms_per_step"] = sum(secs[arm]) * 1e3 / steps
         r[f"{arm}_s"] = secs[arm]
     r["ratio"] = r["on_ms_per_step"] / r["off_ms_per_step"]
+    # per window: device ms between consecutive window-end events
+    win = {arm: [[a.elapsed_time(b) for a, b in zip(evs, evs[1:])]
+                 for evs in marks[arm]] for arm in marks}
+    r["window_ms"] = win
+    pairs = [(i, j, on / off)
+             for i, (fon, foff) in enumerate(zip(win["on"], win["off"]))
+             for j, (on, off) in enumerate(zip(fon, foff))]
+    ratios = sorted(q for _, _, q in pairs)
+    r["window_ratios"] = [q for _, _, q in pairs]
+    r["median_window_ratio"] = (
+        float(np.median(ratios)) if ratios else float("nan"))
+    r["trimmed_window_ratio"] = (
+        float(np.mean(ratios[:-1])) if len(ratios) > 1 else float("nan"))
+    # the slowest window of each arm, and where the profiler put the time
+    # of the slowest hooks-on window
+    slow = {}
+    for arm in win:
+        flat = [(ms_, i, j) for i, f in enumerate(win[arm])
+                for j, ms_ in enumerate(f)]
+        if flat:
+            slow[arm] = dict(zip(("ms", "fit", "window"), max(flat)))
+    r["slowest_window"] = slow
     ms = r["on_ms_per_step"]
     r["img_per_s"] = TRAIN_BATCH / ms * 1e3
     r["macs_per_image"] = macs_per_image(on_net)
@@ -2512,6 +2631,11 @@ def obs_fits(torch, np, pc, ResNet50, tr, storage):
         if sp["name"].startswith("phase:"):
             r["phase_ms"].setdefault(sp["name"][6:], []).append(
                 round(sp["dur_us"] / 1e3, 2))
+    if "on" in slow:
+        k = slow["on"]["fit"] * len(win["on"][0]) + slow["on"]["window"]
+        at_k = {p: v[k] for p, v in r["phase_ms"].items() if k < len(v)}
+        slow["on"]["phase"] = (max(at_k, key=at_k.get) if at_k else None)
+        slow["on"]["phase_ms"] = at_k
     # the cost model: the captured group's FLOPs, counted outside the
     # timed fits, against the hooks-on fits' ms per step
     prog = tm_on._harness.program
@@ -2621,8 +2745,12 @@ def obs_serving(torch, np, net, tr):
     flagship: OBS_REQUESTS sequential requests of OBS_SERVE_SIZES rows
     (one in flight, so each request leads its batches and owns its span
     chain; 40 rows split into two batches), each checked against a direct
-    output; then SERVE_THREADS closed-loop clients for OBS_IDLE_S under
-    torch.profiler: the device's idle share while serving."""
+    output; then SERVE_THREADS closed-loop clients for OBS_IDLE_S: the
+    device's idle share while serving. The window's busy time is the sum
+    over its batches of each batch shape's kernel time, measured alone
+    under torch.profiler once the clients have stopped: profiling while
+    several threads launch work crashed the process on the card (a
+    segfault inside the window, in 3 of 4 runs)."""
     from deeplearning4j_tpu_torch.observability import get_registry
     from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
 
@@ -2651,17 +2779,49 @@ def obs_serving(torch, np, net, tr):
                 served[0] += 1
                 i += 1
 
+        # the window's batches, by input shape (the batch thread's calls)
+        window, shapes = [False], []
+        forward = net.output
+
+        def counted(*xs):
+            if window[0]:
+                shapes.append(tuple(
+                    (type(x).__name__, tuple(x.shape), str(x.dtype),
+                     str(getattr(x, "device", "cpu"))) for x in xs))
+            return forward(*xs)
+
+        net.output = counted
         threads = [threading.Thread(target=client)
                    for _ in range(SERVE_THREADS)]
         for t in threads:
             t.start()
         time.sleep(0.5)   # the clients' first round, outside the window
-        prof = engine_profile(torch, lambda: time.sleep(OBS_IDLE_S), 1)
+        torch.cuda.synchronize()
+        window[0] = True
+        t0 = time.perf_counter()
+        time.sleep(OBS_IDLE_S)
+        window[0] = False
+        window_s = time.perf_counter() - t0
         stop.set()
         for t in threads:
             t.join()
     finally:
         pi.shutdown()
+        net.__dict__.pop("output", None)
+    busy_s = 0.0
+    for shape in sorted(set(shapes)):
+        # a batch of the same kind, shape and dtype (numpy host arrays or
+        # tensors on their device); zeros run the same kernels
+        xs = [np.zeros(sh, np.dtype(dt)) if kind == "ndarray" else
+              torch.zeros(sh, dtype=getattr(torch, dt[len("torch."):]),
+                          device=dv)
+              for kind, sh, dt, dv in shape]
+        p = engine_profile(torch, lambda: [net.output(*xs)
+                                           for _ in range(3)], 3)
+        if p["busy_ms"] is None:
+            busy_s = None
+            break
+        busy_s += shapes.count(shape) * p["busy_ms"] / 1e3
     spans = tr.spans()[n_spans:]
     reqs = [s for s in spans if s["name"] == "request"][:OBS_REQUESTS]
     kids = {}
@@ -2679,14 +2839,14 @@ def obs_serving(torch, np, net, tr):
                           - sum(before["counters"].get(name, {}).values()))
     occ = lambda snap: snap["histograms"].get(
         "dl4j_serving_batch_occupancy", {"count": 0, "sum": 0.0})
-    busy_s = None if prof["busy_ms"] is None else prof["busy_ms"] / 1e3
     r = {"requests": OBS_REQUESTS, "chains": chains,
          "batches_expected": sum(-(-n // 32) for n in sizes),
          "splits_expected": sum(1 for n in sizes if n > 32),
          "rows": sum(sizes), "concurrent_served": served[0],
          "idle_share": (None if busy_s is None
-                        else 1.0 - busy_s / (prof["profiled_wall_ms"] / 1e3)),
-         "busy_s": busy_s, "window_s": prof["profiled_wall_ms"] / 1e3}
+                        else 1.0 - busy_s / window_s),
+         "busy_s": busy_s, "window_s": window_s,
+         "window_batches": len(shapes)}
     # the sequential part's counters (read before the concurrent window)
     r["batches_total_delta"] = delta("dl4j_serving_batches_total")
     r["splits_delta"] = delta("dl4j_serving_bucket_splits_total")
@@ -2725,9 +2885,13 @@ def obs_phase(torch, np, pc, ResNet50, card, det):
         f"{TRAIN_BATCH}, {r['steps']} steps per arm (two fits each, order "
         f"off on on off): hooks on {r['on_ms_per_step']:.2f} ms/step "
         f"({r['img_per_s']:.1f} img/s), hooks off "
-        f"{r['off_ms_per_step']:.2f} ms/step: ratio {r['ratio']:.4f} (the "
-        f"JAX package's bar for its telemetry: < 1.02; this run's limit "
-        f"{OBS_RATIO_MAX}); phase shares {shares}, coverage "
+        f"{r['off_ms_per_step']:.2f} ms/step: whole-window ratio "
+        f"{r['ratio']:.4f}, median per-window ratio "
+        f"{r['median_window_ratio']:.4f} and mean without the worst pair "
+        f"{r['trimmed_window_ratio']:.4f} over {len(r['window_ratios'])} "
+        f"window pairs (the gates; the JAX package's bar for its telemetry: "
+        f"< 1.02; this run's limit {OBS_RATIO_MAX}); slowest windows "
+        f"{r['slowest_window']}; phase shares {shares}, coverage "
         f"{phases['coverage']:.4f} over {phases['steps']} profiler steps "
         f"(one per window), per window (ms) {r['phase_ms']}; one "
         f"StatsListener collection "
@@ -2750,8 +2914,17 @@ def obs_phase(torch, np, pc, ResNet50, card, det):
             "wgrad_conv1x1": 30}
     windows = r["steps"] // GROUP_K
     problems = []
-    if r["ratio"] > OBS_RATIO_MAX:
-        problems.append(f"hooks-on/off ratio {r['ratio']:.4f}")
+    # the median of the per-window ratios: one host stall (a 1.09 s
+    # host-to-device stage once read 1.3960 whole-window, 1.0199 on the
+    # rerun) moves one window pair, not the median. The median cannot see
+    # a cost in fewer than half the windows (a per-fit hook), so the mean
+    # without the worst pair is gated too: it drops the one stall and
+    # keeps every periodic cost
+    for what in ("median", "trimmed"):
+        q = r[f"{what}_window_ratio"]
+        if not q <= OBS_RATIO_MAX:
+            problems.append(f"hooks-on/off {what} per-window ratio "
+                            f"{q:.4f} (whole-window {r['ratio']:.4f})")
     if phases["coverage"] < OBS_COVERAGE_MIN:
         problems.append(f"coverage {phases['coverage']:.4f}")
     if r["bitwise"]["differ"] or len(set(r["bitwise"]["iterations"])) != 1:
@@ -2833,7 +3006,8 @@ def obs_phase(torch, np, pc, ResNet50, card, det):
         f"occupancy (count, rows) +{s['occupancy_delta']} (rows "
         f"{s['rows']}); device idle share while "
         f"{SERVE_THREADS} clients were served for {s['window_s']:.2f} s "
-        "under the profiler: "
+        f"(busy: its {s['window_batches']} batches, each shape's kernels "
+        "timed alone under the profiler): "
         + ("not measured" if s["idle_share"] is None
            else f"{s['idle_share']:.4f}")
         + f" ({s['concurrent_served']} requests) [{card}]")
@@ -4690,6 +4864,683 @@ def keras_phase(torch, np, pc, card, seed, engine):
     return out
 
 
+# ------------------------------------------------------------ phase 5i
+
+
+def decode_requests(rng, n, prompt, new, vocab):
+    """`n` requests from `rng`: prompts of prompt[0]..prompt[1] tokens
+    and new[0]..new[1] new tokens (bench_serving.py:1183's draw)."""
+    return [([rng.randrange(vocab)
+              for _ in range(rng.randrange(prompt[0], prompt[1] + 1))],
+             rng.randrange(new[0], new[1] + 1)) for _ in range(n)]
+
+
+def decode_engine_run(torch, prog, reqs, prefills, journal=None):
+    """Every request submitted at once to a fresh DecodeEngine, driven
+    by step_once until all finish (host clock; the last step read its
+    tokens, so the card is idle at the end). Returns the tokens, the
+    seconds, the engine and this run's program dispatches (the
+    program's tally counts every caller)."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    eng = DecodeEngine(program=prog, queue_limit=len(reqs),
+                       max_prefills_per_step=prefills, journal=journal)
+    before = prog.trace_stats()["dispatches"]
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, mx) for p, mx in reqs]
+    while any(not h.done for h in handles):
+        eng.step_once()
+    dt = time.perf_counter() - t0
+    disp = {k: v - before[k]
+            for k, v in prog.trace_stats()["dispatches"].items()}
+    return [h.result(timeout_s=0) for h in handles], dt, eng, disp
+
+
+def decode_naive_run(prog, reqs):
+    """The naive arm: sequential_decode per request on one pool."""
+    from deeplearning4j_tpu_torch.serving import sequential_decode
+
+    kv = prog.init_kv()
+    outs = []
+    t0 = time.perf_counter()
+    for p, mx in reqs:
+        kv, toks = sequential_decode(prog, p, mx, kv=kv)
+        outs.append(toks)
+    return outs, time.perf_counter() - t0
+
+
+def decode_loop_run(prog, reqs):
+    """The engine as a server runs it: its own loop thread (`start()`),
+    every request submitted at once, each result awaited, `stop()`."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    eng = DecodeEngine(program=prog, queue_limit=len(reqs),
+                       max_prefills_per_step=DECODE_PREFILLS)
+    t0 = time.perf_counter()
+    eng.start()
+    try:
+        handles = [eng.submit(p, mx) for p, mx in reqs]
+        outs = [h.result(timeout_s=120.0) for h in handles]
+    finally:
+        eng.stop()
+    return outs, time.perf_counter() - t0, eng.stats()["steps"]
+
+
+def decode_profile(torch, fn):
+    """torch.profiler over `fn()`: the device's busy ms (the sum of the
+    kernels' device times; one stream) and the number of kernels run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and dev(e) > 0]
+    busy = sum(dev(e) for e in kernels) / 1e3
+    return {"busy_ms": busy if busy > 0 else None,
+            "kernels": sum(e.count for e in kernels)}
+
+
+def decode_idle_window(torch, prog, reqs, skip, n):
+    """The idle share of a window of engine steps: the same engine run
+    twice (its schedule is host data, so steps skip..skip+n are the same
+    steps), once timing the window on the host clock, once under the
+    profiler. Each step ends with its one read, so the card is idle at
+    the window's ends."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    out = {}
+    for profiled in (False, True):
+        eng = DecodeEngine(program=prog, queue_limit=len(reqs),
+                           max_prefills_per_step=DECODE_PREFILLS)
+        for p, mx in reqs:
+            eng.submit(p, mx)
+        for _ in range(skip):
+            eng.step_once()
+        torch.cuda.synchronize()
+        steps0 = eng.stats()["steps"]
+        window = lambda: [eng.step_once() for _ in range(n)]
+        if profiled:
+            out.update(decode_profile(torch, window))
+        else:
+            t0 = time.perf_counter()
+            window()
+            torch.cuda.synchronize()
+            out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            out["decode_steps"] = eng.stats()["steps"] - steps0
+        eng.stop()
+    out["idle_share"] = (None if out["busy_ms"] is None
+                         else 1.0 - out["busy_ms"] / out["wall_ms"])
+    return out
+
+
+def decode_full_tables(np, prog, pos):
+    """Every slot decoding at logical position `pos` over its own pages:
+    the inputs of one full decode step and of one chunk at `pos`."""
+    from deeplearning4j_tpu_torch.engine.decode_program import SCRATCH_PAGE
+
+    s, c, ps = prog.max_slots, prog.window, prog.page_size
+    pps = prog.pages_per_slot
+    cp = np.full((s, c), SCRATCH_PAGE, np.int32)
+    co = np.zeros((s, c), np.int32)
+    wp = np.zeros(s, np.int32)
+    wo = np.zeros(s, np.int32)
+    for slot in range(s):
+        table = [1 + slot * pps + r for r in range(pps)]
+        cp[slot], co[slot] = prog.window_cells(table, pos)
+        wp[slot] = table[(pos // ps) % pps]
+        wo[slot] = pos % ps
+    tok = np.arange(s, dtype=np.int32) % prog.model.vocab_size
+    posv = np.full(s, pos, np.int32)
+    step = (tok, posv, cp, co, wp, wo)
+    start = (pos // ps) * ps
+    ccp, cco = prog.window_cells(list(range(1, pps + 1)), start - 1)
+    chunk = ([int(t) for t in tok] * ps)[:ps], start, ccp, cco, 1
+    return step, chunk
+
+
+def decode_dispatch_ms(torch, np, prog, pos, n):
+    """ms per decode dispatch and per chunk dispatch at `pos` (CUDA
+    events around n back-to-back calls, after one; the host builds the
+    next call while the card runs, as in the engine) and the host wall
+    ms of a decode dispatch with its one read of the tokens."""
+    from deeplearning4j_tpu_torch.engine.decode_program import host_outputs
+
+    kv = prog.init_kv()
+    step, chunk = decode_full_tables(np, prog, pos)
+    r = {"pos": pos,
+         "step_ms": events_ms(torch, lambda: prog.step(kv, *step), n),
+         "chunk_ms": events_ms(
+             torch, lambda: prog.prefill_chunk(kv, *chunk), n)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        host_outputs(*prog.step(kv, *step)[1:])
+    r["step_host_ms"] = (time.perf_counter() - t0) * 1e3 / n
+    p = decode_profile(torch, lambda: [prog.step(kv, *step)
+                                       for _ in range(n)])
+    r["launches_per_step"] = p["kernels"] / n
+    r["step_busy_ms"] = None if p["busy_ms"] is None else p["busy_ms"] / n
+    p = decode_profile(torch, lambda: [prog.prefill_chunk(kv, *chunk)
+                                       for _ in range(n)])
+    r["launches_per_chunk"] = p["kernels"] / n
+    del kv
+    return r
+
+
+def decode_bench(torch, np, prog, reqs, card, tmp):
+    """bench_serving.py:1183 bench_decode on the card: the naive and the
+    engine arm, two interleaved reps each, then the journal arm against
+    none, two interleaved reps each; every arm's tokens identical."""
+    from deeplearning4j_tpu_torch.serving import GenerationJournal
+
+    n1, dn1 = decode_naive_run(prog, reqs)
+    e1, de1, eng, disp = decode_engine_run(torch, prog, reqs,
+                                           DECODE_PREFILLS)
+    n2, dn2 = decode_naive_run(prog, reqs)
+    e2, de2, _, _ = decode_engine_run(torch, prog, reqs, DECODE_PREFILLS)
+    if not (n1 == e1 == n2 == e2):
+        fail("decode bench: the engine's tokens differ from the naive "
+             "per-request arm's")
+    lo, dlo, lsteps = decode_loop_run(prog, reqs)
+    if lo != n1:
+        fail("decode bench: the engine's loop thread served other tokens "
+             "than the naive arm's")
+    tokens = sum(len(t) for t in n1)
+    st = eng.stats()
+    r = {"tokens": tokens, "naive_s": [dn1, dn2], "engine_s": [de1, de2],
+         "naive_tok_s": tokens / min(dn1, dn2),
+         "engine_tok_s": tokens / min(de1, de2),
+         "decode_steps": st["steps"], "dispatches": disp,
+         "mean_slot_occupancy": tokens / max(st["steps"], 1)}
+    r["ratio"] = r["engine_tok_s"] / r["naive_tok_s"]
+    r["loop_thread"] = {"s": dlo, "tok_s": tokens / dlo,
+                        "decode_steps": lsteps}
+    r["idle"] = decode_idle_window(torch, prog, reqs, DECODE_IDLE_SKIP,
+                                   DECODE_IDLE_STEPS)
+    r["dispatch"] = decode_dispatch_ms(torch, np, prog, 100, DECODE_TIMED)
+    d = r["dispatch"]
+    log(f"decode bench: {len(reqs)} requests, {tokens} tokens; naive "
+        f"{r['naive_tok_s']:.1f} tok/s, engine {r['engine_tok_s']:.1f} "
+        f"tok/s: {r['ratio']:.3f}x; {r['decode_steps']} decode steps, mean "
+        f"slot occupancy {r['mean_slot_occupancy']:.2f} of "
+        f"{prog.max_slots}; dispatches {r['dispatches']}; all four arm-reps "
+        f"token-identical; served by the engine's loop thread (start, "
+        f"submit, result, stop) {r['loop_thread']['tok_s']:.1f} tok/s in "
+        f"{dlo:.3f} s, {lsteps} decode steps, tokens identical [{card}]")
+    log(f"decode dispatch at position {d['pos']} (all {prog.max_slots} "
+        f"slots): {d['step_ms']:.3f} ms per decode dispatch (host wall "
+        f"with its one read {d['step_host_ms']:.3f}, device busy "
+        f"{d['step_busy_ms']}), {d['chunk_ms']:.3f} ms per chunk "
+        f"dispatch; PyTorch kernel launches {d['launches_per_step']:.1f} "
+        f"per decode step, {d['launches_per_chunk']:.1f} per chunk; engine "
+        f"idle share {r['idle']['idle_share']} over engine steps "
+        f"{DECODE_IDLE_SKIP}-{DECODE_IDLE_SKIP + DECODE_IDLE_STEPS} "
+        f"({r['idle']['decode_steps']} decode dispatches; busy "
+        f"{r['idle']['busy_ms']} ms of {r['idle']['wall_ms']:.1f}, "
+        f"{r['idle']['kernels']} kernels) [{card}]")
+    outs, secs, jstats = {"off": [], "on": []}, {"off": [], "on": []}, None
+    for arm in ("on", "off", "on", "off"):
+        d = os.path.join(tmp, f"journal-{len(secs['on'])}") \
+            if arm == "on" else None
+        j = GenerationJournal(d, fsync_interval_s=0.05) if d else None
+        try:
+            o, dt, _, _ = decode_engine_run(torch, prog, reqs,
+                                            DECODE_PREFILLS, journal=j)
+        finally:
+            if j is not None:
+                jstats = j.stats()
+                j.close()
+        outs[arm].append(o)
+        secs[arm].append(dt)
+    if not all(o == n1 for arm in outs.values() for o in arm):
+        fail("decode journal: the journaled tokens differ from the "
+             "journal-free arm's")
+    r["journal"] = {"off_tok_s": tokens / min(secs["off"]),
+                    "on_tok_s": tokens / min(secs["on"]),
+                    "off_s": secs["off"], "on_s": secs["on"],
+                    "records": jstats["records"],
+                    "fsyncs": jstats["fsyncs"]}
+    jr = r["journal"]
+    log(f"decode journal: GenerationJournal(fsync_interval_s=0.05) "
+        f"{jr['on_tok_s']:.1f} tok/s against none {jr['off_tok_s']:.1f}: "
+        f"{jr['on_tok_s'] / jr['off_tok_s']:.3f}x; {jr['records']} records, "
+        f"{jr['fsyncs']} fsyncs per run; tokens identical [{card}]")
+    return r, n1
+
+
+def decode_drain(eng, handles, limit=20000):
+    steps = 0
+    while any(not h.done for h in handles):
+        eng.step_once()
+        steps += 1
+        if steps > limit:
+            fail("decode drill: the engine made no progress")
+    return [h.result(timeout_s=0) for h in handles]
+
+
+def decode_drills(torch, np, prog, seed, tmp):
+    """The paged drills at bench width, each against sequential_decode on
+    the same program, bit for bit."""
+    from deeplearning4j_tpu_torch.resilience.faults import injector
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeEngine,
+        GenerationJournal,
+        sequential_decode,
+    )
+
+    rng = random.Random(seed + 1)
+    vocab, ps = prog.model.vocab_size, prog.page_size
+    oracle = lambda p, mx: sequential_decode(prog, p, mx)[1]
+    res, bad = {}, []
+
+    def check(name, got, want, **facts):
+        res[name] = dict(facts, requests=len(want),
+                         bitwise=got == want)
+        if got != want:
+            bad.append(name)
+
+    # shared prefix: a two-page system prompt + unique tails
+    system = [rng.randrange(vocab) for _ in range(2 * ps)]
+    reqs = [(system + [rng.randrange(vocab)
+                       for _ in range(rng.randrange(3, 13))], 12)
+            for _ in range(8)]
+    eng = DecodeEngine(program=prog, queue_limit=64,
+                       max_prefills_per_step=DECODE_PREFILLS)
+    got = decode_drain(eng, [eng.submit(p, mx) for p, mx in reqs])
+    st = eng.stats()
+    unshared = sum(len(prog.chunk_starts(len(p))) for p, _ in reqs)
+    check("prefix", got, [oracle(p, mx) for p, mx in reqs],
+          prefix_requests_hit=st["prefix_requests_hit"],
+          prefix_page_hits=st["prefix_hits"],
+          chunks=st["prefill_chunks"],
+          skipped_chunks=unshared - st["prefill_chunks"])
+    if not (st["prefix_requests_hit"] > 0
+            and unshared - st["prefill_chunks"] > 0):
+        bad.append("prefix (no hit or no skipped chunk)")
+    # copy-on-write: a prompt with a partial last page, twice
+    prompt = [rng.randrange(vocab) for _ in range(ps + 11)]
+    eng = DecodeEngine(program=prog)
+    a = decode_drain(eng, [eng.submit(prompt, 16)])
+    cow_a = eng.stats()["cow_copies"]
+    b = decode_drain(eng, [eng.submit(prompt, 16)])
+    want = oracle(prompt, 16)
+    check("cow", a + b, [want, want], cow_copies=eng.stats()["cow_copies"],
+          cow_after_first=cow_a)
+    if not eng.stats()["cow_copies"] > cow_a >= 1:
+        bad.append("cow (no copy)")
+    # ring wrap: generation past max_ctx
+    prompt = [rng.randrange(vocab) for _ in range(20)]
+    n_new = prog.window + 30
+    eng = DecodeEngine(program=prog)
+    got = decode_drain(eng, [eng.submit(prompt, n_new)])
+    check("ring_wrap", got, [oracle(prompt, n_new)],
+          ctx_wraps=eng.stats()["ctx_wraps"])
+    if eng.stats()["ctx_wraps"] < 1:
+        bad.append("ring_wrap (no wrap)")
+    # an eviction storm through the serving.slot_evict fault point
+    reqs = decode_requests(rng, 12, (4, 40), (8, 30), vocab)
+    inj = injector()
+    for at in (3, 6, 9, 12, 15):
+        inj.inject("serving.slot_evict", mode="raise", at_hit=at, times=1)
+    try:
+        eng = DecodeEngine(program=prog, queue_limit=64,
+                           max_prefills_per_step=DECODE_PREFILLS)
+        got = decode_drain(eng, [eng.submit(p, mx) for p, mx in reqs])
+    finally:
+        inj.clear()
+    check("eviction_storm", got, [oracle(p, mx) for p, mx in reqs],
+          evictions=eng.stats()["evictions"])
+    if eng.stats()["evictions"] != 5:
+        bad.append("eviction_storm (evictions)")
+    # a decode.nonfinite quarantine and replay
+    reqs = decode_requests(rng, 8, (4, 40), (8, 30), vocab)
+    inj.inject("decode.nonfinite", mode="raise", at_hit=4, times=1)
+    inj.inject("decode.nonfinite", mode="raise", at_hit=9, times=1)
+    try:
+        eng = DecodeEngine(program=prog, queue_limit=64,
+                           max_prefills_per_step=DECODE_PREFILLS)
+        got = decode_drain(eng, [eng.submit(p, mx) for p, mx in reqs])
+    finally:
+        inj.clear()
+    st = eng.stats()
+    check("quarantine", got, [oracle(p, mx) for p, mx in reqs],
+          quarantines=st["quarantines"], replays=st["replays"])
+    if st["quarantines"] != 2 or st["replays"] < 2:
+        bad.append("quarantine (counts)")
+    # the loop thread wedged by decode.hang: the StepWatchdog tears the
+    # engine down and restarts it, every live request replayed
+    reqs = decode_requests(rng, 6, (4, 40), (8, 30), vocab)
+    inj.inject("decode.hang", mode="delay", delay_s=1.5, at_hit=5, times=1)
+    eng = DecodeEngine(program=prog, queue_limit=64,
+                       max_prefills_per_step=DECODE_PREFILLS,
+                       watchdog_timeout_s=0.25, max_engine_restarts=3)
+    eng.start()
+    try:
+        got = [h.result(timeout_s=60.0)
+               for h in [eng.submit(p, mx) for p, mx in reqs]]
+    finally:
+        eng.stop()
+        inj.clear()
+    st = eng.stats()
+    check("watchdog_restart", got, [oracle(p, mx) for p, mx in reqs],
+          engine_restarts=st["engine_restarts"], replays=st["replays"])
+    if st["engine_restarts"] != 1:
+        bad.append("watchdog_restart (restarts)")
+    # a resume_tokens continuation
+    prompt = [rng.randrange(vocab) for _ in range(30)]
+    full = oracle(prompt, 24)
+    eng = DecodeEngine(program=prog)
+    got = decode_drain(eng, [eng.submit(prompt, 24,
+                                        resume_tokens=full[:9])])
+    check("resume", got, [full])
+    # cold recovery from the journal of an engine stopped mid-generation
+    reqs = [(p, 20) for p, _ in decode_requests(rng, 5, (4, 40), (8, 8),
+                                                vocab)]
+    d = os.path.join(tmp, "drill-journal")
+    j1 = GenerationJournal(d, fsync_interval_s=0)
+    eng1 = DecodeEngine(program=prog, journal=j1)
+    for i, (p, mx) in enumerate(reqs):
+        eng1.submit(p, mx, request_id=f"drill-{i}")
+    for _ in range(6):
+        eng1.step_once()
+    eng1.stop()                       # the journal stays open: a kill
+    j2 = GenerationJournal(d, fsync_interval_s=0)
+    airborne = sum(1 for v in j2.live().values() if v["tokens"])
+    eng2 = DecodeEngine(program=prog, journal=j2)
+    recovered = eng2.stats()["journal"]["recovered"]
+    got = decode_drain(eng2, [eng2.submit(p, mx, request_id=f"drill-{i}")
+                              for i, (p, mx) in enumerate(reqs)])
+    check("cold_recovery", got, [oracle(p, mx) for p, mx in reqs],
+          recovered=recovered, airborne=airborne,
+          live_after=len(j2.live()))
+    j2.close()
+    j1.close()
+    if recovered != len(reqs) or not airborne or res["cold_recovery"][
+            "live_after"]:
+        bad.append("cold_recovery (counts)")
+    return res, bad
+
+
+def decode_capturing_pair(torch, cfg, seed, slots, page):
+    """The same seeded CausalTransformer on the card and on the CPU, each
+    with a DecodeProgram of its own, built at its first call while
+    `nn.attention.lm_logits` records their logits (`caps["card"]`,
+    `caps["cpu"]`; these two programs only, so no other run reads its
+    logits back); `restore()` puts the module's function back."""
+    from deeplearning4j_tpu_torch.engine.decode_program import DecodeProgram
+    from deeplearning4j_tpu_torch.nn import attention
+    from deeplearning4j_tpu_torch.zoo.decoder import CausalTransformer
+
+    caps, orig, owner = {"card": [], "cpu": []}, attention.lm_logits, {}
+
+    def lm_rec(x, e):
+        out = orig(x, e)
+        caps[owner[e.data_ptr()]].append(out.cpu().numpy().copy())
+        return out
+
+    progs = {}
+    for name, where in (("card", DEV), ("cpu", "cpu")):
+        m = CausalTransformer(**cfg, seed=seed, device=where).init()
+        owner[m.params["tok_emb"].data_ptr()] = name
+        progs[name] = DecodeProgram(m, max_slots=slots, page_size=page)
+    attention.lm_logits = lm_rec
+
+    def restore():
+        attention.lm_logits = orig
+
+    return progs["card"], progs["cpu"], caps, restore
+
+
+def decode_versus_cpu(torch, np, card_prog, cpu_prog, caps, seed, pos):
+    """One chunk and one decode step on the card against the same calls
+    of the port on the CPU, same weights and inputs: a pool of seeded
+    cells, a chunk into slot 0's page at the page start below `pos`,
+    then every slot decoding at `pos` over its own pages. The largest
+    |card - CPU| of the pool after each and of the step's logits, and
+    the tokens compared where the CPU's top-1 margin is wide."""
+    from deeplearning4j_tpu_torch.engine.decode_program import host_outputs
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    kv = torch.randn(card_prog.kv_shape, generator=gen, device=DEV)
+    kv.mul_(DECODE_POOL_STD)
+    kc = kv.cpu()
+    step, chunk = decode_full_tables(np, card_prog, pos)
+    toks, start, ccp, cco, _ = chunk
+    chunk = (toks, start, ccp, cco,
+             1 + (start // card_prog.page_size) % card_prog.pages_per_slot)
+
+    def pool_err():
+        # scratch (page 0) excepted: its bytes are racy by design
+        return float((kv[:, :, 1:] - kc[:, :, 1:].to(DEV)).abs().max())
+
+    card_prog.prefill_chunk(kv, *chunk)
+    cpu_prog.prefill_chunk(kc, *chunk)
+    r = {"pos": pos, "chunk_pool_err": pool_err()}
+    for v in caps.values():
+        v.clear()
+    _, nxt, ok = card_prog.step(kv, *step)
+    nxt, ok = host_outputs(nxt, ok)
+    _, nc, okc = cpu_prog.step(kc, *step)
+    nc, okc = host_outputs(nc, okc)
+    r["step_pool_err"] = pool_err()
+    (lg,), (lc,) = caps["card"], caps["cpu"]
+    r["logits_err"] = float(np.max(np.abs(lg.astype(np.float64) - lc)))
+    top = np.sort(lc, axis=1)
+    wide = (top[:, -1] - top[:, -2]) > DECODE_CPU_MARGIN
+    r["wide_slots"] = int(wide.sum())
+    r["tokens_equal_wide"] = bool((nxt[wide] == nc[wide]).all())
+    r["finite"] = bool(ok.all() and okc.all())
+    del kv, kc
+    return r
+
+
+def decode_tokens_versus_cpu(np, cpu_prog, caps, reqs, want):
+    """The card's greedy tokens for `reqs` (`want`: its sequential_decode
+    run in the bench) against the CPU's sequential_decode, on the
+    requests whose CPU top-1 margin exceeds DECODE_CPU_MARGIN at every
+    step (the oracle decodes in slot 0)."""
+    from deeplearning4j_tpu_torch.serving import sequential_decode
+
+    wide = equal = 0
+    for (p, mx), w in zip(reqs, want):
+        caps["cpu"].clear()
+        toks = sequential_decode(cpu_prog, p, mx)[1]
+        margins = [float(np.diff(np.sort(lg[0])[-2:])[0])
+                   for lg in caps["cpu"]]
+        if min(margins) > DECODE_CPU_MARGIN:
+            wide += 1
+            equal += toks == w
+    for v in caps.values():
+        v.clear()
+    return {"requests": len(reqs), "wide": wide, "equal": equal}
+
+
+def decode_cpu_check(torch, np, cfg, seed, slots, page, pos, card,
+                     what, reqs=(), want=()):
+    """decode_versus_cpu (and, given requests and the card's tokens for
+    them, decode_tokens_versus_cpu) on a fresh card/CPU pair; logs a
+    line and fails on a disagreement."""
+    t0 = time.perf_counter()
+    card_prog, cpu_prog, caps, restore = decode_capturing_pair(
+        torch, cfg, seed, slots, page)
+    try:
+        r = decode_versus_cpu(torch, np, card_prog, cpu_prog, caps, seed,
+                              pos)
+        if reqs:
+            r["tokens"] = decode_tokens_versus_cpu(np, cpu_prog, caps,
+                                                   reqs, want)
+    finally:
+        restore()
+    r["seconds"] = time.perf_counter() - t0
+    log(f"decode {what} card vs CPU (the port on the CPU, held to JAX by "
+        f"tests/test_torch_decode_parity.py; same seeded weights and "
+        f"pool): {r}; tolerance {DECODE_CPU_TOL} [{card}]")
+    errs = [r["chunk_pool_err"], r["step_pool_err"], r["logits_err"]]
+    if not max(errs) <= DECODE_CPU_TOL:
+        fail(f"decode {what}: the card differs from the CPU by "
+             f"{max(errs)} > {DECODE_CPU_TOL}")
+    if not (r["finite"] and r["tokens_equal_wide"] and r["wide_slots"]):
+        fail(f"decode {what}: the card's step tokens differ from the "
+             f"CPU's: {r}")
+    t = r.get("tokens")
+    if t and (t["wide"] < DECODE_CPU_WIDE_MIN or t["equal"] != t["wide"]):
+        fail(f"decode {what}: greedy tokens against the CPU: {t}")
+    del card_prog, cpu_prog
+    torch.cuda.empty_cache()
+    return r
+
+
+def decode_gpt2(torch, np, seed, card):
+    """GPT-2-small width (openai-community/gpt2's config, seeded weights):
+    GPT2_REQUESTS requests through the engine, the oracle on
+    GPT2_ORACLE of them, dispatch times beside the per-step bound."""
+    from deeplearning4j_tpu_torch.engine.decode_program import DecodeProgram
+    from deeplearning4j_tpu_torch.serving import sequential_decode
+    from deeplearning4j_tpu_torch.zoo.decoder import CausalTransformer
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()   # what earlier phases still hold
+    model = CausalTransformer(**GPT2, seed=seed, device=DEV).init()
+    prog = DecodeProgram(model, max_slots=GPT2_SLOTS, page_size=GPT2_PAGE)
+    prog.warmup(prog.init_kv())
+    r = {"params": model.num_params(), "pool_bytes": prog.kv_bytes,
+         "build_s": time.perf_counter() - t0}
+    builds = model._jit_cache.trace_counts()
+    reqs = decode_requests(random.Random(seed), GPT2_REQUESTS, GPT2_PROMPT,
+                           GPT2_NEW, model.vocab_size)
+    outs, dt, eng, disp = decode_engine_run(torch, prog, reqs,
+                                            GPT2_PREFILLS)
+    st = eng.stats()
+    del eng
+    tokens = sum(len(t) for t in outs)
+    r.update(tokens=tokens, engine_s=dt, tok_s=tokens / dt,
+             decode_steps=st["steps"], dispatches=disp,
+             prompt_tokens=sum(len(p) for p, _ in reqs),
+             mean_slot_occupancy=tokens / max(st["steps"], 1))
+    if len(outs) != GPT2_REQUESTS or any(
+            len(o) != mx for o, (_, mx) in zip(outs, reqs)):
+        fail("decode gpt2: a request did not finish with its tokens")
+    kv = prog.init_kv()
+    want = []
+    for p, mx in reqs[:GPT2_ORACLE]:
+        kv, toks = sequential_decode(prog, p, mx, kv=kv)
+        want.append(toks)
+    del kv
+    r["oracle_bitwise"] = outs[:GPT2_ORACLE] == want
+    pos = GPT2_BOUND_LIVE - 1
+    r["dispatch"] = decode_dispatch_ms(torch, np, prog, pos, GPT2_TIMED)
+    weights = prog.step_bytes() - (prog.max_slots * prog.window
+                                   * model.n_layers * 2 * model.d_model * 4)
+    live_bytes = (prog.max_slots * GPT2_BOUND_LIVE * model.n_layers * 2
+                  * model.d_model * 4)
+    r["weights_bytes"] = weights
+    r["live_kv_bytes"] = live_bytes
+    r["step_bound_ms"] = (weights + live_bytes) / HBM_BYTES_PER_S * 1e3
+    r["peak_allocated"] = torch.cuda.max_memory_allocated() - base
+    r["allocated_before"] = base
+    r["builds_unchanged"] = model._jit_cache.trace_counts() == builds
+    r["seconds"] = time.perf_counter() - t0
+    d = r["dispatch"]
+    log(f"decode gpt2: CausalTransformer({GPT2}), {r['params']} params, f32, "
+        f"DecodeProgram(max_slots={GPT2_SLOTS}, page_size={GPT2_PAGE}), pool "
+        f"{r['pool_bytes'] / 1e9:.3f} GB; {GPT2_REQUESTS} requests "
+        f"({r['prompt_tokens']} prompt tokens, {tokens} new): "
+        f"{r['tok_s']:.1f} tok/s in {dt:.2f} s, {r['decode_steps']} decode "
+        f"steps (occupancy {r['mean_slot_occupancy']:.2f}), dispatches "
+        f"{r['dispatches']}; peak memory {r['peak_allocated'] / 1e9:.3f} GB "
+        f"above the {base / 1e9:.3f} GB held before this part; "
+        f"engine = oracle on {GPT2_ORACLE}: {r['oracle_bitwise']} [{card}]")
+    log(f"decode gpt2 dispatch, all {GPT2_SLOTS} slots at {GPT2_BOUND_LIVE} "
+        f"live cells: {d['step_ms']:.3f} ms per decode step (host wall "
+        f"{d['step_host_ms']:.3f}, device busy {d['step_busy_ms']}) against "
+        f"a bound of {r['step_bound_ms']:.3f} ms (weights "
+        f"{weights / 1e9:.3f} GB + live K/V {live_bytes / 1e9:.3f} GB at "
+        f"3.35 TB/s; {d['step_ms'] / r['step_bound_ms']:.1f}x); "
+        f"{d['chunk_ms']:.3f} ms per chunk; launches "
+        f"{d['launches_per_step']:.1f} per step, "
+        f"{d['launches_per_chunk']:.1f} per chunk; phase part "
+        f"{r['seconds']:.1f} s [{card}]")
+    if not r["oracle_bitwise"]:
+        fail("decode gpt2: the engine's tokens differ from the oracle's")
+    if not r["builds_unchanged"]:
+        fail("decode gpt2: a program was rebuilt after warm-up")
+    del prog, model
+    torch.cuda.empty_cache()
+    return r
+
+
+def decode_phase(torch, np, pc, card, seed):
+    """Phase 5i: the decode-serving path (lines start "decode "). The
+    kernel launch counters are set to 0 before it and read after it: no
+    kernel of csrc/ is on the decode path."""
+    from deeplearning4j_tpu_torch.engine.decode_program import DecodeProgram
+    from deeplearning4j_tpu_torch.zoo.decoder import CausalTransformer
+
+    pc.reset_launch_counts()
+    res, secs = {"card": card}, {}
+    t0 = time.perf_counter()
+    model = CausalTransformer(**DECODE_BENCH, device=DEV).init()
+    prog = DecodeProgram(model, max_slots=DECODE_SLOTS,
+                         page_size=DECODE_PAGE)
+    prog.warmup(prog.init_kv())
+    builds = model._jit_cache.trace_counts()
+    reqs = decode_requests(random.Random(seed), DECODE_REQUESTS,
+                           DECODE_PROMPT, DECODE_NEW, model.vocab_size)
+    log(f"decode model: CausalTransformer(vocab 512, d 128, 8 heads, 4 "
+        f"layers, ctx 128, seed 7), {model.num_params()} params, f32, "
+        f"DecodeProgram(max_slots={DECODE_SLOTS}, page_size={DECODE_PAGE}): "
+        f"pool {prog.kv_bytes / 1e6:.2f} MB; builds after warm-up {builds}")
+    with tempfile.TemporaryDirectory() as tmp:
+        res["bench"], card_tokens = decode_bench(torch, np, prog, reqs,
+                                                 card, tmp)
+        secs["bench"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["drills"], bad = decode_drills(torch, np, prog, seed, tmp)
+        secs["drills"] = time.perf_counter() - t0
+    after = model._jit_cache.trace_counts()
+    log(f"decode drills: {res['drills']}; build counts after warm-up "
+        f"{builds}, after the bench and drills {after} (a call off a "
+        f"key's shapes would add one) [{card}]")
+    if bad:
+        fail(f"decode drills: {bad}")
+    if after != builds:
+        fail(f"decode: a program was rebuilt after warm-up: {after}")
+    del prog, model
+    t0 = time.perf_counter()
+    cfg = {k: v for k, v in DECODE_BENCH.items() if k != "seed"}
+    res["cpu"] = decode_cpu_check(
+        torch, np, cfg, DECODE_BENCH["seed"], DECODE_SLOTS, DECODE_PAGE, 100,
+        card, "bench", reqs=reqs[:DECODE_CPU_REQUESTS],
+        want=card_tokens[:DECODE_CPU_REQUESTS])
+    secs["cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["gpt2"] = decode_gpt2(torch, np, seed, card)
+    secs["gpt2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["gpt2_cpu"] = decode_cpu_check(torch, np, GPT2, seed, GPT2_SLOTS,
+                                       GPT2_PAGE, GPT2_BOUND_LIVE - 1, card,
+                                       "gpt2")
+    secs["gpt2_cpu"] = time.perf_counter() - t0
+    counts = pc.launch_counts()
+    res["launches"] = {k: counts[k] for k in pc.LAUNCHES}
+    res["seconds"] = secs
+    log(f"decode phase: kernel launches on the decode path "
+        f"{res['launches']}; seconds per part "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    if any(res["launches"].values()):
+        fail(f"decode: a csrc/ kernel launched on the decode path: "
+             f"{res['launches']}")
+    return res
+
+
 # ------------------------------------------------------------ phase 6
 
 
@@ -4875,11 +5726,14 @@ def timing_phase(torch, pc, calls):
 
 
 def main():
+    # a crash inside a native library still prints every thread's stack
+    faulthandler.enable(all_threads=True)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phase 5h's Keras weights and data")
+                    help="seed of phase 5h's Keras weights and data and of "
+                         "phase 5i's requests and GPT-2-width weights")
     args = ap.parse_args()
 
     import numpy as np
@@ -5006,6 +5860,13 @@ def main():
         worst[name] = max(worst[name], v)
     log(f"keras phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5i. the decode-serving path: bench_decode's configuration (naive
+    # against the continuous engine, the journal), the paged drills, and
+    # GPT-2-small width
+    t0 = time.perf_counter()
+    decode = decode_phase(torch, np, pc, card, args.seed)
+    log(f"decode phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -5065,6 +5926,7 @@ def main():
             "keras_launches_by_route": {
                 r: keras["launches"][f"{name}/{r}"]
                 for r in ("wgmma", "simple")},
+            "decode_launches": decode["launches"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -5077,7 +5939,7 @@ def main():
                        "forward_ms": fwd, "step_check": step,
                        "train": train, "engine": engine, "mln": mln,
                        "tm": tm, "obs": obs, "rnn": rnn, "zoo": zoo,
-                       "keras": keras},
+                       "keras": keras, "decode": decode},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -5093,7 +5955,8 @@ def main():
         f"({ZOO_STEPS}), InceptionResNetV1 and FaceNetNN4Small2 "
         f"({ZOO_SMALL_STEPS} each), tl_launches from its {TL_STEPS} "
         "ResNet-50 transfer steps, keras_launches from phase 5h's "
-        f"{KERAS_RESNET_STEPS} timed Keras ResNet50 steps")
+        f"{KERAS_RESNET_STEPS} timed Keras ResNet50 steps, decode_launches "
+        "from phase 5i (the decode-serving path)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,11 @@ ModelSelector and pretrained loading, transfer learning
 line-search solvers (optimize/solvers.py), layerwise pretraining, Keras
 import through the port's own HDF5 reader (modelimport/), the
 normalizers, record readers and fetchers (datasets/), the native host
-library's loader (native/) and the rest of eval/.
+library's loader (native/), the rest of eval/, and decode serving: the
+CausalTransformer (zoo/decoder.py), the paged-attention primitives
+(nn/attention.py), DecodeProgram (engine/decode_program.py) and the
+continuous-batching DecodeEngine with its flight recorder and generation
+journal (serving/).
 """
 
 from deeplearning4j_tpu_torch.device import resolve_device  # noqa: F401

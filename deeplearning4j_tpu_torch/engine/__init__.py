@@ -23,10 +23,15 @@ program + ONE host supervisor.
                 host-side staging ahead of the compute; stack_staged
                 stacks a k-window on the card.
 
-The mesh/sharding subsystem (ZeRO-1) and the decode program wait
-(ROADMAP queues 9 and 6).
+  decode_program  DecodeProgram (engine/decode_program.py): the
+                decode-serving programs over a paged KV pool — the
+                batched decode step, the chunk prefill and the page
+                copy — run eagerly, updating the pool in place.
+
+The mesh/sharding subsystem (ZeRO-1) waits (ROADMAP queue 9).
 """
 
+from deeplearning4j_tpu_torch.engine.decode_program import DecodeProgram
 from deeplearning4j_tpu_torch.engine.harness import StepHarness
 from deeplearning4j_tpu_torch.engine.pipeline import (
     SKIPPED,
@@ -39,5 +44,5 @@ from deeplearning4j_tpu_torch.engine.step_program import (
     make_loss_and_apply,
 )
 
-__all__ = ["StepProgram", "StepHarness", "make_loss_and_apply",
+__all__ = ["DecodeProgram", "StepProgram", "StepHarness", "make_loss_and_apply",
            "StepPrefetcher", "IteratorPipeline", "stack_staged", "SKIPPED"]

@@ -29,8 +29,10 @@ names: the training engine's, TrainingMaster's, the watchdog's and the
 Supervisor's `dl4j_train_*` (with the phase profiler's
 `dl4j_train_phase_seconds`), `dl4j_cluster_world_size`, the input
 pipeline's `dl4j_pipeline_*`, the checkpoint and model writers'
-`dl4j_checkpoint_*`, the retry policies', the cost model's `dl4j_perf_*`
-and ParallelInference's `dl4j_serving_*`.
+`dl4j_checkpoint_*`, the retry policies', the cost model's `dl4j_perf_*`,
+ParallelInference's `dl4j_serving_*`, the decode engine's and flight
+recorder's `dl4j_decode_*`, the generation journal's `dl4j_journal_*` and
+the program cache's `dl4j_jit_compiles_total`.
 """
 
 from __future__ import annotations
@@ -85,6 +87,39 @@ REGISTERED_METRICS = frozenset({
     "dl4j_serving_batches_total",
     "dl4j_serving_batch_occupancy",
     "dl4j_serving_bucket_splits_total",
+    # continuous-batching decode engine (serving/continuous.py)
+    "dl4j_decode_active_slots",
+    "dl4j_decode_tokens_total",
+    "dl4j_decode_tokens_per_s",
+    "dl4j_decode_prefill_seconds",
+    "dl4j_decode_slot_evictions_total",
+    # paged KV virtual memory (prefix trie / chunked prefill / ring wrap)
+    "dl4j_decode_prefix_hits_total",
+    "dl4j_decode_prefix_pages_shared",
+    "dl4j_decode_pages_free",
+    "dl4j_decode_prefill_chunks_total",
+    "dl4j_decode_ctx_wraps_total",
+    # decode durability (quarantine / watchdog / deadlines)
+    "dl4j_decode_slot_quarantines_total",
+    "dl4j_decode_replays_total",
+    "dl4j_decode_deadline_expired_total",
+    "dl4j_decode_engine_restarts_total",
+    # per-request latency attribution + the crash flight recorder
+    # (serving/flight.py)
+    "dl4j_decode_ttft_seconds",
+    "dl4j_decode_itl_seconds",
+    "dl4j_decode_queue_wait_seconds",
+    "dl4j_decode_flight_dumps_total",
+    # program cache (nn/jit_cache.py)
+    "dl4j_jit_compiles_total",
+    # durable serving journal (serving/journal.py)
+    "dl4j_journal_records_total",
+    "dl4j_journal_fsyncs_total",
+    "dl4j_journal_torn_tails_total",
+    "dl4j_journal_recovered_requests_total",
+    "dl4j_journal_compactions_total",
+    "dl4j_journal_bytes",
+    "dl4j_journal_live",
     # performance introspection (observability/perf.py)
     "dl4j_perf_mfu",
     "dl4j_perf_program_flops",

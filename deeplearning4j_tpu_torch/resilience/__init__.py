@@ -9,10 +9,12 @@ from deeplearning4j_tpu_torch.resilience.errors import (  # noqa: F401
     CircuitOpenError,
     DeadlineExceededError,
     FaultInjectedError,
+    GenerationPoisonedError,
     InferenceUnavailableError,
     NonFiniteLossError,
     OverloadedError,
     PreemptedError,
+    QuotaExceededError,
     ResilienceError,
     RestartsExhaustedError,
     RetriesExhaustedError,

@@ -1,7 +1,8 @@
 """Typed failures (a copy of the classes of deeplearning4j_tpu/resilience/errors.py
-that the ported serving, model-loading, retry and training paths raise). Callers
-route on type: shed load (Overloaded), surface (Shutdown / Unavailable),
-fail over (integrity), stop training (non-finite, preempted)."""
+that the ported serving, decode, model-loading, retry and training paths
+raise). Callers route on type: shed load (Overloaded, QuotaExceeded),
+surface (Shutdown / Unavailable), fail over (integrity), stop training
+(non-finite, preempted), abort one generation (GenerationPoisoned)."""
 
 from __future__ import annotations
 
@@ -92,3 +93,30 @@ class RestartsExhaustedError(ResilienceError):
         super().__init__(msg)
         self.cause = cause
         self.ledger = ledger or []
+
+
+class GenerationPoisonedError(ResilienceError):
+    """One generation request produced non-finite logits on every slot
+    it was replayed onto — the poison travels WITH the request (its
+    tokens drive the numerics), so further replays would quarantine
+    healthy slots one by one. The engine aborts the request with this
+    typed error after `poison_strike_limit` strikes instead of looping.
+    `strikes` is how many slots the request poisoned before the abort."""
+
+    def __init__(self, msg: str, model: str = "", strikes: int = 0):
+        super().__init__(msg)
+        self.model = model
+        self.strikes = strikes
+
+
+class QuotaExceededError(ResilienceError):
+    """A tenant's quota is spent, or the decode engine's slots and wait
+    queue are full. Maps to HTTP 429 + Retry-After — distinct from
+    OverloadedError (503), which means the SERVER is saturated, not the
+    tenant."""
+
+    def __init__(self, msg: str, tenant: str = "",
+                 retry_after_s: float = 1.0):
+        super().__init__(msg)
+        self.tenant = tenant
+        self.retry_after_s = retry_after_s

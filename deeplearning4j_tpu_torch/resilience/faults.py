@@ -32,6 +32,20 @@ drives either package. The port fires, so far:
   obs.emit           observability/metrics guarded-emission helpers —
                      `raise` simulates a broken telemetry backend; the
                      helpers swallow it (counted as dropped)
+  serving.slot_evict serving/continuous.DecodeEngine.step_once, once
+                     per engine iteration — `raise` evicts the lowest
+                     active slot (re-prefill + forced replay)
+  decode.hang        DecodeEngine's loop thread, before each heartbeat —
+                     `delay` wedges the loop for the StepWatchdog drill
+  decode.nonfinite   DecodeEngine.step_once, once per decode dispatch —
+                     `raise` forces a poison verdict on the lowest
+                     decoding slot (quarantine + replay)
+  journal.write_torn serving/journal.py, right after each append —
+                     `truncate` mauls the head segment's tail
+  journal.fsync_fail serving/journal.py, before each group fsync —
+                     `raise` keeps the bytes pending for the next flush
+  journal.recover_corrupt  serving/journal.py, once per replayed record
+                     of the recovery scan — `raise` declares it corrupt
 
 `REGISTERED_POINTS` is the canonical registry: every `fire(...)` site
 in the port must use a name listed there (tests/test_torch_engine.py

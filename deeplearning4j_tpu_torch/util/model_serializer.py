@@ -75,9 +75,11 @@ def params_from_jax(params, states=None, device=None, dtype=torch.float32,
     embedding W/b, LSTM W/RW/b and the Graves peepholes P, the
     bidirectional layer's {"bwd", "fwd"} pair, the center-loss head's
     centers, AutoEncoder/RBM W/b/vb, the VAE's encoder/decoder lists of
-    {W, b} and its mu/logvar/out heads) into the port's tensors on
-    `device` (default "cuda"; pass "cpu" explicitly), in the same
-    structure.
+    {W, b} and its mu/logvar/out heads; a CausalTransformer's tree with
+    its `layers` tuple of per-block dicts, which
+    `zoo.decoder.CausalTransformer.load_jax_params` takes) into the
+    port's tensors on `device` (default "cuda"; pass "cpu" explicitly),
+    in the same structure.
     Returns (params, states), and the updater states (e.g. nesterovs'
     {"v": {...}} per layer) as a third item when they are given."""
     from deeplearning4j_tpu_torch.device import resolve_device

@@ -3,6 +3,9 @@ from deeplearning4j_tpu_torch.zoo.base import (  # noqa: F401
     ZooModel,
     ZooType,
 )
+from deeplearning4j_tpu_torch.zoo.decoder import (  # noqa: F401
+    CausalTransformer,
+)
 from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
     VGG16,
     VGG19,

@@ -1227,3 +1227,116 @@ def test_cuda_evaluations_on_card_tensors_equal_the_cpus(rng):
     img = torch.rand(2, 8, 8, 3).mul(255).cuda()
     vgg = VGG16ImagePreProcessor()
     assert torch.equal(vgg.transform(img).cpu(), vgg.transform(img.cpu()))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_engine_equals_oracle_under_churn():
+    """The decode path on the card: the continuous engine's tokens under
+    staggered churn, a shared prefix, ring wrap and an eviction drill
+    equal the port's `sequential_decode` bit for bit, and the three
+    program keys are built once."""
+    _need_cuda()
+    import random
+
+    from deeplearning4j_tpu_torch.engine.decode_program import (
+        DecodeProgram,
+    )
+    from deeplearning4j_tpu_torch.resilience.faults import injector
+    from deeplearning4j_tpu_torch.serving.continuous import (
+        DecodeEngine,
+        sequential_decode,
+    )
+    from deeplearning4j_tpu_torch.zoo.decoder import CausalTransformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = CausalTransformer(vocab_size=64, d_model=32, n_heads=4,
+                              n_layers=2, max_ctx=64, seed=3).init()
+    assert model.params["tok_emb"].is_cuda
+    prog = DecodeProgram(model, max_slots=4, page_size=8)
+    kv = prog.warmup(prog.init_kv())
+    assert kv.is_cuda
+    builds = model._jit_cache.trace_counts()
+    rng = random.Random(1)
+    system = [rng.randrange(64) for _ in range(16)]
+    reqs = [((system if i % 3 == 0 else [])
+             + [rng.randrange(64) for _ in range(rng.randrange(2, 20))],
+             rng.randrange(2, 14)) for i in range(12)]
+    reqs.append(([5, 3, 8, 13, 21], 90))          # past max_ctx: wraps
+    oracle = [sequential_decode(prog, p, mx)[1] for p, mx in reqs]
+    injector().inject("serving.slot_evict", mode="raise", at_hit=9,
+                      times=2)
+    try:
+        eng = DecodeEngine(program=prog, queue_limit=64,
+                           max_prefills_per_step=2)
+        handles, i, steps = [], 0, 0
+        while i < len(reqs) or any(not h.done for h in handles):
+            if i < len(reqs) and steps % 2 == 0:
+                handles.append(eng.submit(*reqs[i]))
+                i += 1
+            eng.step_once()
+            steps += 1
+            assert steps < 4000
+    finally:
+        injector().clear()
+    assert [h.result(timeout_s=0) for h in handles] == oracle
+    stats = eng.stats()
+    assert stats["evictions"] == 2 and stats["ctx_wraps"] >= 1
+    assert stats["prefix_requests_hit"] >= 1
+    assert model._jit_cache.trace_counts() == builds
+
+
+@pytest.mark.cuda
+def test_cuda_decode_engine_serves_from_its_loop_thread():
+    """The engine served through its own loop thread on the card:
+    `start()`, `generate`/`submit`, a StepWatchdog restart after a
+    `decode.hang` wedge, and `stop()`; every output equals the port's
+    `sequential_decode` bit for bit."""
+    _need_cuda()
+    import random
+    import threading
+
+    from deeplearning4j_tpu_torch.engine.decode_program import (
+        DecodeProgram,
+    )
+    from deeplearning4j_tpu_torch.resilience.faults import injector
+    from deeplearning4j_tpu_torch.serving.continuous import (
+        DecodeEngine,
+        sequential_decode,
+    )
+    from deeplearning4j_tpu_torch.zoo.decoder import CausalTransformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = CausalTransformer(vocab_size=64, d_model=32, n_heads=4,
+                              n_layers=2, max_ctx=64, seed=5).init()
+    prog = DecodeProgram(model, max_slots=4, page_size=8)
+    # a bare "cuda" would name device 0 in the loop thread, whatever
+    # device the caller's thread had
+    assert prog.device.index == model.params["tok_emb"].device.index
+    rng = random.Random(2)
+    reqs = [([rng.randrange(64) for _ in range(rng.randrange(2, 20))],
+             rng.randrange(2, 14)) for _ in range(6)]
+    oracle = [sequential_decode(prog, p, mx)[1] for p, mx in reqs]
+    eng = DecodeEngine(program=prog, queue_limit=64)
+    eng.start()
+    try:
+        h = eng.generate(*reqs[0], timeout_s=60.0)
+        assert h.result(timeout_s=0) == oracle[0]
+        handles = [eng.submit(p, mx) for p, mx in reqs]
+        assert [h.result(timeout_s=60.0) for h in handles] == oracle
+    finally:
+        eng.stop()
+    assert not eng.running
+    injector().inject("decode.hang", mode="delay", delay_s=1.5,
+                      at_hit=3, times=1)
+    eng = DecodeEngine(program=prog, queue_limit=64,
+                       watchdog_timeout_s=0.25, max_engine_restarts=3)
+    eng.start()
+    try:
+        handles = [eng.submit(p, mx) for p, mx in reqs]
+        assert [h.result(timeout_s=60.0) for h in handles] == oracle
+        assert eng.stats()["engine_restarts"] == 1
+    finally:
+        eng.stop()
+        injector().clear()
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("DecodeEngine-loop") and t.is_alive()]
