@@ -234,6 +234,38 @@ Phases, in order; any failure exits non-zero:
      them, ms per decode step and per chunk beside the step's bound
      (weights + live K/V over 3.35 TB/s), and one chunk and one step
      against the CPU as at bench width;
+  5j. the serving control plane (lines start "control "): (a) phase 4's
+     ResNet-50 (bf16, "pallas", batch_limit=32) behind
+     ModelServer(...).start(): SERVE_THREADS closed-loop npz clients of
+     SERVE_SIZES rows for CONTROL_NPZ_S and CONTROL_JSON_THREADS JSON
+     clients of 1 row for CONTROL_JSON_S, run from a spawned child
+     process (CPU only, the port's client) so client encoding never
+     takes the server's GIL: req/s, img/s, p50/p99, bytes per request,
+     every response within LOGP_TOL["served"] of direct output, the
+     kernels' launches 30/16 per forward, all "wgmma"; (b) a hot swap
+     under 8 npz clients — a second seeded ResNet-50 written with
+     write_model, PUT with activate, a corrupted upload (409), rollback,
+     swap to v2 again: zero failed, zero mixed (each response within the
+     limit of its version's reference and beyond it of the other's), the
+     swap's seconds, v2 in f32 on the "simple" route (a zip carries no
+     compute dtype); (c) tenant admission in process at 2x the
+     closed-loop capacity of CONTROL_SOAK_ROWS-row requests
+     (CONTROL_SOAK_MIX): gold loses nothing, its p99 against its
+     unloaded p99, bronze takes the largest share of the sheds; (d)
+     three in-process replicas (batch_limit CONTROL_FLEET_BATCH) behind
+     a ReplicaRouter and a FleetController(min=max=3, CONTROL_SLO) under
+     CONTROL_FLEET_CLIENTS router clients: a canary-first rollout of
+     v2, a rollout.canary_poison rollout of v3 that breaches, rolls
+     back and holds down, a serving.replica_kill tick that removes a
+     replica and backfills it on the indexed device, zero mixed and zero
+     failed outside the armed poison; (e) decode over HTTP: phase 5i's
+     64 bench requests through CONTROL_DECODE_CLIENTS generate threads
+     on each wire (tokens equal to phase 5i's oracle), 429 with
+     Retry-After from an over-subscribed engine, a router migrating a
+     generation from a retiring replica (and restarting it from the
+     prompt under serving.migrate_fail), a cold restart from a killed
+     server's journal, and CONTROL_GPT2_REQUESTS GPT-2-width requests
+     over the npz wire equal to the in-process engine's tokens;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -252,6 +284,7 @@ import faulthandler
 import json
 import os
 import random
+import shutil
 import struct
 import subprocess
 import sys
@@ -514,6 +547,35 @@ ZOO_LOGP_TOL = {"GoogLeNet": 4.0, "InceptionResNetV1": 0.1,
                 "KerasResNet50": KERAS_RESNET_BF16_LOGP_TOL}
 EMBED_NORM_TOL = 2.0 ** -6
 TL_HELPER_TOL = 1e-6
+# phase 5j, the serving control plane: phase 4's network and traffic over
+# HTTP (npz: SERVE_THREADS clients of SERVE_SIZES rows; JSON: 1-row
+# requests, a 32-row JSON body being ~50 MB of text), the hot swap, tenant
+# admission at 2x capacity (bench_serving.py:324 bench_soak's path,
+# tenant mix and shed thresholds, :434-441), a three-replica fleet, and
+# decode over HTTP (phase 5i's configurations)
+CONTROL_NPZ_S = 6.0
+CONTROL_JSON_S = 3.0
+CONTROL_JSON_THREADS = 4
+CONTROL_SWAP_WAIT = 16         # requests a version serves per drill step
+CONTROL_SOAK_ROWS = 16
+CONTROL_CAPACITY_S = 3.0       # closed loop, gold only
+CONTROL_BASELINE_S = 3.0       # gold alone, open loop at its soak rate
+CONTROL_SOAK_S = 6.0           # open loop at 2x capacity
+# (tenant, share of the offered load, priority, quota rate as a share
+# of capacity, burst)
+CONTROL_SOAK_MIX = (("gold", 0.15, "high", None, None),
+                    ("silver", 0.25, "normal", 0.04, 8),
+                    ("bronze", 0.60, "low", 0.02, 4))
+CONTROL_SHED_THRESHOLDS = {"low": 0.03, "normal": 0.08}
+CONTROL_FLEET = 3
+CONTROL_FLEET_BATCH = 16       # each replica's batch_limit
+CONTROL_FLEET_CLIENTS = 4
+CONTROL_FLEET_ROWS = 8
+CONTROL_SLO = ("error_rate<0.05,min_requests=5,window=500ms,windows=2,"
+               "ramp_windows=1")
+CONTROL_DECODE_CLIENTS = 8
+CONTROL_GPT2_REQUESTS = 8
+CONTROL_GPT2_PROMPT = (64, 256)
 
 
 def fail(msg):
@@ -844,12 +906,18 @@ def row_separation(np, probs):
                for i in range(len(lp) - 1))
 
 
+def serving_pool(np, hw):
+    """The serving request pool of phases 4 and 5j: POOL_PER_SIZE seeded
+    requests of each of SERVE_SIZES rows, `hw`-sized images."""
+    rng = np.random.default_rng(7)
+    return [serving_inputs(np, rng, s, hw) for s in SERVE_SIZES
+            for _ in range(POOL_PER_SIZE)]
+
+
 def serving_phase(torch, np, pc, net):
     from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
 
-    rng = np.random.default_rng(7)
-    pool = [serving_inputs(np, rng, s) for s in SERVE_SIZES
-            for _ in range(POOL_PER_SIZE)]
+    pool = serving_pool(np, HW)
     errors = []
 
     def client(t, seed, out, n=None, deadline=None):
@@ -5501,6 +5569,7 @@ def decode_phase(torch, np, pc, card, seed):
     with tempfile.TemporaryDirectory() as tmp:
         res["bench"], card_tokens = decode_bench(torch, np, prog, reqs,
                                                  card, tmp)
+        res["bench_tokens"] = card_tokens
         secs["bench"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         res["drills"], bad = decode_drills(torch, np, prog, seed, tmp)
@@ -5538,6 +5607,1019 @@ def decode_phase(torch, np, pc, card, seed):
     if any(res["launches"].values()):
         fail(f"decode: a csrc/ kernel launched on the decode path: "
              f"{res['launches']}")
+    return res
+
+
+# ------------------------------------------------------------ phase 5j
+
+
+def control_load_worker(cmd_q, out_q, stop, running):
+    """The load generator's process (phase 5j): CPU only, importing the
+    port's client and numpy, so client-side encoding never holds the
+    serving process's GIL. Runs each command `cmd_q` brings (a dict,
+    `control_load_run`) and puts its result on `out_q`; None ends it."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.parallel import serving as wire
+
+    out_q.put("ready")
+    while True:
+        cmd = cmd_q.get()
+        if cmd is None:
+            return
+        try:
+            out_q.put(control_load_run(np, wire, cmd, stop, running))
+        except BaseException as e:   # noqa: BLE001 - reported by the parent
+            out_q.put({"error": repr(e)})
+
+
+def control_load_run(np, wire, cmd, stop, running):
+    """Closed-loop clients on one wire: `cmd` has url, wire ("npz" or
+    "json"), threads, sizes (request rows drawn from the pool), seconds
+    (None: until `stop`), hw, and refs {version: [log p of each pool
+    entry]} — each response is held against its claimed version's
+    reference (gap, at most LOGP_TOL["served"]) and every other
+    version's (far: more than that)."""
+    pool = serving_pool(np, cmd["hw"])
+    idx = [i for i, x in enumerate(pool) if x.shape[0] in cmd["sizes"]]
+    refs = cmd["refs"]
+    tol = LOGP_TOL["served"]
+    req_bytes, resp_bytes = {}, {}
+    for i in idx:
+        if cmd["wire"] == "npz":
+            req_bytes[i] = len(wire.encode_npz_request(pool[i], {}))
+            resp_bytes[i] = len(wire.encode_npz_response(
+                np.zeros((pool[i].shape[0], refs["v1"][i].shape[1]),
+                         np.float32), {"model": cmd["model"],
+                                       "version": "v1"}))
+        else:
+            req_bytes[i] = len(json.dumps({"inputs": pool[i].tolist()}))
+            resp_bytes[i] = len(json.dumps({
+                "outputs": np.exp(refs["v1"][i]).astype(np.float32)
+                .tolist(), "model": cmd["model"], "version": "v1"}))
+    records, errors, mixed = [], [], []
+    gaps = {"own": 0.0, "other": float("inf")}
+    lock = threading.Lock()
+    t_start = time.perf_counter()
+    deadline = (None if cmd["seconds"] is None
+                else t_start + cmd["seconds"])
+
+    def client(t):
+        c = wire.ModelClient(cmd["url"], timeout=120.0, wire=cmd["wire"])
+        order = np.random.default_rng(1000 + t)
+        while not stop.is_set() and (deadline is None
+                                     or time.perf_counter() < deadline):
+            i = idx[int(order.integers(len(idx)))]
+            t0 = time.perf_counter()
+            try:
+                r = c.predict(pool[i], model=cmd["model"])
+            except Exception as e:   # noqa: BLE001 - counted, must be 0
+                with lock:
+                    errors.append(repr(e))
+                continue
+            t1 = time.perf_counter()
+            got = np.asarray(r["outputs"], np.float32)
+            v = r["version"]
+            lp = np.log(np.maximum(got.astype(np.float64), 1e-30))
+            own = float(np.abs(lp - refs[v][i]).max()) \
+                if v in refs and got.shape == refs[v][i].shape \
+                else float("inf")
+            other = min([float(np.abs(lp - ref[i]).max())
+                         for u, ref in refs.items() if u != v]
+                        or [float("inf")])
+            with lock:
+                records.append((i, t0, t1, v))
+                gaps["own"] = max(gaps["own"], own)
+                gaps["other"] = min(gaps["other"], other)
+                if own > tol or other <= tol:
+                    mixed.append((v, own, other))
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(cmd["threads"])]
+    for th in threads:
+        th.start()
+    running.set()
+    for th in threads:
+        th.join()
+    running.clear()
+    wall = max([r[2] for r in records] or [t_start]) - t_start
+    lat = sorted((r[2] - r[1]) * 1e3 for r in records)
+    images = sum(pool[r[0]].shape[0] for r in records)
+    versions = {}
+    for r in records:
+        versions[r[3]] = versions.get(r[3], 0) + 1
+    n = max(len(records), 1)
+    return {"wire": cmd["wire"], "threads": cmd["threads"],
+            "requests": len(records), "images": images, "wall_s": wall,
+            "req_per_s": len(records) / max(wall, 1e-9),
+            "img_per_s": images / max(wall, 1e-9),
+            "latency_ms_p50": float(np.percentile(lat, 50)) if lat else None,
+            "latency_ms_p99": float(np.percentile(lat, 99)) if lat else None,
+            "request_bytes": sum(req_bytes[r[0]] for r in records) / n,
+            "response_bytes": sum(resp_bytes[r[0]] for r in records) / n,
+            "errors": len(errors), "first_errors": errors[:3],
+            "mixed": len(mixed), "first_mixed": mixed[:3],
+            "worst_own_gap": gaps["own"], "least_other_gap": gaps["other"],
+            "versions": versions}
+
+
+class ControlLoad:
+    """The parent's handle on the load generator process (spawned, so
+    the child starts a fresh interpreter and never touches the card)."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.cmd_q, self.out_q = ctx.Queue(), ctx.Queue()
+        self.stop, self.running = ctx.Event(), ctx.Event()
+        self.proc = ctx.Process(target=control_load_worker, daemon=True,
+                                args=(self.cmd_q, self.out_q, self.stop,
+                                      self.running))
+        self.proc.start()
+        if self.out_q.get(timeout=300) != "ready":
+            fail("control: the load generator process did not start")
+
+    def run(self, cmd, timeout=600):
+        self.cmd_q.put(cmd)
+        return self.result(timeout)
+
+    def start(self, cmd):
+        """Start clients that run until `finish()`; returns once they
+        are running."""
+        self.stop.clear()
+        self.cmd_q.put(dict(cmd, seconds=None))
+        if not self.running.wait(timeout=120):
+            fail("control: the load generator's clients never started")
+
+    def finish(self, timeout=600):
+        self.stop.set()
+        try:
+            return self.result(timeout)
+        finally:
+            self.stop.clear()
+
+    def result(self, timeout):
+        r = self.out_q.get(timeout=timeout)
+        if "error" in r:
+            fail(f"control: the load generator raised {r['error']}")
+        return r
+
+    def close(self):
+        if self.proc is None:
+            return
+        self.stop.set()
+        self.cmd_q.put(None)
+        self.proc.join(timeout=30)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=10)
+        self.proc = None
+
+
+def control_wait(cond, what, timeout_s=120.0):
+    deadline = time.perf_counter() + timeout_s
+    while not cond():
+        if time.perf_counter() > deadline:
+            fail(f"control: {what} did not happen within {timeout_s:g} s")
+        time.sleep(0.005)
+
+
+def control_served(registry, model, version):
+    """Requests the version's ParallelInference has completed."""
+    return registry.entry(model).versions[version].pi.stats()[
+        "requests_completed"]
+
+
+def control_launch_delta(pc, before):
+    now = pc.launch_counts()
+    return {k: now[k] - before.get(k, 0) for k in now}
+
+
+def control_resnet(torch, ResNet50, seed, bn_seed):
+    """Full-width ResNet-50 (HW, 1000 classes, bf16, "pallas") with
+    seeded weights and BatchNorm statistics, as phase 4 builds it."""
+    net = ResNet50(input_shape=(HW, HW, 3), compute_dtype="bfloat16",
+                   helpers="pallas", seed=seed).init_model(device=DEV)
+    randomize_batchnorm(torch, net, seed=bn_seed)
+    return net
+
+
+def control_twin(torch, ResNet50, proto, dev):
+    """Another instance of `proto` (same weights, its own tensors) on
+    `dev`: a fleet replica's own ResNet-50."""
+    from deeplearning4j_tpu_torch.util.tree import tree_map
+
+    net = ResNet50(input_shape=(HW, HW, 3), compute_dtype="bfloat16",
+                   helpers="pallas").init_model(device=dev)
+    net.params = tree_map(lambda t: t.detach().clone().to(dev),
+                          proto.params)
+    net.states = tree_map(lambda t: t.detach().clone().to(dev),
+                          proto.states)
+    return net
+
+
+def control_refs(np, net, pool):
+    return [log_probs(np, net.output(x).float().cpu().numpy())
+            for x in pool]
+
+
+def control_server(torch, np, pc, net, load, pool, refs, phase4, card):
+    """(a): ModelServer at full width on both wires."""
+    from deeplearning4j_tpu_torch.parallel.serving import ModelServer
+
+    t0 = time.perf_counter()
+    server = ModelServer(net, model_name="resnet50", batch_limit=32,
+                         queue_limit=256, device=DEV).start()
+    url = f"http://127.0.0.1:{server.port}"
+    log(f"control server: ModelServer({url}, batch_limit=32) warmed "
+        f"buckets {server.pi.stats()['warmed_buckets']} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = {"url": url, "model": "resnet50", "hw": HW,
+            "refs": {"v1": refs}}
+    # warm-up round of both wires, outside the windows
+    load.run(dict(base, wire="npz", threads=SERVE_THREADS,
+                  sizes=SERVE_SIZES, seconds=1.0))
+    load.run(dict(base, wire="json", threads=CONTROL_JSON_THREADS,
+                  sizes=(1,), seconds=0.5))
+    b0 = server.pi.stats()["batches_dispatched"]
+    pc.reset_launch_counts()
+    res = {"npz": load.run(dict(base, wire="npz", threads=SERVE_THREADS,
+                                sizes=SERVE_SIZES,
+                                seconds=CONTROL_NPZ_S)),
+           "json": load.run(dict(base, wire="json",
+                                 threads=CONTROL_JSON_THREADS, sizes=(1,),
+                                 seconds=CONTROL_JSON_S))}
+    counts = pc.launch_counts()
+    forwards = server.pi.stats()["batches_dispatched"] - b0
+    res.update(launches=counts, forwards=forwards, url=url)
+    for w in ("npz", "json"):
+        r = res[w]
+        log(f"control server {w}: {r['threads']} clients (a child "
+            f"process), {r['requests']} requests, {r['images']} images in "
+            f"{r['wall_s']:.3f} s = {r['req_per_s']:.1f} req/s, "
+            f"{r['img_per_s']:.1f} img/s; latency ms p50="
+            f"{r['latency_ms_p50']:.1f} p99={r['latency_ms_p99']:.1f}; "
+            f"bytes per request {r['request_bytes']:.0f} in, "
+            f"{r['response_bytes']:.0f} out; max |log p gap| "
+            f"{r['worst_own_gap']:.3e} (limit {LOGP_TOL['served']:g}); "
+            f"errors {r['errors']} [{card}]")
+        if r["errors"] or r["mixed"] or r["requests"] == 0:
+            fail(f"control server {w}: {r['errors']} errors "
+                 f"{r['first_errors']}, {r['mixed']} responses off their "
+                 f"reference {r['first_mixed']}")
+    log(f"control server: npz {res['npz']['img_per_s']:.1f} img/s against "
+        f"phase 4's in-process {phase4['img_per_s']:.1f} img/s "
+        f"({res['npz']['img_per_s'] / phase4['img_per_s']:.3f}x); p50 "
+        f"{res['npz']['latency_ms_p50']:.1f} ms against "
+        f"{phase4['latency_ms_p50']:.1f}; launches {counts} over "
+        f"{forwards} forwards [{card}]")
+    for name, per in (("fused_conv1x1", 30), ("fused_conv3x3", 16)):
+        if forwards <= 0 or counts[name] != per * forwards or \
+                counts[f"{name}/wgmma"] != counts[name]:
+            fail(f"control server: {name} launched {counts[name]} times "
+                 f"({counts[f'{name}/wgmma']} wgmma) over {forwards} "
+                 f"forwards, not {per} each on wgmma")
+    return server, res
+
+
+def control_swap(torch, np, pc, ResNet50, server, load, pool, refs, tmp,
+                 card):
+    """(b): hot swap under npz load — a verified v2 upload with
+    activate, a corrupted upload (409), rollback, swap to v2 again."""
+    from deeplearning4j_tpu_torch.parallel.serving import ModelClient
+    from deeplearning4j_tpu_torch.resilience import ServingError
+    from deeplearning4j_tpu_torch.util import model_serializer
+
+    t0 = time.perf_counter()
+    net2 = control_resnet(torch, ResNet50, seed=124, bn_seed=2)
+    zp = os.path.join(tmp, "resnet50_v2.zip")
+    model_serializer.write_model(net2, zp)
+    del net2
+    t_write = time.perf_counter() - t0
+    ref_net = model_serializer.restore_computation_graph(zp, device=DEV)
+    refs2 = control_refs(np, ref_net, pool)
+    del ref_net
+    torch.cuda.empty_cache()
+    bad = os.path.join(tmp, "bad.zip")
+    with open(bad, "wb") as f:
+        f.write(b"corrupted upload bytes")
+    with open(bad + ".sha256", "w") as f:
+        f.write("0" * 64)
+    reg, m = server.registry, "resnet50"
+    admin = ModelClient(f"http://127.0.0.1:{server.port}", timeout=300.0)
+    steps = {}
+    before = pc.launch_counts()
+    load.start({"url": f"http://127.0.0.1:{server.port}", "model": m,
+                "hw": HW, "wire": "npz", "threads": SERVE_THREADS,
+                "sizes": SERVE_SIZES, "refs": {"v1": refs, "v2": refs2}})
+    try:
+        n = control_served(reg, m, "v1")
+        control_wait(lambda: control_served(reg, m, "v1")
+                     >= n + CONTROL_SWAP_WAIT, "v1 traffic")
+        t = time.perf_counter()
+        admin.put_version(m, "v2", zp, activate=True)
+        steps["put_s"] = time.perf_counter() - t
+        try:
+            admin.put_version(m, "vbad", bad)
+            fail("control swap: the corrupted upload was accepted")
+        except ServingError as e:
+            steps["corrupt_status"] = e.status
+            if e.status != 409:
+                fail(f"control swap: the corrupted upload answered "
+                     f"{e.status}, not 409")
+        for target, op in (("v2", None), ("v1", "rollback"),
+                           ("v2", "swap")):
+            if op is not None:
+                t = time.perf_counter()
+                (admin.rollback(m) if op == "rollback"
+                 else admin.swap(m, "v2"))
+                steps[f"{op}_s"] = time.perf_counter() - t
+            n = control_served(reg, m, target)
+            control_wait(lambda: control_served(reg, m, target)
+                         >= n + CONTROL_SWAP_WAIT, f"{target} traffic")
+    finally:
+        res = load.finish()
+    routes = control_launch_delta(pc, before)
+    res.update(steps=steps, launches=routes, zip_write_s=t_write,
+               zip_bytes=os.path.getsize(zp),
+               v2_compute_dtype=str(
+                   reg.entry(m).versions["v2"].net.compute_dtype
+                   or reg.entry(m).versions["v2"].net.dtype))
+    log(f"control swap: {res['requests']} requests under "
+        f"{SERVE_THREADS} npz clients, versions {res['versions']}; PUT v2 "
+        f"(restore + warm-up + flip) {steps['put_s']:.3f} s, corrupted "
+        f"upload {steps['corrupt_status']}, rollback "
+        f"{steps['rollback_s']:.3f} s, swap {steps['swap_s']:.3f} s; "
+        f"errors {res['errors']}, mixed {res['mixed']} (own gap <= "
+        f"{res['worst_own_gap']:.3e}, other >= "
+        f"{res['least_other_gap']:.3e}); v2 computes in "
+        f"{res['v2_compute_dtype']} (a zip carries no compute dtype); "
+        f"launches by route {routes} [{card}]")
+    if res["errors"] or res["mixed"]:
+        fail(f"control swap: {res['errors']} failed "
+             f"{res['first_errors']}, {res['mixed']} mixed "
+             f"{res['first_mixed']}")
+    if set(res["versions"]) != {"v1", "v2"}:
+        fail(f"control swap: versions served {res['versions']}")
+    for name in ("fused_conv1x1", "fused_conv3x3"):
+        if routes[f"{name}/simple"] <= 0 or routes[f"{name}/wgmma"] <= 0:
+            fail(f"control swap: {name} routes {routes}: v1 (bf16) must "
+                 f"take wgmma and v2 (f32) simple")
+    return res, zp, refs2
+
+
+def control_soak(torch, np, net, card):
+    """(c): tenant admission at 2x capacity, in process through
+    registry.entry().lease(), admission and pi.output (bench_serving.py
+    bench_soak's path and tenant mix)."""
+    from deeplearning4j_tpu_torch.resilience import (
+        OverloadedError,
+        QuotaExceededError,
+    )
+    from deeplearning4j_tpu_torch.serving import (
+        AdmissionController,
+        ModelRegistry,
+        TenantConfig,
+    )
+
+    rng = np.random.default_rng(16)
+    x = serving_inputs(np, rng, CONTROL_SOAK_ROWS)
+    ref = log_probs(np, net.output(x).float().cpu().numpy())
+    reg = ModelRegistry(device=DEV, batch_limit=32, queue_limit=64,
+                        max_wait_ms=1.0)
+    reg.register("resnet50", net)
+    entry = reg.entry("resnet50")
+
+    def predict(tenant, admission):
+        with entry.lease() as (_, pi):
+            prio = None
+            if admission is not None:
+                prio = admission.admit(tenant, "resnet50",
+                                       pi.queue_depth(),
+                                       pi.queue_limit).priority
+            out = pi.output(x, priority=prio)
+        return float(np.abs(log_probs(np, out) - ref).max())
+
+    def closed_loop(clients, seconds):
+        stop, n, lock = threading.Event(), [0], threading.Lock()
+
+        def worker():
+            while not stop.is_set():
+                predict("gold", None)
+                with lock:
+                    n[0] += 1
+
+        ts = [threading.Thread(target=worker) for _ in range(clients)]
+        for t in ts:
+            t.start()
+        time.sleep(seconds)
+        stop.set()
+        for t in ts:
+            t.join(timeout=60.0)
+        return n[0] / seconds
+
+    def open_loop(rates, seconds, admission):
+        per = {t: {"ok": 0, "shed_quota": 0, "shed_pressure": 0,
+                   "dropped": 0, "lat": [], "gap": 0.0} for t in rates}
+        lock = threading.Lock()
+        t_start = time.perf_counter()
+        t_stop = t_start + seconds
+
+        def one(tenant):
+            t0 = time.perf_counter()
+            try:
+                gap = predict(tenant, admission)
+            except QuotaExceededError as e:
+                key = ("shed_pressure" if "pressure" in str(e)
+                       else "shed_quota")
+                with lock:
+                    per[tenant][key] += 1
+                return
+            except OverloadedError:
+                with lock:
+                    per[tenant]["shed_pressure"] += 1
+                return
+            except Exception:   # noqa: BLE001 - counted, must be 0
+                with lock:
+                    per[tenant]["dropped"] += 1
+                return
+            with lock:
+                per[tenant]["ok"] += 1
+                per[tenant]["lat"].append(time.perf_counter() - t0)
+                per[tenant]["gap"] = max(per[tenant]["gap"], gap)
+
+        def generator(tenant, n_threads, i):
+            interval = n_threads / rates[tenant]
+            t_next = t_start + (i + 1) * interval / n_threads
+            while True:
+                now = time.perf_counter()
+                if now >= t_stop:
+                    return
+                if t_next > now:
+                    time.sleep(min(t_next - now, t_stop - now))
+                    continue
+                one(tenant)
+                t_next += interval
+
+        ts = []
+        for tenant, rate in rates.items():
+            n = min(16, max(2, int(rate / 60) + 1))
+            ts += [threading.Thread(target=generator, args=(tenant, n, i))
+                   for i in range(n)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=seconds + 120.0)
+        return per
+
+    def pct(lat, q):
+        return float(np.percentile(np.array(lat) * 1e3, q)) if lat else None
+
+    try:
+        closed_loop(16, 0.5)
+        capacity = closed_loop(16, CONTROL_CAPACITY_S)
+        target = 2.0 * capacity
+        admission = AdmissionController(
+            {name: TenantConfig(name, priority=prio,
+                                rate=(None if r is None
+                                      else max(1.0, r * capacity)),
+                                burst=burst)
+             for name, _, prio, r, burst in CONTROL_SOAK_MIX},
+            shed_thresholds=CONTROL_SHED_THRESHOLDS)
+        rates = {name: w * target for name, w, *_ in CONTROL_SOAK_MIX}
+        base = open_loop({"gold": rates["gold"]}, CONTROL_BASELINE_S,
+                         admission)["gold"]
+        per = open_loop(rates, CONTROL_SOAK_S, admission)
+    finally:
+        reg.shutdown()
+    sheds = {t: d["shed_quota"] + d["shed_pressure"] for t, d in per.items()}
+    total_shed = max(1, sum(sheds.values()))
+    res = {"capacity_req_s": capacity, "target_req_s": target,
+           "rows": CONTROL_SOAK_ROWS,
+           "gold_unloaded_p50_ms": pct(base["lat"], 50),
+           "gold_unloaded_p99_ms": pct(base["lat"], 99),
+           "tenants": {t: {k: d[k] for k in ("ok", "shed_quota",
+                                             "shed_pressure", "dropped")}
+                       for t, d in per.items()}}
+    for t, d in per.items():
+        res["tenants"][t].update(p50_ms=pct(d["lat"], 50),
+                                 p99_ms=pct(d["lat"], 99),
+                                 shed_share=sheds[t] / total_shed,
+                                 worst_logp_gap=d["gap"])
+        log(f"control soak {t}: offered {rates[t]:.1f} req/s, ok {d['ok']}, "
+            f"shed by quota {d['shed_quota']}, by pressure "
+            f"{d['shed_pressure']}, dropped {d['dropped']}; p50 "
+            f"{res['tenants'][t]['p50_ms']} ms, p99 "
+            f"{res['tenants'][t]['p99_ms']} ms; share of sheds "
+            f"{res['tenants'][t]['shed_share']:.3f} [{card}]")
+    log(f"control soak: capacity {capacity:.1f} req/s of "
+        f"{CONTROL_SOAK_ROWS} rows (closed loop, gold only, 16 clients), "
+        f"open loop at {target:.1f} req/s for {CONTROL_SOAK_S:g} s; gold "
+        f"p99 {res['tenants']['gold']['p99_ms']} ms loaded against "
+        f"{res['gold_unloaded_p99_ms']} ms unloaded (p50 "
+        f"{res['gold_unloaded_p50_ms']}) [{card}]")
+    gold = per["gold"]
+    if gold["shed_quota"] or gold["shed_pressure"] or gold["dropped"] \
+            or gold["ok"] == 0:
+        fail(f"control soak: gold lost requests: {res['tenants']['gold']}")
+    if any(d["dropped"] for d in per.values()):
+        fail(f"control soak: requests dropped: {res['tenants']}")
+    if any(d["gap"] > LOGP_TOL["served"] for d in per.values()):
+        fail("control soak: a response differs from direct output")
+    if not sheds["bronze"] > max(sheds["silver"], sheds["gold"]):
+        fail(f"control soak: bronze's share of the sheds is not the "
+             f"largest: {sheds}")
+    return res
+
+
+def control_fleet(torch, np, ResNet50, net, zp, refs2, tmp, card):
+    """(d): three in-process ModelServer replicas behind a
+    ReplicaRouter and a FleetController(min=max=3): a canary-first
+    rollout of v2, a poisoned rollout of v3 (breach, rollback,
+    hold-down), a replica kill with backfill, under router clients."""
+    from deeplearning4j_tpu_torch.observability import get_registry
+    from deeplearning4j_tpu_torch.parallel.serving import ModelServer
+    from deeplearning4j_tpu_torch.resilience import (
+        RolloutHeldError,
+        ServingError,
+        injector,
+    )
+    from deeplearning4j_tpu_torch.serving import (
+        FleetController,
+        LocalReplica,
+        ReplicaRouter,
+        SLOPolicy,
+    )
+    from deeplearning4j_tpu_torch.util import model_serializer
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if DEV == "cuda" else torch.device(DEV)
+    servers, m = [], "resnet50"
+
+    def spawn():
+        # builds on the indexed device: the controller may call it from
+        # any thread
+        srv = ModelServer(control_twin(torch, ResNet50, net, dev),
+                          model_name=m, batch_limit=CONTROL_FLEET_BATCH,
+                          queue_limit=64, device=dev).start()
+        servers.append(srv)
+        return LocalReplica(f"http://127.0.0.1:{srv.port}", srv.registry,
+                            server=srv)
+
+    rng = np.random.default_rng(8)
+    x = serving_inputs(np, rng, CONTROL_FLEET_ROWS)
+    refs = {"v1": log_probs(np, net.output(x).float().cpu().numpy())}
+    ref2 = model_serializer.restore_computation_graph(zp, device=DEV)
+    refs["v2"] = refs["v3"] = log_probs(
+        np, ref2.output(x).float().cpu().numpy())
+    del ref2
+    zp3 = os.path.join(tmp, "resnet50_v3.zip")
+    shutil.copyfile(zp, zp3)
+    shutil.copyfile(zp + ".sha256", zp3 + ".sha256")
+    handles = [spawn() for _ in range(CONTROL_FLEET)]
+    router = ReplicaRouter([h.name for h in handles], timeout=120.0)
+    controller = FleetController(
+        handles, router=router, slo=SLOPolicy.parse(CONTROL_SLO),
+        replica_factory=spawn, min_replicas=CONTROL_FLEET,
+        max_replicas=CONTROL_FLEET, autoscale_interval_s=1e9,
+        cooldown_s=1e9, holddown_s=600.0)
+    build_s = time.perf_counter() - t0
+    stop, lock = threading.Event(), threading.Lock()
+    phase = ["clean"]
+    stats = {"ok": 0, "failed": [], "poisoned": 0, "mixed": [],
+             "versions": {}}
+
+    def client():
+        while not stop.is_set():
+            try:
+                r = router.predict(x, model=m)
+            except ServingError as e:
+                with lock:
+                    poisoned = phase[0] != "clean" and (
+                        e.status, e.error_class) == (500,
+                                                     "FaultInjectedError")
+                    if poisoned:
+                        stats["poisoned"] += 1
+                    else:
+                        stats["failed"].append(repr(e))
+                if poisoned:
+                    time.sleep(0.005)   # no busy spin on instant 500s
+                continue
+            except Exception as e:   # noqa: BLE001 - counted, must be 0
+                with lock:
+                    stats["failed"].append(repr(e))
+                continue
+            v = r["version"]
+            lp = log_probs(np, np.asarray(r["outputs"], np.float32))
+            gap = float(np.abs(lp - refs[v]).max()) if v in refs \
+                else float("inf")
+            with lock:
+                stats["ok"] += 1
+                stats["versions"][v] = stats["versions"].get(v, 0) + 1
+                if gap > LOGP_TOL["served"]:
+                    stats["mixed"].append((v, gap))
+
+    def served():
+        with lock:
+            return stats["ok"]
+
+    threads = [threading.Thread(target=client)
+               for _ in range(CONTROL_FLEET_CLIENTS)]
+    reg = get_registry()
+    rollout_names = ("dl4j_rollout_total", "dl4j_rollout_rollbacks_total",
+                     "dl4j_rollout_holddowns_total",
+                     "dl4j_fleet_replica_deaths_total")
+    res = {"build_s": build_s}
+    try:
+        for t in threads:
+            t.start()
+        n = served()
+        control_wait(lambda: served() >= n + 20, "fleet traffic")
+        t = time.perf_counter()
+        rep = controller.rollout(m, "v2", path=zp)
+        res["rollout_v2"] = {"outcome": rep["outcome"],
+                             "flipped": len(rep["flipped"]),
+                             "seconds": time.perf_counter() - t}
+        if rep["outcome"] != "completed":
+            fail(f"control fleet: the v2 rollout did not complete: {rep}")
+        n = served()
+        control_wait(lambda: served() >= n + 20, "traffic on v2")
+        with lock:
+            phase[0] = "poison"
+        injector().inject("rollout.canary_poison", mode="raise",
+                          times=10 ** 9)
+        t = time.perf_counter()
+        try:
+            rep = controller.rollout(m, "v3", path=zp3)
+        finally:
+            injector().clear("rollout.canary_poison")
+            with lock:
+                phase[0] = "after"
+        res["rollout_v3"] = {"outcome": rep["outcome"],
+                             "flipped": len(rep["flipped"]),
+                             "breach": (rep["breach"] or {}).get("reason"),
+                             "detection_s": rep["detection_s"],
+                             "seconds": time.perf_counter() - t}
+        if rep["outcome"] != "rolled_back":
+            fail(f"control fleet: the poisoned v3 rollout was not rolled "
+                 f"back: {rep}")
+        actives = [h.active_version(m) for h in controller.replicas]
+        if actives != ["v2"] * CONTROL_FLEET:
+            fail(f"control fleet: after the rollback the replicas serve "
+                 f"{actives}")
+        try:
+            controller.rollout(m, "v3", path=zp3)
+            fail("control fleet: the held-down v3 rolled out again")
+        except RolloutHeldError as e:
+            res["holddown_failures"] = e.failures
+        n = served()
+        control_wait(lambda: served() >= n + 20, "traffic after rollback")
+        with lock:
+            failed_before_kill = len(stats["failed"])
+        injector().inject("serving.replica_kill", mode="raise", times=1)
+        t = time.perf_counter()
+        victim = controller.replicas[0].name
+        controller.tick()
+        res["kill"] = {"seconds": time.perf_counter() - t,
+                       "victim": victim, "members": router.urls()}
+        if victim in router.urls() or len(router.urls()) != CONTROL_FLEET:
+            fail(f"control fleet: the kill left {router.urls()}")
+        n = served()
+        control_wait(lambda: served() >= n + 20, "traffic after backfill")
+        with lock:
+            res["kill"]["failed"] = len(stats["failed"]) - \
+                failed_before_kill
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120.0)
+        controller.stop()
+        for s in servers:
+            s.stop()
+        injector().clear()
+    snap = reg.snapshot()
+    res["counters"] = {k: {lab: v for lab, v in snap["counters"].get(
+        k, {}).items()} for k in rollout_names}
+    res["detection_hist"] = snap["histograms"].get(
+        "dl4j_rollout_detection_seconds", {}).get("count")
+    res.update(ok=stats["ok"], failed=len(stats["failed"]),
+               poisoned=stats["poisoned"], mixed=len(stats["mixed"]),
+               versions=stats["versions"])
+    log(f"control fleet: {CONTROL_FLEET} replicas (batch_limit "
+        f"{CONTROL_FLEET_BATCH}) built in {build_s:.1f} s, "
+        f"{CONTROL_FLEET_CLIENTS} router clients of {CONTROL_FLEET_ROWS} "
+        f"rows: v2 rollout {res['rollout_v2']['outcome']} in "
+        f"{res['rollout_v2']['seconds']:.2f} s; poisoned v3 "
+        f"{res['rollout_v3']['outcome']} in "
+        f"{res['rollout_v3']['seconds']:.2f} s (breach "
+        f"{res['rollout_v3']['breach']}, detection "
+        f"{res['rollout_v3']['detection_s']:.2f} s), held down "
+        f"(failures {res['holddown_failures']}); replica kill + backfill "
+        f"{res['kill']['seconds']:.2f} s, {res['kill']['failed']} failed "
+        f"[{card}]")
+    log(f"control fleet: {stats['ok']} responses {stats['versions']}, "
+        f"{len(stats['failed'])} failed, {len(stats['mixed'])} mixed, "
+        f"{stats['poisoned']} poisoned 500s while the fault was armed; "
+        f"counters {res['counters']} [{card}]")
+    if stats["failed"] or stats["mixed"]:
+        fail(f"control fleet: failed {stats['failed'][:3]}, mixed "
+             f"{stats['mixed'][:3]}")
+    return res
+
+
+def control_generate(clients, reqs, model="decoder"):
+    """Each request once through `clients` (one thread each, taking
+    requests in turn); returns (tokens per request, seconds)."""
+    outs = [None] * len(reqs)
+    errors, nxt, lock = [], [0], threading.Lock()
+
+    def worker(c):
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(reqs):
+                return
+            p, mx = reqs[i]
+            try:
+                outs[i] = c.generate(p, max_new_tokens=mx, model=model,
+                                     timeout_s=300.0)["tokens"]
+            except Exception as e:   # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=worker, args=(c,)) for c in clients]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errors:
+        fail(f"control decode: generate raised {errors[:3]}")
+    return outs, time.perf_counter() - t0
+
+
+def control_decode(torch, np, seed, decode, oracle, card, tmp):
+    """(e): decode over HTTP — phase 5i's bench over both wires, 429,
+    migration, a cold restart from the journal, GPT-2-small width."""
+    from deeplearning4j_tpu_torch.engine.decode_program import DecodeProgram
+    from deeplearning4j_tpu_torch.parallel.serving import (
+        ModelClient,
+        ModelServer,
+    )
+    from deeplearning4j_tpu_torch.resilience import (
+        Retry,
+        ServingError,
+        injector,
+    )
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeEngine,
+        ReplicaRouter,
+        sequential_decode,
+    )
+    from deeplearning4j_tpu_torch.zoo.decoder import CausalTransformer
+
+    res = {}
+    model = CausalTransformer(**DECODE_BENCH, device=DEV).init()
+    prog = DecodeProgram(model, max_slots=DECODE_SLOTS,
+                         page_size=DECODE_PAGE)
+    prog.warmup(prog.init_kv())
+    reqs = decode_requests(random.Random(seed), DECODE_REQUESTS,
+                           DECODE_PROMPT, DECODE_NEW, model.vocab_size)
+    tokens = sum(len(t) for t in oracle)
+
+    def server(eng, **kw):
+        return ModelServer(decode_engine=eng, model_name="decoder",
+                           device=DEV, **kw).start()
+
+    def url(s):
+        return f"http://127.0.0.1:{s.port}"
+
+    # bench width, both wires
+    srv = server(DecodeEngine(program=prog, queue_limit=DECODE_REQUESTS,
+                              max_prefills_per_step=DECODE_PREFILLS))
+    try:
+        for w in ("npz", "json"):
+            clients = [ModelClient(url(srv), timeout=300.0, wire=w)
+                       for _ in range(CONTROL_DECODE_CLIENTS)]
+            outs, dt = control_generate(clients, reqs)
+            res[w] = {"s": dt, "tok_s": tokens / dt,
+                      "equal": outs == oracle}
+            log(f"control decode {w}: {DECODE_REQUESTS} requests through "
+                f"{CONTROL_DECODE_CLIENTS} ModelClient.generate threads, "
+                f"{tokens} tokens in {dt:.3f} s = {tokens / dt:.1f} tok/s "
+                f"against phase 5i's loop thread "
+                f"{decode['bench']['loop_thread']['tok_s']:.1f} tok/s; "
+                f"tokens equal to the oracle: {res[w]['equal']} [{card}]")
+            if outs != oracle:
+                fail(f"control decode {w}: tokens differ from the oracle")
+    finally:
+        srv.stop()
+
+    # 429 + Retry-After from an over-subscribed engine
+    eng = DecodeEngine(program=prog, queue_limit=0)
+    srv = server(eng)
+    try:
+        held = [eng.submit([1, 2, 3], 100) for _ in range(DECODE_SLOTS)]
+        c = ModelClient(url(srv), retry=Retry(max_attempts=1), breaker=None)
+        try:
+            c.generate([5, 9, 11], max_new_tokens=4, model="decoder")
+            fail("control decode: an over-subscribed engine answered 200")
+        except ServingError as e:
+            res["oversubscribed"] = {"status": e.status,
+                                     "retry_after_s": e.retry_after_s}
+            if e.status != 429 or not e.retry_after_s:
+                fail(f"control decode: over-subscribed engine answered "
+                     f"{e.status} (Retry-After {e.retry_after_s})")
+        for h in held:
+            h.result(timeout_s=300.0)
+    finally:
+        srv.stop()
+
+    # migration: a replica retiring mid-generation, with and without
+    # serving.migrate_fail; then a cold restart from the journal
+    prompt, mx = [8, 1, 13, 4], 96
+    _, want = sequential_decode(prog, prompt, mx)
+
+    def mid_stream(eng, then):
+        control_wait(lambda: eng.stats()["tokens_total"] >= 3,
+                     "a generation in flight")
+        then()
+        injector().clear("decode.hang")
+
+    for drill, fault in (("migration", None), ("migrate_fail", True)):
+        ea, eb = DecodeEngine(program=prog), DecodeEngine(program=prog)
+        sa, sb = server(ea), server(eb)
+        try:
+            router = ReplicaRouter([url(sa), url(sb)],
+                                   client_factory=lambda u: ModelClient(
+                                       u, timeout=300.0, breaker=None,
+                                       retry=Retry(max_attempts=1)))
+            if fault:
+                injector().inject("serving.migrate_fail", times=10)
+            injector().inject("decode.hang", mode="delay", delay_s=0.01,
+                              times=10 ** 9)
+            box = {}
+            t = threading.Thread(target=lambda: box.update(
+                r=router.generate(prompt, max_new_tokens=mx,
+                                  model="decoder", timeout_s=300.0)))
+            t.start()
+            mid_stream(ea, sa.stop)
+            t.join(timeout=300.0)
+            r = box.get("r")
+            if r is None:
+                fail(f"control decode {drill}: the routed generation "
+                     f"did not finish")
+            res[drill] = {"migrations": r["migrations"],
+                          "replays": r["replays"],
+                          "equal": r["tokens"] == want}
+            log(f"control decode {drill}: replica A retired after 3 "
+                f"tokens; {r['migrations']} migrations, {r['replays']} "
+                f"replays; tokens equal to the oracle: "
+                f"{res[drill]['equal']} [{card}]")
+            if r["tokens"] != want or r["migrations"] != (0 if fault
+                                                          else 1):
+                fail(f"control decode {drill}: {res[drill]}")
+        finally:
+            injector().clear()
+            sa.stop()
+            sb.stop()
+
+    jdir = os.path.join(tmp, "journal")
+    e1 = DecodeEngine(program=prog)
+    s1 = server(e1, journal_dir=jdir)
+    c1 = ModelClient(url(s1), timeout=300.0, breaker=None,
+                     retry=Retry(max_attempts=1))
+    injector().inject("decode.hang", mode="delay", delay_s=0.01,
+                      times=10 ** 9)
+    t = threading.Thread(target=lambda: _swallow(lambda: c1.generate(
+        prompt, max_new_tokens=mx, model="decoder", timeout_s=300.0,
+        max_resumes=0, request_id="control-cold-0")))
+    t.start()
+
+    def kill():
+        try:
+            s1._httpd.socket.close()
+        except (OSError, AttributeError):
+            pass
+        s1.stop()
+
+    mid_stream(e1, kill)
+    t.join(timeout=300.0)
+    e2 = DecodeEngine(program=prog)
+    s2 = server(e2, journal_dir=jdir)
+    try:
+        recovered = e2.stats()["journal"]["recovered"]
+        out = ModelClient(url(s2), timeout=300.0, breaker=None).generate(
+            prompt, max_new_tokens=mx, model="decoder", timeout_s=300.0,
+            request_id="control-cold-0")
+        res["cold_restart"] = {"recovered": recovered,
+                               "equal": out["tokens"] == want}
+        log(f"control decode cold restart: the killed server's journal "
+            f"recovered {recovered} generation(s); tokens equal to the "
+            f"oracle: {res['cold_restart']['equal']} [{card}]")
+        if recovered != 1 or out["tokens"] != want:
+            fail(f"control decode cold restart: {res['cold_restart']}")
+    finally:
+        s2.stop()
+    del prog, model
+    torch.cuda.empty_cache()
+
+    # GPT-2-small width over the npz wire against the in-process engine
+    model = CausalTransformer(**GPT2, seed=seed, device=DEV).init()
+    prog = DecodeProgram(model, max_slots=GPT2_SLOTS, page_size=GPT2_PAGE)
+    prog.warmup(prog.init_kv())
+    reqs = decode_requests(random.Random(seed + 1), CONTROL_GPT2_REQUESTS,
+                           CONTROL_GPT2_PROMPT, GPT2_NEW, model.vocab_size)
+    inproc, dt_in, _, _ = decode_engine_run(torch, prog, reqs,
+                                            GPT2_PREFILLS)
+    srv = server(DecodeEngine(program=prog, queue_limit=len(reqs),
+                              max_prefills_per_step=GPT2_PREFILLS))
+    try:
+        outs, dt = control_generate(
+            [ModelClient(url(srv), timeout=300.0, wire="npz")
+             for _ in reqs], reqs)
+    finally:
+        srv.stop()
+    n_tok = sum(len(t) for t in inproc)
+    res["gpt2"] = {"requests": len(reqs), "tokens": n_tok,
+                   "http_tok_s": n_tok / dt, "inproc_tok_s": n_tok / dt_in,
+                   "equal": outs == inproc}
+    log(f"control decode gpt2: {len(reqs)} requests (prompts "
+        f"{CONTROL_GPT2_PROMPT[0]}-{CONTROL_GPT2_PROMPT[1]} tokens), "
+        f"{n_tok} tokens over the npz wire {n_tok / dt:.1f} tok/s against "
+        f"the in-process engine {n_tok / dt_in:.1f} tok/s; tokens equal: "
+        f"{res['gpt2']['equal']} [{card}]")
+    if outs != inproc:
+        fail("control decode gpt2: the served tokens differ from the "
+             "in-process engine's")
+    del prog, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _swallow(fn):
+    """Call `fn`, ignoring what it raises (a drill's kill is the point)."""
+    try:
+        fn()
+    except Exception:   # noqa: BLE001 - the drill kills the server
+        pass
+
+
+def control_phase(torch, np, pc, card, seed, serving, decode,
+                  decode_oracle):
+    """Phase 5j: the serving control plane (lines start "control ").
+    The kernel launch counters are set to 0 before (a)'s measured
+    windows and before (b)'s drill and read after each."""
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    res, secs = {}, {}
+    t0 = time.perf_counter()
+    net = control_resnet(torch, ResNet50, seed=123, bn_seed=1)
+    pool = serving_pool(np, HW)
+    refs = control_refs(np, net, pool)
+    load = ControlLoad()
+    secs["setup"] = time.perf_counter() - t0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            server, res["server"] = control_server(
+                torch, np, pc, net, load, pool, refs, serving, card)
+            secs["server"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            try:
+                res["swap"], zp, refs2 = control_swap(
+                    torch, np, pc, ResNet50, server, load, pool, refs, tmp,
+                    card)
+            finally:
+                server.stop()
+            secs["swap"] = time.perf_counter() - t0
+            load.close()
+            t0 = time.perf_counter()
+            res["soak"] = control_soak(torch, np, net, card)
+            secs["soak"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res["fleet"] = control_fleet(torch, np, ResNet50, net, zp,
+                                         refs2, tmp, card)
+            secs["fleet"] = time.perf_counter() - t0
+            del net
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            res["decode"] = control_decode(torch, np, seed, decode,
+                                           decode_oracle, card, tmp)
+            secs["decode"] = time.perf_counter() - t0
+    finally:
+        load.close()
+    a, b = res["server"]["launches"], res["swap"]["launches"]
+    res["launches"] = {k: a[k] for k in pc.LAUNCHES}
+    res["launches_by_route"] = {
+        k: {r: a[f"{k}/{r}"] + b[f"{k}/{r}"] for r in ("wgmma", "simple")}
+        for k in ("fused_conv1x1", "fused_conv3x3")}
+    res["seconds"] = secs
+    log("control phase: seconds per part " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
     return res
 
 
@@ -5865,7 +6947,16 @@ def main():
     # GPT-2-small width
     t0 = time.perf_counter()
     decode = decode_phase(torch, np, pc, card, args.seed)
+    decode_oracle = decode.pop("bench_tokens")
     log(f"decode phase: {time.perf_counter() - t0:.1f} s")
+
+    # 5j. the serving control plane: ModelServer on both wires at phase
+    # 4's width, the hot swap, tenant admission at 2x capacity, a
+    # three-replica fleet, decode over HTTP
+    t0 = time.perf_counter()
+    control = control_phase(torch, np, pc, card, args.seed, serving,
+                            decode, decode_oracle)
+    log(f"control phase: {time.perf_counter() - t0:.1f} s")
 
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
@@ -5927,6 +7018,9 @@ def main():
                 r: keras["launches"][f"{name}/{r}"]
                 for r in ("wgmma", "simple")},
             "decode_launches": decode["launches"][name],
+            "control_launches": control["launches"][name],
+            "control_launches_by_route": control["launches_by_route"].get(
+                name, {"wgmma": 0, "simple": 0}),
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -5939,7 +7033,8 @@ def main():
                        "forward_ms": fwd, "step_check": step,
                        "train": train, "engine": engine, "mln": mln,
                        "tm": tm, "obs": obs, "rnn": rnn, "zoo": zoo,
-                       "keras": keras, "decode": decode},
+                       "keras": keras, "decode": decode,
+                       "control": control},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -5956,7 +7051,9 @@ def main():
         f"({ZOO_SMALL_STEPS} each), tl_launches from its {TL_STEPS} "
         "ResNet-50 transfer steps, keras_launches from phase 5h's "
         f"{KERAS_RESNET_STEPS} timed Keras ResNet50 steps, decode_launches "
-        "from phase 5i (the decode-serving path)")
+        "from phase 5i (the decode-serving path), control_launches from "
+        "phase 5j's two measured ModelServer windows and "
+        "control_launches_by_route from those and its hot-swap drill")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,12 @@ engine/harness.py, earlystopping/, resilience/) reads one interface:
   - listeners: `listeners`, `set_listeners`, `add_listeners` and `fit`
     (on_epoch_start/on_epoch_end around each epoch, the fetch time in
     `_last_etl_ms`; the container's `fit_batch` calls iteration_done);
+  - inference: `output` runs the program stored under "predict" in
+    `_jit_cache` (nn/jit_cache.JitCache). It records a trace on its first
+    call with each input signature (shapes, dtypes, the train flag) —
+    where the JAX package's jitted predict retraces — so serving's "zero
+    new traces after warmup" pin reads the same counters in both
+    packages; the arithmetic is the container's `_predict` body;
   - dropout: one `torch.Generator` per network, on its device, seeded
     from the configuration's seed at `init`. Every train-mode layer with
     dropout draws its mask from it, in the network's fixed layer order,
@@ -37,6 +43,7 @@ graph, a list for a layer list), `_loss_fn` (returning (loss,
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn.jit_cache import JitCache, policy_name
 from deeplearning4j_tpu_torch.nn.conf.network import BackpropType
 from deeplearning4j_tpu_torch.nn.dtype import canonical_dtype, cast_floating
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
@@ -158,6 +166,32 @@ class BaseNetwork:
         self.listeners: List = []
         self._last_etl_ms = None
         self._last_batch_size = None
+        self._jit_cache = JitCache()
+        self._jit_cache["predict"] = self._predict_program()
+        self._jit_cache.register_policy("predict",
+                                        policy_name(self.compute_dtype))
+
+    # --------------------------------------------------------- inference
+    def _predict_program(self):
+        """The "predict" program: the container's `_predict(params,
+        states, inputs)`, recording a trace on the first call with each
+        input signature."""
+        seen = set()
+        lock = threading.Lock()
+
+        def predict(params, states, inputs):
+            items = inputs.items() if isinstance(inputs, dict) \
+                else [(None, inputs)]
+            sig = (tuple((k, tuple(x.shape), str(x.dtype))
+                         for k, x in items), False)
+            with lock:
+                new = sig not in seen
+                seen.add(sig)
+            if new:
+                self._jit_cache.record_trace("predict")
+            return self._predict(params, states, inputs)
+
+        return predict
 
     # --------------------------------------------------------- listeners
     def set_listeners(self, *listeners):

@@ -303,14 +303,19 @@ class ComputationGraph(BaseNetwork):
         with torch.inference_mode():
             inputs = {name: self._as_input(x)
                       for name, x in zip(conf.network_inputs, xs)}
-            cd = self.compute_dtype
-            params = self._compute_params()
-            if cd is not None:
-                inputs = cast_floating(inputs, cd)
-            acts, _, _ = self._forward(params, self.states, inputs)
-            outs = [acts[n].to(self.dtype) if cd is not None else acts[n]
-                    for n in conf.network_outputs]
+            outs = self._jit_cache["predict"](self._compute_params(),
+                                              self.states, inputs)
         return outs[0] if len(outs) == 1 else outs
+
+    def _predict(self, params, states, inputs):
+        """The "predict" program's body: the forward in the compute
+        dtype, the output nodes back in `dtype`."""
+        cd = self.compute_dtype
+        if cd is not None:
+            inputs = cast_floating(inputs, cd)
+        acts, _, _ = self._forward(params, states, inputs)
+        return [acts[n].to(self.dtype) if cd is not None else acts[n]
+                for n in self.conf.network_outputs]
 
     def rnn_time_step(self, *xs):
         """Stateful streaming inference over the network inputs (each

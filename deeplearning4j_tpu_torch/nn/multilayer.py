@@ -184,12 +184,17 @@ class MultiLayerNetwork(BaseNetwork):
         """Full forward pass in inference mode; returns the output layer's
         activations on the network's device in `dtype`."""
         with torch.inference_mode():
-            x = self._as_input(x)
-            cd = self.compute_dtype
-            if cd is not None:
-                x = x.to(cd)
-            out, _, _ = self._forward(self._compute_params(), self.states, x)
-            return out.to(self.dtype) if cd is not None else out
+            return self._jit_cache["predict"](
+                self._compute_params(), self.states, self._as_input(x))
+
+    def _predict(self, params, states, x):
+        """The "predict" program's body: the forward in the compute
+        dtype, the output back in `dtype`."""
+        cd = self.compute_dtype
+        if cd is not None:
+            x = x.to(cd)
+        out, _, _ = self._forward(params, states, x)
+        return out.to(self.dtype) if cd is not None else out
 
     def feed_forward(self, x):
         """The input and every layer's output, in inference mode."""

@@ -31,8 +31,10 @@ Supervisor's `dl4j_train_*` (with the phase profiler's
 pipeline's `dl4j_pipeline_*`, the checkpoint and model writers'
 `dl4j_checkpoint_*`, the retry policies', the cost model's `dl4j_perf_*`,
 ParallelInference's `dl4j_serving_*`, the decode engine's and flight
-recorder's `dl4j_decode_*`, the generation journal's `dl4j_journal_*` and
-the program cache's `dl4j_jit_compiles_total`.
+recorder's `dl4j_decode_*`, the generation journal's `dl4j_journal_*`,
+the program cache's `dl4j_jit_*`, and the serving control plane's
+(HTTP front end, registry, admission, router) `dl4j_serving_*`,
+`dl4j_fleet_*` and `dl4j_rollout_*`.
 """
 
 from __future__ import annotations
@@ -110,8 +112,33 @@ REGISTERED_METRICS = frozenset({
     "dl4j_decode_itl_seconds",
     "dl4j_decode_queue_wait_seconds",
     "dl4j_decode_flight_dumps_total",
-    # program cache (nn/jit_cache.py)
+    # program cache (nn/jit_cache.py) and the trace gauge /metrics sets
     "dl4j_jit_compiles_total",
+    "dl4j_jit_traces_total",
+    # HTTP front end, registry and admission (parallel/serving.py,
+    # serving/registry.py, serving/admission.py)
+    "dl4j_serving_requests_total",
+    "dl4j_serving_errors_total",
+    "dl4j_serving_request_seconds",
+    "dl4j_serving_model_requests_total",
+    "dl4j_serving_active_models",
+    "dl4j_serving_swaps_total",
+    "dl4j_serving_rollbacks_total",
+    "dl4j_serving_load_rejected_total",
+    "dl4j_serving_admitted_total",
+    "dl4j_serving_shed_total",
+    # replica router (serving/router.py)
+    "dl4j_serving_replica_failovers_total",
+    "dl4j_decode_migrations_total",
+    # fleet controller (serving/controller.py)
+    "dl4j_fleet_replicas",
+    "dl4j_fleet_scale_events_total",
+    "dl4j_fleet_replica_deaths_total",
+    "dl4j_rollout_state",
+    "dl4j_rollout_total",
+    "dl4j_rollout_rollbacks_total",
+    "dl4j_rollout_holddowns_total",
+    "dl4j_rollout_detection_seconds",
     # durable serving journal (serving/journal.py)
     "dl4j_journal_records_total",
     "dl4j_journal_fsyncs_total",

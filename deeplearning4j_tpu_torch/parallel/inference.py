@@ -1,6 +1,8 @@
 """ParallelInference: batched inference serving (counterpart of
-deeplearning4j_tpu/parallel/inference.py, BATCHED mode; the SEQUENTIAL
-mode is not ported).
+deeplearning4j_tpu/parallel/inference.py). `InferenceMode.SEQUENTIAL`
+runs each request as one direct `net.output` under the lock, with host
+numpy results; `InferenceMode.BATCHED` (the default) is the pipeline
+below.
 
 Concurrent small requests coalesce into one padded batch so the card runs
 full tiles. Batch sizes are bucketed to powers of two, hard-capped at
@@ -18,7 +20,17 @@ cascades: window full -> assembler stalls -> bounded request queue fills
 
 Every wait carries a deadline (DeadlineExceededError), a dead pipeline
 thread surfaces as InferenceUnavailableError, and `shutdown()` fails
-queued, in-flight and carried requests fast with ShutdownError.
+queued, in-flight and carried requests fast with ShutdownError. The
+fault points `inference.batch` and `inference.complete` kill either
+stage, as in the JAX package.
+
+Shapes: each request's per-example input shapes are checked against the
+net's (from `warmup_inputs`, a graph's input types or a layer list's
+`input_type`) before the request is queued, and a mismatch raises
+ValueError on the caller's thread — the HTTP server's 400 — instead of
+failing inside the batch. `trace_stats()` reads the net's `_jit_cache`
+(a trace is the predict program's first call with an input signature),
+so "zero new traces after warmup" is the same pin as in the JAX package.
 
 Telemetry, at the JAX package's sites: `dl4j_serving_batches_total` and
 the `dl4j_serving_batch_occupancy` histogram per dispatched batch,
@@ -49,6 +61,12 @@ from deeplearning4j_tpu_torch.resilience.errors import (
     OverloadedError,
     ShutdownError,
 )
+from deeplearning4j_tpu_torch.resilience.faults import fire as _fire
+
+
+class InferenceMode:
+    SEQUENTIAL = "sequential"
+    BATCHED = "batched"
 
 
 _PRIORITY_IDX = {"high": 0, "normal": 1, "low": 2}
@@ -143,20 +161,33 @@ class ParallelInference:
     """Thread-safe inference front-end over a network with
     `output(*xs)`. `default_timeout_s` bounds every `output()` call."""
 
-    def __init__(self, net, batch_limit: int = 32, queue_limit: int = 64,
+    def __init__(self, net, inference_mode: str = InferenceMode.BATCHED,
+                 batch_limit: int = 32, queue_limit: int = 64,
                  max_wait_ms: float = 2.0,
                  default_timeout_s: float = 30.0,
                  pipeline_depth: int = 2,
                  warmup: bool = True,
                  adaptive_wait: bool = True,
                  min_wait_ms: float = 0.0,
+                 warmup_inputs=None,
                  completion_streams: int = 2,
                  tracer=None):
-        """`tracer` (observability.Tracer, optional): per-request and
+        """`warmup_inputs`: per-example input shapes for nets whose
+        shape is underivable from the conf — one entry per network
+        input, each a shape tuple (no batch dim) or an example array
+        whose leading dim is the batch.
+
+        `tracer` (observability.Tracer, optional): per-request and
         per-batch spans on both pipeline stages, parented across the
         threads (module docstring); None costs the hot path nothing."""
+        if inference_mode not in (InferenceMode.SEQUENTIAL,
+                                  InferenceMode.BATCHED):
+            raise ValueError(f"inference_mode must be "
+                             f"'sequential' or 'batched': {inference_mode!r}")
         self.net = net
         self.tracer = tracer
+        self.warmup_inputs = warmup_inputs
+        self.mode = inference_mode
         self.batch_limit = batch_limit
         self.max_wait_ms = max_wait_ms
         self.min_wait_ms = min_wait_ms
@@ -187,21 +218,23 @@ class ParallelInference:
         self._batches_dispatched = 0
         self._requests_completed = 0
         self._bucket_fill: Dict[int, List[int]] = {}
-        if warmup:
-            self.warmup()
-        if self.pipeline_depth > 0:
-            self._inflight = queue.Queue()
-            for i in range(self.completion_streams):
-                t = threading.Thread(
-                    target=self._completion_loop, daemon=True,
-                    name=f"ParallelInference-completer-{i}")
-                t.start()
-                self._completers.append(t)
-            self._completer = self._completers[0]
-        self._worker = threading.Thread(
-            target=self._batch_loop, daemon=True,
-            name="ParallelInference-batcher")
-        self._worker.start()
+        self._input_spec = self._derive_input_spec()
+        if self.mode == InferenceMode.BATCHED:
+            if warmup:
+                self.warmup()
+            if self.pipeline_depth > 0:
+                self._inflight = queue.Queue()
+                for i in range(self.completion_streams):
+                    t = threading.Thread(
+                        target=self._completion_loop, daemon=True,
+                        name=f"ParallelInference-completer-{i}")
+                    t.start()
+                    self._completers.append(t)
+                self._completer = self._completers[0]
+            self._worker = threading.Thread(
+                target=self._batch_loop, daemon=True,
+                name="ParallelInference-batcher")
+            self._worker.start()
 
     # ------------------------------------------------------------------
     @property
@@ -209,12 +242,39 @@ class ParallelInference:
         """False once shut down or either pipeline thread has died."""
         if self._shutdown or self._failure is not None:
             return False
+        if self.mode == InferenceMode.SEQUENTIAL:
+            return True
         if self._worker is None or not self._worker.is_alive():
             return False
         return all(t.is_alive() for t in self._completers)
 
     def queue_depth(self) -> int:
         return self._queue.qsize()
+
+    @property
+    def queue_limit(self) -> int:
+        return self._queue.maxsize
+
+    def trace_stats(self) -> dict:
+        """The net's JitCache trace counters (empty for nets without
+        one) plus the compile-event ring, so /status can answer "what
+        was built, and why"."""
+        cache = getattr(self.net, "_jit_cache", None)
+        if cache is None or not hasattr(cache, "trace_counts"):
+            return {}
+        out = {"trace_counts": cache.trace_counts(),
+               "total_traces": cache.total_traces()}
+        if hasattr(cache, "compile_events"):
+            out["compiles_total"] = cache.compiles_total()
+            out["compile_events"] = cache.compile_events()
+        return out
+
+    def lint_records(self) -> list:
+        """The JAX package's program-lint records of the serving data
+        plane; the port has no program lint yet."""
+        raise NotImplementedError(
+            "ParallelInference.lint_records: the program lint is not "
+            "ported yet (ROADMAP queue 1 item 10c)")
 
     def bucket_fill(self) -> Dict[int, dict]:
         """{bucket: {dispatches, rows, fill}}; the pow2 coalescer keeps
@@ -237,22 +297,65 @@ class ParallelInference:
             "bucket_fill": self.bucket_fill(),
             "current_wait_ms": round(self._wait_ms, 4),
             "adaptive_wait": self.adaptive_wait,
+            **self.trace_stats(),
         }
 
     # ------------------------------------------------------------ warmup
-    def _warmup_shapes(self) -> Optional[List[tuple]]:
-        """Per-example shape of every network input: a graph's input
-        types, else a layer list's `input_type` (None when the net has
-        neither)."""
+    def _input_types(self) -> Optional[list]:
+        """The net's InputType per network input: a graph's input types,
+        else a layer list's `input_type` (None when it has neither)."""
         conf = getattr(self.net, "conf", None)
         names = getattr(conf, "network_inputs", None)
         itypes = getattr(conf, "input_types", None)
         if names and itypes and set(itypes) >= set(names):
-            return [tuple(itypes[n].batch_shape(1))[1:] for n in names]
+            return [itypes[n] for n in names]
         input_type = getattr(conf, "input_type", None)
-        if input_type is not None:
-            return [tuple(input_type.batch_shape(1))[1:]]
-        return None
+        return None if input_type is None else [input_type]
+
+    def _warmup_shapes(self) -> Optional[List[tuple]]:
+        """Per-example shape of every network input: explicit
+        `warmup_inputs` first, then the net's input types; None when
+        underivable either way."""
+        if self.warmup_inputs is not None:
+            shapes = []
+            for w in self.warmup_inputs:
+                if isinstance(w, (tuple, list)) and all(
+                        isinstance(d, (int, np.integer)) for d in w):
+                    shapes.append(tuple(int(d) for d in w))
+                else:
+                    shapes.append(tuple(np.asarray(w).shape[1:]))
+            return shapes
+        itypes = self._input_types()
+        if itypes is None:
+            return None
+        return [tuple(t.batch_shape(1))[1:] for t in itypes]
+
+    def _derive_input_spec(self) -> Optional[List[tuple]]:
+        """The per-example shapes a request must carry, None in a dim
+        any size may take (the time axis of a recurrent input of unset
+        length); None when the shapes are underivable."""
+        shapes = self._warmup_shapes()
+        if shapes is None or self.warmup_inputs is not None:
+            return shapes
+        return [(None,) + s[1:]
+                if getattr(t, "timeseries_length", 0) is None else s
+                for s, t in zip(shapes, self._input_types())]
+
+    def _check_shapes(self, xs) -> None:
+        spec = self._input_spec
+        if spec is None:
+            return
+        if len(xs) != len(spec):
+            raise ValueError(
+                f"model takes {len(spec)} input(s), the request carries "
+                f"{len(xs)}")
+        for i, (x, want) in enumerate(zip(xs, spec)):
+            got = tuple(x.shape[1:])
+            if len(got) != len(want) or any(
+                    w is not None and g != w for g, w in zip(got, want)):
+                raise ValueError(
+                    f"input {i}: per-example shape {got} does not match "
+                    f"the model's {want}")
 
     def warmup(self) -> List[int]:
         """Run `net.output` once for every power-of-two bucket up to the
@@ -282,7 +385,7 @@ class ParallelInference:
         if self._failure is not None:
             raise InferenceUnavailableError(
                 f"batcher thread died: {self._failure!r}")
-        if self._threads_dead():
+        if self.mode == InferenceMode.BATCHED and self._threads_dead():
             raise InferenceUnavailableError("batcher thread is not running")
 
     def _threads_dead(self) -> bool:
@@ -294,7 +397,8 @@ class ParallelInference:
     def output(self, *xs, timeout_s: Optional[float] = None,
                priority: Optional[str] = None):
         """Run inference on one request (one array per network input,
-        sharing the batch dim). Raises OverloadedError when the bounded
+        sharing the batch dim). Raises ValueError when a per-example
+        shape differs from the model's, OverloadedError when the bounded
         queue is full, DeadlineExceededError past the deadline, and
         InferenceUnavailableError/ShutdownError instead of hanging."""
         xs = tuple(np.asarray(x) for x in xs)
@@ -304,8 +408,15 @@ class ParallelInference:
             raise ValueError(
                 "all inputs must share the batch dim: "
                 f"{[x.shape[0] for x in xs]}")
+        self._check_shapes(xs)
         if timeout_s is None:
             timeout_s = self.default_timeout_s
+        if self.mode == InferenceMode.SEQUENTIAL:
+            self._check_available()
+            with self._lock:
+                out = self.net.output(*xs)
+                return ([_to_host(o) for o in out]
+                        if isinstance(out, (list, tuple)) else _to_host(out))
         self._check_available()
         p = _Pending(xs, priority_idx=_PRIORITY_IDX.get(priority, 1))
         if self.tracer is not None:
@@ -518,6 +629,7 @@ class ParallelInference:
     def _batch_loop(self):
         try:
             while not self._stop.is_set() and self._failure is None:
+                _fire("inference.batch")   # chaos: kills the assembler
                 slots, rows = self._collect()
                 if not slots:
                     continue
@@ -650,6 +762,7 @@ class ParallelInference:
     def _completion_loop(self):
         try:
             while not self._stop.is_set() and self._failure is None:
+                _fire("inference.complete")   # chaos: kills the completer
                 try:
                     item = self._inflight.get(timeout=0.05)
                 except queue.Empty:

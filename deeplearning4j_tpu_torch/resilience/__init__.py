@@ -11,6 +11,8 @@ from deeplearning4j_tpu_torch.resilience.errors import (  # noqa: F401
     FaultInjectedError,
     GenerationPoisonedError,
     InferenceUnavailableError,
+    ModelNotFoundError,
+    NoHealthyReplicaError,
     NonFiniteLossError,
     OverloadedError,
     PreemptedError,
@@ -18,6 +20,8 @@ from deeplearning4j_tpu_torch.resilience.errors import (  # noqa: F401
     ResilienceError,
     RestartsExhaustedError,
     RetriesExhaustedError,
+    RolloutHeldError,
+    ServingError,
     ShutdownError,
     StepHangError,
 )

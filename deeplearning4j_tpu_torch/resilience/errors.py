@@ -1,8 +1,10 @@
 """Typed failures (a copy of the classes of deeplearning4j_tpu/resilience/errors.py
 that the ported serving, decode, model-loading, retry and training paths
 raise). Callers route on type: shed load (Overloaded, QuotaExceeded),
-surface (Shutdown / Unavailable), fail over (integrity), stop training
-(non-finite, preempted), abort one generation (GenerationPoisoned)."""
+surface (Shutdown / Unavailable), fail over (integrity, NoHealthyReplica),
+stop training (non-finite, preempted), abort one generation
+(GenerationPoisoned), map to HTTP (ModelNotFound, ServingError), refuse a
+rollout (RolloutHeld)."""
 
 from __future__ import annotations
 
@@ -120,3 +122,66 @@ class QuotaExceededError(ResilienceError):
         super().__init__(msg)
         self.tenant = tenant
         self.retry_after_s = retry_after_s
+
+
+class ModelNotFoundError(ResilienceError):
+    """The registry has no model (or no such version) under that name.
+    Maps to HTTP 404 on the /v1/models routes."""
+
+
+class NoHealthyReplicaError(ResilienceError):
+    """Every replica behind a ReplicaRouter is open-circuited or
+    failed the request — there is nowhere left to fail over to.
+    `cause` is the last replica's failure; `causes` is every
+    per-replica failure as (url, exception) pairs (a caller can tell
+    "everyone shed me" from "everyone was unreachable"); `membership`
+    is the router's fleet membership (replica URLs) at failure time,
+    so a chaos drill can assert WHICH fleet had nowhere left to go."""
+
+    def __init__(self, msg: str, cause: Exception | None = None,
+                 membership: list | None = None,
+                 causes: list | None = None):
+        super().__init__(msg)
+        self.cause = cause
+        self.membership = list(membership or [])
+        self.causes = list(causes or [])
+
+
+class RolloutHeldError(ResilienceError):
+    """The FleetController's hold-down ledger refused to re-canary a
+    version that recently failed its SLO watch — a bad build cannot be
+    re-rolled in a tight loop. `until_s` is the monotonic time the
+    hold-down expires; `failures` how many rollouts of this (model,
+    version) have been rolled back so far."""
+
+    def __init__(self, msg: str, model: str = "", version: str = "",
+                 until_s: float = 0.0, failures: int = 0):
+        super().__init__(msg)
+        self.model = model
+        self.version = version
+        self.until_s = until_s
+        self.failures = failures
+
+
+class ServingError(ResilienceError):
+    """HTTP error surfaced by ModelClient with the server's own story.
+
+    Carries the status code plus the parsed JSON error payload
+    (`error`, `error_class`) the server returned, so callers see e.g.
+    status=503 error_class='OverloadedError' instead of a bare
+    HTTP status."""
+
+    def __init__(self, status: int, message: str,
+                 error_class: str = "", body: dict | None = None,
+                 retry_after_s: float | None = None):
+        super().__init__(f"HTTP {status}: {message}")
+        self.status = status
+        self.message = message
+        self.error_class = error_class
+        self.body = body or {}
+        self.retry_after_s = retry_after_s
+
+    @property
+    def retryable(self) -> bool:
+        """503 (and 429) mean 'try again later'; 4xx/500 do not."""
+        return self.status in (429, 503)

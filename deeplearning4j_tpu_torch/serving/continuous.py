@@ -73,9 +73,8 @@ slot-lifetime ephemera):
           dropped connection): re-prefill + forced replay of the
           recorded tokens, then greedy continuation — byte-identical
           to an uninterrupted run. This is the eviction-recovery path
-          crossing process boundaries (the JAX package's ModelServer /
-          ReplicaRouter migration rides it; their port is ROADMAP
-          item 7).
+          crossing process boundaries (ModelServer's resumable 503 and
+          ReplicaRouter's migration ride it).
   quarantine  the decode step returns a per-slot finite-logits
           verdict (engine/decode_program.py, the NonFiniteGuard
           discipline applied to serving); a non-finite slot is
@@ -98,10 +97,10 @@ slot-lifetime ephemera):
           with its PARTIAL tokens and an explicit finish_reason
           ("deadline" / "cancelled").
 
-Admission: an optional `admission=` object in front — anything with the
-JAX package's AdmissionController interface, `admit(tenant, model,
-depth, capacity)` raising QuotaExceededError to shed (the port's
-serving/admission.py is ROADMAP item 7) — and a hard capacity bound
+Admission: an optional `admission=` object in front — the
+AdmissionController of serving/admission.py, or anything with its
+`admit(tenant, model, depth, capacity)` raising QuotaExceededError to
+shed — and a hard capacity bound
 (`max_slots` resident + `queue_limit` waiting) that rejects with
 QuotaExceededError on slot exhaustion.
 

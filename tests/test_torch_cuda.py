@@ -1340,3 +1340,84 @@ def test_cuda_decode_engine_serves_from_its_loop_thread():
         injector().clear()
     assert not [t for t in threading.enumerate()
                 if t.name.startswith("DecodeEngine-loop") and t.is_alive()]
+
+
+@pytest.mark.cuda
+def test_cuda_model_server_and_hot_swap_on_the_card(tmp_path):
+    """A port ModelServer over a narrow "pallas" graph on the card: npz
+    responses equal `pi.output` on the same rows (f32, within 1e-5), the
+    forward kernels launch on the served path, and a hot swap to a
+    second net's zip under 4 clients gives zero failed and zero mixed
+    responses (each within 1e-5 of its version's reference and far from
+    the other's)."""
+    _need_cuda()
+    import threading
+    import time
+
+    from deeplearning4j_tpu_torch.parallel.serving import (
+        ModelClient,
+        ModelServer,
+    )
+    from deeplearning4j_tpu_torch.resilience import Retry
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = _port_mini_resnet("pallas")
+    zp = str(tmp_path / "v2.zip")
+    write_model(_port_mini_resnet("pallas", seed=8), zp)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(5, 16, 16, 3)).astype(np.float32)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    server = ModelServer(net, model_name="m", batch_limit=8,
+                         device="cuda").start()
+    url = f"http://127.0.0.1:{server.port}"
+    try:
+        tpc.reset_launch_counts()
+        r = ModelClient(url).predict(x, model="m")
+        assert tpc.launch_counts()["fused_conv1x1"] > 0
+        assert tpc.launch_counts()["fused_conv3x3"] > 0
+        np.testing.assert_allclose(r["outputs"], server.pi.output(x), **tol)
+        refs = {"v1": np.asarray(r["outputs"])}
+        stop = threading.Event()
+        seen, bad = [], []
+        lock = threading.Lock()
+
+        def hammer():
+            c = ModelClient(url, retry=Retry(max_attempts=1), breaker=None)
+            while not stop.is_set():
+                try:
+                    resp = c.predict(x, model="m")
+                except Exception as e:   # noqa: BLE001 - asserted empty
+                    with lock:
+                        bad.append(repr(e))
+                    continue
+                with lock:
+                    seen.append((resp["version"],
+                                 np.asarray(resp["outputs"])))
+
+        threads = [threading.Thread(target=hammer) for _ in range(4)]
+        for t in threads:
+            t.start()
+        try:
+            ModelClient(url, timeout=120.0).put_version("m", "v2", zp)
+            refs["v2"] = server.pi.output(x)
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline:
+                with lock:
+                    if sum(v == "v2" for v, _ in seen) >= 10:
+                        break
+                time.sleep(0.01)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=60.0)
+    finally:
+        server.stop()
+    assert not bad
+    assert {v for v, _ in seen} >= {"v2"}
+    assert np.abs(refs["v1"] - refs["v2"]).max() > 1e-3
+    for v, out in seen:
+        np.testing.assert_allclose(out, refs[v], **tol)
+        other = refs["v2" if v == "v1" else "v1"]
+        assert np.abs(out - other).max() > 1e-3
