@@ -266,6 +266,36 @@ Phases, in order; any failure exits non-zero:
      prompt under serving.migrate_fail), a cold restart from a killed
      server's journal, and CONTROL_GPT2_REQUESTS GPT-2-width requests
      over the npz wire equal to the in-process engine's tokens;
+  5k. cluster supervision and clustering (lines start "cluster ",
+     "tsne ", "kmeans ", "dashboard" and "nn "): (a) the flagship
+     (ResNet-50, bf16, "pallas", batch TRAIN_BATCH) in a worker process
+     (tests/fixtures/torch/cluster_worker.py) training CLUSTER_STEPS steps
+     through TrainingMaster(steps_per_dispatch=GROUP_K) with a checkpoint
+     per window, under StepWatchdog(heartbeat=HeartbeatFile(...),
+     hang_exit_after=2) and ClusterSupervisor(nprocs=1): (i) unfaulted,
+     the oracle; (ii) wedged inside a CUDA wait (a spinning kernel and
+     torch.cuda.synchronize) after step 8's checkpoint in its first
+     generation: the watchdog marks the lease and exits EXIT_HANG, the
+     supervisor relaunches from step 8; (iii) the same wedge with the
+     hard exit out of reach: the supervisor finds the lease stale,
+     SIGTERMs (deferred by the wait) and SIGKILLs, and relaunches — (ii)
+     and (iii) end bit for bit where (i) ends; every generation launches
+     30/16/30/30 kernels per step, all "wgmma", records one capture event
+     and replays the rest; detection-to-exit and relaunch-to-first-step
+     seconds; (b) t-SNE's exact tier at TSNE_EXACT_N seeded MNIST-shaped
+     rows of 784 (perplexity 30, TSNE_EXACT_ITERS iterations) and (c) its
+     chunked tier at TSNE_N (K = 90, row_block 2048, TSNE_CHUNKED_ITERS):
+     ms per iteration beside its bound, the KL at the first, 100th and
+     last iteration (the last below the 100th), peak memory, the 10-NN
+     label share in 2-D, P and the first iterations against the port on
+     the CPU from the card's states (a spawned CPU process), and the
+     chunked tier's KL on (b)'s rows against (b)'s; (d) k-means (k =
+     KMEANS_K) on (c)'s rows against the CPU's; (e) a
+     NearestNeighborsServer over NN_ROWS x NN_DIM f32 under NN_CLIENTS
+     client threads (req/s, p50/p99, the device ms of a request beside
+     its bound), NN_CHECK_QUERIES answers against an f64 brute force,
+     VPTree and KDTree against knn; (f) embedding_scatter on DASH_ROWS
+     rows and render_html's t-SNE tab;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -576,6 +606,78 @@ CONTROL_SLO = ("error_rate<0.05,min_requests=5,window=500ms,windows=2,"
 CONTROL_DECODE_CLIENTS = 8
 CONTROL_GPT2_REQUESTS = 8
 CONTROL_GPT2_PROMPT = (64, 256)
+# phase 5k: cluster supervision of the flagship and clustering. (a) A
+# worker process (tests/fixtures/torch/cluster_worker.py) trains the
+# flagship through TrainingMaster(steps_per_dispatch=GROUP_K,
+# checkpoint_every=GROUP_K) under StepWatchdog(heartbeat=HeartbeatFile,
+# hang_exit_after=2) and ClusterSupervisor(nprocs=1): the unfaulted
+# oracle, a wedge inside a CUDA wait at the start of window
+# CLUSTER_WEDGE_WINDOW (after the checkpoint of step 8) escalated by the
+# watchdog's hard exit, and the same wedge found stale by the supervisor.
+# The worker captures its group before the watchdog starts, so the lease
+# covers steps and checkpoints (CLUSTER_WATCHDOG_S, CLUSTER_LEASE_S) and
+# CLUSTER_STARTUP_GRACE_S covers the interpreter, the build and the
+# capture. (b)-(d) run on seeded MNIST-shaped rows made as the port's
+# MNIST stand-in makes them (datasets/fetchers.py: 10 class templates +
+# noise, 28x28 = 784 wide): t-SNE's exact tier at DENSE_CAP rows and its
+# chunked tier at MNIST's 70,000 (perplexity 30, K = 90 neighbours,
+# row_block 2048), k-means with k = 10 on the 70,000. (e) serves k-NN over
+# a seeded 1,000,000 x 128 f32 corpus (a user's embedding table). (f)
+# runs the dashboard's t-SNE tab on 2,000 of (b)'s rows.
+CLUSTER_STEPS = 16
+CLUSTER_WEDGE_WINDOW = 3
+CLUSTER_WATCHDOG_S = 4.0       # the worker watchdog's timeout_s
+CLUSTER_LEASE_S = 12.0         # the supervisor's lease_timeout_s: above
+                               # the hard exit's 2 x CLUSTER_WATCHDOG_S
+CLUSTER_STARTUP_GRACE_S = 180.0
+CLUSTER_WEDGE = "cuda"         # wedge inside a CUDA wait
+CLUSTER_WEDGE_S = 120.0        # the spin kernel's length (killed earlier)
+CLUSTER_RUN_S = 600.0          # each supervised run's deadline
+TSNE_EXACT_N = 16384           # clustering.Tsne.DENSE_CAP
+TSNE_N = 70000                 # MNIST's train + test rows
+TSNE_D = 784
+TSNE_PERPLEXITY = 30.0
+TSNE_EXACT_ITERS = 500         # the JAX package's default max_iter
+TSNE_CHUNKED_ITERS = 500
+TSNE_ROW_BLOCK = 2048
+# the card against the port on the CPU from the same state (one
+# iteration each, on the card's state: a chaotic map amplifies one ulp
+# to a different embedding within tens of iterations), error over
+# max(1, max|y|): f32 sums in another order; the affinities within
+# TSNE_P_TOL (the 50-step beta bisection may take one comparison the
+# other way; the symmetrized sparse P scaled by 2N, its conditional P's
+# scale)
+TSNE_STEP_TOL = 1e-4
+# the first chip run read 1.12e-4 on the dense P's rows (16,384 x 784:
+# |x|^2 ~ 300 cancels in each f32 d2); margin 4.5x
+TSNE_P_TOL = 5e-4
+TSNE_EXACT_CPU_STEPS = 10
+TSNE_CHUNKED_CPU_STEPS = 1     # one CPU iteration at 70,000 rows: ~25 s
+TSNE_CHECK_ROWS = 256          # rows whose kNN and P the CPU recomputes
+TSNE_LABEL_SHARE = 0.9         # of each point's 10 nearest in 2-D
+# (b)'s embedding against the chunked tier's on (b)'s rows, each scored
+# by the exact tier's KL (its dense P): JAX's bar, tests/test_clustering.py
+TSNE_KL_REL = 0.15
+TSNE_KL_ABS = 0.1
+# a k-NN answer in f32 may name a neighbour whose exact squared distance
+# exceeds the true k-th one's by the rounding of |q|^2 + |x|^2 - 2 q.x:
+# KNN_ULPS x 2^-24 x (|q|^2 + max |x|^2) (a sum of 784 products rounds
+# ~sqrt(784) = 28 ulps of its size on average)
+KNN_ULPS = 64
+KMEANS_K = 10
+KMEANS_ITERS = 100
+KMEANS_GAP_TOL = 1e-4          # a point may change cluster only this near a tie
+KMEANS_TOL = 1e-4              # centres and inertia, relative
+NN_ROWS = 1_000_000
+NN_DIM = 128
+NN_K = 10
+NN_QUERIES = 64                # per request
+NN_CLIENTS = 8
+NN_WINDOW_S = 5.0
+NN_CHECK_QUERIES = 256
+NN_TREE_ROWS = 20000
+NN_TREE_QUERIES = 8
+DASH_ROWS = 2000
 
 
 def fail(msg):
@@ -6623,6 +6725,865 @@ def control_phase(torch, np, pc, card, seed, serving, decode,
     return res
 
 
+# ------------------------------------------------------------ phase 5k
+
+
+def cluster_worker_argv(out, resume_step, hb, det, wedge, hang_exit_after):
+    """The flagship worker's command line (tests/fixtures/torch/
+    cluster_worker.py): ResNet-50 at full width, bf16, "pallas", batch
+    TRAIN_BATCH, CLUSTER_STEPS steps in GROUP_K-step windows, a
+    checkpoint after each, TM_DATA seeded batches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable,
+            os.path.join(here, "tests", "fixtures", "torch",
+                         "cluster_worker.py"),
+            out, str(resume_step), "--hb", hb, "--model", "resnet50",
+            "--device", DEV, "--steps", str(CLUSTER_STEPS),
+            "--k", str(GROUP_K), "--batch", str(TRAIN_BATCH),
+            "--hw", str(HW), "--classes", "1000", "--data", str(TM_DATA),
+            "--timeout", str(CLUSTER_WATCHDOG_S),
+            "--hang-exit-after", str(hang_exit_after),
+            "--wedge-window", str(CLUSTER_WEDGE_WINDOW if wedge else 0),
+            "--wedge", CLUSTER_WEDGE, "--wedge-s", str(CLUSTER_WEDGE_S)]
+    return argv + (["--deterministic"] if det else [])
+
+
+def worker_log_tails(hb_dir):
+    tails = []
+    for fn in sorted(os.listdir(hb_dir)):
+        if fn.endswith(".log"):
+            with open(os.path.join(hb_dir, fn), errors="replace") as f:
+                tails.append(f"--- {fn}\n" + f.read()[-3000:])
+    return "\n".join(tails)
+
+
+def cluster_run(np, tmp, name, det, wedge=False, hang_exit_after=2):
+    """One ClusterSupervisor(nprocs=1) run of the flagship worker: the
+    supervisor's stats, the wall time, each generation's report, the
+    final state, the wedge's time and the watchdog's records."""
+    from deeplearning4j_tpu_torch.resilience import (
+        ClusterSupervisor,
+        heartbeat_path,
+    )
+
+    out = os.path.join(tmp, name)
+    hb_dir = os.path.join(out, "hb")
+
+    def command_fn(rank, nprocs, port, resume_step):
+        return cluster_worker_argv(out, resume_step,
+                                   heartbeat_path(hb_dir, rank), det, wedge,
+                                   hang_exit_after)
+
+    env = dict(os.environ)
+    env.pop("DL4J_TPU_FAULTS", None)
+    cs = ClusterSupervisor(1, command_fn, hb_dir,
+                           checkpoint_dir=os.path.join(out, "ckpt"),
+                           lease_timeout_s=CLUSTER_LEASE_S,
+                           startup_grace_s=CLUSTER_STARTUP_GRACE_S,
+                           poll_s=0.1, grace_s=3.0, restart_backoff_s=0.1,
+                           env=env)
+    t0 = time.time()
+    try:
+        stats = cs.run(timeout_s=CLUSTER_RUN_S)
+    except Exception as e:   # noqa: BLE001 - report the workers' logs
+        fail(f"cluster {name}: {type(e).__name__}: {e}\n"
+             f"{worker_log_tails(hb_dir)}")
+    res = {"stats": stats, "wall_s": time.time() - t0, "gens": {},
+           "wedge": None, "watchdog": []}
+    for fn in os.listdir(out):
+        if fn.startswith("gen-") and fn.endswith(".json"):
+            with open(os.path.join(out, fn)) as f:
+                res["gens"][int(fn[4:-5])] = json.load(f)
+    with np.load(os.path.join(out, "final.npz")) as z:
+        res["final"] = {k: z[k] for k in z.files}
+    if os.path.exists(os.path.join(out, "wedge.json")):
+        with open(os.path.join(out, "wedge.json")) as f:
+            res["wedge"] = json.load(f)["time"]
+    wlog = os.path.join(out, "watchdog-0.log")
+    if os.path.exists(wlog):
+        with open(wlog) as f:
+            for line in f:
+                t, _, msg = line.partition(" ")
+                res["watchdog"].append((float(t), msg.strip()))
+    return res
+
+
+def cluster_gen_checks(name, gen):
+    """A generation's kernel launches (30/16/30/30 per step, all
+    "wgmma") and its capture forensics (one event, k = GROUP_K, from
+    the warm-up capture; none in the fit, whose windows replay)."""
+    want = {"fused_conv1x1": 30, "fused_conv3x3": 16, "dgrad_conv1x1": 30,
+            "wgrad_conv1x1": 30}
+    for k, n in want.items():
+        if gen["launches_per_step"][k] != n or gen["wgmma_per_step"][k] != n:
+            fail(f"cluster {name}: {k} launched "
+                 f"{gen['launches_per_step'][k]} times per step "
+                 f"({gen['wgmma_per_step'][k]} on wgmma), not {n}, all on "
+                 "wgmma")
+    ev = gen["capture_events"]
+    windows = gen["steps_run"] // GROUP_K
+    if not (len(ev) == 1 and ev[0]["k"] == GROUP_K
+            and gen["captures_in_fit"] == 0
+            and gen["replays"] == 1 + windows):
+        fail(f"cluster {name}: capture events {ev}, captures in the fit "
+             f"{gen['captures_in_fit']}, replays {gen['replays']} (want one "
+             f"event of k={GROUP_K}, none in the fit, {1 + windows} replays)")
+
+
+def cluster_phase(torch, np, card, det, tm_ms):
+    """Phase 5k (a): the flagship under cluster supervision (module
+    docstring). `det`: phase 5b's cuDNN setting for bitwise checks;
+    `tm_ms`: phase 5d's TrainingMaster ms/step at GROUP_K."""
+    res = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        oracle = cluster_run(np, tmp, "oracle", det)
+        hang = cluster_run(np, tmp, "hang_exit", det, wedge=True,
+                           hang_exit_after=2)
+        stale = cluster_run(np, tmp, "stale_lease", det, wedge=True,
+                            hang_exit_after=10 ** 6)
+    st = oracle["stats"]
+    g0 = oracle["gens"].get(0)
+    if st["gang_restarts"] != 0 or g0 is None \
+            or int(oracle["final"]["iteration"]) != CLUSTER_STEPS:
+        fail(f"cluster oracle: {st['ledger']}, generations "
+             f"{sorted(oracle['gens'])}")
+    cluster_gen_checks("oracle", g0)
+    res["oracle"] = {
+        "wall_s": oracle["wall_s"], "startup_s": g0["t_ready"] - g0["t_start"],
+        "capture_s": g0["capture_s"], "ms_per_step": g0["ms_per_step"],
+        "ms_per_step_without_checkpoints":
+            g0["ms_per_step_without_checkpoints"],
+        "checkpoint_s": g0["checkpoint_s"], "tm_ms_per_step": tm_ms,
+        "loss": g0["loss"], "heartbeat": g0["heartbeat"]}
+    o = res["oracle"]
+    log(f"cluster oracle: ClusterSupervisor(nprocs=1) over the flagship "
+        f"worker, {CLUSTER_STEPS} steps (TrainingMaster steps_per_dispatch="
+        f"{GROUP_K}, a checkpoint per window, StepWatchdog(heartbeat=..., "
+        f"hang_exit_after=2)): wall {o['wall_s']:.2f} s, process start to "
+        f"ready {o['startup_s']:.2f} s (of it the group's capture "
+        f"{o['capture_s']:.2f} s), {o['ms_per_step']:.2f} ms/step with its "
+        f"checkpoints ({o['checkpoint_s']:.2f} s of them), "
+        f"{o['ms_per_step_without_checkpoints']:.2f} without, beside phase "
+        f"5d's TrainingMaster {tm_ms:.2f} ms/step (no lease, no checkpoints,"
+        f" no per-window host read); lease writes {o['heartbeat']}; loss "
+        f"{o['loss']:.4f}; launches per step {g0['launches_per_step']} (all "
+        f"wgmma); capture events {g0['capture_events']} [{card}]")
+    launches = {k: 0.0 for k in g0["launches_per_step"]}
+    reasons = {"hang_exit": ("hang_hard", "hang_marker"),
+               "stale_lease": ("heartbeat_stale",)}
+    for name, run in (("hang_exit", hang), ("stale_lease", stale)):
+        st = run["stats"]
+        gens = run["gens"]
+        ledger = st["ledger"]
+        if not (st["gang_restarts"] == 1 and len(ledger) == 1
+                and ledger[0]["reason"] in reasons[name]
+                and st["resume_steps"] == [2 * GROUP_K]
+                and sorted(gens) == [2 * GROUP_K]):
+            fail(f"cluster {name}: gang restarts {st['gang_restarts']}, "
+                 f"ledger {ledger}, resume steps {st['resume_steps']}, "
+                 f"generations that finished {sorted(gens)}")
+        g = gens[2 * GROUP_K]
+        cluster_gen_checks(name, g)
+        same = (sorted(run["final"]) == sorted(oracle["final"])
+                and all(np.array_equal(run["final"][k], oracle["final"][k])
+                        for k in oracle["final"]))
+        if not same:
+            diff = [k for k in oracle["final"]
+                    if not np.array_equal(run["final"].get(k),
+                                          oracle["final"][k])]
+            fail(f"cluster {name}: the relaunched run does not end bit for "
+                 f"bit where the oracle ends ({len(diff)} arrays differ)")
+        r = {"wall_s": run["wall_s"], "reason": ledger[0]["reason"],
+             "gang_restarts": st["gang_restarts"],
+             "resume_step": st["resume_steps"][0],
+             "wedge_to_relaunch_s": g["t_start"] - run["wedge"],
+             "relaunch_to_first_step_s": g["t_first_window"] - g["t_start"],
+             "arrays_bitwise": len(oracle["final"])}
+        detections = [t for t, m in run["watchdog"] if "no heartbeat" in m]
+        exits = [t for t, m in run["watchdog"] if "exiting 86" in m]
+        if detections:
+            r["wedge_to_detection_s"] = detections[0] - run["wedge"]
+        if name == "hang_exit":
+            if not (detections and exits):
+                fail(f"cluster {name}: the watchdog's records show no "
+                     f"detection or no hard exit: {run['watchdog']}")
+            r["detection_to_exit_s"] = exits[0] - detections[0]
+        elif exits:
+            fail(f"cluster {name}: the watchdog exited: {run['watchdog']}")
+        res[name] = r
+        for k in launches:
+            launches[k] += g["launches_per_step"][k] * g["steps_run"]
+        log(f"cluster {name}: wedge in a CUDA wait (torch.cuda._sleep + "
+            f"synchronize) at the start of window {CLUSTER_WEDGE_WINDOW}, "
+            f"first generation only; ledger reason {r['reason']}, "
+            f"{r['gang_restarts']} gang restart, resumed from step "
+            f"{r['resume_step']}; wedge to first watchdog detection "
+            + (f"{r['wedge_to_detection_s']:.2f} s" if "wedge_to_detection_s"
+               in r else "none")
+            + (f", detection to the hard exit {r['detection_to_exit_s']:.2f} s"
+               if "detection_to_exit_s" in r else "")
+            + f"; wedge to the relaunched process's start "
+            f"{r['wedge_to_relaunch_s']:.2f} s, relaunch to its first "
+            f"window {r['relaunch_to_first_step_s']:.2f} s; wall "
+            f"{r['wall_s']:.2f} s; {r['arrays_bitwise']} state arrays bit "
+            f"for bit the oracle's; launches per step "
+            f"{g['launches_per_step']} (all wgmma) [{card}]")
+    for k in launches:
+        launches[k] += g0["launches_per_step"][k] * g0["steps_run"]
+    res["launches"] = {k: int(round(v)) for k, v in launches.items()}
+    return res
+
+
+def mnist_shaped(np, n, seed=0):
+    """n MNIST-shaped rows (784 wide) and labels, made as the port's
+    MNIST stand-in makes them (datasets/fetchers.py): 10 shared class
+    templates + noise, clipped to [0, 1]."""
+    templates = np.random.default_rng(42).normal(size=(10, 28, 28)) > 1.0
+    rng = np.random.default_rng(seed)
+    labs = rng.integers(0, 10, n)
+    x = (templates[labs] * 0.9
+         + rng.normal(scale=0.1, size=(n, 28, 28))).astype(np.float32)
+    return np.clip(x, 0, 1).reshape(n, 784), labs
+
+
+def label_share(torch, emb, labels, k=10):
+    """The share of each point's k nearest points in the embedding that
+    carry its label (on the card)."""
+    from deeplearning4j_tpu_torch.clustering import knn
+
+    e = torch.as_tensor(emb, device=DEV)
+    idx, _ = knn(e, e, k + 1, tile=4096)
+    lab = torch.as_tensor(labels, device=DEV)
+    return float((lab[idx[:, 1:]] == lab[:, None]).float().mean())
+
+
+def host_copy(t):
+    """A host copy of `t` that later in-place updates leave alone."""
+    return t.detach().cpu().clone().numpy()
+
+
+def tsne_step_err(np, a, b):
+    return float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max())))
+
+
+def tsne_cpu_worker(job, cfg):
+    """The CPU side of phase 5k's t-SNE and k-means checks, in a spawned
+    process (CPU only) so the card's work runs on meanwhile: from the
+    card's own arrays (files under `job`), the port on the CPU computes
+    (b)'s P rows and first iterations, (c)'s kNN rows, sparse P and
+    first iterations, and (d)'s k-means. `cfg` carries the sizes (a
+    spawned process imports this module afresh)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering, knn
+    from deeplearning4j_tpu_torch.clustering import tsne as pt
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    ld = lambda name: np.load(os.path.join(job, name))
+    out = {}
+    x = torch.from_numpy(ld("x.npy"))
+    xb = x[:cfg["exact_n"]]
+    rows = torch.from_numpy(ld("rows.npy"))
+    # (b): P rows (each row's beta search is its own), then iterations
+    d2 = pt.pairwise_distance(xb[rows], xb, "sqeuclidean", device="cpu")
+    mask = torch.zeros_like(d2, dtype=torch.bool)
+    mask[torch.arange(len(rows)), rows] = True
+    d2.masked_fill_(mask, 0.0)
+    out["b_pc_rows"] = pt._beta_search(d2, mask, cfg["perplexity"],
+                                       50).numpy()
+    p = torch.from_numpy(ld("b_P.npy"))
+    sb = ld("b_states.npz")
+    ys, kls = [], []
+    t = pt.Tsne(perplexity=cfg["perplexity"], device="cpu")
+    for it in range(cfg["exact_steps"]):
+        ex, mom = t._schedule(it)
+        y, vel = torch.from_numpy(sb["y"][it]), torch.from_numpy(sb["vel"][it])
+        g, kl = pt._tsne_grad(y, p, ex)
+        vel = mom * vel - t.learning_rate * g
+        y = y + vel
+        ys.append((y - torch.mean(y, dim=0)).numpy())
+        kls.append(float(kl))
+    out["b_y"], out["b_kl"] = np.stack(ys), np.asarray(kls)
+    del p
+    # (c): kNN rows against all rows, the sparse P from the card's
+    # neighbours, then iterations
+    idx_r, dist_r = knn(x[rows], x, int(3 * cfg["perplexity"]) + 1,
+                        device="cpu")
+    out["c_knn_idx"], out["c_knn_dist"] = idx_r.numpy(), dist_r.numpy()
+    idx = torch.from_numpy(ld("c_idx.npy"))
+    psym, mutual = pt._sparse_psym(idx, torch.from_numpy(ld("c_d.npy")),
+                                   cfg["perplexity"], cfg["row_block"])
+    out["c_psym"], out["c_mutual"] = psym.numpy(), mutual.numpy()
+    sc = ld("c_states.npz")
+    psym_card = torch.from_numpy(ld("c_psym.npy"))
+    mutual_card = torch.from_numpy(ld("c_mutual.npy"))
+    ys, kls = [], []
+    for it in range(cfg["chunked_steps"]):
+        ex, mom = t._schedule(it)
+        y, _, kl = pt._chunked_step(
+            torch.from_numpy(sc["y"][it].copy()),
+            torch.from_numpy(sc["vel"][it].copy()), idx, psym_card,
+            mutual_card, ex, mom, t.learning_rate, cfg["row_block"],
+            x.shape[0])
+        ys.append(y.numpy())
+        kls.append(float(kl))
+    out["c_y"], out["c_kl"] = np.stack(ys), np.asarray(kls)
+    # (d)
+    km = KMeansClustering(cfg["kmeans_k"],
+                          max_iterations=cfg["kmeans_iters"], device="cpu")
+    out["d_init"] = km._init_centers(x)
+    cs = km.apply(x)
+    out["d_assign"], out["d_centers"] = cs.assignments, cs.centers
+    out["d_inertia"] = np.asarray(cs.inertia)
+    np.savez(os.path.join(job, "cpu.npz"), **out)
+
+
+def tsne_fit(torch, t, xc, labels, r):
+    """Time `t.fit_transform` on the card and fill `r` (its seconds per
+    iteration net of the affinities' `r["p_s"]`, peak memory, the KL at
+    the first, 100th and last iteration, the 10-NN label share)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = t.fit_transform(xc)
+    torch.cuda.synchronize()
+    r["fit_s"] = time.perf_counter() - t0
+    r["s_per_iter"] = (r["fit_s"] - r["p_s"]) / t.max_iter
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["kl_first"] = float(t.kl_history_[0])
+    r["kl_100"] = float(t.kl_history_[t.stop_lying_iteration])
+    r["kl_final"] = t.kl_
+    r["label_share"] = label_share(torch, emb, labels)
+    return emb
+
+
+def tsne_exact(torch, np, pt, Tsne, xc, job):
+    """(b), before the fit: P on the card (its seconds warm), TSNE_
+    EXACT_CPU_STEPS iterations from the seeded start with their states,
+    and the CPU process's inputs under `job`."""
+    n = xc.shape[0]
+    t = Tsne(perplexity=TSNE_PERPLEXITY, max_iter=TSNE_EXACT_ITERS,
+             method="exact", device=DEV)
+
+    def affinities():
+        pc = pt._p_conditional(xc, TSNE_PERPLEXITY)
+        return pc, torch.clamp_min((pc + pc.T) / (2.0 * n), 1e-12)
+
+    pc, p = affinities()
+    del pc, p
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pc, p = affinities()
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    rows = np.random.default_rng(3).choice(n, TSNE_CHECK_ROWS, replace=False)
+    np.save(os.path.join(job, "rows.npy"), rows)
+    pc_rows = pc[torch.as_tensor(rows, device=DEV)].cpu().numpy()
+    del pc
+    np.save(os.path.join(job, "b_P.npy"), p.cpu().numpy())
+    y = t.initial_embedding(n).to(DEV)
+    vel = torch.zeros_like(y)
+    ys, vels, kls = [host_copy(y)], [host_copy(vel)], []
+    for it in range(TSNE_EXACT_CPU_STEPS):
+        ex, mom = t._schedule(it)
+        g, kl = pt._tsne_grad(y, p, ex)
+        vel = mom * vel - t.learning_rate * g
+        y = y + vel
+        y = y - torch.mean(y, dim=0)
+        ys.append(host_copy(y))
+        vels.append(host_copy(vel))
+        kls.append(float(kl))
+    np.savez(os.path.join(job, "b_states.npz"), y=np.stack(ys),
+             vel=np.stack(vels))
+    del p
+    # the loop above is fit_transform's: its first iterations, alone
+    short = Tsne(perplexity=TSNE_PERPLEXITY, max_iter=TSNE_EXACT_CPU_STEPS,
+                 method="exact", device=DEV).fit_transform(xc)
+    r = {"n": n, "iters": TSNE_EXACT_ITERS, "p_s": p_s,
+         "loop_err": tsne_step_err(np, short, ys[-1])}
+    # bound per iteration: P read once (4 B per pair) against the
+    # gradient's operations, 27 per pair as _tsne_grad does them (the
+    # d2 matmul 4 + 4 elementwise, num 2, Z 1, q 2, pq 3, rowsum 1, neg
+    # 1, the pq @ y matmul 4, KL 5)
+    pairs = float(n) * n
+    r["bound_ms"] = max(4.0 * pairs / HBM_BYTES_PER_S,
+                        27.0 * pairs / F32_FLOPS_PER_S) * 1e3
+    r["bound_by"] = ("bytes" if 4.0 / HBM_BYTES_PER_S
+                     >= 27.0 / F32_FLOPS_PER_S else "operations")
+    return r, t, pc_rows, kls, ys
+
+
+def tsne_chunked(torch, np, pt, Tsne, xc, job):
+    """(c), before the fit: the kNN (timed alone) and the sparse P on
+    the card, TSNE_CHUNKED_CPU_STEPS iterations from the seeded start
+    with their states, and the CPU process's inputs under `job`."""
+    from deeplearning4j_tpu_torch.clustering import knn
+
+    n = xc.shape[0]
+    t = Tsne(perplexity=TSNE_PERPLEXITY, max_iter=TSNE_CHUNKED_ITERS,
+             method="chunked", row_block=TSNE_ROW_BLOCK, device=DEV)
+    k = int(3 * TSNE_PERPLEXITY)
+    knn(xc[:TSNE_ROW_BLOCK], xc, k + 1)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knn(xc, xc, k + 1, tile=TSNE_ROW_BLOCK)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx, d = t.sparse_neighbours(xc)
+    psym, mutual = pt._sparse_psym(idx, d, TSNE_PERPLEXITY, TSNE_ROW_BLOCK)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    for name, a in (("c_idx", idx), ("c_d", d), ("c_psym", psym),
+                    ("c_mutual", mutual)):
+        np.save(os.path.join(job, name + ".npy"), a.cpu().numpy())
+    blk = TSNE_ROW_BLOCK
+    n_pad = -(-n // blk) * blk
+    y = torch.cat([t.initial_embedding(n).to(DEV),
+                   torch.full((n_pad - n, 2), 1e6, device=DEV)])
+    vel = torch.zeros_like(y)
+    ys, vels, kls = [host_copy(y)], [host_copy(vel)], []
+    for it in range(TSNE_CHUNKED_CPU_STEPS):
+        ex, mom = t._schedule(it)
+        y, vel, kl = pt._chunked_step(y, vel, idx, psym, mutual, ex, mom,
+                                      t.learning_rate, blk, n)
+        ys.append(host_copy(y))
+        vels.append(host_copy(vel))
+        kls.append(float(kl))
+    np.savez(os.path.join(job, "c_states.npz"), y=np.stack(ys),
+             vel=np.stack(vels))
+    r = {"n": n, "k": k, "iters": TSNE_CHUNKED_ITERS, "knn_s": knn_s,
+         "p_s": p_s}
+    # bound per iteration: y, vel in and out, idx (int64), psym, mutual
+    # read once, against the repulsive pass's operations over the real
+    # pairs, 18 per pair as _chunked_step does them (the augmented 1 + d2
+    # matmul 8, clamp and reciprocal 2, Z 1, square 1, the [y, 1] matmul
+    # 6); the kNN-pattern work (n x K) is under 0.1% of it
+    nbytes = 4.0 * n_pad * 2 * 4 + n * k * (8 + 4 + 1)
+    ops = 18.0 * float(n) * n
+    r["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                        ops / F32_FLOPS_PER_S) * 1e3
+    r["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= ops / F32_FLOPS_PER_S else "operations")
+    # the kNN: x read once, 2 x N^2 x D operations for the matmul
+    r["knn_bound_ms"] = max(
+        (2.0 * n * TSNE_D * 4) / HBM_BYTES_PER_S,
+        2.0 * n * n * TSNE_D / F32_FLOPS_PER_S) * 1e3
+    return r, t, idx, psym, mutual, kls, ys
+
+
+def nn_brute_f64(torch, queries, corpus, k):
+    """Exact k nearest corpus rows of `queries` in float64 on the card
+    (chunks of the corpus; each chunk's best k, then the best k of
+    those)."""
+    q = queries.double()
+    q2 = (q * q).sum(1, keepdim=True)
+    best_d, best_i = [], []
+    step = 1 << 18
+    for s in range(0, corpus.shape[0], step):
+        c = corpus[s:s + step].double()
+        d2 = q2 + (c * c).sum(1)[None, :] - 2.0 * (q @ c.T)
+        dv, di = torch.topk(d2, k, dim=1, largest=False)
+        best_d.append(dv)
+        best_i.append(di + s)
+    dv, pos = torch.topk(torch.cat(best_d, 1), k, dim=1, largest=False)
+    return torch.gather(torch.cat(best_i, 1), 1, pos), dv.clamp_min(0).sqrt()
+
+
+def same_neighbours(np, got, want, got_d64, want_d64, scale):
+    """A k-NN answer computed in f32 by |q|^2 + |x|^2 - 2 q.x is right
+    when the exact (f64) squared distances of the neighbours it names,
+    sorted, are the reference's k smallest, each within that formula's
+    rounding: KNN_ULPS x 2^-24 x `scale` ([rows], |q|^2 + the largest
+    |x|^2). Where its indices differ from the reference's, two
+    neighbours tie within that rounding. Returns the count of rows whose
+    indices differ, or None when the answer is wrong."""
+    err = np.abs(np.sort(got_d64, axis=1) ** 2 - want_d64 ** 2)
+    if (err > KNN_ULPS * 2.0 ** -24 * np.asarray(scale)[:, None]).any():
+        return None
+    return int((got != want).any(axis=1).sum())
+
+
+def norm2(np, a):
+    return (np.asarray(a, np.float64) ** 2).sum(-1)
+
+
+def exact_dists(np, q, pts, idx):
+    """||q_r - pts[idx[r, c]]|| in float64 on the host."""
+    q = np.asarray(q, np.float64)
+    return np.sqrt(((q[:, None, :] - np.asarray(pts[idx], np.float64)) ** 2)
+                   .sum(-1))
+
+
+def nn_serving(torch, np, card):
+    """(e): NearestNeighborsServer over NN_ROWS x NN_DIM on the card."""
+    from deeplearning4j_tpu_torch.clustering import (
+        KDTree,
+        NearestNeighborsClient,
+        NearestNeighborsServer,
+        VPTree,
+        knn,
+    )
+
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    corpus = torch.randn(NN_ROWS, NN_DIM, generator=gen, device=DEV)
+    rng = np.random.default_rng(12)
+    checks = rng.normal(size=(NN_CHECK_QUERIES, NN_DIM)).astype(np.float32)
+    res = {}
+    server = NearestNeighborsServer(corpus, port=0, device=DEV).start()
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        client = NearestNeighborsClient(url, timeout=120.0)
+        st = client.status()
+        if st != {"num_points": NN_ROWS, "dims": NN_DIM,
+                  "metric": "euclidean"}:
+            fail(f"nn: /status {st}")
+        got = []
+        for s in range(0, NN_CHECK_QUERIES, NN_QUERIES):
+            got += client.knn_batch(checks[s:s + NN_QUERIES], k=NN_K)
+        gi = np.asarray([r["indices"] for r in got])
+        qd = torch.as_tensor(checks, device=DEV).double()
+        bi, bd = nn_brute_f64(torch, qd, corpus, NN_K)
+        gd = ((qd[:, None, :] - corpus[torch.as_tensor(gi, device=DEV)]
+               .double()) ** 2).sum(-1).sqrt()
+        cmax = float((corpus * corpus).sum(1).max())
+        swaps = same_neighbours(np, gi, bi.cpu().numpy(), gd.cpu().numpy(),
+                                bd.cpu().numpy(), norm2(np, checks) + cmax)
+        derr = float(np.abs(np.asarray([r["distances"] for r in got])
+                            - bd.cpu().numpy()).max())
+        if swaps is None or derr > 1e-3:
+            fail(f"nn: served indices differ from the f64 brute force "
+                 f"(distance error {derr})")
+        res["check"] = {"queries": NN_CHECK_QUERIES, "tie_swaps": swaps,
+                        "max_dist_err": derr}
+        # the load: NN_CLIENTS threads, NN_QUERIES queries per request
+        lat, errors, lock = [], [], threading.Lock()
+        stop = threading.Event()
+
+        def client_loop(seed):
+            c = NearestNeighborsClient(url, timeout=120.0)
+            r = np.random.default_rng(seed)
+            while not stop.is_set():
+                q = r.normal(size=(NN_QUERIES, NN_DIM))
+                t0 = time.perf_counter()
+                try:
+                    out = c.knn_batch(q, k=NN_K)
+                    ok = len(out) == NN_QUERIES
+                except Exception as e:   # noqa: BLE001 - counted, fails below
+                    ok = False
+                    out = e
+                with lock:
+                    (lat if ok else errors).append(
+                        time.perf_counter() - t0 if ok else repr(out))
+
+        threads = [threading.Thread(target=client_loop, args=(100 + i,),
+                                    daemon=True) for i in range(NN_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(NN_WINDOW_S)
+        stop.set()
+        for th in threads:
+            th.join(timeout=120.0)
+        wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"nn: {len(errors)} failed requests: {errors[:3]}")
+    ms = np.asarray(lat) * 1e3
+    res["load"] = {"requests": len(lat), "req_per_s": len(lat) / wall,
+                   "queries_per_s": len(lat) * NN_QUERIES / wall,
+                   "p50_ms": float(np.percentile(ms, 50)),
+                   "p99_ms": float(np.percentile(ms, 99))}
+    # the device's share of a request: knn of NN_QUERIES queries alone
+    q = torch.as_tensor(checks[:NN_QUERIES], device=DEV)
+    for _ in range(3):
+        knn(q, corpus, NN_K)
+    reps = 20
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        knn(q, corpus, NN_K)
+    end.record()
+    end.synchronize()
+    dev_ms = start.elapsed_time(end) / reps
+    nbytes = 4.0 * (NN_ROWS * NN_DIM + NN_QUERIES * NN_DIM) \
+        + 12.0 * NN_QUERIES * NN_K
+    # the q @ c^T matmul, the corpus norms, the per-pair combine (3),
+    # clamp and sqrt
+    ops = (2.0 * NN_QUERIES * NN_ROWS * NN_DIM + 2.0 * NN_ROWS * NN_DIM
+           + 5.0 * NN_QUERIES * NN_ROWS)
+    res["device_ms"] = dev_ms
+    res["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                          ops / F32_FLOPS_PER_S) * 1e3
+    res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    res["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
+                       >= ops / F32_FLOPS_PER_S else "operations")
+    # the host trees on a NN_TREE_ROWS subset against knn on the card
+    sub = corpus[:NN_TREE_ROWS]
+    sub_np = sub.cpu().numpy().astype(np.float64)
+    tq = checks[:NN_TREE_QUERIES]
+    ki, _ = knn(tq, sub, NN_K, device=DEV)
+    ki = ki.cpu().numpy()
+    t0 = time.perf_counter()
+    vp = VPTree(sub_np)
+    kd = KDTree(NN_DIM)
+    for p in sub_np:
+        kd.insert(p)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vpi = np.asarray([vp.search(q, NN_K)[0] for q in tq])
+    kdi = np.asarray([kd.knn(q, NN_K)[0] for q in tq])
+    search_s = time.perf_counter() - t0
+    scale = norm2(np, tq) + norm2(np, sub_np).max()
+    for name, ti in (("VPTree", vpi), ("KDTree", kdi)):
+        if same_neighbours(np, ki, ti, exact_dists(np, tq, sub_np, ki),
+                           exact_dists(np, tq, sub_np, ti), scale) is None:
+            fail(f"nn: {name} on {NN_TREE_ROWS} rows differs from knn on "
+                 "the card")
+    res["trees"] = {"rows": NN_TREE_ROWS, "queries": NN_TREE_QUERIES,
+                    "build_s": build_s, "search_s": search_s}
+    return res
+
+
+def dashboard_tab(torch, np, x, labels):
+    """(f): embedding_scatter on DASH_ROWS rows and the page's t-SNE
+    tab."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.stats import (
+        InMemoryStatsStorage,
+        StatsListener,
+        embedding_scatter,
+        render_html,
+    )
+
+    t0 = time.perf_counter()
+    emb = embedding_scatter(x, labels=[int(v) for v in labels],
+                            max_points=DASH_ROWS, device=DEV)
+    secs = time.perf_counter() - t0
+    conf = (NeuralNetConfiguration.Builder().seed(3).updater("adam")
+            .learning_rate(1e-3).list()
+            .layer(DenseLayer(n_out=32, activation="relu"))
+            .layer(OutputLayer(n_out=10, loss="mcxent"))
+            .set_input_type(InputType.feed_forward(TSNE_D)).build())
+    net = MultiLayerNetwork(conf, device=DEV).init()
+    storage = InMemoryStatsStorage()
+    net.listeners.append(StatsListener(storage, frequency=1))
+    y = np.eye(10, dtype=np.float32)[labels[:64]]
+    for _ in range(2):
+        net.fit_batch((x[:64], y))
+    page = render_html(storage, embedding=emb)
+    data = json.loads(page.split("const DATA = ", 1)[1].split(";\n", 1)[0])
+    tab = data["embedding"]
+    want = [int(v) for v in dict.fromkeys(int(v) for v in labels)]
+    if not (len(tab["points"]) == DASH_ROWS
+            and len(tab["labels"]) == DASH_ROWS
+            and all(len(p) == 2 and all(np.isfinite(p))
+                    for p in tab["points"])
+            and [want[i] for i in tab["labels"]] == [int(v) for v in labels]
+            and tab["kl"] is not None and np.isfinite(tab["kl"])):
+        fail("dashboard: the t-SNE tab does not hold the "
+             f"{DASH_ROWS} labelled points")
+    return {"points": len(tab["points"]), "kl": tab["kl"], "s": secs,
+            "page_bytes": len(page)}
+
+
+def clustering_phase(torch, np, card):
+    """Phase 5k (b)-(f): t-SNE (exact, chunked), k-means, the
+    nearest-neighbour server and the dashboard's t-SNE tab (module
+    docstring); the CPU checks run in a spawned process meanwhile."""
+    import multiprocessing
+
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering, Tsne
+    from deeplearning4j_tpu_torch.clustering import tsne as pt
+
+    res = {"card": card}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    x, labels = mnist_shaped(np, TSNE_N)
+    res["data_s"] = time.perf_counter() - t0
+    xb, lb = x[:TSNE_EXACT_N], labels[:TSNE_EXACT_N]
+    with tempfile.TemporaryDirectory() as job:
+        np.save(os.path.join(job, "x.npy"), x)
+        xc = torch.as_tensor(x, device=DEV)
+        xbc = xc[:TSNE_EXACT_N]
+        b, tb, pc_rows, b_kls, b_ys = tsne_exact(torch, np, pt, Tsne, xbc,
+                                                 job)
+        c, tc, idx, psym, mutual, c_kls, c_ys = tsne_chunked(
+            torch, np, pt, Tsne, xc, job)
+        ctx = multiprocessing.get_context("spawn")
+        cfg = {"exact_n": TSNE_EXACT_N, "perplexity": TSNE_PERPLEXITY,
+               "exact_steps": TSNE_EXACT_CPU_STEPS,
+               "chunked_steps": TSNE_CHUNKED_CPU_STEPS,
+               "row_block": TSNE_ROW_BLOCK, "kmeans_k": KMEANS_K,
+               "kmeans_iters": KMEANS_ITERS}
+        child = ctx.Process(target=tsne_cpu_worker, args=(job, cfg),
+                            daemon=True)
+        child.start()
+        # the card's fits while the CPU checks run
+        emb_b = torch.as_tensor(tsne_fit(torch, tb, xbc, lb, b), device=DEV)
+        tsne_fit(torch, tc, xc, labels, c)
+        # the chunked tier on (b)'s rows; both embeddings scored by the
+        # exact tier's KL (the chunked tier's own KL sums over its kNN
+        # pattern only: another objective where the dense P's mass
+        # spreads beyond the K nearest)
+        t_sub = Tsne(perplexity=TSNE_PERPLEXITY, max_iter=TSNE_EXACT_ITERS,
+                     method="chunked", row_block=TSNE_ROW_BLOCK, device=DEV)
+        emb_sub = torch.as_tensor(t_sub.fit_transform(xbc), device=DEV)
+        pc = pt._p_conditional(xbc, TSNE_PERPLEXITY)
+        sub_idx, _ = t_sub.sparse_neighbours(xbc)
+        b["p_mass_in_knn"] = float(torch.gather(pc, 1, sub_idx).sum(1).mean())
+        p = torch.clamp_min((pc + pc.T) / (2.0 * TSNE_EXACT_N), 1e-12)
+        del pc
+        b["kl_chunked_own"] = t_sub.kl_
+        b["kl_exact_objective"] = float(pt._tsne_grad(emb_b, p, 1.0)[1])
+        b["kl_chunked_exact_objective"] = float(
+            pt._tsne_grad(emb_sub, p, 1.0)[1])
+        del p, emb_b, emb_sub
+        # (d) on the card
+        km = KMeansClustering(KMEANS_K, max_iterations=KMEANS_ITERS,
+                              device=DEV)
+        init = km._init_centers(xc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cs = km.apply(xc)
+        d_s = time.perf_counter() - t0
+        dist = torch.cdist(xc, torch.as_tensor(cs.centers, device=DEV))
+        two = torch.topk(dist, 2, dim=1, largest=False).values.cpu().numpy()
+        del xc, xbc, dist
+        f = dashboard_tab(torch, np, xb[:DASH_ROWS], lb[:DASH_ROWS])
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        child.join(timeout=900)
+        res["cpu_wait_s"] = time.perf_counter() - t0
+        if child.is_alive() or child.exitcode != 0:
+            fail(f"clustering: the CPU check process ended with "
+                 f"{child.exitcode}")
+        with np.load(os.path.join(job, "cpu.npz")) as z:
+            cpu = {k: z[k] for k in z.files}
+    # (b) checks
+    b["p_err"] = float(np.abs(pc_rows - cpu["b_pc_rows"]).max())
+    b["step_err"] = max(tsne_step_err(np, cpu["b_y"][i], b_ys[i + 1])
+                        for i in range(TSNE_EXACT_CPU_STEPS))
+    b["kl_err"] = float(np.abs(np.asarray(b_kls) - cpu["b_kl"]).max()
+                        / abs(cpu["b_kl"]).max())
+    # (c) checks
+    k = c["k"]
+    ci = idx.cpu().numpy()
+    rows = np.random.default_rng(3).choice(TSNE_EXACT_N, TSNE_CHECK_ROWS,
+                                           replace=False)
+    cpu_idx = cpu["c_knn_idx"]
+    # the CPU's neighbours of each sampled row, itself dropped (no
+    # duplicate rows: the self entry is the nearest)
+    cpu_nb = np.asarray([[j for j in r if j != i][:k]
+                         for i, r in zip(rows, cpu_idx)])
+    c["knn_tie_swaps"] = same_neighbours(
+        np, ci[rows], cpu_nb, exact_dists(np, x[rows], x, ci[rows]),
+        exact_dists(np, x[rows], x, cpu_nb),
+        norm2(np, x[rows]) + norm2(np, x).max())
+    n = TSNE_N
+    c["p_err"] = float(np.abs(psym.cpu().numpy() - cpu["c_psym"]).max()
+                       * 2.0 * n)
+    c["mutual_same"] = bool((mutual.cpu().numpy() == cpu["c_mutual"]).all())
+    c["step_err"] = max(tsne_step_err(np, cpu["c_y"][i][:n],
+                                      c_ys[i + 1][:n])
+                        for i in range(TSNE_CHUNKED_CPU_STEPS))
+    c["kl_err"] = float(np.abs(np.asarray(c_kls) - cpu["c_kl"]).max()
+                        / abs(cpu["c_kl"]).max())
+    for name, r in (("exact", b), ("chunked", c)):
+        bad = []
+        if not (r["p_err"] <= TSNE_P_TOL and r["step_err"] <= TSNE_STEP_TOL
+                and r["kl_err"] <= 1e-5):
+            bad.append("card against the CPU")
+        if not (np.isfinite(r["kl_final"]) and r["kl_final"] < r["kl_100"]):
+            bad.append("KL not finite and below iteration 100's")
+        if not r["label_share"] >= TSNE_LABEL_SHARE:
+            bad.append("label share")
+        if name == "exact" and not r["loop_err"] <= TSNE_STEP_TOL:
+            bad.append("the loop is not fit_transform's")
+        if name == "chunked" and not (r["knn_tie_swaps"] is not None
+                                      and r["mutual_same"]):
+            bad.append("kNN or the mutual pattern")
+        if bad:
+            fail(f"tsne {name}: {', '.join(bad)}: {r}")
+    ke, kc = b["kl_exact_objective"], b["kl_chunked_exact_objective"]
+    if not abs(kc - ke) < TSNE_KL_REL * ke + TSNE_KL_ABS:
+        fail(f"tsne: scored by the exact KL, the chunked tier's embedding "
+             f"of (b)'s rows reads {kc} against the exact tier's {ke}")
+    for name, r in (("exact", b), ("chunked", c)):
+        log(f"tsne {name}: {r['n']} x {TSNE_D} MNIST-shaped rows, "
+            f"perplexity {TSNE_PERPLEXITY:g}, {r['iters']} iterations: "
+            f"{r['s_per_iter'] * 1e3:.3f} ms per iteration (bound "
+            f"{r['bound_ms']:.3f} ms, {r['bound_by']}; "
+            f"{r['s_per_iter'] * 1e3 / r['bound_ms']:.1f}x), affinities "
+            f"{r['p_s']:.2f} s"
+            + (f" (of them the kNN {r['knn_s']:.2f} s, bound "
+               f"{r['knn_bound_ms']:.1f} ms)" if "knn_s" in r else "")
+            + f", whole fit {r['fit_s']:.2f} s, peak {r['peak_gb']:.2f} GB; "
+            f"KL {r['kl_first']:.4f} first, {r['kl_100']:.4f} at iteration "
+            f"100, {r['kl_final']:.4f} final; 10-NN label share in 2-D "
+            f"{r['label_share']:.4f}; against the port on the CPU from the "
+            f"card's states: P {r['p_err']:.2e}, y {r['step_err']:.2e} "
+            f"(first {TSNE_EXACT_CPU_STEPS if name == 'exact' else TSNE_CHUNKED_CPU_STEPS}"
+            f" iterations), KL {r['kl_err']:.2e} [{card}]")
+    log(f"tsne: the chunked tier on the exact tier's {TSNE_EXACT_N} rows, "
+        f"scored by the exact KL: {kc:.4f} against the exact tier's "
+        f"{ke:.4f} (limit {TSNE_KL_REL} x + {TSNE_KL_ABS}); its own KL over "
+        f"its kNN pattern {b['kl_chunked_own']:.4f} (the dense P keeps "
+        f"{b['p_mass_in_knn']:.4f} of each row's mass inside the "
+        f"{int(3 * TSNE_PERPLEXITY)} nearest)")
+    # (d) checks
+    same_init = np.array_equal(init, cpu["d_init"])
+    differ = np.nonzero(cs.assignments != cpu["d_assign"])[0]
+    near_tie = (two[:, 1] - two[:, 0]) <= KMEANS_GAP_TOL * two[:, 1]
+    cerr = float(np.abs(cs.centers - cpu["d_centers"]).max()
+                 / np.abs(cpu["d_centers"]).max())
+    ierr = abs(cs.inertia - float(cpu["d_inertia"])) / float(
+        cpu["d_inertia"])
+    res["kmeans"] = {"n": TSNE_N, "k": KMEANS_K, "s": d_s,
+                     "init_equal": bool(same_init),
+                     "assign_differ": int(len(differ)),
+                     "centers_err": cerr, "inertia": cs.inertia,
+                     "inertia_err": ierr}
+    if not (same_init and near_tie[differ].all() and cerr <= KMEANS_TOL
+            and ierr <= KMEANS_TOL):
+        fail(f"kmeans: the card against the CPU: {res['kmeans']}")
+    log(f"kmeans: k={KMEANS_K} on the {TSNE_N} x {TSNE_D} rows, "
+        f"{d_s:.3f} s on the card; k-means++ centres equal the CPU's "
+        f"exactly, {len(differ)} assignments differ (near ties only), "
+        f"centres within {cerr:.1e}, inertia {cs.inertia:.2f} within "
+        f"{ierr:.1e} [{card}]")
+    res["exact"], res["chunked"] = b, c
+    res["dashboard"] = f
+    log(f"dashboard: embedding_scatter on {DASH_ROWS} of the exact tier's "
+        f"rows {f['s']:.2f} s, KL {f['kl']}; render_html's t-SNE tab holds "
+        f"{f['points']} labelled points ({f['page_bytes']} bytes)")
+    # (e) last: its clients share the host with nothing else
+    e = res["nn"] = nn_serving(torch, np, card)
+    lo = e["load"]
+    log(f"nn: NearestNeighborsServer over {NN_ROWS} x {NN_DIM} f32 on the "
+        f"card, {NN_CLIENTS} client threads, {NN_QUERIES} queries of k="
+        f"{NN_K} per request for {NN_WINDOW_S:g} s: {lo['requests']} "
+        f"requests, {lo['req_per_s']:.1f} req/s ({lo['queries_per_s']:.0f} "
+        f"queries/s), p50 {lo['p50_ms']:.2f} ms, p99 {lo['p99_ms']:.2f} ms; "
+        f"the device's knn of one request {e['device_ms']:.3f} ms (bound "
+        f"{e['bound_ms']:.3f} ms, {e['bound_by']}; one read of the corpus "
+        f"{e['bytes_ms']:.3f} ms); {e['check']['queries']} queries equal "
+        f"the f64 brute force ({e['check']['tie_swaps']} tie swaps); "
+        f"VPTree and KDTree on {e['trees']['rows']} rows equal knn "
+        f"(build {e['trees']['build_s']:.2f} s, {e['trees']['queries']} "
+        f"searches {e['trees']['search_s']:.2f} s) [{card}]")
+    return res
+
+
 # ------------------------------------------------------------ phase 6
 
 
@@ -6958,6 +7919,20 @@ def main():
                             decode, decode_oracle)
     log(f"control phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5k. cluster supervision of the flagship (the unfaulted oracle, a
+    # wedge inside a CUDA wait escalated by the watchdog's hard exit and
+    # found stale by the supervisor) and clustering (t-SNE's two tiers,
+    # k-means, the nearest-neighbour server, the dashboard's t-SNE tab)
+    t0 = time.perf_counter()
+    cluster = cluster_phase(torch, np, card,
+                            engine["group_check"]["deterministic"],
+                            tm["k4"]["ms_per_step"])
+    log(f"cluster phase (a): {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    clustering = clustering_phase(torch, np, card)
+    log(f"clustering phase (b)-(f): {time.perf_counter() - t1:.1f} s; "
+        f"phase 5k: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -7021,6 +7996,7 @@ def main():
             "control_launches": control["launches"][name],
             "control_launches_by_route": control["launches_by_route"].get(
                 name, {"wgmma": 0, "simple": 0}),
+            "cluster_launches": cluster["launches"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -7034,7 +8010,8 @@ def main():
                        "train": train, "engine": engine, "mln": mln,
                        "tm": tm, "obs": obs, "rnn": rnn, "zoo": zoo,
                        "keras": keras, "decode": decode,
-                       "control": control},
+                       "control": control, "cluster": cluster,
+                       "clustering": clustering},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -7053,7 +8030,10 @@ def main():
         f"{KERAS_RESNET_STEPS} timed Keras ResNet50 steps, decode_launches "
         "from phase 5i (the decode-serving path), control_launches from "
         "phase 5j's two measured ModelServer windows and "
-        "control_launches_by_route from those and its hot-swap drill")
+        "control_launches_by_route from those and its hot-swap drill, "
+        "cluster_launches from phase 5k's supervised worker fits (the "
+        f"oracle's {CLUSTER_STEPS} steps and each drill's relaunched "
+        f"{CLUSTER_STEPS - 2 * GROUP_K}; counted in the worker processes)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,11 @@ library's loader (native/), the rest of eval/, and decode serving: the
 CausalTransformer (zoo/decoder.py), the paged-attention primitives
 (nn/attention.py), DecodeProgram (engine/decode_program.py) and the
 continuous-batching DecodeEngine with its flight recorder and generation
-journal (serving/).
+journal (serving/), the serving control plane (parallel/serving.py,
+serving/), cluster supervision (resilience/cluster.py: heartbeat leases,
+ClusterSupervisor, the watchdog's hard exit; the per-rank divergence
+quorum) and clustering (clustering/: distances and k-NN, VP and KD
+trees, k-means, t-SNE, the nearest-neighbour server).
 """
 
 from deeplearning4j_tpu_torch.device import resolve_device  # noqa: F401

@@ -51,6 +51,10 @@ How the captured group keeps the eager step's contract:
     with each graph (`CUDAGraph.register_generator_state`), so every
     replay draws new masks and advances the generator exactly as k
     eager steps would; the warm-up step's draws are rewound.
+  - Forensics: each new capture records a compile event (the group's
+    key and argument signature, k, the capture seconds) in the net's
+    `_jit_cache` and bumps `dl4j_jit_compiles_total`; a replay records
+    nothing.
   - Memory: every group of one StepProgram captures into ONE graph pool
     (`torch.cuda.graph_pool_handle()`), and at most MAX_GROUPS groups
     are kept (the oldest is dropped). Sharing is safe because a replay
@@ -74,6 +78,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.helpers import pallas_conv
+from deeplearning4j_tpu_torch.nn.jit_cache import describe_signature
 from deeplearning4j_tpu_torch.resilience.errors import StepHangError
 from deeplearning4j_tpu_torch.util.tree import clone, leaves, tree_map
 
@@ -274,9 +279,14 @@ class StepProgram:
         grp = _CapturedGroup(self._group_body, args, net.device, self._pool,
                              net._train_rng())
         torch.cuda.synchronize(net.device)
-        self.group_stats["capture_s"] += time.perf_counter() - t0
+        capture_s = time.perf_counter() - t0
+        self.group_stats["capture_s"] += capture_s
         self.group_stats["captures"] += 1
         self._groups[(key, k)] = grp
+        # capture forensics: one compile event per new group, none on
+        # replays (the JAX package records its group programs alike)
+        net._jit_cache.record_compile(key, describe_signature(args or ()),
+                                      capture_s, k=k)
         return grp
 
     def run_group(self, xs, ys, fms=None, lms=None):

@@ -18,7 +18,9 @@ shim records a compile event — the concrete shape/dtype signature of
 the args, the call's wall duration, a wall-clock timestamp, and the
 program's cost digest when one was registered (`register_cost`) — into
 a bounded ring, and bumps `dl4j_jit_compiles_total`. Calls past the
-first pay two perf_counter reads and one int compare.
+first pay two perf_counter reads and one int compare. A program built
+outside the dict — StepProgram's captured k-step groups — records its
+event through `record_compile`.
 
     cache = JitCache()
     first = [True]
@@ -167,6 +169,14 @@ class JitCache(dict):
             signature = describe_signature(args, kwargs)
         except Exception:   # noqa: BLE001 - forensics is best-effort
             signature = "<unavailable>"
+        self.record_compile(key, signature, duration_s, traces=traces)
+
+    def record_compile(self, key, signature: str, duration_s: float,
+                       traces: int = 1, **extra) -> None:
+        """Record one build of a program that does not live in the
+        dict (engine/step_program.py's CUDA-graph captures): a compile
+        event with `extra`'s fields, and `dl4j_jit_compiles_total`.
+        The trace counters are left alone."""
         event = {
             "key": str(key),
             "signature": signature,
@@ -174,6 +184,7 @@ class JitCache(dict):
             "traces": int(traces),
             "wall_time": time.time(),
             "cost_digest": self._cost_digest(key),
+            **extra,
         }
         with self._trace_lock:
             self._compiles += int(traces)

@@ -156,6 +156,11 @@ REGISTERED_METRICS = frozenset({
     # retry and circuit breaker (resilience/retry.py)
     "dl4j_retry_attempts_total",
     "dl4j_breaker_transitions_total",
+    # cluster supervision (resilience/cluster.py)
+    "dl4j_cluster_gang_restarts_total",
+    "dl4j_cluster_quarantined_workers_total",
+    "dl4j_cluster_spare_reschedules_total",
+    "dl4j_cluster_shrinks_total",
     # input pipeline (engine/pipeline.py)
     "dl4j_pipeline_batches_total",
     "dl4j_pipeline_wait_seconds",

@@ -1,10 +1,11 @@
 """Resilience (counterpart of deeplearning4j_tpu/resilience/): typed
 errors, fault injection, Retry/CircuitBreaker, crash-safe checkpoint
 integrity (single host), the training guard, snapshotter, step watchdog,
-preemption handler and Supervisor. The cluster supervisor waits (ROADMAP
-queues 8-9)."""
+preemption handler and Supervisor, and the cluster supervisor with its
+heartbeat leases and the per-rank divergence quorum."""
 
 from deeplearning4j_tpu_torch.resilience.errors import (  # noqa: F401
+    CheckpointDivergenceError,
     CheckpointIntegrityError,
     CircuitOpenError,
     DeadlineExceededError,
@@ -26,6 +27,7 @@ from deeplearning4j_tpu_torch.resilience.errors import (  # noqa: F401
     StepHangError,
 )
 from deeplearning4j_tpu_torch.resilience.faults import (  # noqa: F401
+    ENV_VAR as FAULTS_ENV_VAR,
     REGISTERED_POINTS,
     FaultInjector,
     FaultSpec,
@@ -38,11 +40,15 @@ from deeplearning4j_tpu_torch.resilience.checkpoint_integrity import (  # noqa: 
     atomic_write_json,
     atomic_writer,
     compute_state_digest,
+    divergence_quorum,
     list_all_checkpoints,
     list_step_checkpoints,
     newest_valid_checkpoint,
+    quorum_resume_step,
+    rank_checkpoint_dir,
     read_manifest,
     record_checksum,
+    sharded_quorum_resume_step,
     require_valid,
     require_valid_tree,
     sha256_file,
@@ -63,4 +69,12 @@ from deeplearning4j_tpu_torch.resilience.supervisor import (  # noqa: F401
     StepWatchdog,
     Supervisor,
     fire_hang_hard,
+)
+from deeplearning4j_tpu_torch.resilience.cluster import (  # noqa: F401
+    EXIT_HANG,
+    EXIT_NAN,
+    ClusterSupervisor,
+    HeartbeatFile,
+    heartbeat_path,
+    reap_stray_workers,
 )

@@ -24,11 +24,18 @@ valid checkpoint. This module provides both halves:
   compute_state_digest      a canonical digest of the arrays inside an
                             .npz checkpoint (container-timestamp-immune)
 
+  divergence_quorum         per-rank copies of one step (`rank-<r>/`)
+                            vote by state digest; a minority fork is
+                            renamed aside (`.divergent`) and healed from
+                            the quorum copy; a tie raises
+                            CheckpointDivergenceError
+  quorum_resume_step        the newest step with quorum (the cluster
+                            supervisor's per-rank resume handshake)
+
 The manifest's keys and the file names (`step-%08d.npz`) are the JAX
 package's, so either package validates the other's checkpoint
-directories. The multi-process part (the per-rank divergence quorum, the
-ZeRO-1 shard sidecars, `*_quorum_resume_step`) waits for the port's
-cluster supervisor (ROADMAP queues 8-9).
+directories. The ZeRO-1 shard sidecars and `sharded_quorum_resume_step`
+wait for the port's sharded optimizer (ROADMAP queue 9) and raise.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import logging
 import os
 import re
 import shutil
@@ -44,7 +52,12 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from deeplearning4j_tpu_torch.observability import metrics as _obs
-from deeplearning4j_tpu_torch.resilience.errors import CheckpointIntegrityError
+from deeplearning4j_tpu_torch.resilience.errors import (
+    CheckpointDivergenceError,
+    CheckpointIntegrityError,
+)
+
+logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 MANIFEST = "manifest.json"
 TREE_MANIFEST = "manifest.sha256.json"
@@ -275,6 +288,151 @@ def state_digest(directory: str, filename: str) -> Optional[str]:
         return compute_state_digest(path)
     except Exception:   # noqa: BLE001 - torn/corrupt file: no digest
         return None
+
+
+# ------------------------------------------------- divergence quorum
+DIVERGENT_SUFFIX = ".divergent"
+_RANK_DIR_RE = re.compile(r"rank-(\d+)$")
+
+
+def rank_checkpoint_dir(base: str, rank: int) -> str:
+    """Rank `rank`'s own checkpoint directory under the shared base —
+    one convention so workers and the supervisor derive it alike."""
+    return os.path.join(base, f"rank-{rank}")
+
+
+def _present_rank_dirs(base_dir: str) -> List[int]:
+    """The ranks that have a `rank-<r>` directory under `base_dir`."""
+    if not base_dir or not os.path.isdir(base_dir):
+        return []
+    ranks = []
+    for fn in os.listdir(base_dir):
+        m = _RANK_DIR_RE.match(fn)
+        if m and os.path.isdir(os.path.join(base_dir, fn)):
+            ranks.append(int(m.group(1)))
+    return sorted(ranks)
+
+
+def _quarantine_aside(path: str) -> str:
+    """Rename a divergent copy aside (never deleted); returns its new
+    path."""
+    aside = path + DIVERGENT_SUFFIX
+    i = 0
+    while os.path.exists(aside):
+        i += 1
+        aside = f"{path}{DIVERGENT_SUFFIX}.{i}"
+    os.replace(path, aside)
+    return aside
+
+
+def divergence_quorum(base_dir: str, nprocs: int, step: int,
+                      heal: bool = True) -> dict:
+    """Compare every rank's copy of checkpoint `step` and elect the
+    quorum state digest.
+
+    A digest wins when it is held by a strict majority of the gang
+    (`> nprocs // 2`) and by strictly more ranks than any rival digest.
+    Minority / torn / missing ranks are then HEALED (with `heal=True`):
+    a divergent copy is renamed aside with ``.divergent`` (never
+    deleted) and the quorum rank's file + manifest entry are copied
+    into place, so every rank resumes from the SAME bytes. Two or more
+    digests with no such winner is a fork with no ground truth —
+    CheckpointDivergenceError, fail loudly before any resume. A single
+    digest held only by a minority elects nothing (``digest: None`` —
+    the step simply lacks enough copies; callers fall back to an older
+    step).
+
+    Returns ``{"step", "digest", "ranks": {rank: digest|None},
+    "healed": [rank...], "quarantined": [path...]}``."""
+    fn = step_filename(step)
+    ranks = list(range(int(nprocs)))
+    digests: Dict[int, Optional[str]] = {}
+    for r in ranks:
+        d = rank_checkpoint_dir(base_dir, r)
+        digests[r] = (state_digest(d, fn)
+                      if validate_file(d, fn) else None)
+    tally: Dict[str, List[int]] = {}
+    for r, dg in digests.items():
+        if dg is not None:
+            tally.setdefault(dg, []).append(r)
+    report = {"step": int(step), "digest": None, "ranks": digests,
+              "healed": [], "quarantined": []}
+    if not tally:
+        return report
+    ordered = sorted(tally.items(), key=lambda kv: (-len(kv[1]), kv[0]))
+    top_digest, top_ranks = ordered[0]
+    majority = len(top_ranks) > len(ranks) // 2
+    contested = len(ordered) > 1
+    if contested and (not majority
+                      or len(ordered[1][1]) == len(top_ranks)):
+        raise CheckpointDivergenceError(
+            f"checkpoint step {step} diverges across ranks with no "
+            f"quorum: {[(dg[:12], rs) for dg, rs in ordered]} — "
+            "refusing to elect a fork", step=int(step),
+            votes={dg: list(rs) for dg, rs in tally.items()})
+    if not majority:
+        return report          # one digest, too few copies: no quorum
+    report["digest"] = top_digest
+    if not heal:
+        return report
+    src_dir = rank_checkpoint_dir(base_dir, top_ranks[0])
+    src = os.path.join(src_dir, fn)
+    src_entry = read_manifest(src_dir).get(fn)
+    for r in ranks:
+        if digests[r] == top_digest:
+            continue
+        d = rank_checkpoint_dir(base_dir, r)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, fn)
+        if os.path.exists(path):
+            aside = _quarantine_aside(path)
+            report["quarantined"].append(aside)
+            logger.warning(
+                "divergence quorum: rank %d checkpoint step %d "
+                "out-voted (%s vs quorum %s) — quarantined to %s",
+                r, step, (digests[r] or "invalid")[:12],
+                top_digest[:12], aside)
+        shutil.copy2(src, path)
+        if src_entry is not None:
+            extra = {k: v for k, v in src_entry.items()
+                     if k not in ("sha256", "size")}
+            record_checksum(d, fn, src_entry["sha256"],
+                            src_entry["size"], extra=extra)
+        else:
+            record_checksum(d, fn, sha256_file(path),
+                            os.path.getsize(path),
+                            extra={"step": int(step),
+                                   "state_sha256": top_digest})
+        report["healed"].append(r)
+    return report
+
+
+def quorum_resume_step(base_dir: str, nprocs: int,
+                       heal: bool = True) -> Optional[dict]:
+    """The per-rank analogue of `newest_valid_checkpoint` with the
+    divergence gate in front: the newest step whose state digest has
+    quorum across the `nprocs` rank directories, minorities healed.
+    Raises CheckpointDivergenceError when the newest contested step is
+    an unresolvable fork; returns None when no step has quorum."""
+    steps = set()
+    for r in range(int(nprocs)):
+        steps.update(list_step_checkpoints(
+            rank_checkpoint_dir(base_dir, r)))
+    for step in sorted(steps, reverse=True):
+        report = divergence_quorum(base_dir, nprocs, step, heal=heal)
+        if report["digest"] is not None:
+            return report
+    return None
+
+
+def sharded_quorum_resume_step(base_dir: str, nprocs: int,
+                               heal: bool = True) -> Optional[dict]:
+    """The quorum over ZeRO-1 checkpoints (a main file plus one
+    optimizer-state slice per rank) — waits for the port's sharded
+    optimizer."""
+    raise NotImplementedError(
+        "sharded_quorum_resume_step needs ZeRO-1 checkpoints, which are "
+        "not ported yet (ROADMAP queue 9)")
 
 
 def apply_retention(directory: str, keep_last: int) -> List[int]:

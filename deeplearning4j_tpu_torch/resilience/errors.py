@@ -65,6 +65,20 @@ class CheckpointIntegrityError(ResilienceError):
     """A checkpoint/model file failed checksum or structural validation."""
 
 
+class CheckpointDivergenceError(CheckpointIntegrityError):
+    """Per-rank checkpoints for one step disagree with NO quorum digest
+    (a tie, or no strict majority): the replicas have silently forked
+    and no copy can be trusted as "the" training state. Resume must
+    fail loudly instead of electing an arbitrary fork. `step` is the
+    contested step; `votes` maps state digest -> the ranks holding it."""
+
+    def __init__(self, msg: str, step: int | None = None,
+                 votes: dict | None = None):
+        super().__init__(msg)
+        self.step = step
+        self.votes = votes or {}
+
+
 class NonFiniteLossError(ResilienceError):
     """Non-finite loss/params (or an unrecoverable loss spike) detected
     by the training guard — raised by policy='abort', or when a

@@ -46,6 +46,11 @@ drives either package. The port fires, so far:
                      `raise` keeps the bytes pending for the next flush
   journal.recover_corrupt  serving/journal.py, once per replayed record
                      of the recovery scan — `raise` declares it corrupt
+  dist.heartbeat_stale  resilience/cluster.ClusterSupervisor, at every
+                     lease check — `raise` is consumed as a forced
+                     stale-lease verdict (kill + gang restart)
+  dist.spare_exhausted  ClusterSupervisor, when a quarantined worker
+                     finds the spare pool dry (before shrink or abort)
 
 `REGISTERED_POINTS` is the canonical registry: every `fire(...)` site
 in the port must use a name listed there (tests/test_torch_engine.py

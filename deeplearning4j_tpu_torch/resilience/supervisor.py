@@ -2,8 +2,7 @@
 deeplearning4j_tpu/resilience/supervisor.py): the non-finite guard, the
 in-memory rollback snapshotter, the step watchdog, the preemption
 handler, the bounded-restart supervisor and the `train.hang_hard` chaos
-site. The watchdog's `heartbeat=` cluster escalation needs
-resilience/cluster.py (ROADMAP queue 8) and raises until then.
+site.
 
   NonFiniteGuard     post-step all-finite check on loss + params (one
                      host read, only on checked steps — `check_every=N`
@@ -22,8 +21,12 @@ resilience/cluster.py (ROADMAP queue 8) and raises until then.
                      wedged. The handler runs only when the main thread
                      is back in the interpreter: a wait inside CUDA
                      (`torch.cuda.synchronize`, `.item()`, an event) is
-                     not interrupted, so a device-side hang needs
-                     `on_hang` (or queue 8's cluster heartbeat).
+                     not interrupted: with `heartbeat=` (a
+                     resilience/cluster.HeartbeatFile lease) the
+                     watchdog marks the lease and hard-exits
+                     (EXIT_HANG) after `hang_exit_after` silent
+                     detections, and a ClusterSupervisor relaunches the
+                     worker from its newest checkpoint.
   PreemptionHandler  SIGTERM/SIGINT set a flag; the fit loop checks it
                      at step boundaries and runs checkpoint-then-exit
                      (PreemptedError). The `train.preempt` fault point
@@ -46,6 +49,7 @@ unravel/re-ravel of the per-layer trees.
 from __future__ import annotations
 
 import logging
+import os
 import signal
 import threading
 import time
@@ -54,6 +58,7 @@ from typing import Callable, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch.observability import metrics as _obs
+from deeplearning4j_tpu_torch.resilience.cluster import EXIT_HANG
 from deeplearning4j_tpu_torch.resilience.errors import (
     NonFiniteLossError,
     RestartsExhaustedError,
@@ -235,26 +240,31 @@ class StepWatchdog:
     raises StepHangError — interrupting signal-interruptible waits
     (sleeps, gloo/python-level polls) so the Supervisor can restart
     from the newest checkpoint instead of the job hanging forever.
-    Pass `on_hang=fn(phase, age_s)` to override escalation (e.g. page,
-    or `os._exit` for truly uninterruptible native hangs: a wait inside
-    CUDA defers the SIGUSR1 handler until the wait returns).
+    Pass `on_hang=fn(phase, age_s)` to override escalation (e.g. page).
+    A wait inside CUDA defers the SIGUSR1 handler until the wait
+    returns.
 
-    `heartbeat=` (the cluster lease of resilience/cluster.py, with its
-    hard exit after consecutive silent hangs) is not ported yet (ROADMAP
-    queue 8) and raises NotImplementedError."""
+    Cluster mode: pass `heartbeat=HeartbeatFile(...)` (resilience/
+    cluster.py) and every beat also renews the worker's liveness lease
+    (throttled inside HeartbeatFile). With a heartbeat attached the
+    watchdog ALSO gets the default escalation for the uninterruptible
+    case: after `hang_exit_after` consecutive hang detections with no
+    fresh beat between them (the SIGUSR1 raise never landed — the main
+    thread is inside a CUDA wait, or the wait is signal-immune), the
+    monitor thread writes a hang marker into the lease and
+    `os._exit(EXIT_HANG)`s, so the external ClusterSupervisor relaunches
+    the gang instead of the job hanging forever."""
 
     def __init__(self, timeout_s: float = 300.0,
                  poll_s: Optional[float] = None,
                  on_hang: Optional[Callable[[str, float], None]] = None,
-                 heartbeat=None):
-        if heartbeat is not None:
-            raise NotImplementedError(
-                "StepWatchdog(heartbeat=...) needs resilience/cluster.py, "
-                "which is not ported yet (ROADMAP queue 8)")
+                 heartbeat=None, hang_exit_after: int = 2):
         self.timeout_s = float(timeout_s)
         self.poll_s = poll_s if poll_s is not None else min(
             1.0, max(0.05, self.timeout_s / 4.0))
         self.on_hang = on_hang
+        self.heartbeat = heartbeat
+        self.hang_exit_after = int(hang_exit_after)
         # telemetry attach points (set by the engine's StepHarness when a
         # tracer is wired): hang events recorded on the monitor THREAD get
         # explicitly parented to the training thread's current step span
@@ -264,6 +274,8 @@ class StepWatchdog:
         self._last: Optional[float] = None
         self._phase = "idle"
         self._step: Optional[int] = None
+        self._beats_at_hang: Optional[int] = None
+        self._consecutive_hangs = 0
         self._stop: Optional[threading.Event] = None
         self._thread: Optional[threading.Thread] = None
         self._target_tid: Optional[int] = None
@@ -277,6 +289,8 @@ class StepWatchdog:
             self._step = step
         self._last = time.monotonic()
         self.counters["beats"] += 1
+        if self.heartbeat is not None:
+            self.heartbeat.write(phase=phase, step=self._step)
 
     # -------------------------------------------------------- lifecycle
     def start(self) -> "StepWatchdog":
@@ -341,8 +355,18 @@ class StepWatchdog:
                 except Exception:   # noqa: BLE001 - telemetry best-effort
                     pass
             self._last = time.monotonic()   # re-arm, don't spam
+            # consecutive = no fresh beat since the previous detection:
+            # the soft (signal) escalation did not land
+            if self._beats_at_hang == self.counters["beats"]:
+                self._consecutive_hangs += 1
+            else:
+                self._consecutive_hangs = 1
+            self._beats_at_hang = self.counters["beats"]
             logger.error("StepWatchdog: no heartbeat for %.1fs "
                          "(phase %r) — escalating", age, self._phase)
+            if (self.heartbeat is not None
+                    and self._consecutive_hangs >= self.hang_exit_after):
+                self._hard_exit(age)
             try:
                 if self.on_hang is not None:
                     self.on_hang(self._phase, age)
@@ -350,6 +374,19 @@ class StepWatchdog:
                     signal.pthread_kill(self._target_tid, signal.SIGUSR1)
             except Exception:   # noqa: BLE001 - escalation best-effort
                 logger.exception("StepWatchdog escalation failed")
+
+    def _hard_exit(self, age: float) -> None:
+        """Uninterruptible hang: the training thread survived a SIGUSR1
+        raise without beating — write the marker and hard-exit so the
+        ClusterSupervisor relaunches the gang."""
+        logger.error(
+            "StepWatchdog: %d consecutive silent hangs (phase %r) — "
+            "marking heartbeat and exiting %d for external relaunch",
+            self._consecutive_hangs, self._phase, EXIT_HANG)
+        try:
+            self.heartbeat.mark_hang(self._phase, age)
+        finally:
+            os._exit(EXIT_HANG)
 
     def stats(self) -> dict:
         return {"timeout_s": self.timeout_s, **self.counters}

@@ -10,8 +10,7 @@ dependency-free self-contained HTML file (inline SVG charts, data
 embedded as JSON); the UIServer re-renders on each GET.
 `collect_conv_activations` and `collect_network_flow` build the extra
 tabs' data from a live net; pass them to render_html. `embedding_scatter`
-(the t-SNE tab) needs clustering/tsne.py, which is not ported yet
-(ROADMAP queue 10), and raises.
+builds the t-SNE tab's data with clustering.Tsne.
 """
 
 from __future__ import annotations
@@ -288,13 +287,38 @@ def collect_network_flow(net):
 
 def embedding_scatter(vectors, labels=None, perplexity: float = 20.0,
                       max_points: int = 2000, max_iter: int = 300,
-                      seed: int = 0):
-    """2-D t-SNE of an embedding matrix for the dashboard's t-SNE tab:
-    needs clustering/tsne.py, not ported yet (ROADMAP queue 10)."""
-    raise NotImplementedError(
-        "embedding_scatter needs clustering/tsne.py (t-SNE), which is not "
-        "ported yet (ROADMAP queue 10); render_html(embedding=None) "
-        "leaves the t-SNE tab empty")
+                      seed: int = 0, device=None):
+    """2-D t-SNE of an embedding matrix for the dashboard's t-SNE tab
+    (ref ui/module/tsne/): subsamples to max_points, runs
+    clustering.Tsne (auto tier) on `device` (None: the card), returns
+    the `embedding` structure render_html embeds."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.clustering.tsne import Tsne
+
+    vectors = np.asarray(vectors, np.float32)
+    n = vectors.shape[0]
+    if n < 8:        # too few points for any valid perplexity
+        return {"points": [], "labels": None, "kl": None}
+    if n > max_points:
+        sel = np.random.default_rng(seed).choice(n, max_points,
+                                                 replace=False)
+        vectors = vectors[sel]
+        labels = None if labels is None else np.asarray(labels)[sel]
+    # keep within Tsne's n-1 >= 3*perplexity guard
+    perplexity = min(perplexity, (vectors.shape[0] - 1) / 3.0)
+    t = Tsne(perplexity=perplexity, max_iter=max_iter, seed=seed,
+             device=device)
+    pts = t.fit_transform(vectors)
+    if labels is None:
+        lab_idx = None
+    else:
+        # palette indices for ANY label type (ints, strings, ...)
+        uniq = {v: i for i, v in enumerate(dict.fromkeys(labels))}
+        lab_idx = [uniq[v] for v in labels]
+    return {"points": np.round(pts, 3).tolist(),
+            "labels": lab_idx,
+            "kl": round(t.kl_, 4) if t.kl_ is not None else None}
 
 
 def telemetry_lines(snapshot) -> list:

@@ -594,10 +594,10 @@ def test_cuda_run_group_raises_when_capture_is_impossible(monkeypatch):
     before = [t.clone() for t in _train_state(net)]
     step = net._step
 
-    def step_with_host_read(*args):
-        carry, loss = step(*args)
-        float(loss)                      # a host sync: not capturable
-        return carry, loss
+    def step_with_host_read(*args, **kwargs):
+        out = step(*args, **kwargs)      # (carry, loss, rnn carries)
+        float(out[1])                    # a host sync: not capturable
+        return out
 
     monkeypatch.setattr(net, "_step", step_with_host_read)
     with pytest.raises(RuntimeError, match="into a CUDA graph failed"):
@@ -1421,3 +1421,68 @@ def test_cuda_model_server_and_hot_swap_on_the_card(tmp_path):
         np.testing.assert_allclose(out, refs[v], **tol)
         other = refs["v2" if v == "v1" else "v1"]
         assert np.abs(out - other).max() > 1e-3
+
+
+# k-NN on the card against an f64 brute force (TF32 off: exact f32
+# matmuls), and one chunked t-SNE iteration on the card against the same
+# iteration on the CPU from the same state, within TSNE_CARD_TOL of
+# max(1, max|y|) (f32 block sums in another order, the reverse-edge
+# index_add_ in another order)
+TSNE_CARD_TOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_knn_equals_brute_force(rng):
+    _need_cuda()
+    from deeplearning4j_tpu_torch.clustering import knn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    corpus = rng.normal(size=(5000, 64)).astype(np.float32)
+    queries = rng.normal(size=(300, 64)).astype(np.float32)
+    idx, dist = knn(queries, corpus, k=10, tile=128)
+    assert idx.device.type == "cuda"
+    brute = np.sqrt(((queries[:, None, :].astype(np.float64)
+                      - corpus[None].astype(np.float64)) ** 2).sum(-1))
+    np.testing.assert_array_equal(idx.cpu().numpy(),
+                                  np.argsort(brute, axis=1)[:, :10])
+    np.testing.assert_allclose(dist.cpu().numpy(),
+                               np.sort(brute, axis=1)[:, :10], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_tsne_iteration_equals_the_cpus(rng):
+    _need_cuda()
+    from deeplearning4j_tpu_torch.clustering import Tsne
+    from deeplearning4j_tpu_torch.clustering import tsne as pt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = np.concatenate([rng.normal(size=(700, 16)) + c
+                        for c in (0.0, 5.0, -5.0)]).astype(np.float32)
+    n, blk = x.shape[0], 256
+    t = Tsne(perplexity=15.0, method="chunked", row_block=blk,
+             device="cpu")
+    idx, psym, mutual = t.sparse_affinities(torch.tensor(x))
+    tc = Tsne(perplexity=15.0, method="chunked", row_block=blk)
+    cidx, cpsym, cmutual = tc.sparse_affinities(torch.tensor(x).cuda())
+    # the same neighbours, but where two lie within rounding of each
+    # other (either order is right); the affinities agree where they match
+    same = (cidx.cpu() == idx).numpy()
+    assert same.mean() > 0.999
+    np.testing.assert_allclose(cpsym.cpu().numpy()[same],
+                               psym.numpy()[same], atol=1e-6)
+    assert (cmutual.cpu().numpy() == mutual.numpy())[same].mean() > 0.999
+    n_pad = -(-n // blk) * blk
+    y = torch.cat([t.initial_embedding(n) * 1e4,
+                   torch.full((n_pad - n, 2), 1e6)])
+    vel = torch.zeros_like(y)
+    args = (idx, psym, mutual, 12.0, 0.5, 200.0, blk, n)
+    y1, _, kl = pt._chunked_step(y.clone(), vel.clone(), *args)
+    yc, _, klc = pt._chunked_step(
+        y.cuda(), vel.cuda(), *(a.cuda() for a in args[:3]), *args[3:])
+    yc = yc.cpu().numpy()
+    err = np.abs(yc[:n] - y1[:n].numpy()).max() / max(
+        1.0, float(np.abs(y1[:n].numpy()).max()))
+    assert err < TSNE_CARD_TOL
+    assert float(klc) == pytest.approx(float(kl), rel=1e-5)
+    assert (yc[n:] == 1e6).all()

@@ -311,6 +311,42 @@ def test_captured_groups_share_one_pool_and_stay_bounded(monkeypatch):
     assert prog.group_stats["captures"] == 2 + sp.MAX_GROUPS + 2
 
 
+def test_each_new_capture_records_one_compile_event(monkeypatch):
+    """Capture forensics without a card (the capture faked): a new group
+    records one compile event in the net's JitCache — its key, argument
+    signature, k and capture seconds — and bumps
+    dl4j_jit_compiles_total; a group already captured records nothing
+    (a replay never reaches the cache); the trace counters stay put."""
+    from deeplearning4j_tpu_torch.engine import step_program as sp
+
+    class FakeGroup:
+        def __init__(self, body, args, device, pool, gen=None):
+            pass
+
+    monkeypatch.setattr(sp, "_CapturedGroup", FakeGroup)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    net = _port_net()
+    prog = StepProgram(net)
+    cache = net._jit_cache
+    reg = tobs.get_registry()
+    c0 = reg.counter_value("dl4j_jit_compiles_total")
+    traces = cache.trace_counts()
+    args = (torch.zeros(4, 3), [torch.ones(2)])
+    prog._captured(("engine_group", "a"), 4, args)
+    prog._captured(("engine_group", "a"), 4, args)      # cached: no event
+    prog._captured(("engine_group", "a"), 2, args)      # eager window
+    prog._captured(("engine_group", "b"), 8, args)
+    events = cache.compile_events()
+    assert [(e["key"], e["k"]) for e in events] \
+        == [(str(("engine_group", "a")), 4), (str(("engine_group", "b")), 8)]
+    assert all(e["signature"] == "(float32[4,3], [float32[2]])"
+               and e["duration_s"] >= 0.0 for e in events)
+    assert reg.counter_value("dl4j_jit_compiles_total") == c0 + 2
+    assert cache.compiles_total() == 2
+    assert cache.trace_counts() == traces
+
+
 def test_run_group_rejects_score_policy_and_tbptt():
     x, y = _batches(1)[0]
     xs, ys = np.stack([x, x]), np.stack([y, y])

@@ -257,9 +257,57 @@ def test_conv_activations_equal_jax():
             np.testing.assert_allclose(gc["grid"], wc["grid"], atol=2e-4)
 
 
-def test_embedding_scatter_waits_for_tsne():
-    with pytest.raises(NotImplementedError, match="queue 10"):
-        embedding_scatter(np.zeros((10, 3), np.float32))
+def test_embedding_scatter_waits_for_tsne(tmp_path):
+    """(Named for the raise this test pinned before t-SNE was ported.)
+    embedding_scatter against the JAX package's on the same vectors: the
+    same subsample (the seeded NumPy choice), the same palette indices,
+    the same structure; both embeddings separate the three blobs and
+    their KLs agree within 25% (the two start from different seeded
+    draws: JAX's PRNGKey, the port's torch.Generator); the port's points
+    are its own Tsne's on the selected rows, rounded to 3 places."""
+    from deeplearning4j_tpu_torch.clustering import Tsne
+
+    rng = np.random.default_rng(12)
+    x = np.concatenate([rng.normal(size=(60, 8)) + c
+                        for c in (0.0, 9.0, -9.0)]).astype(np.float32)
+    labels = [f"c{i // 60}" for i in range(180)]
+    kw = dict(labels=labels, perplexity=20.0, max_points=150,
+              max_iter=250, seed=4)
+    # small tensors: one intra-op thread runs them fastest, and test
+    # processes sharing the cores do not wait on each other's pools
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = embedding_scatter(x, device="cpu", **kw)
+        t = Tsne(perplexity=20.0, max_iter=250, seed=4, device="cpu")
+        sel = np.random.default_rng(4).choice(180, 150, replace=False)
+        mine = np.round(t.fit_transform(x[sel]), 3).tolist()
+    finally:
+        torch.set_num_threads(threads)
+    want = jdash.embedding_scatter(x, **kw)
+    assert sorted(got) == sorted(want) == ["kl", "labels", "points"]
+    assert got["labels"] == want["labels"]
+    assert np.shape(got["points"]) == np.shape(want["points"]) == (150, 2)
+    np.testing.assert_array_equal(got["points"], mine)
+    assert got["kl"] == round(t.kl_, 4)
+    assert abs(got["kl"] - want["kl"]) < 0.25 * want["kl"]
+    blob = np.asarray(got["labels"])
+    for pts in (np.asarray(got["points"]), np.asarray(want["points"])):
+        cents = np.stack([pts[blob == i].mean(0) for i in range(3)])
+        spread = max(np.linalg.norm(pts[blob == i] - cents[i], axis=1).mean()
+                     for i in range(3))
+        gaps = min(np.linalg.norm(cents[i] - cents[j])
+                   for i in range(3) for j in range(i + 1, 3))
+        assert 2.0 * spread < gaps
+    # too few points: the empty structure, in both packages
+    assert embedding_scatter(x[:5], device="cpu") \
+        == jdash.embedding_scatter(x[:5])
+    # the page embeds it as JAX's page does
+    path, _ = _jax_storage_and_snapshot(tmp_path)
+    page = render_html(FileStatsStorage(path), embedding=got)
+    assert page == jdash.render_html(JFileStorage(path), embedding=got)
+    data = json.loads(page.split("const DATA = ", 1)[1].split(";\n", 1)[0])
+    assert data["embedding"] == got
 
 
 def test_ui_server_answers_a_get_and_receives_remote_reports(tmp_path):

@@ -28,6 +28,8 @@ from deeplearning4j_tpu_torch.optimize.listeners import (
 )
 from deeplearning4j_tpu_torch.parallel import TrainingMaster
 from deeplearning4j_tpu_torch.resilience import (
+    EXIT_HANG,
+    HeartbeatFile,
     NonFiniteLossError,
     RestartsExhaustedError,
     StepWatchdog,
@@ -165,9 +167,38 @@ def test_watchdog_on_hang_replaces_the_signal_and_counts():
     assert [s["name"] for s in tr.spans()][0] == "watchdog_hang"
 
 
-def test_watchdog_cluster_heartbeat_waits_for_queue_8():
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        StepWatchdog(heartbeat=object())
+def test_watchdog_cluster_heartbeat_waits_for_queue_8(tmp_path):
+    """(Named for the raise this test pinned before the heartbeat was
+    ported.) In process: every beat renews the lease; a silent loop is
+    detected, the SIGUSR1 escalation does not land (an on_hang hook
+    swallows it), and after `hang_exit_after` consecutive silent
+    detections the watchdog marks the lease "hang" and hard-exits
+    EXIT_HANG — here through a stubbed `os._exit`."""
+    from deeplearning4j_tpu_torch.resilience import supervisor as sup
+
+    path = str(tmp_path / "w.hb.json")
+    exits, hangs = [], []
+    orig_exit = sup.os._exit
+    sup.os._exit = exits.append
+    try:
+        wd = StepWatchdog(timeout_s=0.2, poll_s=0.05,
+                          on_hang=lambda phase, age: hangs.append(phase),
+                          heartbeat=HeartbeatFile(path, min_interval_s=0.0),
+                          hang_exit_after=3)
+        with wd:
+            wd.beat("dispatch", step=9)
+            assert HeartbeatFile.read(path)["step"] == 9
+            t0 = time.monotonic()
+            while not exits and time.monotonic() - t0 < 10.0:
+                time.sleep(0.02)
+    finally:
+        sup.os._exit = orig_exit
+    assert exits[:1] == [EXIT_HANG]
+    # the first two detections escalate softly; the third hard-exits
+    assert hangs[:2] == ["dispatch", "dispatch"]
+    assert wd.stats()["hangs_detected"] >= 3
+    rec = HeartbeatFile.read(path)
+    assert rec["status"] == "hang" and rec["phase"] == "dispatch"
 
 
 # ------------------------------------------------ hooks change nothing
