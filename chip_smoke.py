@@ -296,6 +296,36 @@ Phases, in order; any failure exits non-zero:
      its bound), NN_CHECK_QUERIES answers against an f64 brute force,
      VPTree and KDTree against knn; (f) embedding_scatter on DASH_ROWS
      rows and render_html's t-SNE tab;
+  5l. the embedding trainers and graph embeddings (lines start "nlp "; no
+     kernel of csrc/ on the path: the launch counters, zeroed before it,
+     must read 0 after it; the port's native library must have built, so
+     the C++ packers run): (a) word2vec at bench.py:468 bench_word2vec's
+     configuration (vocab 5,000, 2,000,000 seeded zipf-1.1 words in
+     sequences of 1,000, dim 128, window 5, K = 5, skip-gram NS, the dense
+     tier): one warm epoch, then NLP_EPOCHS epochs timed NLP_REPS times up
+     to a host read of one table element, the best rep: words/s, peak
+     memory; the split — one epoch's host side alone (indexing,
+     subsampling, the native packer on its thread) and its device side
+     alone (the captured slabs dispatched back to back), device ms per
+     batch beside the bound of the rows gathered and scattered (B x (K+2) x
+     D x 4 bytes each way at 3.35 TB/s), busy ms per batch and the idle
+     share of a profiled slab; a finite table and similarity(w0, w1); (b)
+     CBOW + hierarchical softmax, vocab 50,000, dim 300, 4,000,000 words,
+     1 epoch, on the int32 wire: the same numbers; (c) on (a)'s first
+     NLP_CUT_WORDS words, each dense mode (skip-gram and CBOW x NS and
+     HS) and the scan tier, GloVe, and (on NLP_PV_CUT_DOCS of its
+     sequences) ParagraphVectors DBOW and DM with infer_vector, on the
+     card and on the CPU: packs equal, tables within NLP_TABLE_TOL; each
+     dense mode twice on the card: whether the two runs gave equal bits;
+     (d)
+     tests/test_nlp.py's two-topic corpus at NLP_TOPIC_SENTS sentences in
+     the four dense modes (intra-topic similarity above inter-topic by
+     NLP_TOPIC_GAP) and ParagraphVectors DBOW separating its documents;
+     (e) DeepWalk at BlogCatalog's scale (a seeded planted partition of
+     10,312 vertices, 333,983 edges, 39 blocks; d 128, window 10, walk
+     length 40, BLOG_WALKS walks per vertex): walk and fit seconds,
+     words/s, the share of each vertex's 10 nearest in its block against
+     1/39; Node2Vec, one walk per vertex, finite;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -678,6 +708,57 @@ NN_CHECK_QUERIES = 256
 NN_TREE_ROWS = 20000
 NN_TREE_QUERIES = 8
 DASH_ROWS = 2000
+
+# Phase 5l: the embedding trainers and graph embeddings. (a) is bench.py:468
+# bench_word2vec's configuration: vocab 5,000, 2,000,000 zipf-1.1 words
+# from default_rng(0) in sequences of 1,000, dim 128, window 5, K = 5,
+# skip-gram with negative sampling, the dense tier; one warm epoch, then
+# NLP_EPOCHS epochs timed NLP_REPS times, the best rep. (b) CBOW with
+# hierarchical softmax at the width of the published GoogleNews vectors
+# (300) over a 50,000-word zipf vocabulary (above the int16 wire's
+# 32,768: the int32 wire), 4,000,000 words, one epoch. (c) the card
+# against the port on the CPU on (a)'s first NLP_CUT_WORDS words. (d)
+# tests/test_nlp.py's two-topic corpus at NLP_TOPIC_SENTS sentences. (e)
+# DeepWalk at BlogCatalog's scale (Perozzi et al. 2014, table 1: 10,312
+# vertices, 333,983 edges, 39 labels) on a seeded planted partition (the
+# real graph is not in the repository) with the paper's d = 128, window
+# 10 and walk length 40; walks per vertex cut from the paper's 80 to 5
+# (the JAX fit_graph default) and Node2Vec's one walk per vertex to
+# length 10: both are Python loops on the host.
+NLP_VOCAB = 5000
+NLP_WORDS = 2_000_000
+NLP_SEQ = 1000
+NLP_DIM = 128
+NLP_WINDOW = 5
+NLP_NEG = 5
+NLP_EPOCHS = 5
+NLP_REPS = 2
+NLP_WIDE_VOCAB = 50_000
+NLP_WIDE_DIM = 300
+NLP_WIDE_WORDS = 4_000_000
+NLP_CUT_WORDS = 200_000
+# the card against the port on the CPU after the same fit: max abs error
+# over max(1, max|CPU table|) (the card sums scatters with float atomics,
+# the CPU in index order; the port against the JAX package reads ~1e-5
+# at this bar in tests/test_torch_nlp_parity.py)
+NLP_TABLE_TOL = 1e-4
+NLP_PV_CUT_DOCS = 50           # (c)'s ParagraphVectors: 50 of its sequences
+NLP_TOPIC_SENTS = 20_000
+NLP_TOPIC_BATCH = 128          # tests/test_nlp.py's dense batch for 12 words
+NLP_TOPIC_GAP = 0.2            # intra- over inter-topic similarity
+NLP_PV_DOCS = 400
+NLP_PV_EPOCHS = 20
+NLP_PV_NN_SHARE = 0.9          # docs whose nearest doc shares their topic
+BLOG_VERTICES = 10_312
+BLOG_EDGES = 333_983
+BLOG_BLOCKS = 39
+BLOG_INSIDE = 0.8              # share of edges inside a block
+BLOG_DIM = 128
+BLOG_WINDOW = 10
+BLOG_WALK = 40
+BLOG_WALKS = 5                 # per vertex (the paper's 80, cut)
+BLOG_N2V_WALK = 10             # Node2Vec's one walk per vertex, cut from 40
+BLOG_SHARE_MIN = 0.9           # of each vertex's 10 nearest in its block
 
 
 def fail(msg):
@@ -7584,6 +7665,610 @@ def clustering_phase(torch, np, card):
     return res
 
 
+# ------------------------------------------------------------ phase 5l
+
+
+def zipf_corpus(np, vocab, n_words, seq, seed):
+    """bench.py:468's corpus: n_words draws of a zipf-1.1 vocabulary
+    ("w0" the most frequent) from default_rng(seed), in sequences of
+    `seq` tokens."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    p /= p.sum()
+    words = np.array([f"w{i}" for i in range(vocab)])
+    corpus = rng.choice(vocab, size=n_words, p=p)
+    return [words[corpus[i:i + seq]].tolist()
+            for i in range(0, n_words, seq)]
+
+
+def topic_sentences(np, n, seed=5):
+    """tests/test_nlp.py:23 _corpus: sentences of 8 words drawn from one
+    of two six-word topics."""
+    rng = np.random.default_rng(seed)
+    animals = ["cat", "dog", "horse", "cow", "sheep", "goat"]
+    tech = ["cpu", "gpu", "ram", "disk", "cache", "bus"]
+    sents = []
+    for _ in range(n):
+        words = rng.choice(animals if rng.random() < 0.5 else tech,
+                           size=8, replace=True)
+        sents.append(" ".join(words))
+    return sents, animals, tech
+
+
+def nlp_table_err(np, want, got):
+    if want is None or got is None:
+        return 0.0 if want is None and got is None else float("inf")
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / max(1.0, float(np.abs(want).max())))
+
+
+def nlp_tables(np, sv):
+    return [None if t is None else np.array(t)
+            for t in (sv.syn0, sv.syn1, sv.syn1neg)]
+
+
+def nlp_host_side(sv, seqs):
+    """A fit of `sv` with the device work cut out: the host side alone
+    (indexing, subsampling, the native packer on its thread, the slab
+    buffer) -> (seconds, the packer's seconds, [(rows, lrs)] of every
+    slab)."""
+    got, pack_s = [], []
+    pack = sv._epoch_pack_chunk
+
+    def keep(tables, rows, lrs, W, hs_tabs):
+        got.append((rows, lrs))
+        return tables
+
+    def timed_pack(*a):
+        t0 = time.perf_counter()
+        out = pack(*a)
+        pack_s.append(time.perf_counter() - t0)
+        return out
+
+    sv._dispatch_slab, sv._epoch_pack_chunk = keep, timed_pack
+    try:
+        t0 = time.perf_counter()
+        sv.fit(seqs)
+        return time.perf_counter() - t0, sum(pack_s), got
+    finally:
+        del sv._dispatch_slab, sv._epoch_pack_chunk
+
+
+def nlp_rows_per_example(np, sv, rows, lrs):
+    """Table rows one example gathers (and scatters back) in this slab's
+    real batches: skip-gram NS K + 2; HS 1 + the target's code length;
+    CBOW its valid context words + K + 1 or + the centre's code length."""
+    W = 2 * sv.window
+    Bp = rows.shape[0] // lrs.size
+    real = rows[:int((lrs > 0).sum()) * Bp].astype(np.int64)
+    code_len = np.array([len(w.codes) for w in sv.vocab.vocab_words()])
+    if sv.use_cbow:
+        n = (real[:, :W] >= 0).sum(axis=1)
+        n = n + (code_len[real[:, W]] if sv.use_hs else sv.negative + 1)
+    else:
+        n = (1 + code_len[real[:, 1]] if sv.use_hs
+             else np.full(len(real), sv.negative + 2))
+    return float(n.mean())
+
+
+def nlp_device_side(torch, np, sv, slabs):
+    """The captured slabs dispatched back to back on copies of the fitted
+    tables (upload, launches and the device's work; no packing): seconds
+    between CUDA events, then the first slab alone unprofiled and under
+    the profiler (busy ms per batch, the idle share)."""
+    dev = sv._syn0_dev.device
+    hs = sv._hs_tabs_on(dev) if sv.use_hs else None
+    W = 2 * sv.window
+
+    def copies():
+        return tuple(None if t is None else t.clone() for t in
+                     (sv._syn0_dev, sv._syn1_dev, sv._syn1neg_dev))
+
+    def run(tables, part):
+        for rows, lrs in part:
+            sv._dispatch_slab(tables, rows, lrs, W, hs)
+
+    batches = sum(int((lrs > 0).sum()) for _, lrs in slabs)
+    tables = copies()
+    run(tables, slabs[:1])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    run(tables, slabs)
+    end.record()
+    end.synchronize()
+    all_s = start.elapsed_time(end) / 1e3
+    host_s = time.perf_counter() - t0
+    first = int((slabs[0][1] > 0).sum())
+    torch.cuda.synchronize()
+    start.record()
+    run(tables, slabs[:1])
+    end.record()
+    end.synchronize()
+    slab_ms = start.elapsed_time(end)
+    prof = decode_profile(torch, lambda: run(tables, slabs[:1]))
+    top = engine_profile(torch, lambda: run(tables, slabs[:1]), first)
+    busy = prof["busy_ms"]
+    del tables
+    return {"s": all_s, "host_clock_s": host_s, "batches": batches,
+            "ms_per_batch": all_s * 1e3 / batches,
+            "slab_ms_per_batch": slab_ms / first,
+            "busy_ms_per_batch": None if busy is None else busy / first,
+            "idle_share": None if busy is None else 1.0 - busy / slab_ms,
+            "kernels_per_batch": prof["kernels"] / first,
+            "top": top["top"][:4]}
+
+
+def nlp_split(torch, np, sv, seqs, epochs):
+    """The host side and the device side of one epoch of `sv`, each
+    alone, and one example's bound (gathered + scattered rows at 3.35
+    TB/s)."""
+    t0 = time.perf_counter()
+    sv._index_corpus(seqs)
+    index_s = time.perf_counter() - t0
+    sv.epochs = 1
+    host_s, pack_s, slabs = nlp_host_side(sv, seqs)
+    sv.epochs = epochs
+    devs = nlp_device_side(torch, np, sv, slabs)
+    rows = nlp_rows_per_example(np, sv, *slabs[0])
+    B = sv.dense_batch_size
+    bound = rows * B * sv.layer_size * 4 * 2 / HBM_BYTES_PER_S * 1e3
+    return {"index_s": index_s, "host_epoch_s": host_s - index_s,
+            "native_pack_s": pack_s,
+            "device": devs, "rows_per_example": rows,
+            "bound_ms_per_batch": bound,
+            "wire": str(slabs[0][0].dtype), "slabs": len(slabs)}
+
+
+def nlp_finite_checks(np, sv, label):
+    for name, t in zip(("syn0", "syn1", "syn1neg"), nlp_tables(np, sv)):
+        if t is not None and not np.isfinite(t).all():
+            fail(f"nlp {label}: non-finite {name}")
+    sim = sv.similarity("w0", "w1")
+    if not np.isfinite(sim):
+        fail(f"nlp {label}: similarity('w0', 'w1') = {sim}")
+    return sim
+
+
+def nlp_split_line(r):
+    d = r["device"]
+    busy = ("not measured" if d["busy_ms_per_batch"] is None
+            else f"{d['busy_ms_per_batch']:.3f} ms")
+    idle = ("not measured" if d["idle_share"] is None
+            else f"{d['idle_share']:.3f}")
+    top = "; ".join(f"{k} {v:.3f} ms" for k, v in d["top"])
+    return (f"per epoch the host side alone {r['host_epoch_s']:.3f} s "
+            f"(the native packer's calls {r['native_pack_s']:.3f} s of it; "
+            f"+ {r['index_s']:.3f} s indexing per fit), the device side "
+            f"alone {d['s']:.3f} s ({d['batches']} batches, "
+            f"{d['ms_per_batch']:.3f} ms per batch; one slab "
+            f"{d['slab_ms_per_batch']:.3f} ms per batch, busy {busy}, idle "
+            f"share {idle}, {d['kernels_per_batch']:.1f} kernels per batch; "
+            f"bound {r['bound_ms_per_batch']:.4f} ms: "
+            f"{r['rows_per_example']:.2f} rows of the table gathered and "
+            f"scattered per example); wire {r['wire']}; top kernels per "
+            f"batch: {top}")
+
+
+def w2v_bench(torch, np, card):
+    """(a) bench.py:468 bench_word2vec on the card."""
+    from deeplearning4j_tpu_torch.nlp.sequence_vectors import SequenceVectors
+
+    r = {"card": card}
+    t0 = time.perf_counter()
+    seqs = zipf_corpus(np, NLP_VOCAB, NLP_WORDS, NLP_SEQ, 0)
+    r["corpus_s"] = time.perf_counter() - t0
+    sv = SequenceVectors(layer_size=NLP_DIM, window=NLP_WINDOW,
+                         negative=NLP_NEG, epochs=1, seed=1, mode="dense",
+                         device=DEV)
+    t0 = time.perf_counter()
+    sv.build_vocab(seqs)
+    r["build_vocab_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sv.fit(seqs)
+    float(sv._syn0_dev[0, 0])
+    r["warm_s"] = time.perf_counter() - t0
+    _ = sv.syn0, sv.syn1neg
+    sv.epochs = NLP_EPOCHS
+    torch.cuda.reset_peak_memory_stats()
+    r["reps_s"] = []
+    for _ in range(NLP_REPS):
+        t0 = time.perf_counter()
+        sv.fit(seqs)
+        float(sv._syn0_dev[0, 0])   # the barrier: a host read
+        r["reps_s"].append(time.perf_counter() - t0)
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    best = min(r["reps_s"])
+    r["words_per_s"] = NLP_WORDS * NLP_EPOCHS / best
+    r["epoch_s"] = best / NLP_EPOCHS
+    r["split"] = nlp_split(torch, np, sv, seqs, NLP_EPOCHS)
+    r["similarity_w0_w1"] = nlp_finite_checks(np, sv, "(a)")
+    log(f"nlp (a) word2vec at bench.py:468 (vocab {sv.vocab.num_words()}, "
+        f"{NLP_WORDS} zipf-1.1 words in sequences of {NLP_SEQ}, dim "
+        f"{NLP_DIM}, window {NLP_WINDOW}, K={NLP_NEG}, skip-gram NS, dense, "
+        f"batch {sv.dense_batch_size}): build_vocab "
+        f"{r['build_vocab_s']:.2f} s, warm epoch {r['warm_s']:.2f} s; "
+        f"{NLP_EPOCHS} epochs {', '.join(f'{x:.3f}' for x in r['reps_s'])}"
+        f" s: {r['words_per_s']:.0f} words/s, {r['epoch_s']:.3f} s per "
+        f"epoch; peak {r['peak_gb']:.2f} GB; similarity(w0, w1) "
+        f"{r['similarity_w0_w1']:.4f} [{card}]")
+    log(f"nlp (a) split: {nlp_split_line(r['split'])} [{card}]")
+    return r, seqs
+
+
+def w2v_wide(torch, np, card):
+    """(b) CBOW + HS at width 300 over a 50,000-word vocab."""
+    from deeplearning4j_tpu_torch.nlp.sequence_vectors import SequenceVectors
+
+    r = {"card": card}
+    seqs = zipf_corpus(np, NLP_WIDE_VOCAB, NLP_WIDE_WORDS, NLP_SEQ, 1)
+    sv = SequenceVectors(layer_size=NLP_WIDE_DIM, window=NLP_WINDOW,
+                         negative=0, use_hierarchic_softmax=True,
+                         use_cbow=True, epochs=1, seed=1, mode="dense",
+                         device=DEV)
+    t0 = time.perf_counter()
+    sv.build_vocab(seqs)
+    r["build_vocab_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sv.fit(seqs)
+    float(sv._syn0_dev[0, 0])
+    r["fit_s"] = time.perf_counter() - t0
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["words_per_s"] = NLP_WIDE_WORDS / r["fit_s"]
+    r["split"] = nlp_split(torch, np, sv, seqs, 1)
+    if r["split"]["wire"] != "int32":
+        fail(f"nlp (b): {sv.vocab.num_words()} words shipped on the "
+             f"{r['split']['wire']} wire")
+    r["similarity_w0_w1"] = nlp_finite_checks(np, sv, "(b)")
+    r["vocab"] = sv.vocab.num_words()
+    r["max_code_len"] = sv._max_code_len
+    log(f"nlp (b) CBOW + HS, vocab {r['vocab']} (max code length "
+        f"{r['max_code_len']}), dim {NLP_WIDE_DIM}, {NLP_WIDE_WORDS} words, "
+        f"1 epoch: build_vocab {r['build_vocab_s']:.2f} s, fit "
+        f"{r['fit_s']:.3f} s, {r['words_per_s']:.0f} words/s; peak "
+        f"{r['peak_gb']:.2f} GB; similarity(w0, w1) "
+        f"{r['similarity_w0_w1']:.4f} [{card}]")
+    log(f"nlp (b) split: {nlp_split_line(r['split'])} [{card}]")
+    return r
+
+
+def nlp_recorder(np, sv):
+    """Digests of every batch the fit feeds its device steps: the dense
+    tier's slabs, the scan tier's step inputs (copied to the host)."""
+    import hashlib
+
+    digests = []
+
+    def digest(*arrays):
+        h = hashlib.sha1()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        digests.append(h.hexdigest())
+
+    if sv._dense:
+        orig = sv._dispatch_slab
+
+        def slab(tables, rows, lrs, W, hs_tabs):
+            digest(rows, lrs)
+            return orig(tables, rows, lrs, W, hs_tabs)
+
+        sv._dispatch_slab = slab
+    else:
+        for name in ("_neg_step", "_hs_step", "_cbow_neg_step",
+                     "_cbow_hs_step"):
+            step = getattr(sv, name)
+
+            def rec(*a, _step=step):
+                digest(*(x.cpu().numpy() for x in a[2:-1]))
+                return _step(*a)
+
+            setattr(sv, name, rec)
+    return digests
+
+
+NLP_CHECK_MODES = (
+    ("dense sg-ns", dict(mode="dense", negative=NLP_NEG)),
+    ("dense sg-hs", dict(mode="dense", negative=0)),
+    ("dense cbow-ns", dict(mode="dense", negative=NLP_NEG, use_cbow=True)),
+    ("dense cbow-hs", dict(mode="dense", negative=0, use_cbow=True)),
+    ("scan sg-ns", dict(mode="scan", negative=NLP_NEG)))
+
+
+def nlp_versus_cpu(torch, np, card, seqs):
+    """(c) the same fits on the card (twice) and on the CPU."""
+    from deeplearning4j_tpu_torch.nlp import Glove, ParagraphVectors
+    from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
+        LabelledDocument,
+    )
+    from deeplearning4j_tpu_torch.nlp.sequence_vectors import SequenceVectors
+
+    cut = seqs[:NLP_CUT_WORDS // NLP_SEQ]
+    res, bad = {}, []
+
+    def held(label, make, fit, tables, packs=None, twice=False):
+        out, secs = [], []
+        for dev in (DEV, DEV, "cpu")[0 if twice else 1:]:
+            m = make(dev)
+            digests = packs(m) if packs else None
+            t0 = time.perf_counter()
+            fit(m)
+            secs.append(time.perf_counter() - t0)
+            out.append((tables(m), digests))
+        (c1, p1), (cpu, pc_) = out[0], out[-1]
+        err = max(nlp_table_err(np, w, g) for w, g in zip(cpu, c1))
+        same_bits = None
+        if twice:   # the card sums scatters with float atomics
+            same_bits = all((a is None and b is None)
+                            or np.array_equal(a, b)
+                            for a, b in zip(c1, out[1][0]))
+        r = {"err": err, "card_runs_bitwise_equal": same_bits,
+             "card_s": secs[0], "cpu_s": secs[-1]}
+        if packs:
+            r["batches"] = len(p1)
+            r["packs_equal"] = (p1 == pc_ and len(p1) > 0
+                                and (not twice or out[1][1] == p1))
+            if not r["packs_equal"]:
+                bad.append(f"{label}: packs differ")
+        if not err <= NLP_TABLE_TOL:
+            bad.append(f"{label}: tables {err:.3e} > {NLP_TABLE_TOL}")
+        res[label] = r
+        log(f"nlp (c) {label}: card against CPU {err:.3e} (bar "
+            f"{NLP_TABLE_TOL:g})"
+            + (f"; two card runs bitwise equal: {same_bits}" if twice
+               else "")
+            + (f"; packs of {r['batches']} slabs or batches equal: "
+               f"{r['packs_equal']}" if packs else "")
+            + f"; card {secs[0]:.2f} s, CPU {secs[-1]:.2f} s [{card}]")
+
+    for label, kw in NLP_CHECK_MODES:
+        def make(dev, kw=kw):
+            sv = SequenceVectors(layer_size=NLP_DIM, window=NLP_WINDOW,
+                                 epochs=1, seed=1, device=dev, **kw)
+            sv.build_vocab(cut)
+            sv._ensure_steps()
+            return sv
+
+        def packs(sv):
+            return nlp_recorder(np, sv)
+
+        held(label, make, lambda m: m.fit(cut),
+             lambda m: nlp_tables(np, m), packs,
+             twice=label.startswith("dense"))
+    held("glove",
+         lambda dev: Glove(layer_size=NLP_DIM, window=NLP_WINDOW, epochs=1,
+                           seed=1, device=dev),
+         lambda m: m.fit(cut), lambda m: [m.syn0])
+    docs = [LabelledDocument(" ".join(s), [f"DOC_{i}"])
+            for i, s in enumerate(cut[:NLP_PV_CUT_DOCS])]
+    text = " ".join(cut[0])
+    for algo in ("dbow", "dm"):
+        held(f"paragraph vectors {algo} + infer_vector",
+             lambda dev, algo=algo: (
+                 ParagraphVectors.Builder().layer_size(NLP_DIM)
+                 .window_size(NLP_WINDOW).negative_sample(NLP_NEG).epochs(1)
+                 .seed(1).sequence_learning_algorithm(algo).device(dev)
+                 .build()),
+             lambda m: m.fit(docs),
+             lambda m: [m.syn0, m.syn1neg, m.doc_vectors,
+                        m.infer_vector(text)])
+    if bad:
+        fail(f"nlp (c): {bad}")
+    return res
+
+
+def nlp_quality(torch, np, card):
+    """(d) the two-topic corpus: Word2Vec's dense tier in all four modes,
+    ParagraphVectors (DBOW) on its documents."""
+    from deeplearning4j_tpu_torch.nlp import (
+        CollectionSentenceIterator,
+        ParagraphVectors,
+        Word2Vec,
+    )
+    from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
+        LabelledDocument,
+    )
+
+    sents, animals, tech = topic_sentences(np, NLP_TOPIC_SENTS)
+    res, bad = {}, []
+    for mode in ("negative", "hs", "cbow-negative", "cbow-hs"):
+        t0 = time.perf_counter()
+        w2v = (Word2Vec.Builder().layer_size(24).window_size(4)
+               .negative_sample(5 if mode.endswith("negative") else 0)
+               .use_hierarchic_softmax(mode.endswith("hs"))
+               .elements_learning_algorithm(
+                   "CBOW" if mode.startswith("cbow") else "SkipGram")
+               .min_word_frequency(1).epochs(1).seed(1).mode("dense")
+               .device(DEV).iterate(CollectionSentenceIterator(sents))
+               .build())
+        w2v.dense_batch_size = NLP_TOPIC_BATCH
+        w2v.fit()
+        s = time.perf_counter() - t0
+        intra = float(np.mean(
+            [w2v.similarity(a, b) for g in (animals, tech) for a in g
+             for b in g if a < b]))
+        inter = float(np.mean([w2v.similarity(a, b) for a in animals
+                               for b in tech]))
+        res[mode] = {"intra": intra, "inter": inter, "s": s}
+        if not intra > inter + NLP_TOPIC_GAP:
+            bad.append(f"{mode}: intra {intra:.3f} inter {inter:.3f}")
+        log(f"nlp (d) two topics, {NLP_TOPIC_SENTS} sentences, dense "
+            f"{mode} (batch {NLP_TOPIC_BATCH}, 1 epoch): intra-topic "
+            f"similarity {intra:.4f}, inter-topic {inter:.4f} (bar: "
+            f"+{NLP_TOPIC_GAP}); {s:.2f} s [{card}]")
+    docs = [LabelledDocument(s, [f"DOC_{i}"])
+            for i, s in enumerate(sents[:NLP_PV_DOCS])]
+    t0 = time.perf_counter()
+    pv = (ParagraphVectors.Builder().layer_size(16).negative_sample(5)
+          .epochs(NLP_PV_EPOCHS).seed(3).device(DEV).iterate(docs).build())
+    pv.fit()
+    s = time.perf_counter() - t0
+    topic = np.array([d.content.split()[0] in animals for d in docs])
+    x = torch.as_tensor(np.array(pv.doc_vectors), device=DEV)
+    x = x / x.norm(dim=1, keepdim=True)
+    sims = (x @ x.T).cpu().numpy().astype(np.float64)
+    same = topic[:, None] == topic[None]
+    off = ~np.eye(len(docs), dtype=bool)
+    intra, inter = sims[same & off].mean(), sims[~same].mean()
+    np.fill_diagonal(sims, -np.inf)
+    nn_share = float((topic[sims.argmax(axis=1)] == topic).mean())
+    res["paragraph_vectors"] = {"intra": intra, "inter": inter,
+                                "nn_share": nn_share, "s": s}
+    if not (intra > inter + NLP_TOPIC_GAP and nn_share >= NLP_PV_NN_SHARE):
+        bad.append(f"paragraph vectors: {res['paragraph_vectors']}")
+    log(f"nlp (d) ParagraphVectors DBOW on {NLP_PV_DOCS} documents, "
+        f"{NLP_PV_EPOCHS} epochs: intra-topic {intra:.4f}, inter-topic "
+        f"{inter:.4f}, nearest document in the same topic {nn_share:.3f} "
+        f"(bars +{NLP_TOPIC_GAP}, {NLP_PV_NN_SHARE}); {s:.2f} s [{card}]")
+    if bad:
+        fail(f"nlp (d): {bad}")
+    return res
+
+
+def blog_graph(np, Graph, seed=0):
+    """A planted partition at BlogCatalog's scale: BLOG_VERTICES vertices
+    in BLOG_BLOCKS blocks (uniform), BLOG_EDGES undirected edges, a share
+    BLOG_INSIDE of them inside a block (a block drawn in proportion to
+    its size, two distinct members), the rest across blocks."""
+    rng = np.random.default_rng(seed)
+    n, m = BLOG_VERTICES, BLOG_EDGES
+    block = rng.integers(0, BLOG_BLOCKS, n)
+    order = np.argsort(block, kind="stable")
+    size = np.bincount(block, minlength=BLOG_BLOCKS)
+    start = np.concatenate([[0], np.cumsum(size)[:-1]])
+    n_in = int(round(BLOG_INSIDE * m))
+    bl = block[rng.integers(0, n, n_in)]
+    o1 = (rng.random(n_in) * size[bl]).astype(np.int64)
+    o2 = (o1 + 1 + (rng.random(n_in) * (size[bl] - 1)).astype(np.int64)
+          ) % size[bl]
+    a = rng.integers(0, n, 2 * (m - n_in))
+    b = rng.integers(0, n, 2 * (m - n_in))
+    keep = np.nonzero(block[a] != block[b])[0][:m - n_in]
+    ea = np.concatenate([order[start[bl] + o1], a[keep]])
+    eb = np.concatenate([order[start[bl] + o2], b[keep]])
+    g = Graph(n)
+    for u, v in zip(ea.tolist(), eb.tolist()):
+        g.add_edge(u, v)
+    return g, block, float((block[ea] == block[eb]).mean())
+
+
+def block_share(torch, np, dw, block, k=10):
+    """The share of each vertex's k nearest (cosine) in its own block."""
+    sv = dw._sv
+    ids = np.array([int(w) for w in sv.vocab.words()])
+    x = torch.as_tensor(np.array(sv.syn0), device=DEV)
+    x = x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    sims = x @ x.T
+    sims.fill_diagonal_(-2.0)
+    nn = sims.topk(k, dim=1).indices.cpu().numpy()
+    blk = block[ids]
+    return float((blk[nn] == blk[:, None]).mean())
+
+
+def graph_embed(torch, np, card):
+    """(e) DeepWalk and Node2Vec at BlogCatalog's scale."""
+    from deeplearning4j_tpu_torch.graph import (
+        DeepWalk,
+        Graph,
+        Node2Vec,
+        Node2VecWalkIterator,
+        RandomWalkIterator,
+    )
+
+    r = {"card": card}
+    t0 = time.perf_counter()
+    g, block, inside = blog_graph(np, Graph)
+    r["graph_s"] = time.perf_counter() - t0
+    dw = DeepWalk(vector_size=BLOG_DIM, window_size=BLOG_WINDOW, seed=0,
+                  device=DEV).initialize(g)
+    t0 = time.perf_counter()
+    walks = list(RandomWalkIterator(g, BLOG_WALK, BLOG_WALKS, seed=0))
+    r["walk_s"] = time.perf_counter() - t0
+    tokens = sum(len(w) for w in walks)
+    t0 = time.perf_counter()
+    dw.fit(walks)
+    float(dw._sv._syn0_dev[0, 0])
+    r["fit_s"] = time.perf_counter() - t0
+    r["words_per_s"] = tokens / r["fit_s"]
+    if not (dw._sv._dense and dw._sv.use_hs and dw._sv.negative == 0):
+        fail("nlp (e): DeepWalk did not take the dense HS tier")
+    r["share"] = block_share(torch, np, dw, block)
+    r["chance"] = 1.0 / BLOG_BLOCKS
+    log(f"nlp (e) DeepWalk on a planted partition at BlogCatalog's scale "
+        f"({BLOG_VERTICES} vertices, {BLOG_EDGES} edges, {BLOG_BLOCKS} "
+        f"blocks, {inside:.3f} of edges inside a block; built in "
+        f"{r['graph_s']:.2f} s), d={BLOG_DIM}, window {BLOG_WINDOW}, walk "
+        f"length {BLOG_WALK}, {BLOG_WALKS} walks per vertex (the paper's 80, "
+        f"cut: a Python loop on the host): walks {r['walk_s']:.2f} s, fit "
+        f"(dense HS skip-gram) {r['fit_s']:.2f} s, {r['words_per_s']:.0f} "
+        f"words/s over {tokens} tokens; share of each vertex's 10 nearest "
+        f"in its block {r['share']:.4f} (chance {r['chance']:.4f}, bar "
+        f"{BLOG_SHARE_MIN}) [{card}]")
+    if not r["share"] >= BLOG_SHARE_MIN:
+        fail(f"nlp (e): block share {r['share']:.4f} < {BLOG_SHARE_MIN}")
+    nv = Node2Vec(p=1.0, q=0.5, vector_size=BLOG_DIM,
+                  window_size=BLOG_WINDOW, seed=0, device=DEV).initialize(g)
+    t0 = time.perf_counter()
+    walks = list(Node2VecWalkIterator(g, BLOG_N2V_WALK, 1, p=1.0, q=0.5,
+                                      seed=0))
+    r["n2v_walk_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nv.fit(walks)
+    float(nv._sv._syn0_dev[0, 0])
+    r["n2v_fit_s"] = time.perf_counter() - t0
+    if not np.isfinite(nv._sv.syn0).all():
+        fail("nlp (e): Node2Vec embeddings not finite")
+    r["n2v_share"] = block_share(torch, np, nv, block)
+    log(f"nlp (e) Node2Vec (p=1, q=0.5), 1 walk per vertex of length "
+        f"{BLOG_N2V_WALK} (cut from {BLOG_WALK}: its per-edge bias loop "
+        f"runs on the host): walks {r['n2v_walk_s']:.2f} s, fit "
+        f"{r['n2v_fit_s']:.2f} s; finite; block share "
+        f"{r['n2v_share']:.4f} [{card}]")
+    return r
+
+
+def nlp_phase(torch, np, pc, card):
+    """Phase 5l: the embedding trainers and graph embeddings (lines start
+    "nlp "). The kernel launch counters are set to 0 before it and read
+    after it: no kernel of csrc/ is on this path."""
+    from deeplearning4j_tpu_torch import native
+
+    pc.reset_launch_counts()
+    if not native.available():
+        fail("nlp: the native host library (the word2vec packers) did not "
+             "build; the NumPy fallback is not the measured path")
+    res, secs = {"card": card}, {}
+    t0 = time.perf_counter()
+    res["bench"], seqs = w2v_bench(torch, np, card)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["wide"] = w2v_wide(torch, np, card)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["versus_cpu"] = nlp_versus_cpu(torch, np, card, seqs)
+    secs["c"] = time.perf_counter() - t0
+    del seqs
+    t0 = time.perf_counter()
+    res["quality"] = nlp_quality(torch, np, card)
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["graph"] = graph_embed(torch, np, card)
+    secs["e"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    counts = pc.launch_counts()
+    res["launches"] = {k: counts[k] for k in pc.LAUNCHES}
+    res["seconds"] = secs
+    log(f"nlp phase: kernel launches on the embedding path "
+        f"{res['launches']}; seconds per part "
+        + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    if any(res["launches"].values()):
+        fail(f"nlp: a csrc/ kernel launched on the embedding path: "
+             f"{res['launches']}")
+    return res
+
+
 # ------------------------------------------------------------ phase 6
 
 
@@ -7933,6 +8618,14 @@ def main():
     log(f"clustering phase (b)-(f): {time.perf_counter() - t1:.1f} s; "
         f"phase 5k: {time.perf_counter() - t0:.1f} s")
 
+    # 5l. the embedding trainers and graph embeddings: word2vec at
+    # bench.py:468's configuration, CBOW + HS at width 300, the card
+    # against the CPU, the two-topic quality bars, DeepWalk and Node2Vec
+    # at BlogCatalog's scale
+    t0 = time.perf_counter()
+    nlp = nlp_phase(torch, np, pc, card)
+    log(f"nlp phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -7997,6 +8690,7 @@ def main():
             "control_launches_by_route": control["launches_by_route"].get(
                 name, {"wgmma": 0, "simple": 0}),
             "cluster_launches": cluster["launches"][name],
+            "nlp_launches": nlp["launches"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -8011,7 +8705,7 @@ def main():
                        "tm": tm, "obs": obs, "rnn": rnn, "zoo": zoo,
                        "keras": keras, "decode": decode,
                        "control": control, "cluster": cluster,
-                       "clustering": clustering},
+                       "clustering": clustering, "nlp": nlp},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -8033,7 +8727,9 @@ def main():
         "control_launches_by_route from those and its hot-swap drill, "
         "cluster_launches from phase 5k's supervised worker fits (the "
         f"oracle's {CLUSTER_STEPS} steps and each drill's relaunched "
-        f"{CLUSTER_STEPS - 2 * GROUP_K}; counted in the worker processes)")
+        f"{CLUSTER_STEPS - 2 * GROUP_K}; counted in the worker processes), "
+        "nlp_launches from phase 5l (the embedding trainers and graph "
+        "embeddings)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
 The JAX package `deeplearning4j_tpu` is the reference; this package mirrors
 its module layout (nn/, nn/conf/, nn/layers/, nn/helpers/, zoo/, util/,
 parallel/, resilience/, observability/, stats/, optimize/, modelimport/,
-datasets/, eval/, native/) so every module
+datasets/, eval/, native/, clustering/, nlp/, graph/) so every module
 has a findable counterpart. It
 imports torch, numpy and the standard library only — never jax, and never
 anything of the JAX package.
@@ -39,8 +39,20 @@ continuous-batching DecodeEngine with its flight recorder and generation
 journal (serving/), the serving control plane (parallel/serving.py,
 serving/), cluster supervision (resilience/cluster.py: heartbeat leases,
 ClusterSupervisor, the watchdog's hard exit; the per-rank divergence
-quorum) and clustering (clustering/: distances and k-NN, VP and KD
-trees, k-means, t-SNE, the nearest-neighbour server).
+quorum), clustering (clustering/: distances and k-NN, VP and KD
+trees, k-means, t-SNE, the nearest-neighbour server) and the embedding
+trainers with graph embeddings (nlp/: SequenceVectors' scan and dense
+tiers, Word2Vec, GloVe, ParagraphVectors, the word-vector serializer;
+graph/: walks, DeepWalk, Node2Vec; their batches packed by the C++
+word2vec builders through native/).
+
+Tests: the CPU tests pass device="cpu" and hold each module against the
+JAX package (`JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py`;
+the embedding path alone: tests/test_torch_nlp.py,
+tests/test_torch_nlp_parity.py, tests/test_torch_graph_embed.py). On an
+H100, `python3 chip_smoke.py` drives every slice (phase 5l the
+embedding trainers) and `python -m pytest tests/test_torch_cuda.py -m
+cuda --noconftest -q` runs the card's tests.
 """
 
 from deeplearning4j_tpu_torch.device import resolve_device  # noqa: F401

@@ -2,11 +2,16 @@
 deeplearning4j_tpu/native/__init__.py, a loader of the port's own).
 
 native/dl4j_tpu_native.cpp (the repo's C++ host library: CSV -> f32
-parsing, u8 -> f32 normalization and the CHW -> HWC layout fix-up) is
+parsing, u8 -> f32 normalization, the CHW -> HWC layout fix-up and the
+word2vec epoch builders that the embedding trainers' dense tier packs
+its batches with) is
 compiled with native/build.sh's flags into deeplearning4j_tpu_torch/_build/
 at first use, never at import, and loaded with ctypes. Every entry point
 has a NumPy fallback with the same results, taken where no compiler is
-found; `available()` says which path is active.
+found; `available()` says which path is active. The word2vec packers
+return None without the library: their NumPy fallback lives in
+nlp/sequence_vectors.py, as in the JAX package, and draws another random
+stream.
 """
 
 from __future__ import annotations
@@ -84,6 +89,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_chw_u8_to_hwc_f32.restype = None
     lib.dl4j_chw_u8_to_hwc_f32.argtypes = [
         u8p, f32p, i64, i64, i64, i64, ctypes.c_float, ctypes.c_float]
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    for fn in (lib.dl4j_w2v_sg_pack, lib.dl4j_w2v_cbow_pack):
+        fn.restype = i64
+        fn.argtypes = [i32p, i32p, i64, i64, i64, ctypes.c_int,
+                       ctypes.c_int, f32p, i32p, i64, ctypes.c_uint64,
+                       i32p]
     return lib
 
 
@@ -185,3 +196,63 @@ def chw_u8_to_hwc_f32(src: np.ndarray, scale: float = 1.0 / 255.0,
         dst.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         n, c, h, w, scale, shift)
     return dst
+
+
+def _w2v_pack(fn_name, corpus, sid, window, k_neg, alias_prob,
+              alias_idx, seed, p0=0, p1=None) -> Optional[np.ndarray]:
+    """One packer: a count pass (no output buffer), then the fill pass
+    into a buffer of exactly that many rows."""
+    lib = _get()
+    if lib is None:
+        return None
+    corpus = np.ascontiguousarray(corpus, np.int32)
+    sid = np.ascontiguousarray(sid, np.int32)
+    if sid.shape != corpus.shape:
+        raise ValueError(f"sid {sid.shape} != corpus {corpus.shape}")
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    if k_neg > 0:
+        alias_prob = np.ascontiguousarray(alias_prob, np.float32)
+        alias_idx = np.ascontiguousarray(alias_idx, np.int32)
+        if alias_idx.shape != alias_prob.shape:
+            raise ValueError("alias tables of different sizes")
+        vocab = alias_prob.size
+        ap = alias_prob.ctypes.data_as(f32p)
+        ai = alias_idx.ctypes.data_as(i32p)
+    else:
+        vocab = 0
+        ap = f32p()
+        ai = i32p()
+    fn = getattr(lib, fn_name)
+    n = corpus.size
+    if p1 is None:
+        p1 = n
+    args = (corpus.ctypes.data_as(i32p), sid.ctypes.data_as(i32p), n, p0,
+            p1, window, k_neg, ap, ai, vocab, seed)
+    count = fn(*args, i32p())
+    cols = ((2 + k_neg) if fn_name == "dl4j_w2v_sg_pack"
+            else (2 * window + 1 + k_neg))
+    out = np.empty((count, cols), np.int32)
+    if count:
+        fn(*args, out.ctypes.data_as(i32p))
+    return out
+
+
+def w2v_sg_pack(corpus, sid, window, k_neg, alias_prob, alias_idx,
+                seed, p0=0, p1=None) -> Optional[np.ndarray]:
+    """Skip-gram epoch rows [center, positive, K negatives] in corpus
+    order (the reduced window and alias negative sampling in one native
+    pass), for centres in positions [p0, p1) of the whole stream, so
+    chunked callers see windows across their chunk edges. None without
+    the native library."""
+    return _w2v_pack("dl4j_w2v_sg_pack", corpus, sid, window, k_neg,
+                     alias_prob, alias_idx, seed, p0, p1)
+
+
+def w2v_cbow_pack(corpus, sid, window, k_neg, alias_prob, alias_idx,
+                  seed, p0=0, p1=None) -> Optional[np.ndarray]:
+    """CBOW epoch rows [2*window context (-1 = empty slot), centre, K
+    negatives], one per position with a context word, centres in
+    [p0, p1). None without the native library."""
+    return _w2v_pack("dl4j_w2v_cbow_pack", corpus, sid, window, k_neg,
+                     alias_prob, alias_idx, seed, p0, p1)

@@ -1486,3 +1486,57 @@ def test_cuda_chunked_tsne_iteration_equals_the_cpus(rng):
     assert err < TSNE_CARD_TOL
     assert float(klc) == pytest.approx(float(kl), rel=1e-5)
     assert (yc[n:] == 1e6).all()
+
+
+# the dense word2vec tier: tables after one slab on the card against the
+# CPU path, relative to max(1, max|CPU table|) (the card's scatter sums
+# with float atomics, in another order than the CPU's)
+NLP_CARD_TOL = 1e-4
+NLP_MODES = {"sg-ns": dict(negative=5, use_cbow=False),
+             "sg-hs": dict(negative=0, use_cbow=False),
+             "cbow-ns": dict(negative=5, use_cbow=True),
+             "cbow-hs": dict(negative=0, use_cbow=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(NLP_MODES))
+def test_cuda_dense_slab_matches_the_cpu(mode):
+    """One dense slab (64 batches of 1024 rows, zipf-1.1 words) in each
+    mode: the same packed rows on both devices, the trained tables within
+    NLP_CARD_TOL."""
+    _need_cuda()
+    from deeplearning4j_tpu_torch.nlp.sequence_vectors import SequenceVectors
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    vocab = 3000
+    p = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    c = rng.choice(vocab, size=60000, p=p / p.sum())
+    seqs = [[f"w{i}" for i in c[k:k + 1000]]
+            for k in range(0, c.size, 1000)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sv = SequenceVectors(layer_size=64, window=5, seed=3, mode="dense",
+                             dense_batch_size=1024, device=dev,
+                             **NLP_MODES[mode])
+        sv.build_vocab(seqs)
+        shipped = []
+        orig = sv._dispatch_slab
+
+        def first_slab(tables, rows, lrs, W, hs_tabs):
+            if shipped:
+                return tables
+            shipped.append(rows.copy())
+            return orig(tables, rows, lrs, W, hs_tabs)
+
+        sv._dispatch_slab = first_slab
+        sv.fit(seqs)
+        if dev == "cuda":
+            assert sv._syn0_dev.device.type == "cuda"
+        runs[dev] = (shipped[0], sv.syn0, sv.syn1, sv.syn1neg)
+    np.testing.assert_array_equal(runs["cpu"][0], runs["cuda"][0])
+    for want, got in zip(runs["cpu"][1:], runs["cuda"][1:]):
+        assert (want is None) == (got is None)
+        if want is not None:
+            err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
+            assert np.isfinite(got).all() and err < NLP_CARD_TOL
