@@ -326,6 +326,36 @@ Phases, in order; any failure exits non-zero:
      length 40, BLOG_WALKS walks per vertex): walk and fit seconds,
      words/s, the share of each vertex's 10 nearest in its block against
      1/39; Node2Vec, one walk per vertex, finite;
+  5m. data-parallel scale-out and ZeRO-1 (lines start "scaleout "): (a)
+     an NCCL process group of world 1 (127.0.0.1, a free port); the
+     flagship trained through TrainingMaster(steps_per_dispatch=GROUP_K)
+     unsharded and through TrainingMaster(sharding="zero1",
+     steps_per_dispatch=GROUP_K), SCALEOUT_STEPS timed steps each after a
+     warm-up window (the kernel launch counters zeroed before the zero1
+     fit and read after it: `scaleout_launches`): params and updater
+     state bit for bit, ms/step of each, the collectives each captured
+     group holds (and the NCCL kernels a profiled replay shows),
+     memory_facts (at world 1 the policy shards nothing; the bytes it
+     would shard at dp 2 and 8), the NCCL reduce-scatter and all-gather
+     at world 1 against their inputs; a save (main file + updshard
+     sidecar, seconds) and a fresh master's restore, GROUP_K more steps
+     bit for bit against the uninterrupted run; (b)
+     ParallelWrapper(averaging_frequency=GROUP_K) on the same batches from
+     the same seed against the unsharded state (bit for bit, the
+     rendezvous of one rank is an identity), then with
+     threshold_compression=SCALEOUT_THRESHOLD: wire_stats and a falling
+     loss; (c) StaleGradientTrainer for SCALEOUT_STALE_STEPS steps plus
+     flush() against the delayed-gradient oracle (plain steps applying
+     the previous step's gradient), per-step losses within STEP_TOL;
+     (d) tests/fixtures/torch/scaleout_worker.py's gang of 2 ranks over
+     gloo, once with CUDA tensors on the one card and once on the CPU
+     (kernel-free nets: conv + BatchNorm with differing batch halves for
+     plain dp, a dense net for local SGD k=2 and for ZeRO-1; batch
+     SCALEOUT_GANG_BATCH, SCALEOUT_GANG_STEPS steps): card against CPU
+     within SCALEOUT_GANG_TOL, ZeRO-1 against the unsharded 2-rank run
+     bit for bit on the card; (e) parallel/dcn_model.crossover_report fed
+     (a)'s measured ms/step and the flagship's f32 parameter bytes (its
+     link constants describe a TPU slice's DCN, not this card's links);
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -333,6 +363,10 @@ Phases, in order; any failure exits non-zero:
      memory, not from L2;
   7. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+`--nccl-gang N` (a machine with N cards) runs only the tests' gang of N
+ranks over NCCL, one card per rank, against the same gang over gloo on
+the CPU (`nccl_gang`), then the last line.
 
 Imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port package beside it, it exits non-zero and
@@ -345,6 +379,7 @@ import json
 import os
 import random
 import shutil
+import socket
 import struct
 import subprocess
 import sys
@@ -532,6 +567,16 @@ LOGP_TOL = {"served": 0.3, "bf16_vs_torch": 0.3, "bf16_vs_f32": 1.0,
 ROUTE_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 STEP_TOL = {"float32": {"loss": 1e-6, "overall": 1e-2},
             "bfloat16": {"loss": 1e-3}}
+# phase 5m: data-parallel scale-out and ZeRO-1 at world 1 on the flagship,
+# and the 2-rank gloo gang of the tests on the one card. The gang's card
+# against its CPU run: f32 with TF32 off on both, three small nets; a
+# CUDA reduction order against the CPU's, so rtol 1e-4 / atol 1e-5.
+SCALEOUT_STEPS = 20            # timed steps of each TrainingMaster fit
+SCALEOUT_THRESHOLD = 1e-3      # (b)'s threshold compression
+SCALEOUT_STALE_STEPS = 8
+SCALEOUT_GANG_BATCH = 64
+SCALEOUT_GANG_STEPS = 10
+SCALEOUT_GANG_TOL = {"rtol": 1e-4, "atol": 1e-5}
 # phase 5h: Keras import and data. The seven Keras fixtures against their
 # expected outputs at tests/test_modelimport.py's bars; canonical Keras
 # VGG16 (BASELINE config 4, bench.py:506 bench_vgg16: batch 32, frozen
@@ -573,7 +618,7 @@ DECODE_IDLE_STEPS = 30         # engine steps in the profiled window
 GPT2 = dict(vocab_size=50257, d_model=768, n_heads=12, n_layers=12,
             max_ctx=1024)
 GPT2_SLOTS, GPT2_PAGE = 32, 16
-GPT2_REQUESTS = 64
+GPT2_REQUESTS = 32             # one wave of the GPT2_SLOTS slots
 GPT2_PROMPT, GPT2_NEW = (64, 512), (32, 128)
 GPT2_PREFILLS = 4              # chunk dispatches per engine step
 GPT2_ORACLE = 4                # requests checked against sequential_decode
@@ -8272,6 +8317,580 @@ def nlp_phase(torch, np, pc, card):
 # ------------------------------------------------------------ phase 6
 
 
+def free_port():
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def scaleout_fit(torch, pc, tm, batch_fn, start, steps):
+    """`tm.fit` from `start` for `steps` steps, timed by the host clock
+    up to a CUDA sync, with the kernel launch counters zeroed before it:
+    (ms per step, launches)."""
+    torch.cuda.synchronize()
+    pc.reset_launch_counts()
+    t0 = time.perf_counter()
+    tm.fit(batch_fn, start + steps, start_step=start)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = pc.launch_counts()
+    return ms, {n: counts[n] for n in pc.LAUNCHES}
+
+
+def nccl_kernels(torch, fn):
+    """torch.profiler over `fn()`: the NCCL kernels the device ran
+    ({name: count}), and the device ms they took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    out, ms = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "nccl" in e.key.lower():
+            out[e.key[:60]] = e.count
+            ms += dev(e) / 1e3
+    return out, ms
+
+
+def shard_projection(leaves_, dp):
+    """The updater state's bytes under the ZeRO-1 policy at `dp`: (sharded
+    bytes, replica bytes, full bytes) and the sharded leaves' shapes by
+    kind — what a gang of `dp` ranks would hold per rank."""
+    from deeplearning4j_tpu_torch.engine.sharding import zero1_leaf_sharded
+
+    full = sharded = 0
+    kinds = {}
+    for t in leaves_:
+        b = t.numel() * t.element_size()
+        full += b
+        on = zero1_leaf_sharded(tuple(t.shape), dp)
+        kind = "conv kernels" if t.ndim == 4 else (
+            "matrices" if t.ndim == 2 else "vectors")
+        k = kinds.setdefault(kind, {"leaves": 0, "sharded": 0})
+        k["leaves"] += 1
+        k["sharded"] += int(on)
+        if on:
+            sharded += b
+    return {"dp": dp, "full_bytes": full,
+            "replica_bytes": full - sharded + sharded // dp,
+            "replica_fraction": (full - sharded + sharded // dp) / full,
+            "by_kind": kinds}
+
+
+def scaleout_zero1(torch, np, pc, ResNet50, card, tmp):
+    """Phase 5m (a): unsharded run_group(GROUP_K) against ZeRO-1 on the
+    flagship at world 1 over NCCL (module docstring)."""
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster, collectives
+
+    res = {}
+    _, batch_fn = tm_data(np, 70, TRAIN_BATCH)
+    k, n = GROUP_K, SCALEOUT_STEPS
+    ref = flagship(ResNet50, "pallas")
+    tm_ref = TrainingMaster(ref, steps_per_dispatch=k)
+    tm_ref.fit(batch_fn, k)
+    bare_ms, _ = scaleout_fit(torch, pc, tm_ref, batch_fn, k, n)
+    net = flagship(ResNet50, "pallas")
+    tm = TrainingMaster(net, sharding="zero1", steps_per_dispatch=k,
+                        checkpoint_dir=os.path.join(tmp, "zero1"))
+    prog = tm._harness.program
+    tm.fit(batch_fn, k)
+    z_ms, launches = scaleout_fit(torch, pc, tm, batch_fn, k, n)
+    res["launches"] = launches
+    res["params"] = ref.num_params()
+    at = k + n
+    same, count, diff = same_bits(torch, ref, net)
+    coll = {str(key[1]): c for key, c in prog.group_collectives().items()}
+    res["bitwise"] = {"tensors": count, "differ": diff}
+    res["ms_per_step"] = {"zero1": z_ms, "run_group": bare_ms}
+    res["collectives_per_replay"] = coll
+    log(f"scaleout (a) zero1 vs unsharded run_group({k}) after {at} steps: "
+        f"{count} tensors, {diff} differ; ms/step zero1 {z_ms:.3f} against "
+        f"run_group({k}) {bare_ms:.3f} ({z_ms / bare_ms:.3f}x; host clock "
+        f"over {n} steps, the input pipeline on); collectives per replay "
+        f"{coll}; kernel launches {launches} [{card}]")
+    if not same:
+        fail("scaleout (a): ZeRO-1 differs from the unsharded run_group")
+    for name, c in launches.items():
+        if c <= 0:
+            fail(f"scaleout (a): {name} was not launched by the zero1 fit")
+    if not coll or not all(c.get("all_reduce", 0) >= k
+                           for c in coll.values()):
+        fail(f"scaleout (a): the captured zero1 group holds no NCCL "
+             f"collective per step: {coll}")
+    kernels, nccl_ms = nccl_kernels(
+        torch, lambda: tm.fit(batch_fn, at + k, start_step=at))
+    tm_ref.fit(batch_fn, at + k, start_step=at)
+    at += k
+    res["profiled_replay"] = {"nccl_kernels": kernels, "nccl_ms": nccl_ms}
+    log(f"scaleout (a) one profiled replay ({k} steps): NCCL kernels "
+        f"{kernels}, {nccl_ms:.3f} ms device (a world-1 NCCL all-reduce "
+        f"may run as a device copy, with no NCCL kernel) [{card}]")
+    # the policy at world 1 and what it would shard in a gang
+    mgr = tm._mesh_mgr
+    facts = mgr.memory_facts(net.updater_states)
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    proj = {dp: shard_projection(leaves(net.updater_states), dp)
+            for dp in (2, 8)}
+    res["memory_facts"] = facts
+    res["projection"] = proj
+    log(f"scaleout (a) memory_facts at world 1: {facts}; the policy at "
+        f"dp 2: {proj[2]}; at dp 8: {proj[8]}")
+    # NCCL's reduce-scatter and all-gather at world 1: copies
+    v = torch.arange(4096, dtype=torch.float32, device=DEV)
+    rs_ok = torch.equal(collectives.reduce_scatter(v), v)
+    ag_ok = torch.equal(collectives.all_gather(v), v)
+    res["nccl_rs_ag_identity"] = rs_ok and ag_ok
+    if not (rs_ok and ag_ok):
+        fail("scaleout (a): NCCL reduce-scatter/all-gather at world 1 are "
+             "not the identity")
+    # save, then a fresh master's restore and GROUP_K more steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tm.save_checkpoint(at)
+    save_s = time.perf_counter() - t0
+    d = tm.checkpoint_dir
+    sizes = {f: os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+             if f.endswith(".npz")}
+    tm.fit(batch_fn, at + k, start_step=at)
+    del ref, tm_ref
+    torch.cuda.empty_cache()
+    net2 = flagship(ResNet50, "pallas")
+    tm2 = TrainingMaster(net2, sharding="zero1", steps_per_dispatch=k,
+                         checkpoint_dir=d)
+    t0 = time.perf_counter()
+    tm2.load_checkpoint_at(at)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    tm2.fit(batch_fn, at + k, start_step=at)
+    torch.cuda.synchronize()
+    same, count, diff = same_bits(torch, net, net2)
+    res["checkpoint"] = {"save_s": save_s, "restore_s": restore_s,
+                         "files": sizes, "step": at, "tensors": count,
+                         "differ": diff, "reshards": mgr.reshards}
+    log(f"scaleout (a) checkpoint at step {at}: save {save_s:.3f} s "
+        f"(gather + main + sidecar), restore {restore_s:.3f} s, files "
+        f"{sizes}; {k} more steps after the restore against the "
+        f"uninterrupted run: {count} tensors, {diff} differ [{card}]")
+    if not same:
+        fail("scaleout (a): the restored ZeRO-1 run differs from the "
+             "uninterrupted one")
+    del net, net2, tm, tm2, prog
+    torch.cuda.empty_cache()
+    return res
+
+
+class GroupLosses:
+    """A listener keeping the net's loss after each local-SGD group."""
+
+    def __init__(self):
+        self.losses = []
+
+    def iteration_done(self, net, iteration):
+        self.losses.append(float(net.score()))
+
+
+def scaleout_local_sgd(torch, np, ResNet50, card, ref_state):
+    """Phase 5m (b): ParallelWrapper(averaging_frequency=GROUP_K) at world
+    1 against the unsharded state after the same batches; then threshold
+    compression."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    res = {}
+    data, batch_fn = tm_data(np, 70, TRAIN_BATCH)
+    steps = GROUP_K + SCALEOUT_STEPS
+    batches = [batch_fn(s) for s in range(steps)]
+    net = flagship(ResNet50, "pallas")
+    t0 = time.perf_counter()
+    ParallelWrapper(net, averaging_frequency=GROUP_K).fit(batches)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    state = train_state(net)
+    diff = sum(1 for a, b in zip(state, ref_state)
+               if not bits_equal(torch, a, b))
+    res["local_sgd"] = {"steps": steps, "seconds": secs,
+                        "tensors": len(state), "differ": diff}
+    log(f"scaleout (b) ParallelWrapper(averaging_frequency={GROUP_K}) over "
+        f"{steps} batches of {TRAIN_BATCH} against the unsharded "
+        f"run_group({GROUP_K}) state: {len(state)} tensors, {diff} differ "
+        f"({secs:.2f} s, eager local steps) [{card}]")
+    if diff:
+        fail("scaleout (b): local SGD at world 1 differs from the plain "
+             "steps (the rendezvous of one rank must be an identity)")
+    del net, state
+    torch.cuda.empty_cache()
+    net = flagship(ResNet50, "pallas")
+    rec = GroupLosses()
+    net.listeners = [rec]
+    pw = ParallelWrapper(net, averaging_frequency=GROUP_K,
+                         threshold_compression=SCALEOUT_THRESHOLD)
+    pw.fit(batches)
+    wire = pw._local_step.wire_stats()
+    res["threshold"] = {"wire": wire, "group_losses": rec.losses}
+    log(f"scaleout (b) threshold_compression={SCALEOUT_THRESHOLD}: "
+        f"wire_stats {wire}; loss per rendezvous {rec.losses} [{card}]")
+    if not (all(np.isfinite(rec.losses))
+            and rec.losses[-1] < rec.losses[0]
+            and wire["rendezvous"] == steps // GROUP_K
+            and 0 < wire["compression_ratio"] < 1):
+        fail("scaleout (b): the compressed local SGD run did not train "
+             "(finite, falling loss, a compression ratio in (0, 1))")
+    del net, pw
+    torch.cuda.empty_cache()
+    return res
+
+
+def scaleout_stale(torch, np, ResNet50, card):
+    """Phase 5m (c): StaleGradientTrainer against the delayed-gradient
+    oracle on the flagship."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.nn.base_network import clip_grads
+    from deeplearning4j_tpu_torch.parallel import (
+        StaleGradientTrainer,
+        make_mesh,
+    )
+    from deeplearning4j_tpu_torch.util.tree import tree_map
+
+    data, batch_fn = tm_data(np, 71, TRAIN_BATCH)
+    batches = [batch_fn(s) for s in range(SCALEOUT_STALE_STEPS)]
+    net = flagship(ResNet50, "pallas")
+    tr = StaleGradientTrainer(net, make_mesh())
+    got = []
+    for x, y in batches:
+        got.append(float(tr.step(x, y)))
+    tr.flush()
+    torch.cuda.synchronize()
+    got_state = [t.float().clone() for t in train_state(net)]
+    del net, tr
+    torch.cuda.empty_cache()
+    ref = flagship(ResNet50, "pallas")
+    prog = StepProgram(ref)
+    want, prev = [], None
+    for x, y in batches + [(None, None)]:
+        params, upd, states = ref._train_carry()
+        sc = ref._step_scalars(ref.iteration)[0]
+        g = prev
+        if x is not None:
+            inputs, labels, lmasks, fmasks = prog._tensors(x, y, None, None)
+            grads, loss, states, _ = ref._grads(
+                params, states, inputs, labels, lmasks, fmasks)
+            with torch.no_grad():
+                prev = clip_grads(ref.conf, grads)
+            want.append(float(loss))
+        if g is None:
+            g = tree_map(torch.zeros_like, params)
+        with torch.no_grad():
+            params, upd = ref._apply_updates(params, upd, g, sc[0], sc[1])
+        ref._set_train_carry((params, upd, states))
+        if x is not None:
+            ref.iteration += 1
+    torch.cuda.synchronize()
+    ref_state = train_state(ref)
+    diff = sum(1 for a, b in zip(got_state, ref_state)
+               if not torch.equal(a, b.float()))
+    gaps = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want)]
+    worst = max(float(torch.max(torch.abs(a - b.float())))
+                for a, b in zip(got_state, ref_state))
+    res = {"steps": SCALEOUT_STALE_STEPS, "losses": got, "oracle": want,
+           "loss_gap": max(gaps), "tensors": len(got_state),
+           "differ": diff, "max_abs_state_diff": worst}
+    log(f"scaleout (c) StaleGradientTrainer, {SCALEOUT_STALE_STEPS} steps + "
+        f"flush against the delayed-gradient oracle: largest relative loss "
+        f"gap {max(gaps):.3e} (STEP_TOL {STEP_TOL['bfloat16']['loss']}), "
+        f"{diff} of {len(got_state)} state tensors differ (largest "
+        f"{worst:.3e}); losses {got} [{card}]")
+    if max(gaps) > STEP_TOL["bfloat16"]["loss"] or not np.isfinite(worst):
+        fail("scaleout (c): the stale trainer is not the delayed-gradient "
+             "oracle")
+    del ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def gang_inputs(np, io):
+    """The gang's inputs in the port's own terms (tests/fixtures/torch/
+    scaleout_worker.py reads them): kernel-free nets with seeded port
+    weights, seeded data at SCALEOUT_GANG_BATCH rows."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization,
+        ConvolutionLayer,
+        DenseLayer,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    confs = {
+        "conv": (NeuralNetConfiguration.Builder().seed(3).updater("sgd")
+                 .learning_rate(0.05).weight_init("xavier").list()
+                 .layer(ConvolutionLayer(kernel_size=(3, 3), n_out=4,
+                                         activation="relu"))
+                 .layer(BatchNormalization())
+                 .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+                 .layer(OutputLayer(n_out=3, loss="mcxent"))
+                 .set_input_type(InputType.convolutional(8, 8, 1)).build()),
+        "mlp8": (NeuralNetConfiguration.Builder().seed(7).updater("sgd")
+                 .learning_rate(0.1).activation("tanh").weight_init("xavier")
+                 .list().layer(DenseLayer(n_out=16))
+                 .layer(OutputLayer(n_out=4, loss="mcxent"))
+                 .set_input_type(InputType.feed_forward(8)).build()),
+        "adam24": (NeuralNetConfiguration.Builder().seed(7).updater("adam")
+                   .learning_rate(1e-2).activation("tanh")
+                   .weight_init("xavier").list()
+                   .layer(DenseLayer(n_out=24))
+                   .layer(OutputLayer(n_out=24, loss="mcxent"))
+                   .set_input_type(InputType.feed_forward(24)).build())}
+    spec = {"nets": {}, "helpers": {},
+            "steps": {"dp_conv": SCALEOUT_GANG_STEPS,
+                      "z1": SCALEOUT_GANG_STEPS}}
+    arrays = {}
+    for name, conf in confs.items():
+        net = MultiLayerNetwork(conf, device="cpu").init()
+        spec["nets"][name] = ["mln", conf.to_json()]
+        for prefix, tree in (("p", net.params), ("s", net.states)):
+            for i, t in enumerate(leaves(tree)):
+                arrays[f"{name}/{prefix}:{i}"] = t.numpy()
+    rng = np.random.default_rng(72)
+    b, n = SCALEOUT_GANG_BATCH, SCALEOUT_GANG_STEPS
+    onehot = lambda rows, c, *lead: np.eye(c, dtype=np.float32)[
+        rng.integers(0, c, lead + (rows,))]
+    x = rng.normal(size=(b, 8, 8, 1)).astype(np.float32)
+    x[b // 2:] = x[b // 2:] * 3 + 1          # the two dp halves differ
+    data = {"conv_x": x, "conv_y": onehot(b, 3),
+            "lsgd_x": rng.normal(size=(n, b, 8)).astype(np.float32),
+            "lsgd_y": onehot(b, 4, n),
+            "z_x": rng.normal(size=(max(n, 8), b, 24)).astype(np.float32),
+            "z_y": onehot(b, 24, max(n, 8))}
+    os.makedirs(io, exist_ok=True)
+    with open(os.path.join(io, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    np.savez(os.path.join(io, "nets.npz"), **arrays)
+    np.savez(os.path.join(io, "data.npz"), **data)
+
+
+def run_gangs(np, tmp, world, backend, only, wait_s=300.0):
+    """tests/fixtures/torch/scaleout_worker.py's gang of `world` ranks on
+    the card(s) (`backend` gloo: CUDA tensors on one card; nccl: one card
+    per rank) and the same gang over gloo on the CPU, at the same time,
+    over gang_inputs. Returns ({"card"|"cpu": rank 0's arrays},
+    {"card"|"cpu": rank 0's facts}, seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(here, "tests", "fixtures", "torch",
+                          "scaleout_worker.py")
+    ios, procs, logs = {}, [], []
+    t0 = time.perf_counter()
+    for which, dev, be in (("card", DEV, backend), ("cpu", "cpu", "gloo")):
+        io = ios[which] = os.path.join(tmp, f"gang-{which}-{world}")
+        os.makedirs(io, exist_ok=True)
+        gang_inputs(np, io)
+        port = free_port()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here
+        if be == "nccl":
+            env.setdefault("NCCL_DEBUG", "WARN")
+        for r in range(world):
+            log_f = open(os.path.join(io, f"log-{r}.txt"), "w")
+            logs.append(log_f)
+            procs.append(subprocess.Popen(
+                [sys.executable, worker, "--rank", str(r), "--world",
+                 str(world), "--port", str(port), "--io", io, "--device",
+                 dev, "--backend", be, "--only", only],
+                stdout=log_f, stderr=subprocess.STDOUT, env=env, cwd=here))
+    deadline = time.perf_counter() + wait_s
+    try:
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(1.0, deadline
+                                              - time.perf_counter())))
+            except subprocess.TimeoutExpired:
+                rcs.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    secs = time.perf_counter() - t0
+    if any(rcs):
+        tails = "".join(
+            open(os.path.join(io, f"log-{r}.txt")).read()[-3000:]
+            for io in ios.values() for r in range(world))
+        fail(f"scaleout gang of {world}: a rank failed {rcs}:\n{tails}")
+    out = {w: dict(np.load(os.path.join(io, "out-0.npz")))
+           for w, io in ios.items()}
+    facts = {}
+    for w, io in ios.items():
+        with open(os.path.join(io, "out-0.json")) as f:
+            facts[w] = json.load(f)
+    return out, facts, secs
+
+
+def gang_errors(np, out, scens):
+    """{scenario: largest |card - cpu| / (atol + rtol |cpu|)} under
+    SCALEOUT_GANG_TOL (<= 1 passes)."""
+    card, cpu = out["card"], out["cpu"]
+    errs = {}
+    for scen in scens:
+        keys = [k for k in cpu if k.startswith(scen + "/")]
+        errs[scen] = max(
+            float(np.max(np.abs(card[k] - cpu[k])
+                         / (SCALEOUT_GANG_TOL["atol"]
+                            + SCALEOUT_GANG_TOL["rtol"] * np.abs(cpu[k]))))
+            for k in keys)
+    return errs
+
+
+def bitwise_pair(np, arrays, a, b):
+    keys = [k for k in arrays if k.startswith(a + "/")]
+    return bool(keys) and all(
+        np.array_equal(arrays[k], arrays[b + k[len(a):]]) for k in keys)
+
+
+def scaleout_gang(torch, np, card, tmp):
+    """Phase 5m (d): the tests' 2-rank gloo gang, once with CUDA tensors
+    on the one card and once on the CPU, at the same time."""
+    out, _, secs = run_gangs(np, tmp, 2, "gloo", "dp_conv,lsgd,zero1")
+    errs = gang_errors(np, out, ("dp_conv", "lsgd", "z1", "dp_tm"))
+    z1_bitwise = bitwise_pair(np, out["card"], "z1", "dp_tm")
+    res = {"seconds": secs, "tol_ratio": errs, "zero1_bitwise": z1_bitwise}
+    log(f"scaleout (d) 2-rank gloo gang, CUDA tensors on the card against "
+        f"the CPU gang ({SCALEOUT_GANG_STEPS} steps at batch "
+        f"{SCALEOUT_GANG_BATCH}): largest |card - cpu| / (atol + rtol |cpu|)"
+        f" per scenario {errs} (<= 1 passes {SCALEOUT_GANG_TOL}); ZeRO-1 "
+        f"against the unsharded 2-rank run on the card bit for bit: "
+        f"{z1_bitwise}; both gangs {secs:.1f} s [{card}]")
+    if max(errs.values()) > 1.0 or not z1_bitwise:
+        fail("scaleout (d): the card's gang disagrees with the CPU gang, or "
+             "its ZeRO-1 with its unsharded run")
+    return res
+
+
+def nccl_gang(torch, np, card, world):
+    """`--nccl-gang N` (N cards): the tests' gang of N ranks over NCCL, one
+    card per rank, against the same gang over gloo on the CPU within
+    SCALEOUT_GANG_TOL, in two launches: (1) eager — per-step dp with
+    global BatchNorm statistics, local SGD k=2, ZeRO-1 with real
+    reduce-scatters and all-gathers (against the unsharded run: reported,
+    bit for bit only where the sums keep their order); (2) ZeRO-1's
+    run_group(4) with the collectives captured, against its eager k=1
+    steps."""
+    gap = lambda arrays, a, b: max(
+        float(np.max(np.abs(arrays[k] - arrays[b + k[len(a):]])))
+        for k in arrays if k.startswith(a + "/"))
+    res = {"world": world}
+    with tempfile.TemporaryDirectory() as tmp:
+        out, facts, secs = run_gangs(
+            np, os.path.join(tmp, "eager"), world, "nccl",
+            "dp_conv,lsgd,zero1", wait_s=150.0)
+        errs = gang_errors(np, out, ("dp_conv", "lsgd", "z1", "dp_tm"))
+        res["eager"] = {
+            "seconds": secs, "tol_ratio": errs,
+            "zero1_vs_unsharded": {
+                "bitwise": bitwise_pair(np, out["card"], "z1", "dp_tm"),
+                "max_abs": gap(out["card"], "z1", "dp_tm")},
+            "layout": facts["card"]["z1"]["layout"],
+            "memory": facts["card"]["z1"]["memory"]}
+        log(f"nccl gang (1) eager: {world} ranks over NCCL, one card each, "
+            f"against the same gang over gloo on the CPU: {res['eager']} "
+            f"[{card}]")
+        if max(errs.values()) > 1.0:
+            fail("nccl gang (1): the NCCL gang disagrees with the CPU gang")
+        out, facts, secs = run_gangs(
+            np, os.path.join(tmp, "groups"), world, "nccl", "zero1_groups",
+            wait_s=100.0)
+    errs = gang_errors(np, out, ("z1_k1", "z1_k4"))
+    coll = facts["card"]["z1_k4"]["collectives"]
+    res["groups"] = {"seconds": secs, "tol_ratio": errs,
+                     "k4_vs_k1": {
+                         "bitwise": bitwise_pair(np, out["card"], "z1_k4",
+                                                 "z1_k1"),
+                         "max_abs": gap(out["card"], "z1_k4", "z1_k1")},
+                     "collectives_per_replay": coll}
+    log(f"nccl gang (2) captured ZeRO-1 groups: {res['groups']} [{card}]")
+    if (max(errs.values()) > 1.0 or not coll
+            or not all(c.get("reduce_scatter", 0) >= 4
+                       and c.get("all_gather", 0) >= 4
+                       for c in coll.values())):
+        fail("nccl gang (2): the captured ZeRO-1 groups disagree with the "
+             "CPU gang, or hold no reduce-scatter/all-gather")
+    return res
+
+
+def scaleout_phase(torch, np, pc, ResNet50, card, det):
+    """Phase 5m (module docstring): (a)-(e) over one NCCL group of world
+    1, destroyed at the end."""
+    from deeplearning4j_tpu_torch.parallel import collectives, dcn_sweep
+
+    res = {}
+    parts = {}
+    torch.backends.cudnn.deterministic = det
+    collectives.init_process_group(f"127.0.0.1:{free_port()}", 1, 0,
+                                   device=DEV)
+    try:
+        log(f"scaleout: process group backend {collectives.backend()}, "
+            f"world {collectives.world_size()}")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            res["zero1"] = scaleout_zero1(torch, np, pc, ResNet50, card, tmp)
+            parts["a"] = time.perf_counter() - t0
+            # the unsharded state after GROUP_K + SCALEOUT_STEPS steps, for
+            # (b): recomputed by the plain run (cheaper than keeping it)
+            t0 = time.perf_counter()
+            from deeplearning4j_tpu_torch.parallel import TrainingMaster
+
+            _, batch_fn = tm_data(np, 70, TRAIN_BATCH)
+            ref = flagship(ResNet50, "pallas")
+            TrainingMaster(ref, steps_per_dispatch=GROUP_K).fit(
+                batch_fn, GROUP_K + SCALEOUT_STEPS)
+            ref_state = [t.clone() for t in train_state(ref)]
+            del ref
+            torch.cuda.empty_cache()
+            res["local_sgd"] = scaleout_local_sgd(torch, np, ResNet50, card,
+                                                  ref_state)
+            del ref_state
+            torch.cuda.empty_cache()
+            parts["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res["stale"] = scaleout_stale(torch, np, ResNet50, card)
+            parts["c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res["gang"] = scaleout_gang(torch, np, card, tmp)
+            parts["d"] = time.perf_counter() - t0
+    finally:
+        collectives.destroy_process_group()
+        torch.backends.cudnn.deterministic = False
+    # (e) the DCN model on the port's own measured inputs
+    ms = res["zero1"]["ms_per_step"]["zero1"]
+    param_bytes = res["zero1"]["params"] * 4
+    sweep = dcn_sweep(param_bytes, ms, [2, 4, 8, 16])
+    res["dcn"] = {"step_ms": ms, "param_bytes": param_bytes,
+                  "sweep": [{k: r[k] for k in (
+                      "n_slices", "exchange_ms", "sync_efficiency",
+                      "local_sgd_efficiency", "k_for_target")}
+                      for r in sweep]}
+    log(f"scaleout (e) dcn_model.crossover_report on the port's inputs "
+        f"(step {ms:.3f} ms from (a), {param_bytes} f32 parameter bytes; "
+        f"the model's default link is a TPU slice's DCN, 25 GB/s, 0.1 ms): "
+        f"{res['dcn']['sweep']}")
+    res["launches"] = res["zero1"]["launches"]
+    res["seconds_per_part"] = parts
+    log(f"scaleout phase: seconds per part {parts}")
+    return res
+
+
 def record_kernel_calls(torch, pc, run):
     """The kernel calls `run()` makes, with their shapes and flags."""
     calls = []
@@ -8459,6 +9078,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--nccl-gang", type=int, default=0, metavar="N",
+                    help="run only the N-card NCCL gang check (needs N "
+                         "cards) and exit")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 5h's Keras weights and data and of "
                          "phase 5i's requests and GPT-2-width weights")
@@ -8490,6 +9112,18 @@ def main():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+
+    if args.nccl_gang:
+        if torch.cuda.device_count() < args.nccl_gang:
+            fail(f"--nccl-gang {args.nccl_gang} needs that many cards; "
+                 f"{torch.cuda.device_count()} visible")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        nccl_gang(torch, np, card, args.nccl_gang)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     # 2. build
     t0 = time.perf_counter()
@@ -8626,6 +9260,14 @@ def main():
     nlp = nlp_phase(torch, np, pc, card)
     log(f"nlp phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5m. data-parallel scale-out and ZeRO-1: the flagship at world 1 over
+    # NCCL (ZeRO-1 against run_group, local SGD, the stale trainer), the
+    # tests' 2-rank gloo gang on the card, the DCN model on its numbers
+    t0 = time.perf_counter()
+    scaleout = scaleout_phase(torch, np, pc, ResNet50, card,
+                              engine["group_check"]["deterministic"])
+    log(f"scaleout phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -8691,6 +9333,7 @@ def main():
                 name, {"wgmma": 0, "simple": 0}),
             "cluster_launches": cluster["launches"][name],
             "nlp_launches": nlp["launches"][name],
+            "scaleout_launches": scaleout["launches"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -8705,7 +9348,8 @@ def main():
                        "tm": tm, "obs": obs, "rnn": rnn, "zoo": zoo,
                        "keras": keras, "decode": decode,
                        "control": control, "cluster": cluster,
-                       "clustering": clustering, "nlp": nlp},
+                       "clustering": clustering, "nlp": nlp,
+                       "scaleout": scaleout},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -8729,7 +9373,9 @@ def main():
         f"oracle's {CLUSTER_STEPS} steps and each drill's relaunched "
         f"{CLUSTER_STEPS - 2 * GROUP_K}; counted in the worker processes), "
         "nlp_launches from phase 5l (the embedding trainers and graph "
-        "embeddings)")
+        "embeddings), scaleout_launches from phase 5m's timed "
+        f"{SCALEOUT_STEPS}-step ZeRO-1 TrainingMaster fit at "
+        f"steps_per_dispatch={GROUP_K} (world 1, NCCL)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,9 @@ the JAX package's zips both ways), batched serving
 whose run_group replays a CUDA graph of k captured steps; StepHarness;
 the input pipeline), resilience/ (the non-finite guard, the step
 watchdog, the Supervisor), datasets/, earlystopping/, MultiLayerNetwork,
-TrainingMaster and ParallelWrapper on one card, observability
+TrainingMaster and ParallelWrapper (data parallelism over a
+process group, local SGD, ZeRO-1: parallel/, engine/mesh.py,
+engine/sharding.py), observability
 (observability/: metrics with Prometheus text, tracing, the phase
 profiler, the cost model; stats/: StatsListener and the dashboard;
 optimize/listeners.py), recurrent networks, the graph zoo with

@@ -2,8 +2,9 @@
 ParallelWrapper (counterpart of
 deeplearning4j_tpu/earlystopping/parallel_trainer.py; parity:
 deeplearning4j-scaleout-parallelwrapper EarlyStoppingParallelTrainer.java —
-same termination/saver semantics, training delegated to ParallelWrapper),
-on one card."""
+same termination/saver semantics, training delegated to ParallelWrapper
+over the live process group: `workers` (the world size), a `mesh`,
+`averaging_frequency`)."""
 
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
         return True
 
     def _fit_batch(self, batch):
-        # buffer to the wrapper's averaging frequency (one card: 1);
+        # buffer to the wrapper's averaging frequency;
         # wrapper.fit's epoch counter is neutralized (the trainer owns
         # the epoch count)
         self._group.append(batch)

@@ -8,12 +8,17 @@ hooks to train through ParallelWrapper."""
 
 from __future__ import annotations
 
+import contextlib
 import logging
+
+import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.earlystopping.config import (
     EarlyStoppingResult,
     TerminationReason,
 )
+from deeplearning4j_tpu_torch.util.tree import tree_map
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -21,7 +26,8 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 class EarlyStoppingTrainer:
     def __init__(self, config, net, train_iterator, guard=None,
                  snapshot_every: int = 0,
-                 pipeline=None, pipeline_depth: int = 2):
+                 pipeline=None, pipeline_depth: int = 2,
+                 sharding=None):
         """`guard` (resilience.NonFiniteGuard) checks the net after
         (sampled) training batches: a non-finite/spiking batch is
         skipped with the pre-batch state restored (policy='skip_step')
@@ -31,7 +37,14 @@ class EarlyStoppingTrainer:
         every N guarded batches is restored instead — no checkpoint
         directory required. `pipeline` (default on) stages the training
         batches through the harness's input pipeline
-        (engine/pipeline.IteratorPipeline) onto the net's device."""
+        (engine/pipeline.IteratorPipeline) onto the net's device.
+        `sharding="zero1"` routes `_fit_batch` through the ZeRO-1 step
+        (engine/sharding.py) over the live process group: optimizer state
+        sharded over the ranks, each rank training on its rows of every
+        (padded) batch, the savers handed the whole state."""
+        if sharding not in (None, "replicated", "zero1"):
+            raise ValueError(
+                f"sharding must be None|'replicated'|'zero1': {sharding}")
         self._snapshotter = None
         if guard is not None and guard.policy == "rollback":
             if snapshot_every <= 0:
@@ -57,6 +70,12 @@ class EarlyStoppingTrainer:
         self._harness = StepHarness(net, guard=guard,
                                     snapshotter=self._snapshotter)
         self.guard = self._harness.guard
+        self._mesh_mgr = None
+        if sharding == "zero1":
+            from deeplearning4j_tpu_torch.engine.mesh import MeshManager
+
+            self._mesh_mgr = MeshManager()
+            self._harness.program.attach_mesh(self._mesh_mgr)
 
     def _pipeline_enabled(self) -> bool:
         return True if self.pipeline is None else bool(self.pipeline)
@@ -71,7 +90,22 @@ class EarlyStoppingTrainer:
         """One training batch through the shared StepProgram (full
         fit_batch semantics); EarlyStoppingParallelTrainer overrides it
         to route through ParallelWrapper. Uses the fit_batch path so the
-        net's epoch counter stays under THIS trainer's control."""
+        net's epoch counter stays under THIS trainer's control. Under
+        ZeRO-1 over more than one rank, the rank's rows of the padded
+        batch."""
+        mgr = self._mesh_mgr
+        if mgr is not None and mgr.dp > 1:
+            from deeplearning4j_tpu_torch.nn.multilayer import _as_batch
+            from deeplearning4j_tpu_torch.parallel.sharding import (
+                pad_batch_with_masks,
+                shard_batch,
+            )
+
+            host = lambda a: None if a is None else (
+                a.detach().cpu().numpy() if hasattr(a, "detach")
+                else np.asarray(a))
+            batch = shard_batch(mgr.mesh, pad_batch_with_masks(
+                mgr.dp, *(host(a) for a in _as_batch(batch))))
         self._harness.program.run_batch(batch)
 
     def _fit_batch_guarded(self, batch) -> bool:
@@ -84,6 +118,26 @@ class EarlyStoppingTrainer:
         return self._harness.guarded(
             lambda: self._fit_batch(batch),
             context=f"at epoch {self.net.epoch}", observe=False)
+
+    @contextlib.contextmanager
+    def _whole_state(self):
+        """Under ZeRO-1 the net's updater state is this rank's slices:
+        within the block it is the whole state (gathered over the ranks),
+        as a saver expects; the slices come back after."""
+        mgr = self._mesh_mgr
+        if mgr is None or mgr.dp == 1:
+            yield
+            return
+        net = self.net
+        sliced, layout = net.updater_states, list(mgr.layout)
+        net.updater_states = tree_map(
+            lambda a: torch.from_numpy(a).to(net.device),
+            mgr.gather_tree(sliced, layout))
+        try:
+            yield
+        finally:
+            net.updater_states = sliced
+            mgr.layout = layout
 
     def _on_epoch_data_end(self):
         """Hook after the epoch's batch loop (the parallel trainer
@@ -169,9 +223,11 @@ class EarlyStoppingTrainer:
                 if best_score is None or score < best_score:
                     best_score = score
                     best_epoch = epoch
-                    cfg.model_saver.save_best_model(net, score)
+                    with self._whole_state():
+                        cfg.model_saver.save_best_model(net, score)
                 if cfg.save_last_model:
-                    cfg.model_saver.save_latest_model(net, score)
+                    with self._whole_state():
+                        cfg.model_saver.save_latest_model(net, score)
                 for c in cfg.epoch_termination_conditions:
                     if c.terminate(epoch, score):
                         reason = TerminationReason.EPOCH_TERMINATION

@@ -28,7 +28,12 @@ program + ONE host supervisor.
                 batched decode step, the chunk prefill and the page
                 copy — run eagerly, updating the pool in place.
 
-The mesh/sharding subsystem (ZeRO-1) waits (ROADMAP queue 9).
+  mesh          MeshManager (engine/mesh.py): the live dp mesh over the
+                process group and the ZeRO-1 placement policy;
+  sharding      the ZeRO-1 slice arithmetic (numpy, shared with the
+                checkpoints) and the sharded train step
+                (engine/sharding.py), which `StepProgram.attach_mesh`
+                routes every grouping through.
 """
 
 from deeplearning4j_tpu_torch.engine.decode_program import DecodeProgram
@@ -44,5 +49,8 @@ from deeplearning4j_tpu_torch.engine.step_program import (
     make_loss_and_apply,
 )
 
+from deeplearning4j_tpu_torch.engine.mesh import MeshManager  # noqa: E402
+
 __all__ = ["DecodeProgram", "StepProgram", "StepHarness", "make_loss_and_apply",
-           "StepPrefetcher", "IteratorPipeline", "stack_staged", "SKIPPED"]
+           "StepPrefetcher", "IteratorPipeline", "stack_staged", "SKIPPED",
+           "MeshManager"]

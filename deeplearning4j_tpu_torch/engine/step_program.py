@@ -47,6 +47,9 @@ How the captured group keeps the eager step's contract:
   - A warm-up step runs on a side stream before capture, so the kernels
     are built and loaded and autograd's buffers exist; if capture fails,
     run_group raises — it never runs eager steps in place of the graph.
+    The cyclic garbage collector runs just before the capture and not
+    during it: a dead object holding another group's graph, finalized
+    mid-capture, would destroy that graph where CUDA forbids it.
   - Dropout: the masks come from the net's own generator, registered
     with each graph (`CUDAGraph.register_generator_state`), so every
     replay draws new masks and advances the generator exactly as k
@@ -66,12 +69,32 @@ How the captured group keeps the eager step's contract:
 observability.perf.CostModel: the k=1 step, or a captured `run_group(k)`
 group (the counterpart of the JAX package's JitCache entry).
 
-Not ported yet: `attach_mesh` (ZeRO-1, ROADMAP queue 9), `lint_records`
-(queue 10) and `trainer_program` (queue 9).
+Data parallelism (parallel/collectives.py):
+  - per-step dp: a net with a dp group attached (`net._dp`, world > 1)
+    averages its gradients in its own `_step` (one packed all-reduce) and
+    computes BatchNorm statistics and the loss's row count over the
+    global batch; `run_group` captures those collectives with the k steps
+    (NCCL at world 1 only: a gloo group cannot be captured, and NCCL
+    collectives captured at world > 1 hung (ROADMAP F11), so on CUDA
+    run_group raises for both; on the CPU the body runs directly);
+  - `attach_mesh(manager)` (engine/mesh.py MeshManager) routes `run`,
+    `run_batch` and `run_group` through the ZeRO-1 step
+    (engine/sharding.py): the net leaves the flat carry, its updater
+    state is cut to this rank's slices, and every step reduce-scatters,
+    updates the slices and all-gathers;
+  - before the first capture with an NCCL group, one all-reduce runs on
+    the capture stream (`collectives.warm_up`), and each captured group
+    records the collectives it holds (`group_collectives()`);
+  - `trainer_program(kind, build, *key)`: the local-SGD and stale
+    trainers' programs (parallel/wrapper.py) are built and cached here,
+    keyed with the frozen signature, as in the JAX package.
+
+Not ported yet: `lint_records` (ROADMAP queue 10c).
 """
 
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -79,6 +102,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.helpers import pallas_conv
 from deeplearning4j_tpu_torch.nn.jit_cache import describe_signature
+from deeplearning4j_tpu_torch.parallel import collectives
 from deeplearning4j_tpu_torch.resilience.errors import StepHangError
 from deeplearning4j_tpu_torch.util.tree import clone, leaves, tree_map
 
@@ -128,9 +152,17 @@ class _CapturedGroup:
         if gen is not None:
             gen.set_state(rng)
         before = pallas_conv.launch_counts()
+        coll0 = dict(collectives.COUNTS)
         self.graph = torch.cuda.CUDAGraph()
         if gen is not None:
             self.graph.register_generator_state(gen)
+        # a garbage collection inside the capture could finalize a dead
+        # object holding another CUDA graph, whose cudaGraphExecDestroy is
+        # not permitted while this stream captures (it invalidates the
+        # capture): collect before it, and none during it
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: an input pipeline's producer thread may pin
             # host memory while this thread captures
@@ -144,6 +176,11 @@ class _CapturedGroup:
                 "run_group: capturing the k-step group into a CUDA graph "
                 f"failed ({type(e).__name__}: {e}); nothing ran") from e
         finally:
+            if gc_on:
+                gc.enable()
+            self.collectives = {k: collectives.COUNTS[k] - coll0[k]
+                                for k in coll0
+                                if collectives.COUNTS[k] != coll0[k]}
             after = pallas_conv.launch_counts()
             # capture records the launches; each replay makes them
             self.launches = {k: after[k] - before[k] for k in after
@@ -182,15 +219,61 @@ class StepProgram:
         self.last_step_losses = None
         self._groups = {}
         self._pool = None   # the graph pool every group captures into
+        # engine/mesh.py MeshManager once attach_mesh routed the program
+        # through the ZeRO-1 step
+        self.mesh_manager = None
         # capture cost, replay count and eager-run windows of the groups
         self.group_stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
                             "eager_windows": 0}
 
     # ------------------------------------------------------------ mesh
     def attach_mesh(self, manager) -> "StepProgram":
-        raise NotImplementedError(
-            "ZeRO-1 mesh sharding (attach_mesh) is not ported yet "
-            "(ROADMAP queue 9); train unsharded")
+        """Route this program through the ZeRO-1 step (engine/sharding.py)
+        over `manager`'s dp group: the net leaves the flat carry (its one
+        vector would be gathered whole), its updater state is cut to this
+        rank's slices (`manager.shard_tree`, which records the layout), and
+        `run` / `run_batch` / `run_group` step through the sharded update.
+        Idempotent for the same manager."""
+        from deeplearning4j_tpu_torch.engine.mesh import MeshManager
+        from deeplearning4j_tpu_torch.engine.sharding import build_zero1_step
+
+        if not isinstance(manager, MeshManager):
+            raise TypeError("attach_mesh takes an engine.mesh.MeshManager, "
+                            f"got {type(manager).__name__}")
+        if self.is_tbptt:
+            raise NotImplementedError(
+                "ZeRO-1 mesh sharding does not support truncated BPTT "
+                "(per-chunk host carries); train unsharded")
+        if self.mesh_manager is manager:
+            return self
+        net = self.net
+        if not net._initialized():
+            net.init()
+        net._materialize_flat()
+        net._flat_chain = None
+        net.updater_states = manager.shard_tree(net.updater_states)
+        net._dp = None
+        # run, run_batch and run_group's body step through it
+        net._step_impl = build_zero1_step(net, manager)
+        self.mesh_manager = manager
+        return self
+
+    # -------------------------------------- engine-owned trainer programs
+    def trainer_program(self, kind: str, build, *key_extra):
+        """The local-SGD and stale trainers' programs (parallel/wrapper.py),
+        built once per `(kind, *key_extra, frozen signature)` key by
+        `build(trace_key)` and kept in the net's JitCache with the
+        program's precision policy registered — one compilation owner for
+        every training program, as in the JAX package."""
+        from deeplearning4j_tpu_torch.nn.jit_cache import policy_name
+
+        cache = self.net._jit_cache
+        key = (kind,) + tuple(key_extra) + (self._frozen_sig(),)
+        if key not in cache:
+            cache[key] = build(str(key))
+            cache.register_policy(
+                key, policy_name(getattr(self.net, "compute_dtype", None)))
+        return cache[key]
 
     # ------------------------------------------------------ validation
     def require_sgd(self, entry: str) -> None:
@@ -219,8 +302,9 @@ class StepProgram:
 
     def run(self, x, y, fm=None, lm=None):
         """One training step on a canonical (x, y[, fm, lm]) batch — for a
-        truncated-BPTT net on a 3-D batch, one step per chunk. Returns the
-        (last) device loss (0-d tensor, no host sync)."""
+        truncated-BPTT net on a 3-D batch, one step per chunk; through the
+        ZeRO-1 step once a mesh is attached (the net's `_step_impl`).
+        Returns the (last) device loss (0-d tensor, no host sync)."""
         return self.net._fit_one(*self._tensors(x, y, fm, lm))
 
     def run_batch(self, batch):
@@ -242,22 +326,27 @@ class StepProgram:
         plan = net._helper_plan()
         sig = lambda ts: repr(tree_map(
             lambda t: (tuple(t.shape[1:]), str(t.dtype)), ts))
+        dp = getattr(net, "_dp", None)
+        mesh = (None if self.mesh_manager is None
+                else ("zero1",) + self.mesh_manager.cache_token())
         return ("engine_group", sig(inputs), sig(labels), sig(lmasks),
                 sig(fmasks), self._frozen_sig(),
                 "none" if plan is None else plan.impl,
-                str(net.compute_dtype), flat, net._has_dropout())
+                str(net.compute_dtype), flat, net._has_dropout(),
+                None if dp is None else dp.world, mesh)
 
     def _group_body(self, carry, inputs, labels, lmasks, scalars,
                     fmasks=None, steps=None):
         """`steps` (default: all k) calls of the net's `_step` over the
         stacked inputs. Returns (carry, [steps] losses)."""
         net = self.net
+        step = getattr(net, "_step_impl", None) or net._step
         k = scalars.shape[0] if steps is None else steps
         losses = []
         for i in range(k):
             at = lambda ts: tree_map(lambda t: t[i], ts)
-            carry, loss, _ = net._step(carry, at(inputs), at(labels),
-                                       at(lmasks), scalars[i], at(fmasks))
+            carry, loss, _ = step(carry, at(inputs), at(labels),
+                                  at(lmasks), scalars[i], at(fmasks))
             losses.append(loss)
         return carry, torch.stack(losses)
 
@@ -271,8 +360,23 @@ class StepProgram:
             return grp
         if any(gk == key and gn > k for gk, gn in self._groups):
             return None
+        if self.mesh_manager is not None \
+                or getattr(net, "_dp", None) is not None:
+            if collectives.backend() == "gloo":
+                raise RuntimeError(
+                    "run_group: a gloo process group's collectives cannot "
+                    "be captured into a CUDA graph; use an NCCL group on "
+                    "CUDA (or steps_per_dispatch=1)")
+            if collectives.world_size() > 1:
+                raise NotImplementedError(
+                    "run_group: capturing NCCL collectives at world > 1 "
+                    "hung on four H100s (ROADMAP queue 3, F11; queue 9c); "
+                    "use steps_per_dispatch=1 over more than one rank")
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+            # NCCL builds its communicator's stream state lazily: never
+            # inside the first capture
+            collectives.warm_up(net.device)
         while len(self._groups) >= MAX_GROUPS:
             del self._groups[next(iter(self._groups))]
         t0 = time.perf_counter()
@@ -405,6 +509,11 @@ class StepProgram:
                   "aten op's inputs+outputs")
         return cost_model.register_counted(
             key, at("flops"), at("bytes_accessed"), source)
+
+    def group_collectives(self):
+        """{(group key, k): {collective kind: calls}} one replay of each
+        captured group issues (empty for a group without collectives)."""
+        return {key: dict(g.collectives) for key, g in self._groups.items()}
 
     def group_launches(self):
         """{(group key, k): kernel launches one replay makes} of the

@@ -121,14 +121,32 @@ def batch_loss(conf, per_ex, label_mask=None):
     """An output layer's per-example loss reduced as the JAX package
     reduces it: the mean over the batch (`minibatch`), or with a label
     mask the sum over the number of active examples (rows with any
-    unmasked element), so fully masked padding rows do not dilute it."""
+    unmasked element), so fully masked padding rows do not dilute it.
+
+    Under per-step data parallelism (a `collectives.dp_scope` of world
+    W > 1) each rank holds its equal share of the global batch and the
+    ranks' losses and gradients are averaged, so a rank returns W times
+    its share of the GLOBAL loss: its masked sum over the global count of
+    active rows (one all-reduce), or its sum without `minibatch`; the
+    unmasked mean over equal shares needs no change."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    dp = collectives.current()
+    w = 1 if dp is None else dp.world
     if label_mask is not None:
         lm = label_mask
         active = lm if lm.ndim == 1 else torch.any(lm > 0, dim=1).to(lm.dtype)
         s = per_ex.sum()
-        return s / torch.clamp_min(active.sum(), 1.0) if conf.minibatch \
-            else s
-    return per_ex.mean() if conf.minibatch else per_ex.sum()
+        if not conf.minibatch:
+            return s * w if w > 1 else s
+        n = active.sum()
+        if w > 1:
+            n = collectives.all_reduce_sum(n.detach().clone())
+            return s * w / torch.clamp_min(n, 1.0)
+        return s / torch.clamp_min(n, 1.0)
+    if conf.minibatch:
+        return per_ex.mean()
+    return per_ex.sum() * w if w > 1 else per_ex.sum()
 
 
 def _rng_seed(seed: int) -> int:
@@ -136,6 +154,22 @@ def _rng_seed(seed: int) -> int:
     0xBEEF (the JAX package folds its dropout chain the same way), so
     masks and initial weights come from different streams."""
     return (int(seed) * 0x9E3779B97F4A7C15 + 0xBEEF) % (1 << 63)
+
+
+def _dp_mean(grads, loss):
+    """Per-step dp: the gradients (one flat tensor on the flat carry, else
+    a per-layer tree, None leaves skipped) and the loss averaged over the
+    ranks in ONE all-reduce of a packed bucket. Returns (grads, loss)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    gl = leaves(grads)
+    dt = gl[0].dtype if gl else loss.dtype
+    buf = collectives.dp_all_reduce_mean(torch.cat(
+        [g.reshape(-1).to(dt) for g in gl]
+        + [loss.detach().reshape(1).to(dt)]))
+    parts = torch.split(buf, [g.numel() for g in gl] + [1])
+    out = [p.view(g.shape).to(g.dtype) for p, g in zip(parts, gl)]
+    return unflatten(grads, out)[0], parts[-1][0].to(loss.dtype)
 
 
 class BaseNetwork:
@@ -166,6 +200,11 @@ class BaseNetwork:
         self.listeners: List = []
         self._last_etl_ms = None
         self._last_batch_size = None
+        # per-step data parallelism (parallel/collectives.py): the dp
+        # group whose ranks average this net's gradients each step (None:
+        # one process); a ZeRO-1 attach replaces the step itself
+        self._dp = None
+        self._step_impl = None
         self._jit_cache = JitCache()
         self._jit_cache["predict"] = self._predict_program()
         self._jit_cache.register_policy("predict",
@@ -482,20 +521,17 @@ class BaseNetwork:
                      else t.detach().requires_grad_(), params[k])
             for k, _ in self._layer_items()])
 
-    def _step(self, carry, inputs, labels, lmasks, scalars, fmasks=None,
-              rnn_carries=None):
-        """ONE train step on an explicit carry — the step math every
-        caller shares (`run`, `run_group`, each truncated-BPTT chunk):
-        forward (`_loss_for_grad`), `torch.autograd.grad`, `clip_grads`
-        and the update (`_apply_updates`). `scalars` is one row of
-        `_step_scalars` ([2]: lr, step index, as tensors, so no Python
-        number of the step reaches a kernel); `fmasks` the feature masks,
-        `rnn_carries` the recurrent layers' carries to start from (None:
-        zeros). Returns (new carry, loss, new RNN carries, detached);
-        reads no value back to the host, allocates only on the device,
-        and of the net's state touches only the dropout generator, which
-        its masks advance."""
-        params, upd, states = carry
+    def _grads(self, params, states, inputs, labels, lmasks, fmasks=None,
+               rnn_carries=None, dp=None):
+        """Forward (`_loss_for_grad`) and `torch.autograd.grad` on `params`
+        (the carry's: one flat tensor or the per-layer trees), BatchNorm
+        statistics and the loss's row count global over `dp` (a
+        collectives.DPGroup; None: this rank's batch alone). Returns
+        (grads, loss, new_states, new RNN carries): grads one flat tensor
+        or the per-layer tree with None for frozen leaves, unclipped and
+        not averaged over ranks."""
+        from deeplearning4j_tpu_torch.parallel import collectives
+
         flat = isinstance(params, torch.Tensor)
         if flat:
             leaf = params.detach().requires_grad_()
@@ -503,27 +539,49 @@ class BaseNetwork:
         else:
             leaf = self._grad_leaves(params)
             ps = [t for t in leaves(leaf) if t.requires_grad]
-        with torch.enable_grad():
+        with torch.enable_grad(), collectives.dp_scope(dp):
             loss, new_states, new_rnn = self._loss_for_grad(
                 self._flat_chain.unravel(leaf) if flat else leaf, states,
                 inputs, labels, lmasks, fmasks, rnn_carries)
             gs = (torch.autograd.grad(loss, ps, allow_unused=True)
                   if ps else ())
+        gs = iter([torch.zeros_like(p) if g is None else g
+                   for p, g in zip(ps, gs)])
+        if flat:
+            grads = next(gs)
+        else:
+            # a frozen layer has no gradient: None leaves, which the
+            # clip passes over and the update never reads
+            grads = unflatten(leaf, [next(gs) if t.requires_grad
+                                     else None for t in leaves(leaf)])[0]
+        return grads, loss.detach(), new_states, new_rnn
+
+    def _step(self, carry, inputs, labels, lmasks, scalars, fmasks=None,
+              rnn_carries=None):
+        """ONE train step on an explicit carry — the step math every
+        caller shares (`run`, `run_group`, each truncated-BPTT chunk):
+        forward and `torch.autograd.grad` (`_grads`), under per-step data
+        parallelism (`_dp`, world > 1) the gradients and loss averaged
+        over the ranks in one all-reduce, `clip_grads` and the update
+        (`_apply_updates`). `scalars` is one row of `_step_scalars` ([2]:
+        lr, step index, as tensors, so no Python number of the step
+        reaches a kernel); `fmasks` the feature masks, `rnn_carries` the
+        recurrent layers' carries to start from (None: zeros). Returns
+        (new carry, loss, new RNN carries, detached); reads no value back
+        to the host, allocates only on the device, and of the net's state
+        touches only the dropout generator, which its masks advance."""
+        params, upd, states = carry
+        dp = getattr(self, "_dp", None)
+        grads, loss, new_states, new_rnn = self._grads(
+            params, states, inputs, labels, lmasks, fmasks, rnn_carries, dp)
         with torch.no_grad():
-            gs = iter([torch.zeros_like(p) if g is None else g
-                       for p, g in zip(ps, gs)])
-            if flat:
-                grads = next(gs)
-            else:
-                # a frozen layer has no gradient: None leaves, which the
-                # clip passes over and the update never reads
-                grads = unflatten(leaf, [next(gs) if t.requires_grad
-                                         else None for t in leaves(leaf)])[0]
+            if dp is not None and dp.world > 1:
+                grads, loss = _dp_mean(grads, loss)
             grads = clip_grads(self.conf, grads)
             new_p, new_u = self._apply_updates(params, upd, grads,
                                                scalars[0], scalars[1])
         new_rnn = tree_map(lambda t: t.detach(), new_rnn)
-        return (new_p, new_u, new_states), loss.detach(), new_rnn
+        return (new_p, new_u, new_states), loss, new_rnn
 
     def _train_step(self, inputs, labels, lmasks=None, fmasks=None,
                     rnn_carries=None):
@@ -532,7 +590,8 @@ class BaseNetwork:
         rows listeners read as `_last_batch_size`). Returns (loss, new RNN
         carries)."""
         self._last_batch_size = int(leaves(inputs)[0].shape[0])
-        carry, loss, new_rnn = self._step(
+        carry, loss, new_rnn = (getattr(self, "_step_impl", None)
+                                 or self._step)(
             self._train_carry(), inputs, labels, lmasks,
             self._step_scalars(self.iteration)[0], fmasks, rnn_carries)
         self._set_train_carry(carry)

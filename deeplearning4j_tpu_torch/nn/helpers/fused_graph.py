@@ -211,6 +211,20 @@ def fused_forward(net, params, states, inputs, *, train=False,
                 k = max(int(getattr(layer, "stat_sample", 1)), 1)
                 nb = (raw.shape[0] - 1) // k + 1       # sampled rows
                 count = nb * raw.shape[1] * raw.shape[2]
+                from deeplearning4j_tpu_torch.parallel import collectives
+
+                dp = collectives.current()
+                if dp is not None:
+                    # global statistics of a per-step dp group: dp_sum's
+                    # backward all-reduces the gradients that reach the
+                    # sums, so the fused backward runs unchanged
+                    if k > 1:
+                        raise NotImplementedError(
+                            "ghost-batch statistics (stat_sample > 1) "
+                            "under per-step data parallelism")
+                    ssum = collectives.dp_sum(ssum)
+                    ssq = collectives.dp_sum(ssq)
+                    count = count * dp.world
                 scale, shift, mean, var = bn_affine(
                     gamma, beta, ssum, ssq, count, layer.eps)
                 new_states[name] = st

@@ -8,7 +8,10 @@ package's rounding points. Inference reads the running statistics in
 for bf16/f16, two passes for f32) through `BNTrain`, an autograd Function
 with the JAX package's two-pass backward, or with the statistics of the
 leading ceil(B/k) rows (`stat_sample=k`, plain autograd); the running
-statistics follow an EMA computed outside autograd.
+statistics follow an EMA computed outside autograd. Under per-step data
+parallelism (a `parallel.collectives.dp_scope` of world > 1) the batch
+statistics are those of the global batch (`_bn_train_global`), as the
+JAX package's one program over the dp-sharded batch computes them.
 """
 
 from __future__ import annotations
@@ -88,6 +91,32 @@ class BNTrain(torch.autograd.Function):
         return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None
 
 
+def _bn_train_global(x, gamma, beta, eps, axes, st, world):
+    """Train-mode batchnorm with statistics over the GLOBAL batch of a
+    per-step dp group (`collectives.dp_scope`): the per-channel sums go
+    through `collectives.dp_sum`, whose backward all-reduces the
+    gradients reaching them, so plain autograd gives each rank its share
+    of the global gradient. Every rank holds an equal share, so the count
+    is the local one times the world. The same one-pass / two-pass split
+    as `_bn_stats`. Returns (y, mean, var)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    n = (x.numel() // x.shape[-1]) * world
+    xs = x.to(st)
+    mean = collectives.dp_sum(xs.sum(dim=axes)) / n
+    if st == x.dtype:
+        var = collectives.dp_sum(((xs - mean) ** 2).sum(dim=axes)) / n
+    else:
+        var = torch.clamp_min(
+            collectives.dp_sum((xs * xs).sum(dim=axes)) / n - mean * mean,
+            0.0)
+    r = torch.rsqrt(var + eps)
+    scale = gamma.to(st) * r
+    shift = beta.to(st) - mean * scale
+    y = x * scale.to(x.dtype) + shift.to(x.dtype)
+    return y, mean.detach(), var.detach()
+
+
 @dataclass(kw_only=True)
 class BatchNormalization(Layer):
     n_out: Optional[int] = None   # channel count, inferred
@@ -158,7 +187,18 @@ class BatchNormalization(Layer):
             b0 = self.beta if self.lock_gamma_beta else 0.0
             gamma = torch.full((c,), g0, dtype=stat_dtype, device=x.device)
             beta = torch.full((c,), b0, dtype=stat_dtype, device=x.device)
-        if self.stat_sample > 1:
+        from deeplearning4j_tpu_torch.parallel import collectives
+
+        dp = collectives.current()
+        if dp is not None:
+            if self.stat_sample > 1:
+                raise NotImplementedError(
+                    "ghost-batch statistics (stat_sample > 1) under "
+                    "per-step data parallelism: the leading rows of the "
+                    "global batch lie on one rank")
+            y, mean, var = _bn_train_global(x, gamma, beta, self.eps, axes,
+                                            stat_dtype, dp.world)
+        elif self.stat_sample > 1:
             # ghost statistics of the leading ceil(B/k) rows, exact
             # autodiff through them (dgamma/dbeta stay full-tensor)
             nb = (x.shape[0] - 1) // int(self.stat_sample) + 1

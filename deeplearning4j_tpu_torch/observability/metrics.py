@@ -76,6 +76,10 @@ REGISTERED_METRICS = frozenset({
     "dl4j_train_data_wait_seconds",
     "dl4j_train_data_skipped_steps_total",
     "dl4j_cluster_world_size",
+    # device-mesh sharding (engine/mesh.py, ZeRO-1 scale-out)
+    "dl4j_mesh_world_size",
+    "dl4j_mesh_reshard_total",
+    "dl4j_mesh_allgather_seconds",
     # checkpoints and model files (parallel/training_master.py,
     # util/model_serializer.py, resilience/checkpoint_integrity.py)
     "dl4j_checkpoint_writes_total",

@@ -1,6 +1,6 @@
 """TrainingMaster: step-indexed training with crash-safe checkpoints
-(counterpart of deeplearning4j_tpu/parallel/training_master.py), on one
-process and one card.
+(counterpart of deeplearning4j_tpu/parallel/training_master.py), one
+process per rank and one card per process.
 
 `TrainingMaster(net, checkpoint_dir=..., checkpoint_every=...,
 steps_per_dispatch=k).fit(batch_fn, num_steps)` trains `num_steps`
@@ -23,9 +23,11 @@ stacks the k batches on the card (`engine.pipeline.stack_staged`).
 
 The net stays on its device, and its train carry stays as it is: the
 flat carry of updater/flat_chain.py where the net has one (what
-`run_group` captures for ResNet-50). The JAX package drops the flat
-carry here because under a mesh it forces an all-gather of the whole
-model per step; one card has no such all-gather.
+`run_group` captures for ResNet-50; under per-step dp its gradient is
+the one all-reduced bucket). The JAX package drops the flat carry here
+because under a GSPMD mesh it forces an all-gather of the whole model
+per step; a rank of the port holds its params whole. ZeRO-1 works on the
+per-layer trees.
 
 Checkpoints (`step-%08d.npz`, the JAX package's layout, so either
 package resumes the other's):
@@ -53,12 +55,33 @@ retry transient OSErrors (`checkpoint_retry`) and prune to `keep_last`.
 A restore validates size, sha256 and structure, and falls back to the
 newest valid step.
 
-Waiting for the port's mesh and cluster layers (each raises
-NotImplementedError naming its ROADMAP queue): a mesh, more than one
-process or device, `averaging_frequency > 1` and
-`threshold_compression` (local SGD), `sharding="zero1"`,
-`per_rank_checkpoints`, `checkpoint_format="orbax"` and
-`initialize_distributed` (queue 9).
+Scale-out (parallel/collectives.py: one process per rank, one device
+per process, dp = the world size). `initialize_distributed(address, n,
+rank)` joins the process group (NCCL on CUDA, gloo on the CPU); every
+rank then builds the same net (same configuration and seed) and calls
+the same methods, `batch_fn(step)` giving THIS rank's partition of the
+global batch:
+  - per-step dp (default): each step's gradient and loss averaged over
+    the ranks inside the step, BatchNorm statistics and the loss's row
+    count global; `steps_per_dispatch=k` captures the collectives with
+    the k steps (NCCL);
+  - `averaging_frequency=k > 1`: local SGD through LocalStepTrainer
+    (`threshold_compression`, `guard_inner_steps`; the wire accounting in
+    `training_stats()["wire"]`);
+  - `sharding="zero1"`: the ZeRO-1 step through a MeshManager and
+    `StepProgram.attach_mesh`; each checkpoint's sharded optimizer
+    leaves go to a per-rank `step-%08d.updshard.npz` sidecar (the save's
+    gather timed into `dl4j_mesh_allgather_seconds`), the replicated rest
+    and the layout (`upd_sharded_idx`, `shard_world`) to the main file;
+    a resume reassembles the slices of the save-time world and re-slices
+    them for the live one (`dl4j_mesh_reshard_total` when they differ);
+  - `per_rank_checkpoints=True`: every rank writes its own copy under
+    `<dir>/rank-<r>/` (the divergence quorum's voters); else rank 0
+    writes;
+  - `evaluate` sums the confusion counts over the ranks.
+`checkpoint_format="orbax"` raises ValueError naming the npz format
+(orbax is a JAX library). Tensor and sequence parallelism wait for
+ROADMAP queue 9c.
 
 Observability: a `tracer` records a span per step ("train_step", with
 its fetch/dispatch/device-sync/checkpoint children) or per k-window
@@ -105,12 +128,6 @@ from deeplearning4j_tpu_torch.util.tree import leaves, unflatten
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 
-def _not_ported(what: str, queue: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue {queue}); the port's "
-        "TrainingMaster trains on one process and one card")
-
-
 def _distributed_world() -> int:
     dist = torch.distributed
     return (dist.get_world_size() if dist.is_available()
@@ -122,7 +139,7 @@ def _host(t) -> np.ndarray:
 
 
 class TrainingMaster:
-    """Step-indexed training of one net on one card with crash-safe
+    """Step-indexed training of one net, one card per rank, with crash-safe
     checkpoints, a non-finite guard, preemption and data retries (module
     docstring)."""
 
@@ -147,38 +164,60 @@ class TrainingMaster:
         `tracer` and `phase_profiler` are the harness's duck-typed hooks
         (engine/harness.py); `preemption=True` installs a
         PreemptionHandler on the main thread for each fit."""
+        from deeplearning4j_tpu_torch.parallel.wrapper import (
+            _require_local_sgd,
+            resolve_mesh,
+        )
+
         if checkpoint_format not in ("npz", "orbax"):
             raise ValueError(
                 f"checkpoint_format must be npz|orbax: {checkpoint_format}")
+        if checkpoint_format == "orbax":
+            raise ValueError(
+                "checkpoint_format='orbax' is a JAX library's format; the "
+                "port writes checkpoint_format='npz' (the JAX package "
+                "reads and writes it too)")
         if sharding not in (None, "replicated", "zero1"):
             raise ValueError(
                 f"sharding must be None|'replicated'|'zero1': {sharding}")
-        if threshold_compression > 0.0 and max(1, averaging_frequency) <= 1:
-            raise ValueError(
-                "threshold_compression requires averaging_frequency > 1 "
-                "(it encodes the k-step delta at the local-SGD rendezvous)")
-        if max(1, averaging_frequency) > 1 and steps_per_dispatch > 1:
+        self.averaging_frequency = max(1, int(averaging_frequency))
+        self.threshold_compression = float(threshold_compression)
+        _require_local_sgd(self.averaging_frequency,
+                           self.threshold_compression)
+        if self.averaging_frequency > 1 and steps_per_dispatch > 1:
             raise ValueError(
                 "steps_per_dispatch > 1 and averaging_frequency > 1 "
-                "are mutually exclusive groupings")
-        for cond, what in (
-                (mesh is not None, "a device mesh"),
-                (_distributed_world() > 1, "more than one process"),
-                (averaging_frequency > 1, "averaging_frequency > 1 "
-                 "(local SGD, the JAX package's LocalStepTrainer)"),
-                (guard_inner_steps, "guard_inner_steps (local SGD)"),
-                (sharding == "zero1", "sharding='zero1'"),
-                (checkpoint_format == "orbax",
-                 "checkpoint_format='orbax'"),
-                (per_rank_checkpoints, "per_rank_checkpoints")):
-            if cond:
-                raise _not_ported(what, 9)
+                "are mutually exclusive groupings (the local-SGD "
+                "rendezvous already groups its k steps)")
+        self.zero1 = sharding == "zero1"
+        if self.zero1 and self.averaging_frequency > 1:
+            raise ValueError(
+                "sharding='zero1' and averaging_frequency > 1 are "
+                "incompatible (local SGD keeps per-shard params; "
+                "ZeRO-1 shards the synchronous update)")
         if guard is not None and guard.policy == "rollback" \
                 and not checkpoint_dir:
             raise ValueError(
                 "NonFiniteGuard(policy='rollback') requires a "
                 "checkpoint_dir to roll back to")
+        self.mesh = resolve_mesh(mesh)
         self.net = net
+        # per-rank checkpoint copies (`<dir>/rank-<r>/`): every process
+        # writes its own copy — the divergence quorum's voters
+        self.per_rank_checkpoints = bool(per_rank_checkpoints)
+        self._ckpt_base = checkpoint_dir
+        if self.per_rank_checkpoints and checkpoint_dir:
+            checkpoint_dir = _ci.rank_checkpoint_dir(
+                checkpoint_dir, self.mesh.rank)
+        if (self.zero1 and checkpoint_dir and self.mesh.world > 1
+                and not self.per_rank_checkpoints):
+            raise ValueError(
+                "sharding='zero1' in a multi-process gang needs "
+                "per_rank_checkpoints=True (every rank must write its own "
+                "optimizer-state slice)")
+        self.checkpoint_format = checkpoint_format
+        self.guard_inner_steps = bool(guard_inner_steps)
+        self._local_step = None
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         # keep_last > 0 prunes old step checkpoints after each save;
@@ -210,6 +249,11 @@ class TrainingMaster:
         self._obs_acc = self._harness.acc
         self._poisoned_steps = self._harness.poisoned_steps
         self._resil_counters = self._harness.counters
+        self._mesh_mgr = None
+        if self.zero1:
+            from deeplearning4j_tpu_torch.engine.mesh import MeshManager
+
+            self._mesh_mgr = MeshManager(mesh=self.mesh)
 
     # tracer / phase_profiler delegate to the harness so post-
     # construction assignment reaches the loop that actually reads them
@@ -240,25 +284,58 @@ class TrainingMaster:
     # ------------------------------------------------------------ world
     @staticmethod
     def initialize_distributed(coordinator_address: str,
-                               num_processes: int, process_id: int):
-        """A no-op for one process, as in the JAX package; more raise."""
-        if num_processes > 1:
-            raise _not_ported("initialize_distributed (more than one "
-                              "process)", 9)
+                               num_processes: int, process_id: int,
+                               backend: Optional[str] = None, device=None):
+        """Join the process group of `num_processes` ranks as rank
+        `process_id` (parallel/collectives.init_process_group), before
+        any TrainingMaster is built. `backend=None`: NCCL for a CUDA
+        `device` (None means "cuda") and gloo for "cpu". A no-op for one
+        process, as in the JAX package."""
+        if num_processes <= 1:
+            return
+        from deeplearning4j_tpu_torch.parallel import collectives
+
+        collectives.init_process_group(coordinator_address, num_processes,
+                                       process_id, backend=backend,
+                                       device=device)
 
     @staticmethod
     def process_info() -> Tuple[int, int]:
-        return 0, 1
+        from deeplearning4j_tpu_torch.parallel import collectives
+
+        return collectives.rank(), collectives.world_size()
 
     def world_info(self) -> dict:
-        """The world this master trains in: one process, one device, dp
-        1, replicated (the JAX package's keys)."""
-        return {"processes": 1, "devices": 1, "dp": 1,
-                "sharding": "replicated", "per_rank_checkpoints": False}
+        """The LIVE world this master trains in (the JAX package's keys):
+        processes and devices are the process group's size (one device
+        per process), dp the mesh's."""
+        w = _distributed_world()
+        return {"processes": w, "devices": w,
+                "dp": int(self.mesh.shape["dp"]),
+                "sharding": "zero1" if self.zero1 else "replicated",
+                "per_rank_checkpoints": self.per_rank_checkpoints}
 
     def _stage_net(self):
+        """Initialize the net and attach its data parallelism: the ZeRO-1
+        step (a MeshManager), or per-step dp over a world > 1 (local SGD
+        attaches nothing: its trainer averages at the rendezvous)."""
+        from deeplearning4j_tpu_torch.parallel.wrapper import (
+            attach_dp,
+            decorrelate_dropout,
+        )
+
         if not self.net._initialized():
             self.net.init()
+        if getattr(self, "_attached", False):
+            return
+        self._attached = True
+        if self._mesh_mgr is not None:
+            self._harness.program.attach_mesh(self._mesh_mgr)
+            decorrelate_dropout(self.net, self.mesh.rank)
+        elif self.averaging_frequency == 1:
+            attach_dp(self.net, self.mesh)
+        else:
+            decorrelate_dropout(self.net, self.mesh.rank)
 
     # ----------------------------------------------------------------- fit
     def fit(self, batch_fn: Callable[[int], Tuple], num_steps: int,
@@ -306,6 +383,9 @@ class TrainingMaster:
                     depth=self.pipeline_depth,
                     skip=self._poisoned_steps.__contains__,
                     meta={"world": self.world_info()})
+            if self.averaging_frequency > 1:
+                return self._fit_local_sgd(batch_fn, num_steps, start_step,
+                                           collect_training_stats)
             if self.steps_per_dispatch > 1:
                 return self._fit_grouped(batch_fn, num_steps, start_step,
                                          collect_training_stats)
@@ -679,6 +759,136 @@ class TrainingMaster:
             pp.end_step()   # a completed window is one profiler step
         return step
 
+    def _fit_local_sgd(self, batch_fn, num_steps, start_step,
+                       collect_training_stats=False):
+        """k-step local-SGD groups (the DCN-traffic role of the
+        reference's gradient compression): LocalStepTrainer's program on
+        this rank's [k, B, ...] partitions, one rendezvous per group. The
+        guard checks once per rendezvous; with `guard_inner_steps` the
+        group's rank-averaged inner-step losses condemn the ONE poisoned
+        inner step, and the window replays without it."""
+        from deeplearning4j_tpu_torch.parallel.wrapper import LocalStepTrainer
+        from deeplearning4j_tpu_torch.resilience.errors import (
+            NonFiniteLossError,
+        )
+
+        net = self.net
+        guard = self.guard
+        harness = self._harness
+        k = self.averaging_frequency
+        if self._local_step is None:
+            self._local_step = LocalStepTrainer(
+                net, self.mesh, threshold=self.threshold_compression,
+                per_step_losses=self.guard_inner_steps,
+                program=harness.program)
+        every = self.checkpoint_every
+        pp = self.phase_profiler
+        step = start_step
+        while step < num_steps:
+            self._check_preemption(step)
+            _fire("train.step")
+            _fire("train.hang")
+            fire_hang_hard()
+            harness.beat("dispatch", step=step)
+            if pp is not None:
+                pp.begin_step(step)
+                pp.mark("data_wait")
+            t0 = time.perf_counter()
+            span = min(step + k, num_steps) - step
+            group, abs_steps = self._fetch_window(batch_fn, step, span)
+            if not group:
+                step += span
+                continue
+            if pp is not None:
+                pp.mark("h2d")
+            xs, ys = self._stack_window(group)
+            t1 = time.perf_counter()
+            check_now = guard is not None and guard.check_every > 0
+            snap = (guard.snapshot(net)
+                    if check_now and guard.policy == "skip_step" else None)
+            if pp is not None:
+                pp.mark("dispatch")
+            self._local_step.run_arrays(xs, ys)
+            harness.beat("fetch", step=step)
+            if pp is not None:
+                pp.mark("host_sync")
+            if check_now and self.guard_inner_steps:
+                inner = self._local_step.last_step_losses.cpu().numpy()
+                bad = [abs_steps[i] for i in range(len(abs_steps))
+                       if not np.isfinite(inner[i])]
+                if bad:
+                    guard.counters["checks"] += 1
+                    guard.counters["nonfinite"] += 1
+                    _obs.count("dl4j_train_guard_checks_total")
+                    _obs.count("dl4j_train_guard_nonfinite_total")
+                    if guard.policy == "abort":
+                        raise NonFiniteLossError(
+                            f"non-finite loss at inner step(s) {bad} of "
+                            f"group at step {step} (policy=abort)")
+                    self._poisoned_steps.update(bad)
+                    if guard.policy == "skip_step":
+                        guard.restore(net, snap)
+                        guard.note_skip()
+                        logger.warning(
+                            "guard: non-finite inner step(s) %s — window "
+                            "replayed without them", bad)
+                    else:   # rollback
+                        guard.note_rollback()
+                        if guard.counters["rollbacks"] > guard.max_rollbacks:
+                            raise NonFiniteLossError(
+                                "guard exceeded max_rollbacks="
+                                f"{guard.max_rollbacks}")
+                        step = self.load_latest_checkpoint()
+                    continue   # re-enter the window minus `bad`
+            if check_now:
+                verdict = guard.post_step(net)
+                if verdict != "ok":
+                    if guard.policy == "skip_step":
+                        guard.restore(net, snap)
+                        guard.note_skip()
+                        step += span
+                        continue
+                    if guard.policy == "rollback":
+                        self._poisoned_steps.update(range(step, step + span))
+                        guard.note_rollback()
+                        if guard.counters["rollbacks"] > guard.max_rollbacks:
+                            raise NonFiniteLossError(
+                                "guard exceeded max_rollbacks="
+                                f"{guard.max_rollbacks}")
+                        step = self.load_latest_checkpoint()
+                        continue
+                    raise NonFiniteLossError(
+                        f"{verdict} training state in group at step {step} "
+                        "(policy=abort)")
+            if collect_training_stats:
+                float(net.score())   # host read: the group's barrier
+            t2 = time.perf_counter()
+            self._obs_acc.count_observe(
+                "dl4j_train_steps_total", "dl4j_train_step_seconds",
+                (t2 - t0) / max(1, len(abs_steps)), n=len(abs_steps))
+            if self.tracer is not None:
+                self.tracer.record(
+                    "train_group", t0, t2, cat="train",
+                    args={"step": step, "steps": len(abs_steps)})
+            prev = step
+            step += span
+            if (self.checkpoint_dir and every
+                    and prev // every != step // every):
+                if pp is not None:
+                    pp.mark("checkpoint")
+                self.save_checkpoint(step)
+            if pp is not None:
+                pp.end_step()
+            if collect_training_stats:
+                self._stats.append({
+                    "step": prev,
+                    "data_ms": (t1 - t0) * 1e3,
+                    "fit_ms": (t2 - t1) * 1e3,
+                    "listener_ms": 0.0,
+                    "checkpoint_ms": (time.perf_counter() - t2) * 1e3,
+                })
+        return self
+
     # ------------------------------------------------------------ stats
     def training_stats(self):
         """Per-step phase timings recorded when fit(...,
@@ -686,10 +896,13 @@ class TrainingMaster:
         row, the `resilience` block (guard / watchdog / preemption /
         supervisor counters), the phase profiler's report (`phases`), an
         attached ProfilerListener's trace facts (`profiler`) and the
-        `pipeline` facts. `wire` (local SGD) stays None until its port
-        (ROADMAP queue 9)."""
+        `pipeline` facts, and `wire`: the local-SGD rendezvous' wire
+        accounting (LocalStepTrainer.wire_stats; None without local
+        SGD)."""
         stats = list(getattr(self, "_stats", []))
-        out = {"steps": stats, "summary": {}, "wire": None,
+        wire = (self._local_step.wire_stats()
+                if self._local_step is not None else None)
+        out = {"steps": stats, "summary": {}, "wire": wire,
                "resilience": self.resilience_stats(),
                "profiler": self._profiler_stats(),
                "phases": (self.phase_profiler.report()
@@ -748,9 +961,11 @@ class TrainingMaster:
     def evaluate(self, batch_fn: Callable[[int], Tuple], num_steps: int,
                  evaluation=None):
         """Classification counts over `num_steps` batches of
-        `batch_fn(step) -> (x, y[, features_mask[, labels_mask]])`: the
-        argmax confusion counts are summed on the device and folded into
-        `evaluation` (the port's eval.Evaluation) once per batch. Only
+        `batch_fn(step) -> (x, y[, features_mask[, labels_mask]])` (THIS
+        rank's partition): the argmax confusion counts are summed on the
+        device, over the ranks (one all-reduce per batch, so every rank
+        holds the global counts), and folded into `evaluation` (the
+        port's eval.Evaluation) once per batch. Only
         the label mask shapes the counts (rows or time steps whose mask
         is 0 are dropped), as the containers' evaluate() does."""
         from deeplearning4j_tpu_torch.eval import Evaluation
@@ -770,6 +985,11 @@ class TrainingMaster:
             if lm is not None:
                 cell = cell[net._as_input(lm).reshape(-1) != 0]
             counts = torch.bincount(cell, minlength=c * c)
+            if self.mesh.world > 1:
+                # every rank ends with the GLOBAL counts of its partitions
+                from deeplearning4j_tpu_torch.parallel import collectives
+
+                counts = collectives.all_reduce_sum(counts)
             evaluation._ensure(c)
             evaluation.confusion.matrix += \
                 counts.reshape(c, c).cpu().numpy().astype(np.int64)
@@ -795,16 +1015,24 @@ class TrainingMaster:
                                args={"step": step})
         return result
 
-    def _payload(self, step: int) -> dict:
+    def _payload(self, step: int):
         """The checkpoint's arrays (module docstring): the net's state
-        read through views of its carry, copied to the host."""
+        read through views of its carry, copied to the host; under ZeRO-1
+        the replicated updater leaves and the layout, with the sharded
+        leaves' slices returned apart for the sidecar. Returns (payload,
+        sidecar slices or None)."""
         net = self.net
         payload = {}
         for group, tree in (("params", net._params_view()),
-                            ("states", net.states),
-                            ("upd", net._upd_view())):
+                            ("states", net.states)):
             for i, leaf in enumerate(leaves(tree)):
                 payload[f"{group}:{i}"] = _host(leaf)
+        slices = None
+        if self._mesh_mgr is not None:
+            slices = self._sharded_upd_payload(payload)
+        else:
+            for i, leaf in enumerate(leaves(net._upd_view())):
+                payload[f"upd:{i}"] = _host(leaf)
         payload["rng"] = np.zeros(2, np.uint32)
         gen = net._rng_state()
         if gen is not None:
@@ -812,20 +1040,76 @@ class TrainingMaster:
         payload["step"] = np.asarray(step)
         payload["iteration"] = np.asarray(int(net.iteration))
         payload["epoch"] = np.asarray(int(net.epoch))
-        return payload
+        return payload, slices
+
+    def _sharded_upd_payload(self, payload) -> dict:
+        """The ZeRO-1 checkpoint layout: the updater state gathered whole
+        (`MeshManager.gather_tree`, timed as `dl4j_mesh_allgather_seconds`),
+        replicated leaves into the quorum-voted main `payload` as
+        `upd:<i>`, sharded leaves cut to THIS rank's rows for the sidecar;
+        the main payload records `upd_sharded_idx` and `shard_world`, so
+        its digest covers the layout."""
+        from deeplearning4j_tpu_torch.engine.sharding import slice_rows
+
+        mgr = self._mesh_mgr
+        full = leaves(mgr.gather_tree(self.net.updater_states))
+        world, rank = self.mesh.world, self.mesh.rank
+        slices, sharded_idx = {}, []
+        for i, (leaf, sharded) in enumerate(zip(full, mgr.layout)):
+            if sharded and leaf.shape[0] % world == 0:
+                sharded_idx.append(i)
+                slices[f"slice:{i}"] = slice_rows(leaf, rank, world)
+            else:
+                payload[f"upd:{i}"] = leaf
+        payload["upd_sharded_idx"] = np.asarray(sharded_idx, np.int64)
+        payload["shard_world"] = np.asarray(world)
+        return slices
+
+    def _write_shard_sidecar(self, step, slices, state_sha):
+        """This rank's optimizer-state slice sidecar: atomic write and a
+        manifest entry carrying `main_state_sha256`, the digest of the main
+        state the slice belongs to (what the sharded quorum checks)."""
+        side_fn = _ci.shard_sidecar_filename(step)
+        side = os.path.join(self.checkpoint_dir, side_fn)
+        world, rank = self.mesh.world, self.mesh.rank
+
+        def _write_side():
+            with _ci.atomic_writer(side, suffix=".tmp.npz") as tmp:
+                with open(tmp, "wb") as f:
+                    np.savez(f, shard_rank=np.asarray(rank),
+                             shard_world=np.asarray(world), **slices)
+                digest = _ci.sha256_file(tmp)
+                size = os.path.getsize(tmp)
+            _ci.record_checksum(
+                self.checkpoint_dir, side_fn, digest, size,
+                extra={"step": step, "shard_rank": rank,
+                       "shard_world": world,
+                       "main_state_sha256": state_sha})
+
+        self._ckpt_retry.call(_write_side)
 
     def _save_checkpoint_impl(self, step: int):
         """Write the payload as one crash-safe .npz: tmp + fsync +
         os.replace with a sha256 manifest entry recorded from the
         pre-publish bytes, so a kill mid-write publishes nothing and a
         torn write is detected on load; transient OSErrors retry per
-        `checkpoint_retry`; `keep_last` prunes old steps."""
+        `checkpoint_retry`; `keep_last` prunes old steps. Rank 0 writes,
+        or every rank into its own directory with `per_rank_checkpoints`
+        (whose recorded state digest leaves out `torch_rng`, each rank's
+        own dropout stream, so replicated copies vote equal); a ZeRO-1
+        save gathers on every rank and writes the rank's slice sidecar
+        first (a published main step implies its slice exists)."""
+        if self.mesh.rank != 0 and not self.per_rank_checkpoints:
+            return
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         net = self.net
-        payload = self._payload(step)
+        payload, slices = self._payload(step)
         final = self._ckpt_path(step)
         fn = os.path.basename(final)
-        state_sha = _ci.state_digest_of(payload)
+        voted = payload
+        if self.per_rank_checkpoints:
+            voted = {k: v for k, v in payload.items() if k != "torch_rng"}
+        state_sha = _ci.state_digest_of(voted)
 
         def _write():
             with _ci.atomic_writer(final, suffix=".tmp.npz") as tmp:
@@ -841,6 +1125,8 @@ class TrainingMaster:
                                 extra={"step": step,
                                        "state_sha256": state_sha})
 
+        if slices is not None:
+            self._write_shard_sidecar(step, slices, state_sha)
         self._ckpt_retry.call(_write)
         meta = {"step": step, "iteration": int(net.iteration),
                 "epoch": int(net.epoch)}
@@ -909,33 +1195,109 @@ class TrainingMaster:
         self._structural_ok(path)
         return self._restore_npz(step, self._read_latest_meta())
 
+    def _restore_sharded_upd(self, data, step: int, like) -> list:
+        """The FULL updater-state leaves of a ZeRO-1 checkpoint: the
+        replicated leaves from the main payload, the sharded ones
+        reassembled from the save-time world's slice sidecars (validated,
+        and tied to the main state's recorded digest). A save-time world
+        other than the live one is a reshard (`dl4j_mesh_reshard_total`;
+        the ZeRO-1 staging re-slices for the live world)."""
+        from deeplearning4j_tpu_torch.engine.sharding import assemble_rows
+
+        world = int(data["shard_world"])
+        sharded_idx = [int(i) for i in
+                       np.asarray(data["upd_sharded_idx"]).reshape(-1)]
+        n = len(leaves(like))
+        new = [None if i in sharded_idx else np.array(data[f"upd:{i}"])
+               for i in range(n)]
+        if sharded_idx:
+            fn = os.path.basename(self._ckpt_path(step))
+            expect = _ci.state_digest(self.checkpoint_dir, fn)
+            if self.per_rank_checkpoints or world > 1:
+                dirs = [_ci.rank_checkpoint_dir(self._ckpt_base, r)
+                        for r in range(world)]
+            else:
+                dirs = [self.checkpoint_dir]
+            slices = _ci.collect_sharded_slices(dirs, step,
+                                                expect_digest=expect)
+            if slices is None:
+                raise CheckpointIntegrityError(
+                    f"sharded checkpoint step {step}: optimizer-state "
+                    f"slice set incomplete or untrusted across "
+                    f"{len(dirs)} rank dir(s)")
+            opened = {r: np.load(p) for r, p in slices.items()}
+            try:
+                for i in sharded_idx:
+                    new[i] = assemble_rows(
+                        {r: d[f"slice:{i}"] for r, d in opened.items()},
+                        world)
+            finally:
+                for d in opened.values():
+                    d.close()
+        cur_world = self.world_info()["processes"]
+        if world != cur_world:
+            if self._mesh_mgr is not None:
+                self._mesh_mgr.reshards += 1
+            _obs.count("dl4j_mesh_reshard_total")
+            logger.warning(
+                "sharded checkpoint step %d: resharding optimizer state "
+                "from save-world %d to live world %d", step, world,
+                cur_world)
+        return new
+
     def _restore_npz(self, step: int, meta) -> int:
         """Rebind the net's params, updater state and BN states (and the
         dropout generator, for a port checkpoint) to checkpoint `step`,
-        in the net's device and dtypes. The net's next step ravels its
-        flat carry from them again; a captured group copies the carry
+        in the net's device and dtypes; under ZeRO-1 the updater state is
+        assembled whole (from the sidecars of a sharded save) and cut to
+        this rank's rows for the live world. The net's next step ravels
+        its flat carry from them again; a captured group copies the carry
         into its static buffers per replay, so nothing is recaptured."""
         t_restore = time.perf_counter()
         net = self.net
         self._stage_net()
+        mgr = self._mesh_mgr
         with self._ckpt_retry.call(np.load, self._ckpt_path(step)) as data:
-            def restore(group, like):
+            def check(group, i, a, shape):
+                if tuple(a.shape) != tuple(shape):
+                    raise CheckpointIntegrityError(
+                        f"checkpoint step {step}: {group}:{i} has shape "
+                        f"{a.shape}, the net needs {tuple(shape)}")
+
+            def restore(group, like, arrays=None):
                 old = leaves(like)
                 new = []
                 for i, t in enumerate(old):
-                    a = data[f"{group}:{i}"]
-                    if tuple(a.shape) != tuple(t.shape):
-                        raise CheckpointIntegrityError(
-                            f"checkpoint step {step}: {group}:{i} has "
-                            f"shape {a.shape}, the net needs "
-                            f"{tuple(t.shape)}")
+                    a = (np.array(data[f"{group}:{i}"]) if arrays is None
+                         else arrays[i])
+                    check(group, i, a, t.shape)
                     new.append(torch.from_numpy(np.array(a)).to(
                         device=t.device, dtype=t.dtype))
                 return unflatten(like, new)[0]
 
             params = restore("params", net._params_view())
-            upd = restore("upd", net._upd_view())
             states = restore("states", net.states)
+            like = net._upd_view()
+            full = None
+            if "shard_world" in data.files:
+                full = self._restore_sharded_upd(data, step, like)
+            if mgr is not None:
+                # the whole state, checked against the full leaf shapes,
+                # re-sliced for the live world
+                local = leaves(like)
+                arrays = full if full is not None else [
+                    np.array(data[f"upd:{i}"]) for i in range(len(local))]
+                for i, (a, t, sh) in enumerate(zip(arrays, local,
+                                                   mgr.layout)):
+                    check("upd", i, a, ((t.shape[0] * mgr.dp,)
+                                        + tuple(t.shape[1:])) if sh
+                          else t.shape)
+                upd = mgr.shard_tree(unflatten(like, [
+                    torch.from_numpy(np.array(a)).to(dtype=t.dtype)
+                    for a, t in zip(arrays, local)])[0],
+                    device=net.device)
+            else:
+                upd = restore("upd", like, full)
             gen = (np.array(data["torch_rng"])
                    if "torch_rng" in data.files else None)
             position = ((int(data["iteration"]), int(data["epoch"]))

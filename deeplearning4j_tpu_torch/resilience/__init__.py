@@ -39,6 +39,7 @@ from deeplearning4j_tpu_torch.resilience.checkpoint_integrity import (  # noqa: 
     atomic_write_bytes,
     atomic_write_json,
     atomic_writer,
+    collect_sharded_slices,
     compute_state_digest,
     divergence_quorum,
     list_all_checkpoints,
@@ -48,6 +49,7 @@ from deeplearning4j_tpu_torch.resilience.checkpoint_integrity import (  # noqa: 
     rank_checkpoint_dir,
     read_manifest,
     record_checksum,
+    shard_sidecar_filename,
     sharded_quorum_resume_step,
     require_valid,
     require_valid_tree,

@@ -34,8 +34,16 @@ valid checkpoint. This module provides both halves:
 
 The manifest's keys and the file names (`step-%08d.npz`) are the JAX
 package's, so either package validates the other's checkpoint
-directories. The ZeRO-1 shard sidecars and `sharded_quorum_resume_step`
-wait for the port's sharded optimizer (ROADMAP queue 9) and raise.
+directories.
+
+  shard_sidecar_filename    a ZeRO-1 rank's optimizer-state slice file
+                            (`step-%08d.updshard.npz`), its manifest entry
+                            tied to the main state's digest
+  collect_sharded_slices    the validated slice set of a step (or None)
+  sharded_quorum_resume_step
+                            the quorum over ZeRO-1 copies: replicated state
+                            votes over the save-time world, slices do not,
+                            and slice-set completeness gates the election
 """
 
 from __future__ import annotations
@@ -425,14 +433,121 @@ def quorum_resume_step(base_dir: str, nprocs: int,
     return None
 
 
+# --------------------------------------------- sharded optimizer state
+# ZeRO-1 checkpoints (engine/sharding.py) split each rank's copy in two:
+# the MAIN step file holds the replicated portion (params, BN states,
+# step bookkeeping, the unshardable optimizer leaves and the layout) —
+# the same state on every rank, so the divergence quorum votes over it
+# unchanged — and a SIDECAR holds the rank's own slice of the sharded
+# optimizer-state leaves. The sidecar's manifest entry records
+# `main_state_sha256`, tying the slice to the main state it was saved
+# with: a rank whose main copy was out-voted as a fork carries a slice
+# recorded against the forked digest, so the slice is rejected and the
+# resume falls back to an older, fully agreed step (no other rank holds
+# a forked replica's rows).
+SHARD_SUFFIX = ".updshard.npz"
+
+
+def shard_sidecar_filename(step: int) -> str:
+    return f"step-{step:08d}{SHARD_SUFFIX}"
+
+
+def collect_sharded_slices(dirs: List[str], step: int,
+                           expect_digest: Optional[str] = None
+                           ) -> Optional[Dict[int, str]]:
+    """{shard_rank: path} of the validated optimizer-state slice sidecars
+    for `step` across `dirs` — None when ANY slice is missing, fails its
+    checksum, or (with `expect_digest`) was recorded against a different
+    main-state digest than the elected one. A hole in the slice set is a
+    hole in the optimizer state: callers fall back to an older step
+    rather than zero-fill."""
+    fn = shard_sidecar_filename(step)
+    out: Dict[int, str] = {}
+    for d in dirs:
+        if not validate_file(d, fn):
+            return None
+        entry = read_manifest(d).get(fn) or {}
+        if expect_digest is not None \
+                and entry.get("main_state_sha256") != expect_digest:
+            logger.warning(
+                "sharded checkpoint: slice %s in %s recorded against "
+                "digest %s, elected %s — rejected", fn, d,
+                str(entry.get("main_state_sha256"))[:12],
+                expect_digest[:12])
+            return None
+        rank = entry.get("shard_rank")
+        if rank is None:
+            return None
+        out[int(rank)] = os.path.join(d, fn)
+    if sorted(out) != list(range(len(dirs))):
+        return None
+    return out
+
+
+def _saved_shard_world(base_dir: str, ranks: List[int],
+                       step: int) -> Optional[int]:
+    """Save-time world of `step`, read from the first valid copy's
+    `shard_world` field (0 = unsharded layout). None when no copy is
+    readable."""
+    fn = step_filename(step)
+    for r in ranks:
+        d = rank_checkpoint_dir(base_dir, r)
+        if not validate_file(d, fn):
+            continue
+        try:
+            with np.load(os.path.join(d, fn)) as z:
+                return (int(z["shard_world"])
+                        if "shard_world" in z.files else 0)
+        except Exception:   # noqa: BLE001 - torn copy: try another rank
+            continue
+    return None
+
+
 def sharded_quorum_resume_step(base_dir: str, nprocs: int,
                                heal: bool = True) -> Optional[dict]:
-    """The quorum over ZeRO-1 checkpoints (a main file plus one
-    optimizer-state slice per rank) — waits for the port's sharded
-    optimizer."""
-    raise NotImplementedError(
-        "sharded_quorum_resume_step needs ZeRO-1 checkpoints, which are "
-        "not ported yet (ROADMAP queue 9)")
+    """`quorum_resume_step` for sharded-optimizer checkpoints: the newest
+    step whose replicated state has quorum AND whose slice set is
+    complete and tied to the elected digest.
+
+    The vote runs over the SAVE-time world (read from the candidate
+    copies), not the surviving gang's `nprocs`: after a 3→2 shrink the
+    step was written by three ranks and all three slices are needed to
+    reassemble the optimizer state, so rank dirs beyond the current
+    world still vote and still contribute their slice. The returned
+    report gains ``shard_world`` and ``slices`` ({shard_rank: sidecar
+    path}) for the resharding-on-resume loader."""
+    ranks_present = _present_rank_dirs(base_dir)
+    steps = set()
+    for r in ranks_present:
+        steps.update(list_step_checkpoints(
+            rank_checkpoint_dir(base_dir, r)))
+    for step in sorted(steps, reverse=True):
+        world = _saved_shard_world(base_dir, ranks_present, step)
+        if world is None:
+            continue
+        if world == 0:
+            # unsharded layout (a step saved before ZeRO-1): plain quorum
+            # over the current gang
+            report = divergence_quorum(base_dir, nprocs, step, heal=heal)
+            if report["digest"] is not None:
+                return report
+            continue
+        report = divergence_quorum(base_dir, world, step, heal=heal)
+        if report["digest"] is None:
+            continue
+        dirs = [rank_checkpoint_dir(base_dir, r) for r in range(world)]
+        slices = collect_sharded_slices(
+            dirs, step, expect_digest=report["digest"])
+        if slices is None:
+            logger.warning(
+                "sharded quorum: step %d elected but its optimizer slice "
+                "set is incomplete/untrusted — falling back to an older "
+                "step", step)
+            continue
+        report["shard_world"] = world
+        report["slices"] = slices
+        return report
+    return None
 
 
 def apply_retention(directory: str, keep_last: int) -> List[int]:
@@ -443,7 +558,7 @@ def apply_retention(directory: str, keep_last: int) -> List[int]:
         return []
     entries = list_all_checkpoints(directory)
     pruned = entries[:-keep_last] if len(entries) > keep_last else []
-    for _, fn in pruned:
+    for step, fn in pruned:
         path = os.path.join(directory, fn)
         if os.path.isdir(path):
             shutil.rmtree(path, ignore_errors=True)
@@ -451,4 +566,10 @@ def apply_retention(directory: str, keep_last: int) -> List[int]:
             with contextlib.suppress(OSError):
                 os.remove(path)
             forget_checksum(directory, fn)
+        # a pruned step's optimizer-state slice sidecar goes with it
+        side = shard_sidecar_filename(step)
+        if os.path.exists(os.path.join(directory, side)):
+            with contextlib.suppress(OSError):
+                os.remove(os.path.join(directory, side))
+            forget_checksum(directory, side)
     return [step for step, _ in pruned]

@@ -69,10 +69,12 @@ member's SLOT. What happens next is the elastic part:
 
 With `per_rank_checkpoints=True` every rank writes its own checkpoint
 copy (`<checkpoint_dir>/rank-<r>/`) and the resume handshake runs the
-checkpoint_integrity divergence quorum BEFORE any resume. The sharded
-(ZeRO-1) quorum waits for ROADMAP queue 9, and so do gangs whose
-workers train together over `torch.distributed`; the supervisor itself
-is process-level and needs neither. The JAX package's test of a
+checkpoint_integrity divergence quorum BEFORE any resume, and with
+`sharded_optimizer=True` the sharded (ZeRO-1) quorum: replicated state
+votes over the save-time world, the slice sets must be complete. The
+supervisor is process-level: the workers it launches may train together
+over `torch.distributed` (TrainingMaster.initialize_distributed); the
+multi-rank gang drills wait for ROADMAP queue 9c. The JAX package's test of a
 collateral death (a peer torn down by the distributed runtime, not
 charged against its budget) has no counterpart until then: every
 fault is charged, and each ledger entry says `"collateral": False`.
@@ -351,12 +353,11 @@ class ClusterSupervisor:
         handshake to the checkpoint_integrity divergence quorum over
         `<checkpoint_dir>/rank-<r>/` directories (minority forks are
         quarantined aside and healed before any rank resumes).
-        `sharded_optimizer=True` (ZeRO-1 workers) waits for ROADMAP
-        queue 9 and raises NotImplementedError."""
-        if sharded_optimizer:
-            raise NotImplementedError(
-                "ClusterSupervisor(sharded_optimizer=True) needs ZeRO-1 "
-                "checkpoints, which are not ported yet (ROADMAP queue 9)")
+        `sharded_optimizer=True` (ZeRO-1 workers) upgrades that quorum
+        to the sharded one: the replicated state votes over the save-time
+        world and an incomplete or untrusted slice set falls back to an
+        older step."""
+        self.sharded_optimizer = bool(sharded_optimizer)
         self.nprocs = int(nprocs)
         self.command_fn = command_fn
         self.heartbeat_dir = heartbeat_dir
@@ -564,8 +565,15 @@ class ClusterSupervisor:
         if not self.checkpoint_dir:
             return 0
         if self.per_rank_checkpoints:
-            report = _ci.quorum_resume_step(self.checkpoint_dir,
-                                            self.nprocs)
+            if self.sharded_optimizer:
+                # ZeRO-1 checkpoints: quorum over the save-time world
+                # (retired ranks still vote and contribute slices),
+                # slice-set completeness gates the election
+                report = _ci.sharded_quorum_resume_step(
+                    self.checkpoint_dir, self.nprocs)
+            else:
+                report = _ci.quorum_resume_step(self.checkpoint_dir,
+                                                self.nprocs)
             if report is None:
                 return 0
             self.quorum_reports.append(report)

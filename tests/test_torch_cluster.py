@@ -356,10 +356,11 @@ def test_cluster_stats_shape(tmp_path):
     assert stats["spare_reschedules"] == 0 and stats["shrinks"] == 0
     assert stats["slots"] == {0: 0, 1: 1, 2: 2}
     assert stats["quorum_reports"] == []
-    with pytest.raises(NotImplementedError, match="queue 9"):
-        ClusterSupervisor(2, lambda *a: ["true"], str(tmp_path),
-                          per_rank_checkpoints=True,
-                          sharded_optimizer=True)
+    # the sharded (ZeRO-1) quorum is ported: the flag selects it
+    sharded = ClusterSupervisor(2, lambda *a: ["true"], str(tmp_path),
+                                per_rank_checkpoints=True,
+                                sharded_optimizer=True)
+    assert sharded.sharded_optimizer and sharded.per_rank_checkpoints
 
 
 def _rank_registry(steps, seconds):

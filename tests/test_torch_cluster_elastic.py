@@ -7,7 +7,8 @@ checkpoint divergence quorum (resilience/checkpoint_integrity.py:
 ported from the JAX package's tier-1 tests of tests/test_cluster.py
 with trivial workers and synthetic rank directories. The quorum is also
 held against the JAX package's on the same directories, and its sharded
-(ZeRO-1) form raises, naming ROADMAP queue 9."""
+(ZeRO-1) form is held against the JAX package in
+tests/test_torch_scaleout.py."""
 
 import os
 import shutil
@@ -326,5 +327,8 @@ def test_quorum_matches_the_jax_package(tmp_path, case):
 
 
 def test_sharded_quorum_waits_for_queue_9(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 9"):
-        sharded_quorum_resume_step(str(tmp_path), 2)
+    # ported with ZeRO-1 (queue 9b): a directory without rank copies has
+    # no step to resume; the sharded cases are in test_torch_scaleout.py
+    assert sharded_quorum_resume_step(str(tmp_path), 2) is None
+    os.makedirs(tmp_path / "rank-0")
+    assert sharded_quorum_resume_step(str(tmp_path), 2) is None

@@ -994,6 +994,47 @@ def test_cuda_hang_during_capture_keeps_no_group(deterministic_cudnn):
 
 
 @pytest.mark.cuda
+def test_cuda_capture_collects_dead_graphs_before_not_during(
+        deterministic_cudnn):
+    """A dead reference cycle holding another captured group must not be
+    finalized inside a capture (CUDA forbids destroying a graph while a
+    stream captures): run_group collects before it captures and keeps the
+    collector off during it. Here a collection falls inside the capture
+    (the first captured step calls gc.collect()); the cycle is already
+    gone, so the capture holds and the steps equal eager ones."""
+    import gc
+
+    from deeplearning4j_tpu_torch.engine import StepProgram
+
+    data = _engine_batches(4, seed=17)
+    gc.disable()
+    try:
+        old = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+        prog = StepProgram(old)
+        prog.run_group(*_stacked(data))
+        prog.cycle = prog       # dead after del: only the collector frees it
+        del prog, old
+        net = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+        ref = _port_mini_resnet("pallas", "bfloat16", updater="nesterovs")
+        step, calls = net._step, {"n": 0}
+
+        def step_collecting(*args):
+            calls["n"] += 1
+            if calls["n"] == 2:          # the warm-up is call 1
+                gc.collect()
+            return step(*args)
+
+        net._step = step_collecting
+        StepProgram(net).run_group(*_stacked(data))
+    finally:
+        gc.enable()
+    for x, y in data:
+        StepProgram(ref).run(x, y)
+    torch.cuda.synchronize()
+    _assert_nets_bitwise(net, ref)
+
+
+@pytest.mark.cuda
 def test_cuda_register_perf_counts_a_fused_twin_on_the_card():
     """On the card a "pallas" net's step is counted on a "fused" twin
     (every product an aten op): within 1% of the CPU twin's plain-version

@@ -382,7 +382,15 @@ def test_make_loss_and_apply_halves_compose_to_one_step():
 
 
 def test_attach_mesh_names_the_queue():
-    with pytest.raises(NotImplementedError, match="queue 9"):
+    # ZeRO-1 is ported (tests/test_torch_scaleout.py); a mesh with a
+    # tensor-parallel axis still waits, naming queue 9c
+    from deeplearning4j_tpu_torch.engine import MeshManager
+    from deeplearning4j_tpu_torch.parallel import MeshSpec
+
+    with pytest.raises(NotImplementedError, match="queue 9c"):
+        StepProgram(_port_net()).attach_mesh(
+            MeshManager(mesh=MeshSpec(tp=2)))
+    with pytest.raises(TypeError, match="MeshManager"):
         StepProgram(_port_net()).attach_mesh(object())
 
 

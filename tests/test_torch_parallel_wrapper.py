@@ -51,7 +51,7 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+from deeplearning4j_tpu_torch.parallel import MeshSpec, ParallelWrapper
 from deeplearning4j_tpu_torch.resilience import NonFiniteGuard
 from deeplearning4j_tpu_torch.util.model_serializer import params_from_jax
 from test_helpers import _data, _mini_resnet
@@ -327,11 +327,15 @@ def test_output_is_the_nets_output():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(workers=2), dict(tp=2), dict(mesh=object()),
-    dict(averaging_frequency=2), dict(sharding="zero1"),
+    # workers/mesh/local SGD/ZeRO-1 are ported (queue 9a/9b,
+    # tests/test_torch_scaleout*.py); tensor and sequence parallelism
+    # wait for queue 9c
+    dict(workers=2, tp=2), dict(tp=2), dict(mesh=MeshSpec(tp=2)),
+    dict(averaging_frequency=2, mesh=MeshSpec(sp=2)),
+    dict(sharding="zero1", tp=2),
 ])
 def test_unported_options_raise_and_name_their_queue(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 9c"):
         ParallelWrapper(_tnet(), **kw)
 
 

@@ -80,3 +80,13 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+def test_scaleout_worker_imports_only_the_port():
+    """The scale-out gang's worker (tests/fixtures/torch/) runs the port
+    alone: no jax, no JAX package, and no tests/helpers worker."""
+    worker = ROOT / "tests" / "fixtures" / "torch" / "scaleout_worker.py"
+    roots = {mod for mod, _ in _imported_roots(worker)}
+    assert not roots & set(FORBIDDEN_IMPORTS + ("distributed_worker",))
+    assert "deeplearning4j_tpu_torch" in roots
+

@@ -38,7 +38,7 @@ from deeplearning4j_tpu_torch.eval import Evaluation
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.observability import metrics as tobs
-from deeplearning4j_tpu_torch.parallel import TrainingMaster
+from deeplearning4j_tpu_torch.parallel import MeshSpec, TrainingMaster
 from deeplearning4j_tpu_torch.resilience import (
     CheckpointIntegrityError,
     CircuitBreaker,
@@ -880,16 +880,20 @@ def test_training_stats_and_world_info():
 
 
 @pytest.mark.parametrize("kw,queue", [
-    (dict(mesh=object()), 9),
-    (dict(averaging_frequency=2), 9),
-    (dict(averaging_frequency=2, threshold_compression=0.1), 9),
-    (dict(sharding="zero1"), 9),
-    (dict(checkpoint_format="orbax"), 9),
-    (dict(per_rank_checkpoints=True), 9),
-    (dict(guard_inner_steps=True), 9),
+    # local SGD, ZeRO-1 and per-rank checkpoints are ported (queue 9a/9b,
+    # tests/test_torch_scaleout*.py); the non-dp mesh axes wait for 9c
+    (dict(mesh=MeshSpec(tp=2)), 9),
+    (dict(mesh=MeshSpec(sp=2), averaging_frequency=2), 9),
+    (dict(mesh=MeshSpec(pp=2), averaging_frequency=2,
+          threshold_compression=0.1), 9),
+    (dict(mesh=MeshSpec(tp=2), sharding="zero1"), 9),
+    (dict(mesh=MeshSpec(ep=2)), 9),
+    (dict(mesh=MeshSpec(dp=-1, tp=2), per_rank_checkpoints=True), 9),
+    (dict(mesh=MeshSpec(sp=2), guard_inner_steps=True), 9),
 ])
 def test_unported_options_raise_and_name_their_queue(kw, queue):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {queue}"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue {queue}c"):
         TrainingMaster(_tnet(), **kw)
 
 
@@ -900,8 +904,12 @@ def test_unported_entry_points_raise_and_name_their_queue(tmp_path):
     page = tmp_path / "x.html"
     assert tm.export_stats_html(str(page)) == str(page)
     assert page.read_text().count("<tr><td>") == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 9"):
-        TrainingMaster.initialize_distributed("tcp://localhost:1", 2, 0)
+    # initialize_distributed joins a process group now (queue 9a); orbax
+    # (a JAX library's format) is refused naming npz
+    with pytest.raises(ValueError, match="npz"):
+        TrainingMaster(_tnet(), checkpoint_format="orbax")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 9c"):
+        TrainingMaster(_tnet(), mesh=MeshSpec(tp=2))
     with pytest.raises(ValueError, match="mutually exclusive"):
         TrainingMaster(_tnet(), steps_per_dispatch=4, averaging_frequency=2)
     with pytest.raises(ValueError):
