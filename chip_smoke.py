@@ -206,14 +206,14 @@ Phases, in order; any failure exits non-zero:
      kernel of csrc/ on it: the launch counters, zeroed before it, must
      read 0 after it): bench_serving.py:1183 bench_decode's configuration
      (CausalTransformer vocab 512, d 128, 8 heads, 4 layers, ctx 128, seed
-     7; DecodeProgram(max_slots=8, page_size=16)) serving 64 requests from
+     7; DecodeProgram(max_slots=8, page_size=16)) serving DECODE_REQUESTS from
      random.Random(--seed) (prompts 4-48, 8-48 new tokens): the naive
      per-request sequential_decode arm and DecodeEngine(
      max_prefills_per_step=2), two interleaved reps each, all four token
      lists identical; tok/s of each and their ratio, decode steps, mean
      slot occupancy, ms per decode and per chunk dispatch (CUDA events),
      PyTorch kernel launches per dispatch, the idle share of a profiled
-     window of engine steps; the 64 requests served once more by the
+     window of engine steps; the requests served once more by the
      engine's own loop thread (start, submit, result, stop), tokens
      identical; the journal arm (GenerationJournal, fsync_interval_s
      0.05) against none, tokens identical; the paged drills, each bit for
@@ -229,7 +229,7 @@ Phases, in order; any failure exits non-zero:
      16 requests against the CPU's where its margin is wide; then
      GPT-2-small width (vocab 50257, d 768, 12 heads, 12 layers, ctx
      1024, seeded; DecodeProgram(max_slots=32, page_size=16), a 2.4 GB
-     pool): 64 requests (prompts 64-512, 32-128 new tokens) through the
+     pool): GPT2_REQUESTS requests (prompts 64-512, 32-128 new tokens) through the
      engine, tok/s, peak memory, the engine equal to the oracle on 4 of
      them, ms per decode step and per chunk beside the step's bound
      (weights + live K/V over 3.35 TB/s), and one chunk and one step
@@ -259,7 +259,7 @@ Phases, in order; any failure exits non-zero:
      back and holds down, a serving.replica_kill tick that removes a
      replica and backfills it on the indexed device, zero mixed and zero
      failed outside the armed poison; (e) decode over HTTP: phase 5i's
-     64 bench requests through CONTROL_DECODE_CLIENTS generate threads
+     bench requests through CONTROL_DECODE_CLIENTS generate threads
      on each wire (tokens equal to phase 5i's oracle), 429 with
      Retry-After from an over-subscribed engine, a router migrating a
      generation from a retiring replica (and restarting it from the
@@ -310,7 +310,7 @@ Phases, in order; any failure exits non-zero:
      batch beside the bound of the rows gathered and scattered (B x (K+2) x
      D x 4 bytes each way at 3.35 TB/s), busy ms per batch and the idle
      share of a profiled slab; a finite table and similarity(w0, w1); (b)
-     CBOW + hierarchical softmax, vocab 50,000, dim 300, 4,000,000 words,
+     CBOW + hierarchical softmax, vocab 50,000, dim 300, NLP_WIDE_WORDS words,
      1 epoch, on the int32 wire: the same numbers; (c) on (a)'s first
      NLP_CUT_WORDS words, each dense mode (skip-gram and CBOW x NS and
      HS) and the scan tier, GloVe, and (on NLP_PV_CUT_DOCS of its
@@ -356,6 +356,26 @@ Phases, in order; any failure exits non-zero:
      bit for bit on the card; (e) parallel/dcn_model.crossover_report fed
      (a)'s measured ms/step and the flagship's f32 parameter bytes (its
      link constants describe a TPU slice's DCN, not this card's links);
+  5n. tensor and sequence parallelism (lines start "mesh "; no kernel of
+     csrc/ on these paths: the launch counters, zeroed before it and
+     counted in the gang's ranks too, must read 0): a 2-rank gloo gang of
+     this script (`--mesh-rank`, CUDA tensors on the one card) runs (a)
+     ring_self_attention over make_mesh(sp=2) at GPT-2-small's heads
+     (MESH_RING: B 1, T 8192, H 12, D 64), causal, f32 and bf16: ms per
+     call, the same output on both ranks, against dense attention on the
+     card (MESH_RING_TOL), beside one scaled_dot_product_attention call of
+     the whole sequence; (b) phase 5c's VGG16 at MESH_VGG_BATCH through
+     ParallelWrapper(tp=2): ms/step in the steady state and over a fit
+     with its slicing and gathering, the collectives, each rank's param
+     and updater bytes, the params against the one-process fit from the
+     same seeded init (MESH_TP_TOL) and equal on both ranks; (c)
+     DistributedSequenceVectors at phase 5l's bench.py:468 configuration
+     over the two ranks (sync_every 1, MESH_W2V_EPOCHS timed epochs):
+     words/s, the rendezvous seconds, the tables equal on both ranks;
+     and beside the gang (d) tests/test_torch_cluster_gang.py's SIGKILL
+     drill on the card (tests/fixtures/torch/gang_worker.py's 2 ranks
+     under ClusterSupervisor, MESH_DRILL_STEPS steps): the relaunched
+     gang equal to its unfaulted run;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -394,7 +414,7 @@ HW = 224
 BATCH = 32                     # forward kernel shapes, step check
 TRAIN_BATCH = 128              # the train step: bench.py's flagship batch
 TRAIN_WARMUP = 2
-TRAIN_STEPS = 20
+TRAIN_STEPS = 8
 PROFILE_STEPS = 3              # profiled after the timed steps
 PROFILE_TOP = 12
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -405,10 +425,10 @@ L2_BYTES = 50 * 2 ** 20        # H100 SXM L2
 GROUP_K = 4                    # steps per run_group (bench.py:72 unroll=4)
 ENGINE_CHECK_BATCH = 32        # the bitwise group check
 ENGINE_WARMUP = 2              # eager warm-up steps before the timed run
-ENGINE_STEPS = 20              # timed steps: 20 run() calls, 5 replays
+ENGINE_STEPS = 8               # timed steps: 8 run() calls, 2 replays
 ENGINE_PROFILE_STEPS = 4       # steps under torch.profiler, after those
-ES_BATCHES = 4                 # EarlyStoppingTrainer: batches per epoch
-ES_EPOCHS = 3
+ES_BATCHES = 3                 # EarlyStoppingTrainer: batches per epoch
+ES_EPOCHS = 2
 # MFU: a train step is 3x the forward's multiply-adds, counted from the
 # layer shapes (macs_per_image); "mfu" counts one multiply-add as one
 # FLOP, as bench.py does; "mfu_2flops" counts it as two, the FLOPs the
@@ -419,20 +439,20 @@ ES_EPOCHS = 3
 MLN_BATCH = 32
 MLN_OUTPUT_CALLS = 10          # timed output() calls
 MLN_WARMUP = 2
-MLN_STEPS = 20                 # timed steps: 20 run() calls, 5 replays
+MLN_STEPS = 8                  # timed steps: 8 run() calls, 2 replays
 MLN_PROFILE_STEPS = 4
 MLN_CHECK_BATCH = 8            # the dropout checks
 MLN_SERVE_SIZES = (1, 3, 8, 16, 32, 5)
 ALEXNET_STEPS = 8
 # phase 5d, TrainingMaster and ParallelWrapper on the flagship
 TM_DATA = 4                    # seeded host batches a batch_fn cycles through
-TM_STEPS = 20                  # timed steps at steps_per_dispatch=GROUP_K
-TM_K1_STEPS = 8                # timed steps at steps_per_dispatch=1
-TM_PROFILE_STEPS = 8           # profiled steps after a timed fit
+TM_STEPS = 8                   # timed steps at steps_per_dispatch=GROUP_K
+TM_K1_STEPS = 4                # timed steps at steps_per_dispatch=1
+TM_PROFILE_STEPS = 4           # profiled steps after a timed fit
 TM_CHECK_BATCH = 32            # the resume, torn-write and guard checks
-TM_CKPT_REPEATS = 2            # timed saves and restores of one checkpoint
-PW_BATCHES = 8                 # ParallelWrapper's bitwise check
-ES_PARALLEL_EPOCHS = 2
+TM_CKPT_REPEATS = 1            # timed saves and restores of one checkpoint
+PW_BATCHES = 4                 # ParallelWrapper's bitwise check
+ES_PARALLEL_EPOCHS = 1
 # phase 5f, recurrent networks: the zoo's TextGenerationLSTM at
 # bench.py:196 bench_lstm's configuration
 RNN_VOCAB = 98
@@ -441,10 +461,10 @@ RNN_BATCHES = (64, 2048)       # bench_lstm's default; the README's batch
 RNN_REMAT_BATCH = 2048         # bench.py lstm 2048 remat
 RNN_FOLLOW = 0.9               # share of characters that follow the rule
 RNN_WARMUP = 1                 # fit_batch calls before the timed ones
-RNN_STEPS = 3                  # timed fit_batch calls (6 chunks each)
+RNN_STEPS = 2                  # timed fit_batch calls (6 chunks each)
 RNN_CHUNK_CALLS = 4            # timed calls of one 50-step chunk's step
 RNN_PROMPT = 32                # greedy generation at batch 64
-RNN_GENERATE = 256
+RNN_GENERATE = 128
 RNN_CHECK_STEPS = 64           # the stream-vs-output check's sequence
 # rnn_time_step against output() in f32: the JAX package's bar
 # (tests/test_smoke.py::test_rnn_time_step_matches_full_forward)
@@ -473,9 +493,9 @@ OBS_WATCHDOG_S = 10.0          # flagship fit: > capture (0.64 s, PR 5)
 OBS_DRILL_STEPS = 3 * GROUP_K  # the hang drill at TM_CHECK_BATCH
 OBS_DRILL_WATCHDOG_S = 5.0
 OBS_HANG_S = 120.0             # the train.hang delay the watchdog cuts
-OBS_REQUESTS = 50              # sequential mixed-size served requests
+OBS_REQUESTS = 30              # sequential mixed-size served requests
 OBS_SERVE_SIZES = (1, 3, 8, 16, 32, 5, 40)
-OBS_IDLE_S = 3.0               # the serving idle-share window
+OBS_IDLE_S = 2.0               # the serving idle-share window
 # The zoo's VGG16 and AlexNet have linear convolutions: ConvolutionLayer's
 # default activation is identity and the JAX package's zoo sets none (the
 # configuration is held to its JSON). Under He init the activations then
@@ -522,16 +542,16 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 ZOO_HW = {"GoogLeNet": 224, "InceptionResNetV1": 160,
           "FaceNetNN4Small2": 96}
 ZOO_BATCH = TRAIN_BATCH
-ZOO_STEPS = 20                 # GoogLeNet: timed steps, 5 replays
-ZOO_SMALL_STEPS = 8            # InceptionResNetV1, FaceNetNN4Small2
+ZOO_STEPS = 8                  # GoogLeNet: timed steps, 2 replays
+ZOO_SMALL_STEPS = 4            # InceptionResNetV1, FaceNetNN4Small2
 ZOO_CHECK_BATCH = 32           # the routed-backward and replay checks
 ZOO_PROFILE_STEPS = 4
-TL_STEPS = 20                  # ResNet-50 transfer: timed steps
+TL_STEPS = 8                   # ResNet-50 transfer: timed steps
 VGG_TL_BATCH = 32              # bench.py:506 bench_vgg16's batch
-VGG_TL_STEPS = 8
+VGG_TL_STEPS = 4
 VGG_TL_CLASSES = 100           # the replaced head's width
 SOLVER_BATCH = 128
-SOLVER_ITERS = 10
+SOLVER_ITERS = 6
 PRETRAIN_BATCH = 128
 PRETRAIN_BATCHES = 8
 PRETRAIN_EPOCHS = 2
@@ -571,12 +591,30 @@ STEP_TOL = {"float32": {"loss": 1e-6, "overall": 1e-2},
 # and the 2-rank gloo gang of the tests on the one card. The gang's card
 # against its CPU run: f32 with TF32 off on both, three small nets; a
 # CUDA reduction order against the CPU's, so rtol 1e-4 / atol 1e-5.
-SCALEOUT_STEPS = 20            # timed steps of each TrainingMaster fit
+SCALEOUT_STEPS = 8             # timed steps of each TrainingMaster fit
 SCALEOUT_THRESHOLD = 1e-3      # (b)'s threshold compression
-SCALEOUT_STALE_STEPS = 8
+SCALEOUT_STALE_STEPS = 4
 SCALEOUT_GANG_BATCH = 64
-SCALEOUT_GANG_STEPS = 10
+SCALEOUT_GANG_STEPS = 6
 SCALEOUT_GANG_TOL = {"rtol": 1e-4, "atol": 1e-5}
+# phase 5n: tensor and sequence parallelism, distributed embeddings and
+# the gang drill, on a 2-rank gloo gang sharing the one card. (a) ring
+# attention at GPT-2-small's heads over sp 2, causal; (b) VGG16 (phase
+# 5c's model, images and rate) over tp 2; (c) DistributedSequenceVectors
+# at phase 5l's bench.py:468 configuration; (d) the SIGKILL drill of
+# tests/test_torch_cluster_gang.py on the card.
+MESH_RING = dict(B=1, T=8192, H=12, D=64)
+MESH_RING_CALLS = 3            # timed calls per dtype, after one warm call
+# the ring against dense attention on the card (both from the same
+# inputs): f32 at JAX's ring bar (tests/test_ring_attention.py, TF32 off);
+# bf16 within two of its ulps of the f32 dense output
+MESH_RING_TOL = {"float32": {"rtol": 2e-4, "atol": 2e-5},
+                 "bfloat16": {"rtol": 8e-3, "atol": 1e-3}}
+MESH_VGG_BATCH = 32
+MESH_VGG_STEPS = 3             # timed steps, after one warm step
+MESH_TP_TOL = {"rtol": 1e-3, "atol": 1e-4}   # tests/test_parallel.py's tp bar
+MESH_W2V_EPOCHS = 2            # timed, after one warm epoch
+MESH_DRILL_STEPS = 6
 # phase 5h: Keras import and data. The seven Keras fixtures against their
 # expected outputs at tests/test_modelimport.py's bars; canonical Keras
 # VGG16 (BASELINE config 4, bench.py:506 bench_vgg16: batch 32, frozen
@@ -591,38 +629,39 @@ KERAS_TOL = {"rtol": 1e-4, "atol": 1e-5}
 KERAS_VGG_BATCH = 32
 KERAS_VGG_STEPS = 8
 KERAS_RESNET_BATCH = TRAIN_BATCH
-KERAS_RESNET_STEPS = 20
+KERAS_RESNET_STEPS = 8
 # the bf16 "pallas" forward against "fused", max |log p - log p_ref|, of
 # the imported ResNet50 (its f32 limit is ZOO_LOGP_TOL's): the first chip
 # reading was 0.169 (f32 1.9e-5; PERF.md, phase 5h), margin 3x
 KERAS_RESNET_BF16_LOGP_TOL = 0.5
-CSV_ROWS = 1_000_000
+CSV_ROWS = 500_000
 CSV_COLS = 11
 CSV_BATCH = 4096
 LENET_BATCH = 64
-LENET_STEPS = 20
+LENET_STEPS = 8
 # phase 5i, the decode-serving path: bench_serving.py:1183 bench_decode's
-# configuration and traffic (64 requests, prompts 4-48, 8-48 new tokens,
+# configuration and traffic (its 64 requests cut to DECODE_REQUESTS, prompts
+# 4-48, 8-48 new tokens,
 # drawn from random.Random(--seed)), then GPT-2-small width
 # (openai-community/gpt2's published config: 12 layers, 12 heads, 768
 # wide, 1024 positions, vocab 50257; seeded weights, nothing downloaded)
 DECODE_BENCH = dict(vocab_size=512, d_model=128, n_heads=8, n_layers=4,
                     max_ctx=128, seed=7)
 DECODE_SLOTS, DECODE_PAGE = 8, 16
-DECODE_REQUESTS = 64
+DECODE_REQUESTS = 24            # bench_decode's 64, cut for the time limit
 DECODE_PROMPT, DECODE_NEW = (4, 48), (8, 48)
 DECODE_PREFILLS = 2            # max_prefills_per_step, as bench_decode
-DECODE_TIMED = 20              # dispatches timed per program
+DECODE_TIMED = 10              # dispatches timed per program
 DECODE_IDLE_SKIP = 60          # engine steps before the profiled window
 DECODE_IDLE_STEPS = 30         # engine steps in the profiled window
 GPT2 = dict(vocab_size=50257, d_model=768, n_heads=12, n_layers=12,
             max_ctx=1024)
 GPT2_SLOTS, GPT2_PAGE = 32, 16
-GPT2_REQUESTS = 32             # one wave of the GPT2_SLOTS slots
+GPT2_REQUESTS = 12             # of the GPT2_SLOTS slots (cut)
 GPT2_PROMPT, GPT2_NEW = (64, 512), (32, 128)
 GPT2_PREFILLS = 4              # chunk dispatches per engine step
 GPT2_ORACLE = 4                # requests checked against sequential_decode
-GPT2_TIMED = 10
+GPT2_TIMED = 5
 GPT2_BOUND_LIVE = 512          # live cells per slot in the timed step
 # the card against the port on the CPU (which tests/test_torch_decode_
 # parity.py holds to JAX): the largest |card - CPU| allowed on a logit or
@@ -658,14 +697,14 @@ TL_HELPER_TOL = 1e-6
 # admission at 2x capacity (bench_serving.py:324 bench_soak's path,
 # tenant mix and shed thresholds, :434-441), a three-replica fleet, and
 # decode over HTTP (phase 5i's configurations)
-CONTROL_NPZ_S = 6.0
-CONTROL_JSON_S = 3.0
+CONTROL_NPZ_S = 4.0
+CONTROL_JSON_S = 2.0
 CONTROL_JSON_THREADS = 4
 CONTROL_SWAP_WAIT = 16         # requests a version serves per drill step
 CONTROL_SOAK_ROWS = 16
-CONTROL_CAPACITY_S = 3.0       # closed loop, gold only
-CONTROL_BASELINE_S = 3.0       # gold alone, open loop at its soak rate
-CONTROL_SOAK_S = 6.0           # open loop at 2x capacity
+CONTROL_CAPACITY_S = 2.0       # closed loop, gold only
+CONTROL_BASELINE_S = 2.0       # gold alone, open loop at its soak rate
+CONTROL_SOAK_S = 4.0           # open loop at 2x capacity
 # (tenant, share of the offered load, priority, quota rate as a share
 # of capacity, burst)
 CONTROL_SOAK_MIX = (("gold", 0.15, "high", None, None),
@@ -679,7 +718,7 @@ CONTROL_FLEET_ROWS = 8
 CONTROL_SLO = ("error_rate<0.05,min_requests=5,window=500ms,windows=2,"
                "ramp_windows=1")
 CONTROL_DECODE_CLIENTS = 8
-CONTROL_GPT2_REQUESTS = 8
+CONTROL_GPT2_REQUESTS = 4
 CONTROL_GPT2_PROMPT = (64, 256)
 # phase 5k: cluster supervision of the flagship and clustering. (a) A
 # worker process (tests/fixtures/torch/cluster_worker.py) trains the
@@ -699,7 +738,7 @@ CONTROL_GPT2_PROMPT = (64, 256)
 # row_block 2048), k-means with k = 10 on the 70,000. (e) serves k-NN over
 # a seeded 1,000,000 x 128 f32 corpus (a user's embedding table). (f)
 # runs the dashboard's t-SNE tab on 2,000 of (b)'s rows.
-CLUSTER_STEPS = 16
+CLUSTER_STEPS = 12             # three windows: the wedge's at the last
 CLUSTER_WEDGE_WINDOW = 3
 CLUSTER_WATCHDOG_S = 4.0       # the worker watchdog's timeout_s
 CLUSTER_LEASE_S = 12.0         # the supervisor's lease_timeout_s: above
@@ -712,8 +751,8 @@ TSNE_EXACT_N = 16384           # clustering.Tsne.DENSE_CAP
 TSNE_N = 70000                 # MNIST's train + test rows
 TSNE_D = 784
 TSNE_PERPLEXITY = 30.0
-TSNE_EXACT_ITERS = 500         # the JAX package's default max_iter
-TSNE_CHUNKED_ITERS = 500
+TSNE_EXACT_ITERS = 200         # the JAX package's default max_iter, 500, cut
+TSNE_CHUNKED_ITERS = 200
 TSNE_ROW_BLOCK = 2048
 # the card against the port on the CPU from the same state (one
 # iteration each, on the card's state: a chaotic map amplifies one ulp
@@ -748,7 +787,7 @@ NN_DIM = 128
 NN_K = 10
 NN_QUERIES = 64                # per request
 NN_CLIENTS = 8
-NN_WINDOW_S = 5.0
+NN_WINDOW_S = 3.0
 NN_CHECK_QUERIES = 256
 NN_TREE_ROWS = 20000
 NN_TREE_QUERIES = 8
@@ -761,7 +800,7 @@ DASH_ROWS = 2000
 # NLP_EPOCHS epochs timed NLP_REPS times, the best rep. (b) CBOW with
 # hierarchical softmax at the width of the published GoogleNews vectors
 # (300) over a 50,000-word zipf vocabulary (above the int16 wire's
-# 32,768: the int32 wire), 4,000,000 words, one epoch. (c) the card
+# 32,768: the int32 wire), NLP_WIDE_WORDS words, one epoch. (c) the card
 # against the port on the CPU on (a)'s first NLP_CUT_WORDS words. (d)
 # tests/test_nlp.py's two-topic corpus at NLP_TOPIC_SENTS sentences. (e)
 # DeepWalk at BlogCatalog's scale (Perozzi et al. 2014, table 1: 10,312
@@ -776,12 +815,12 @@ NLP_SEQ = 1000
 NLP_DIM = 128
 NLP_WINDOW = 5
 NLP_NEG = 5
-NLP_EPOCHS = 5
-NLP_REPS = 2
+NLP_EPOCHS = 2                 # bench.py's 5, cut for the time limit
+NLP_REPS = 1
 NLP_WIDE_VOCAB = 50_000
 NLP_WIDE_DIM = 300
-NLP_WIDE_WORDS = 4_000_000
-NLP_CUT_WORDS = 200_000
+NLP_WIDE_WORDS = 2_000_000
+NLP_CUT_WORDS = 50_000
 # the card against the port on the CPU after the same fit: max abs error
 # over max(1, max|CPU table|) (the card sums scatters with float atomics,
 # the CPU in index order; the port against the JAX package reads ~1e-5
@@ -801,8 +840,8 @@ BLOG_INSIDE = 0.8              # share of edges inside a block
 BLOG_DIM = 128
 BLOG_WINDOW = 10
 BLOG_WALK = 40
-BLOG_WALKS = 5                 # per vertex (the paper's 80, cut)
-BLOG_N2V_WALK = 10             # Node2Vec's one walk per vertex, cut from 40
+BLOG_WALKS = 2                 # per vertex (the paper's 80, cut)
+BLOG_N2V_WALK = 5              # Node2Vec's one walk per vertex, cut from 40
 BLOG_SHARE_MIN = 0.9           # of each vertex's 10 nearest in its block
 
 
@@ -8891,6 +8930,476 @@ def scaleout_phase(torch, np, pc, ResNet50, card, det):
     return res
 
 
+# ------------------------------------------------------------ phase 5n
+def dense_attention(torch, q, k, v, causal):
+    """softmax(QK^T / sqrt(D)) V of [B, T, H, D] tensors in f32, head by
+    head (the scores of one head at a time): the plain reference of the
+    ring."""
+    B, T, H, D = q.shape
+    out = torch.empty(B, T, H, D, dtype=torch.float32, device=q.device)
+    mask = (torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+            if causal else None)
+    for h in range(H):
+        qh, kh, vh = (a[:, :, h].float() for a in (q, k, v))
+        s = qh @ kh.transpose(-1, -2) / float(D) ** 0.5
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
+        out[:, :, h] = torch.softmax(s, dim=-1) @ vh
+    return out
+
+
+def mesh_barrier(torch):
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    collectives.all_reduce_sum(torch.zeros(1))
+
+
+def sha_of(torch, ts):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tol_ratio(torch, got, want, tol):
+    """Largest |got - want| / (atol + rtol |want|) (<= 1 passes)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs()
+                  / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def mesh_ring(torch, rank):
+    """5n (a): ring_self_attention over make_mesh(sp=2), causal, f32 and
+    bf16: ms per call (both ranks synchronized), the hops, the output's
+    hash on each rank, and on rank 0 (rank 1 waits) the largest error
+    against dense attention and one scaled_dot_product_attention call of
+    the whole sequence on the card."""
+    from deeplearning4j_tpu_torch.parallel import (
+        collectives,
+        make_mesh,
+        ring_self_attention,
+    )
+
+    mesh = make_mesh(sp=2)
+    B, T, H, D = (MESH_RING[c] for c in "BTHD")
+    gen = torch.Generator().manual_seed(81)
+    base = [torch.randn(B, T, H, D, generator=gen).to(DEV)
+            for _ in range(3)]
+    res = {"shape": [B, T, H, D], "sp": mesh.shape["sp"]}
+    for dt in ("float32", "bfloat16"):
+        q, k, v = (a.to(getattr(torch, dt)) for a in base)
+        out = ring_self_attention(q, k, v, mesh, causal=True)
+        torch.cuda.synchronize()
+        mesh_barrier(torch)
+        hops0 = collectives.COUNTS["ppermute"]
+        t0 = time.perf_counter()
+        for _ in range(MESH_RING_CALLS):
+            out = ring_self_attention(q, k, v, mesh, causal=True)
+        torch.cuda.synchronize()
+        r = {"ms_per_call": (time.perf_counter() - t0) * 1e3
+             / MESH_RING_CALLS,
+             "hops_per_call": (collectives.COUNTS["ppermute"] - hops0)
+             / MESH_RING_CALLS,
+             "out_sha": sha_of(torch, [out]),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        mesh_barrier(torch)
+        if rank == 0:
+            ref = dense_attention(torch, q, k, v, True)
+            r["tol_ratio"] = tol_ratio(torch, out, ref, MESH_RING_TOL[dt])
+            r["max_abs_err"] = float((out.float() - ref).abs().max())
+            del ref
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+            F = torch.nn.functional
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_RING_CALLS):
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            torch.cuda.synchronize()
+            r["sdpa_ms"] = (time.perf_counter() - t0) * 1e3 / MESH_RING_CALLS
+            del qt, kt, vt
+        mesh_barrier(torch)
+        res[dt] = r
+        del out
+        torch.cuda.empty_cache()
+    return res
+
+
+def mesh_tp_vgg(torch, np, rank):
+    """5n (b): VGG16 (phase 5c's) at MESH_VGG_BATCH through
+    ParallelWrapper(tp=2): one warm fit of a step, then a fit of
+    MESH_VGG_STEPS + 1 steps: ms per step between its first and last step
+    ends (CUDA-synchronized listener stamps: the steady state) and over
+    the whole fit (with its slicing and gathering), the collectives per
+    step, an empty fit timing the slicing and gathering alone, each
+    rank's param and updater bytes; then on rank 0 (rank 1 waits) the
+    same steps in one process from the same seeded init: ms per step and
+    the tp params' largest error against them (MESH_TP_TOL)."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, collectives
+    from deeplearning4j_tpu_torch.util.tree import leaves
+    from deeplearning4j_tpu_torch.zoo.models import VGG16
+
+    class Stamps:
+        def __init__(self):
+            self.t = []
+
+        def iteration_done(self, net, iteration):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+
+    x, y = mln_batch(torch, np, 73, MESH_VGG_BATCH)
+    init_sum = lambda n: float(sum(float(t.double().abs().sum())
+                                   for t in leaves(n.params)))
+    net = vgg16(VGG16)
+    res = {"params": net.num_params(), "init_sum": init_sum(net)}
+    stamps = Stamps()
+    net.listeners = [stamps]
+    pw = ParallelWrapper(net, tp=2, pipeline=False)
+    pw.fit([(x, y)])
+    torch.cuda.synchronize()
+    mesh_barrier(torch)
+    torch.cuda.reset_peak_memory_stats()
+    stamps.t.clear()
+    c0 = dict(collectives.COUNTS)
+    t0 = time.perf_counter()
+    pw.fit([(x, y)] * (MESH_VGG_STEPS + 1))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steady = stamps.t[-1] - stamps.t[0]
+    res["tp_ms_per_step"] = steady * 1e3 / MESH_VGG_STEPS
+    res["tp_fit_ms_per_step"] = (t1 - t0) * 1e3 / (MESH_VGG_STEPS + 1)
+    res["collectives_per_fit"] = {k: collectives.COUNTS[k] - c0[k]
+                                  for k in c0}
+    res["tp_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["memory"] = pw.tp_memory
+    res["tp_loss"] = float(net.score())
+    t0 = time.perf_counter()
+    pw.fit([])
+    torch.cuda.synchronize()
+    res["slice_gather_s"] = time.perf_counter() - t0
+    res["mesh"] = pw.mesh.shape
+    res["params_sha"] = sha_of(torch, leaves(net.params))
+    mesh_barrier(torch)
+    if rank == 0:
+        ref = vgg16(VGG16)
+        res["ref_init_sum"] = init_sum(ref)
+        prog = StepProgram(ref)
+        prog.run(x, y)
+        torch.cuda.synchronize()
+        prog.run(x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_VGG_STEPS):
+            prog.run(x, y)
+        torch.cuda.synchronize()
+        res["one_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                  / MESH_VGG_STEPS)
+        res["one_loss"] = float(ref.score())
+        res["tol_ratio"] = max(
+            tol_ratio(torch, a, b, MESH_TP_TOL)
+            for a, b in zip(leaves(net.params), leaves(ref.params)))
+        res["max_abs_err"] = max(
+            float((a - b).abs().max())
+            for a, b in zip(leaves(net.params), leaves(ref.params)))
+        del ref, prog
+    del net, pw
+    torch.cuda.empty_cache()
+    mesh_barrier(torch)
+    return res
+
+
+def mesh_w2v(torch, np, rank):
+    """5n (c): DistributedSequenceVectors over the two ranks at phase 5l's
+    bench.py:468 configuration (each rank trains its half of the
+    sequences, one rendezvous per epoch): a warm epoch, then
+    MESH_W2V_EPOCHS timed epochs up to a host read; the corpus' words/s,
+    the rendezvous seconds, the tables' hash on each rank."""
+    from deeplearning4j_tpu_torch.nlp.distributed import (
+        DistributedSequenceVectors,
+    )
+    from deeplearning4j_tpu_torch.nlp.sequence_vectors import SequenceVectors
+
+    seqs = zipf_corpus(np, NLP_VOCAB, NLP_WORDS, NLP_SEQ, 0)
+    sv = SequenceVectors(layer_size=NLP_DIM, window=NLP_WINDOW,
+                         negative=NLP_NEG, epochs=1, seed=1, mode="dense",
+                         device=DEV)
+    dsv = DistributedSequenceVectors(sv, sync_every=1)
+    dsv.build_vocab(seqs)
+    t0 = time.perf_counter()
+    dsv.fit(seqs, epochs=1)
+    float(sv._syn0_dev[0, 0])
+    res = {"warm_s": time.perf_counter() - t0}
+    mesh_barrier(torch)
+    r0, n0 = dsv.rendezvous_s, dsv.wire_stats()["rendezvous"]
+    t0 = time.perf_counter()
+    dsv.fit(seqs, epochs=MESH_W2V_EPOCHS)
+    float(sv._syn0_dev[0, 0])
+    t = time.perf_counter() - t0
+    res.update({
+        "epochs": MESH_W2V_EPOCHS, "fit_s": t,
+        "words_per_s": NLP_WORDS * MESH_W2V_EPOCHS / t,
+        "rendezvous_s": dsv.rendezvous_s - r0,
+        "rendezvous": dsv.wire_stats()["rendezvous"] - n0,
+        "tables_sha": sha_of(torch, [sv._syn0_dev, sv._syn1neg_dev]),
+        "finite": bool(np.isfinite(sv.syn0).all()
+                       and np.isfinite(sv.syn1neg).all())})
+    mesh_barrier(torch)
+    return res
+
+
+def mesh_rank_main(rank, world, port, io):
+    """One rank of phase 5n's gang (`--mesh-rank`): (a)-(c) in sequence
+    over one gloo group with CUDA tensors on the card; writes
+    io/rank-<rank>.json. Imports only the port."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.helpers import pallas_conv as pc
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    collectives.init_process_group(f"127.0.0.1:{port}", world, rank,
+                                   backend="gloo", device=DEV)
+    pc.reset_launch_counts()
+    out = {"rank": rank, "seconds": {}}
+    try:
+        for name, fn in (("ring", lambda: mesh_ring(torch, rank)),
+                         ("tp", lambda: mesh_tp_vgg(torch, np, rank)),
+                         ("w2v", lambda: mesh_w2v(torch, np, rank))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out["seconds"][name] = time.perf_counter() - t0
+            print(f"mesh rank {rank}: {name} {out['seconds'][name]:.1f} s",
+                  flush=True)
+        out["launches"] = pc.launch_counts()
+    finally:
+        with open(os.path.join(io, f"rank-{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+        collectives.destroy_process_group()
+
+
+def mesh_gang(np, tmp, world=2, wait_s=240.0):
+    """Phase 5n's gang: `world` ranks of this script (`--mesh-rank`) on
+    the card. Returns ([rank outputs], seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    io = os.path.join(tmp, "mesh")
+    os.makedirs(io, exist_ok=True)
+    port = free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(world):
+        log_f = open(os.path.join(io, f"log-{r}.txt"), "w")
+        logs.append(log_f)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), "--mesh-world", str(world), "--mesh-port", str(port),
+             "--mesh-io", io], stdout=log_f, stderr=subprocess.STDOUT,
+            env=env, cwd=here))
+    deadline = time.perf_counter() + wait_s
+    rcs = []
+    try:
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(1.0, deadline
+                                              - time.perf_counter())))
+            except subprocess.TimeoutExpired:
+                rcs.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    secs = time.perf_counter() - t0
+    if any(rcs):
+        tails = "".join(open(os.path.join(io, f"log-{r}.txt")).read()[-4000:]
+                        for r in range(world))
+        fail(f"mesh gang: a rank failed {rcs}:\n{tails}")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(io, f"rank-{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, secs
+
+
+def mesh_drill(np, tmp, res):
+    """5n (d): tests/test_torch_cluster_gang.py's SIGKILL drill on the
+    card: gang_worker.py's 2 ranks (gloo, CUDA tensors) under
+    ClusterSupervisor, unfaulted, then with rank 1 SIGKILLed from outside
+    at step 2 or later; the relaunched gang's final params against the
+    unfaulted run's (rtol 1e-6, atol 1e-7). Fills `res`."""
+    from deeplearning4j_tpu_torch.resilience import (
+        ClusterSupervisor,
+        HeartbeatFile,
+        heartbeat_path,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(here, "tests", "fixtures", "torch",
+                          "gang_worker.py")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here
+    env.pop("DL4J_TPU_FAULTS", None)
+
+    def run(name, spin_ms, kill):
+        out = os.path.join(tmp, f"drill-{name}")
+        hb_dir = os.path.join(out, "hb")
+        os.makedirs(out, exist_ok=True)
+
+        def command_fn(rank, nprocs, port, resume_step):
+            return [sys.executable, worker, str(rank), str(nprocs),
+                    str(port), str(MESH_DRILL_STEPS), out,
+                    "--checkpoint-every", "1", "--cluster",
+                    "--heartbeat-dir", hb_dir, "--resume-step",
+                    str(resume_step), "--device", DEV, "--spin-ms",
+                    str(spin_ms)]
+
+        cs = ClusterSupervisor(2, command_fn, hb_dir,
+                               checkpoint_dir=os.path.join(out, "ckpt"),
+                               lease_timeout_s=120.0, startup_grace_s=120.0,
+                               poll_s=0.2, restart_backoff_s=0.2,
+                               max_restarts_per_worker=2, env=env)
+        killed = {}
+
+        def killer():
+            while not killed and not stop.is_set():
+                rec = HeartbeatFile.read(heartbeat_path(hb_dir, 1))
+                if (rec and rec.get("status") == "running"
+                        and (rec.get("step") or 0) >= 2):
+                    try:
+                        os.kill(rec["pid"], 9)
+                        killed["pid"] = rec["pid"]
+                        killed["t"] = time.perf_counter()
+                    except ProcessLookupError:
+                        pass
+                    return
+                time.sleep(0.05)
+
+        stop = threading.Event()
+        th = threading.Thread(target=killer, daemon=True) if kill else None
+        if th:
+            th.start()
+        t0 = time.perf_counter()
+        stats = cs.run(timeout_s=200.0)
+        t1 = time.perf_counter()
+        stop.set()
+        if th:
+            th.join(timeout=5.0)
+        with np.load(os.path.join(out, "final_params.npz")) as z:
+            final = [z[k] for k in z.files if k.startswith("arr_")]
+            it = int(z["iteration"])
+        return stats, final, it, t1 - t0, killed
+
+    try:
+        s0, f0, it0, sec0, _ = run("oracle", 0, False)
+        s1, f1, it1, sec1, killed = run("kill", 250, True)
+        ok = (bool(killed) and s1["gang_restarts"] == 1
+              and it1 == it0 == MESH_DRILL_STEPS and len(f0) == len(f1)
+              and all(np.allclose(a, b, rtol=1e-6, atol=1e-7)
+                      for a, b in zip(f1, f0)))
+        res.update({
+            "ok": ok, "oracle_s": sec0, "drill_s": sec1,
+            "gang_restarts": s1["gang_restarts"],
+            "ledger": [{k: e[k] for k in ("worker", "reason", "collateral",
+                                          "resume_step")}
+                       for e in s1["ledger"]],
+            "max_abs_vs_oracle": max(float(np.max(np.abs(a - b)))
+                                     for a, b in zip(f1, f0))})
+    except Exception as e:   # noqa: BLE001 - reported by the phase
+        res.update({"ok": False, "error": repr(e)})
+
+
+def mesh_phase(torch, np, pc, card, nlp_words_per_s):
+    """Phase 5n (module docstring): the 2-rank gang's (a)-(c) and, on a
+    thread beside it, (d). The kernel launch counters are set to 0 before
+    it and read after it, the gang's ranks' added: no kernel of csrc/ is
+    on these paths."""
+    pc.reset_launch_counts()
+    res = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        drill = {}
+        th = threading.Thread(target=mesh_drill, args=(np, tmp, drill),
+                              daemon=True)
+        th.start()
+        outs, secs = mesh_gang(np, tmp)
+        t0 = time.perf_counter()
+        th.join(timeout=240.0)
+        wait_s = time.perf_counter() - t0
+    r0, r1 = outs
+    ring, tp, w2v = r0["ring"], r0["tp"], r0["w2v"]
+    launches = {k: pc.LAUNCHES[k] + sum(o["launches"].get(k, 0)
+                                        for o in outs)
+                for k in pc.LAUNCHES if "/" not in k}
+    res.update({"gang_s": secs, "drill_wait_s": wait_s,
+                "rank_seconds": [o["seconds"] for o in outs],
+                "ring": ring, "tp": tp, "w2v": w2v, "drill": drill,
+                "launches": launches})
+    for dt in ("float32", "bfloat16"):
+        r = ring[dt]
+        log(f"mesh (a) ring_self_attention over make_mesh(sp=2), 2 gloo "
+            f"ranks on the card, B {MESH_RING['B']}, T {MESH_RING['T']}, H "
+            f"{MESH_RING['H']}, D {MESH_RING['D']}, causal, {dt}: "
+            f"{r['ms_per_call']:.3f} ms per call ({r['hops_per_call']:.0f} "
+            f"hop each, through host buffers), the same output on both "
+            f"ranks: {r['out_sha'] == r1['ring'][dt]['out_sha']}; against "
+            f"dense attention on the card max |err| {r['max_abs_err']:.3e} "
+            f"({r['tol_ratio']:.3f} of {MESH_RING_TOL[dt]}); "
+            f"scaled_dot_product_attention of the whole sequence on one "
+            f"rank {r['sdpa_ms']:.3f} ms; peak {r['peak_gb']:.2f} GB "
+            f"[{card}]")
+        if r["tol_ratio"] > 1.0 or r["out_sha"] != r1["ring"][dt]["out_sha"]:
+            fail(f"mesh (a): the {dt} ring disagrees with dense attention "
+                 "or between ranks")
+    mem = tp["memory"]
+    log(f"mesh (b) VGG16 ({tp['params']} params, bf16, dropout on) at batch "
+        f"{MESH_VGG_BATCH} through ParallelWrapper(tp=2) (mesh {tp['mesh']}):"
+        f" {tp['tp_ms_per_step']:.2f} ms/step in the steady state "
+        f"({MESH_VGG_STEPS} steps; {tp['tp_fit_ms_per_step']:.2f} over the "
+        f"whole fit with its slicing and gathering, alone "
+        f"{tp['slice_gather_s']:.3f} s; collectives in the fit "
+        f"{tp['collectives_per_fit']}) against {tp['one_ms_per_step']:.2f} "
+        f"in one process ({tp['tp_ms_per_step'] / tp['one_ms_per_step']:.2f}"
+        f"x); per rank "
+        f"{mem['param_bytes']} of {mem['param_bytes_full']} param bytes "
+        f"({mem['param_fraction']:.4f}) and {mem['updater_bytes']} of "
+        f"{mem['updater_bytes_full']} updater bytes "
+        f"({mem['updater_fraction']:.4f}); the params after fit against the "
+        f"one-process fit: max |err| {tp['max_abs_err']:.3e} "
+        f"({tp['tol_ratio']:.3f} of {MESH_TP_TOL}), loss {tp['tp_loss']:.5f}"
+        f" against {tp['one_loss']:.5f}; both ranks' params equal: "
+        f"{tp['params_sha'] == r1['tp']['params_sha']}; peak "
+        f"{tp['tp_peak_gb']:.2f} GB [{card}]")
+    if (tp["tol_ratio"] > 1.0 or tp["params_sha"] != r1["tp"]["params_sha"]
+            or tp["init_sum"] != tp["ref_init_sum"]
+            or not 0.45 < mem["param_fraction"] < 0.55):
+        fail("mesh (b): the tp VGG16 fit disagrees with the one-process fit, "
+             "between ranks, or holds more than its slices")
+    log(f"mesh (c) DistributedSequenceVectors over 2 ranks at bench.py:468 "
+        f"(vocab {NLP_VOCAB}, {NLP_WORDS} words, dim {NLP_DIM}, skip-gram NS, "
+        f"dense, sync_every 1): {w2v['epochs']} epochs {w2v['fit_s']:.3f} s,"
+        f" {w2v['words_per_s']:.0f} words/s (one process, phase 5l: "
+        f"{nlp_words_per_s:.0f}); {w2v['rendezvous']} rendezvous "
+        f"{w2v['rendezvous_s']:.3f} s in the timed fit; tables equal on "
+        f"both ranks: {w2v['tables_sha'] == r1['w2v']['tables_sha']}; "
+        f"finite {w2v['finite']} [{card}]")
+    if w2v["tables_sha"] != r1["w2v"]["tables_sha"] or not w2v["finite"]:
+        fail("mesh (c): the ranks' tables differ after the final rendezvous")
+    log(f"mesh (d) SIGKILL gang drill on the card: {drill} [{card}]")
+    if not drill.get("ok"):
+        fail("mesh (d): the relaunched gang does not match its unfaulted run")
+    log(f"mesh phase: gang {secs:.1f} s (per rank {res['rank_seconds']}), "
+        f"the drill waited {wait_s:.1f} s more; kernel launches on these "
+        f"paths {launches}")
+    return res
+
+
 def record_kernel_calls(torch, pc, run):
     """The kernel calls `run()` makes, with their shapes and flags."""
     calls = []
@@ -9084,7 +9593,20 @@ def main():
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 5h's Keras weights and data and of "
                          "phase 5i's requests and GPT-2-width weights")
+    # one rank of phase 5n's gang (the script launches them itself)
+    ap.add_argument("--mesh-rank", type=int, default=-1,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-world", type=int, default=2,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-io", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank >= 0:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        mesh_rank_main(args.mesh_rank, args.mesh_world, args.mesh_port,
+                       args.mesh_io)
+        return
 
     import numpy as np
     import torch
@@ -9268,6 +9790,13 @@ def main():
                               engine["group_check"]["deterministic"])
     log(f"scaleout phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5n. tensor and sequence parallelism on a 2-rank gloo gang on the
+    # card (ring attention, tp VGG16, DistributedSequenceVectors) and the
+    # SIGKILL gang drill
+    t0 = time.perf_counter()
+    mesh = mesh_phase(torch, np, pc, card, nlp["bench"]["words_per_s"])
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -9334,6 +9863,7 @@ def main():
             "cluster_launches": cluster["launches"][name],
             "nlp_launches": nlp["launches"][name],
             "scaleout_launches": scaleout["launches"][name],
+            "mesh_launches": mesh["launches"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -9349,7 +9879,7 @@ def main():
                        "keras": keras, "decode": decode,
                        "control": control, "cluster": cluster,
                        "clustering": clustering, "nlp": nlp,
-                       "scaleout": scaleout},
+                       "scaleout": scaleout, "mesh": mesh},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -9375,7 +9905,9 @@ def main():
         "nlp_launches from phase 5l (the embedding trainers and graph "
         "embeddings), scaleout_launches from phase 5m's timed "
         f"{SCALEOUT_STEPS}-step ZeRO-1 TrainingMaster fit at "
-        f"steps_per_dispatch={GROUP_K} (world 1, NCCL)")
+        f"steps_per_dispatch={GROUP_K} (world 1, NCCL), mesh_launches from "
+        "phase 5n (ring attention, tp VGG16 and the distributed embedding "
+        "fit, counted in the gang's ranks too)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

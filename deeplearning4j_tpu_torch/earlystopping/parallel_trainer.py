@@ -3,8 +3,9 @@ ParallelWrapper (counterpart of
 deeplearning4j_tpu/earlystopping/parallel_trainer.py; parity:
 deeplearning4j-scaleout-parallelwrapper EarlyStoppingParallelTrainer.java —
 same termination/saver semantics, training delegated to ParallelWrapper
-over the live process group: `workers` (the world size), a `mesh`,
-`averaging_frequency`)."""
+over the live process group: `workers` (default world // tp), `tp`
+(tensor parallelism: each flush's fit holds this rank's param slices and
+ends with the params whole), a `mesh`, `averaging_frequency`)."""
 
 from __future__ import annotations
 

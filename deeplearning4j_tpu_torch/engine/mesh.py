@@ -70,6 +70,16 @@ class MeshManager:
 
         self.mesh = (self._explicit_mesh if self._explicit_mesh is not None
                      else make_mesh(dp=-1, devices=self._devices))
+        if self.mesh.shape.get("tp", 1) != 1:
+            raise NotImplementedError(
+                "sharding='zero1' requires tp == 1 (the ZeRO update shards "
+                "the dp axis of replicated params)")
+        extra = {a: n for a, n in self.mesh.shape.items()
+                 if a != ZERO1_AXIS and n != 1}
+        if extra:
+            raise NotImplementedError(
+                f"the ZeRO-1 step shards over a dp-only mesh (axes {extra}): "
+                "its collectives span the whole world")
         w = collectives.world_size()
         self._world = {"processes": w, "devices": w,
                        "dp": int(self.mesh.shape.get(ZERO1_AXIS, 1))}
@@ -82,11 +92,12 @@ class MeshManager:
 
     @property
     def rank(self) -> int:
-        return collectives.rank()
+        """This rank's dp coordinate (the slice of the state it keeps)."""
+        return self.mesh.coords.get(ZERO1_AXIS, collectives.rank())
 
     @property
-    def group(self) -> collectives.DPGroup:
-        return collectives.dp_group()
+    def group(self) -> collectives.AxisGroup:
+        return self.mesh.group(ZERO1_AXIS)
 
     def world_signature(self) -> dict:
         return dict(self._world)

@@ -361,7 +361,8 @@ class StepProgram:
         if any(gk == key and gn > k for gk, gn in self._groups):
             return None
         if self.mesh_manager is not None \
-                or getattr(net, "_dp", None) is not None:
+                or getattr(net, "_dp", None) is not None \
+                or getattr(net, "_tp", None) is not None:
             if collectives.backend() == "gloo":
                 raise RuntimeError(
                     "run_group: a gloo process group's collectives cannot "
@@ -370,7 +371,7 @@ class StepProgram:
             if collectives.world_size() > 1:
                 raise NotImplementedError(
                     "run_group: capturing NCCL collectives at world > 1 "
-                    "hung on four H100s (ROADMAP queue 3, F11; queue 9c); "
+                    "hung on four H100s (ROADMAP queue 3, F11); "
                     "use steps_per_dispatch=1 over more than one rank")
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()

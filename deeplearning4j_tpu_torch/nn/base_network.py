@@ -64,6 +64,7 @@ from deeplearning4j_tpu_torch.nn.updater import (
     get_updater,
     schedule_lr,
 )
+from deeplearning4j_tpu_torch.parallel.tensor_parallel import tp_scope
 from deeplearning4j_tpu_torch.util.tree import leaves, tree_map, unflatten
 
 
@@ -141,7 +142,7 @@ def batch_loss(conf, per_ex, label_mask=None):
             return s * w if w > 1 else s
         n = active.sum()
         if w > 1:
-            n = collectives.all_reduce_sum(n.detach().clone())
+            n = collectives.all_reduce_sum(n.detach().clone(), dp)
             return s * w / torch.clamp_min(n, 1.0)
         return s / torch.clamp_min(n, 1.0)
     if conf.minibatch:
@@ -156,17 +157,18 @@ def _rng_seed(seed: int) -> int:
     return (int(seed) * 0x9E3779B97F4A7C15 + 0xBEEF) % (1 << 63)
 
 
-def _dp_mean(grads, loss):
+def _dp_mean(grads, loss, group=None):
     """Per-step dp: the gradients (one flat tensor on the flat carry, else
     a per-layer tree, None leaves skipped) and the loss averaged over the
-    ranks in ONE all-reduce of a packed bucket. Returns (grads, loss)."""
+    ranks of the dp `group` (a collectives.AxisGroup; None: the live dp
+    axis) in ONE all-reduce of a packed bucket. Returns (grads, loss)."""
     from deeplearning4j_tpu_torch.parallel import collectives
 
     gl = leaves(grads)
     dt = gl[0].dtype if gl else loss.dtype
     buf = collectives.dp_all_reduce_mean(torch.cat(
         [g.reshape(-1).to(dt) for g in gl]
-        + [loss.detach().reshape(1).to(dt)]))
+        + [loss.detach().reshape(1).to(dt)]), group)
     parts = torch.split(buf, [g.numel() for g in gl] + [1])
     out = [p.view(g.shape).to(g.dtype) for p, g in zip(parts, gl)]
     return unflatten(grads, out)[0], parts[-1][0].to(loss.dtype)
@@ -205,6 +207,10 @@ class BaseNetwork:
         # one process); a ZeRO-1 attach replaces the step itself
         self._dp = None
         self._step_impl = None
+        # tensor parallelism (parallel/tensor_parallel.py): the plan whose
+        # slices of the params this rank holds while a fit runs (None: the
+        # params are whole)
+        self._tp = None
         self._jit_cache = JitCache()
         self._jit_cache["predict"] = self._predict_program()
         self._jit_cache.register_policy("predict",
@@ -416,9 +422,14 @@ class BaseNetwork:
             params = cast_floating(params, cd)
             inputs = cast_floating(inputs, cd)
             rnn_carries = cast_floating(rnn_carries, cd)
-        loss, (new_states, new_carries) = self._loss_fn(
-            params, states, inputs, labels, lmasks, train=True,
-            rng=self._train_rng(), fmasks=fmasks, rnn_carries=rnn_carries)
+        tp = getattr(self, "_tp", None)
+        if tp is not None:
+            params = tp.expand(params)
+        with tp_scope(None if tp is None else tp.group):
+            loss, (new_states, new_carries) = self._loss_fn(
+                params, states, inputs, labels, lmasks, train=True,
+                rng=self._train_rng(), fmasks=fmasks,
+                rnn_carries=rnn_carries)
         if cd is not None:
             loss = loss.to(self.dtype)
             new_carries = cast_floating(new_carries, self.dtype)
@@ -562,8 +573,9 @@ class BaseNetwork:
         caller shares (`run`, `run_group`, each truncated-BPTT chunk):
         forward and `torch.autograd.grad` (`_grads`), under per-step data
         parallelism (`_dp`, world > 1) the gradients and loss averaged
-        over the ranks in one all-reduce, `clip_grads` and the update
-        (`_apply_updates`). `scalars` is one row of `_step_scalars` ([2]:
+        over the dp ranks in one all-reduce, `clip_grads` (under tensor
+        parallelism, `_tp`, the plan's: the params are this rank's
+        slices) and the update (`_apply_updates`). `scalars` is one row of `_step_scalars` ([2]:
         lr, step index, as tensors, so no Python number of the step
         reaches a kernel); `fmasks` the feature masks, `rnn_carries` the
         recurrent layers' carries to start from (None: zeros). Returns
@@ -572,12 +584,14 @@ class BaseNetwork:
         touches only the dropout generator, which its masks advance."""
         params, upd, states = carry
         dp = getattr(self, "_dp", None)
+        tp = getattr(self, "_tp", None)
         grads, loss, new_states, new_rnn = self._grads(
             params, states, inputs, labels, lmasks, fmasks, rnn_carries, dp)
         with torch.no_grad():
             if dp is not None and dp.world > 1:
-                grads, loss = _dp_mean(grads, loss)
-            grads = clip_grads(self.conf, grads)
+                grads, loss = _dp_mean(grads, loss, dp)
+            grads = (clip_grads(self.conf, grads) if tp is None
+                     else tp.clip(self.conf, grads))
             new_p, new_u = self._apply_updates(params, upd, grads,
                                                scalars[0], scalars[1])
         new_rnn = tree_map(lambda t: t.detach(), new_rnn)

@@ -21,6 +21,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import (
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayer, Layer
 from deeplearning4j_tpu_torch.nn.losses import get_loss
 from deeplearning4j_tpu_torch.nn.weights import init_weights
+from deeplearning4j_tpu_torch.parallel.tensor_parallel import linear
 
 
 def _dense_params(layer, gen, dtype):
@@ -52,7 +53,7 @@ class DenseLayer(BaseLayer):
     def apply(self, params, x, *, train=False, rng=None, state=None,
               mask=None):
         x = self._maybe_dropout_input(x, train, rng)
-        y = x @ params["W"] + params["b"]
+        y = linear(x, params["W"], params["b"], self.n_out)
         return get_activation(self.activation)(y), state
 
 
@@ -113,7 +114,7 @@ class BaseOutputLayer(BaseLayer):
         return get_loss(self.loss)(labels, pre_output, self.activation, mask)
 
     def pre_output(self, params, x):
-        return x @ params["W"] + params["b"]
+        return linear(x, params["W"], params["b"], self.n_out)
 
     def per_example_loss_from_input(self, params, x, labels, mask=None):
         """Loss seen from the layer's input activations."""

@@ -1,11 +1,11 @@
 """Parallel training and inference (counterpart of
 deeplearning4j_tpu/parallel/): ParallelInference (with InferenceMode),
-ModelServer and ModelClient, TrainingMaster and ParallelWrapper, the dp
-mesh (`make_mesh`, `MeshSpec`, the sharding descriptors), the local-SGD
-and stale-gradient trainers, the DCN model and the partitioners. One
+ModelServer and ModelClient, TrainingMaster and ParallelWrapper (data and
+tensor parallelism), the five-axis mesh (`make_mesh`, `MeshSpec`, the
+sharding rules), the local-SGD and stale-gradient trainers, ring
+attention over the sp axis, the DCN model and the partitioners. One
 process per rank, one device per process: `collectives` is the one module
-that calls torch.distributed. Tensor and sequence parallelism and ring
-attention wait (ROADMAP queue 9c).
+that calls torch.distributed.
 
 The exports load on first use (PEP 562), so the engine and the layers
 can import `parallel.collectives` without importing the trainers that
@@ -17,7 +17,10 @@ import importlib
 _EXPORTS = {
     "make_mesh": "mesh", "MeshSpec": "mesh",
     "batch_sharding": "sharding", "param_shardings": "sharding",
-    "replicated": "sharding",
+    "replicated": "sharding", "shard_params": "sharding",
+    "gather_params": "sharding",
+    "TensorParallel": "tensor_parallel",
+    "ring_self_attention": "ring_attention",
     "LocalStepTrainer": "wrapper", "ParallelWrapper": "wrapper",
     "StaleGradientTrainer": "wrapper",
     "InferenceMode": "inference", "ParallelInference": "inference",

@@ -1,29 +1,44 @@
 """The port's collectives: the one module that calls `torch.distributed`.
 
-Data parallelism in the port is one process per rank and one device per
-process, so the data-parallel extent `dp` is the size of the live
-process group. Everything that exchanges tensors between ranks (the
-per-step gradient all-reduce, the global BatchNorm statistics, ZeRO-1's
-reduce-scatter and all-gather, the local-SGD rendezvous, the stale
-trainer's gradient average) calls the functions below.
+Parallelism in the port is one process per rank and one device per
+process. A mesh (parallel/mesh.py) lays the ranks out over the five axes
+("dp", "pp", "sp", "ep", "tp"; tp fastest), and every axis of size > 1
+that does not span the whole world gets one process group per coordinate
+set of the other axes (`axis_groups`). Everything that exchanges tensors
+between ranks (the per-step gradient all-reduce, the global BatchNorm
+statistics, ZeRO-1's reduce-scatter and all-gather, the local-SGD
+rendezvous, the stale trainer's gradient average, tensor parallelism's
+gathers, ring attention's hops, the embedding rendezvous) calls the
+functions below, each over one AXIS: an `AxisGroup` (mesh-aware callers
+pass `mesh.group(name)`), or None, the default: the dp axis of a purely
+data-parallel world, which is the whole world.
 
   init_process_group(address, n, rank, backend=None, device=None)
         the group (TrainingMaster.initialize_distributed calls it):
         `backend=None` is NCCL for a CUDA device and gloo for the CPU; an
         NCCL group is bound to its device (`device_id`), so its
         communicator exists before any capture.
-  DPGroup / dp_group()
-        the dp axis over the live default group (world, rank, backend).
-  dp_all_reduce_mean(t), all_reduce_sum(t)
+  AxisGroup (DPGroup) / dp_group()
+        one axis as this rank sees it: its size (`world`), this rank's
+        coordinate (`rank`), the member ranks and the torch group.
+  axis_groups(sizes)
+        the groups of a mesh of `sizes` (AXES order), created on every
+        rank in the same order (`new_group` is collective over the world)
+        and cached per sizes until the process group is destroyed.
+  dp_all_reduce_mean(t, axis), all_reduce_sum(t, axis)
         in place, on one tensor (callers pack many into one bucket).
-  reduce_scatter(flat), all_gather(mine)
-        of flat buffers whose length is a multiple of the world size:
-        rank r keeps / contributes chunk r.
-  broadcast(t, src)
+  reduce_scatter(flat, axis), all_gather(mine, axis)
+        of flat buffers whose length is a multiple of the axis size:
+        coordinate r keeps / contributes chunk r.
+  broadcast(t, src, axis)
+  ppermute(t, axis, shift=1)
+        one ring hop along the axis: coordinate r sends to r + shift and
+        receives from r - shift (`batch_isend_irecv`).
   dp_sum(x)
-        a DIFFERENTIABLE sum over ranks whose backward is itself an
-        all-reduce sum: the route of BatchNorm's per-channel sums and the
-        loss's live-row count under per-step dp (`dp_scope`).
+        a DIFFERENTIABLE sum over the ranks of the enclosing `dp_scope`
+        whose backward is itself an all-reduce sum: the route of
+        BatchNorm's per-channel sums and the loss's live-row count under
+        per-step dp.
 
 Gloo has no reduce-scatter or all-gather into one tensor on CUDA tensors
 (and not in every release on CPU tensors), so for every gloo group both
@@ -31,16 +46,21 @@ are expressed through `all_reduce`: a reduce-scatter is the all-reduce of
 the whole buffer followed by taking this rank's chunk, and an all-gather
 is the all-reduce of a zero buffer holding only this rank's chunk. They
 move W times the bytes of the NCCL collectives and give the same values
-(each element of an all-gather is one rank's value plus zeros). This is
-the documented way a gloo group runs them, on the CPU as on the card, not
-a fallback: an NCCL group always takes `reduce_scatter_tensor` and
-`all_gather_into_tensor`.
+(each element of an all-gather is one rank's value plus zeros). Gloo's
+point-to-point send and receive take CPU tensors only, so a gloo
+`ppermute` of a CUDA tensor goes through pinned host buffers (a copy to
+the host, the hop, a copy back). These are the documented ways a gloo
+group runs them, on the CPU as on the card, not fallbacks: an NCCL group
+always takes `reduce_scatter_tensor`, `all_gather_into_tensor` and
+device-to-device sends.
 
 Without a process group the world is one process and every collective
 is the identity (a copy where it returns a new tensor): a single-process
-run needs no group. `COUNTS` counts the collectives issued per kind (a CUDA graph capture
-reads them before and after, so a captured group records which
-collectives it holds).
+run needs no group. An axis of size 1 inside a larger world is the
+identity too; the world group itself issues its collectives whenever a
+group is initialized, even at world 1. `COUNTS` counts the collectives
+issued per kind (a CUDA graph capture reads them before and after, so a
+captured group records which collectives it holds).
 """
 
 from __future__ import annotations
@@ -48,13 +68,15 @@ from __future__ import annotations
 import contextlib
 import datetime
 import threading
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 COUNTS = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0,
-          "broadcast": 0}
+          "broadcast": 0, "ppermute": 0}
+
+AXES = ("dp", "pp", "sp", "ep", "tp")
 
 
 def _dist():
@@ -111,22 +133,108 @@ def init_process_group(coordinator_address: str, num_processes: int,
 
 
 def destroy_process_group() -> None:
-    """Leave and destroy the default group (no-op without one)."""
+    """Leave and destroy the default group and every axis group (no-op
+    without one)."""
+    _MESH_GROUPS.clear()
     if initialized():
         _dist().destroy_process_group()
 
 
 @dataclass(frozen=True)
-class DPGroup:
-    """The dp axis over the live default process group."""
+class AxisGroup:
+    """One mesh axis as this rank sees it: the axis size (`world`), this
+    rank's coordinate along it (`rank`), the backend, the member ranks in
+    coordinate order and the torch group (`pg`; None: the default group,
+    which the axis spans, or an axis of size 1)."""
+
     world: int
     rank: int
     backend: Optional[str]
+    ranks: Tuple[int, ...] = ()
+    pg: Any = field(default=None, compare=False, repr=False)
+    axis: str = "dp"
 
 
-def dp_group() -> DPGroup:
-    """The dp axis of the live world (world 1, rank 0 without a group)."""
-    return DPGroup(world_size(), rank(), backend())
+# the dp axis's historical name: per-step dp, ZeRO-1 and the trainers
+# hold the dp AxisGroup under it
+DPGroup = AxisGroup
+
+
+def dp_group() -> AxisGroup:
+    """The dp axis over the whole live world (world 1, rank 0 without a
+    group)."""
+    w = world_size()
+    return AxisGroup(w, rank(), backend(), tuple(range(w)), None, "dp")
+
+
+# ------------------------------------------------------- the axis groups
+# the process groups of each mesh shape made since the process group
+# was initialized: like the default group, they live as long as it does
+_MESH_GROUPS: Dict[Tuple[int, ...], Dict[str, AxisGroup]] = {}
+
+
+def axis_groups(sizes: Sequence[int]) -> Dict[str, AxisGroup]:
+    """The AxisGroup of every axis of a mesh of `sizes` (one per name of
+    AXES, their product the world; the last axis varies fastest). Every
+    rank calls this with the same sizes: each axis of size > 1 that does
+    not span the world creates one `new_group` per coordinate set of the
+    other axes, in the same order on every rank (a mismatch deadlocks
+    `new_group`, which is collective over the world). Cached per sizes,
+    so a second mesh of the same shape creates nothing."""
+    sizes = tuple(int(n) for n in sizes)
+    groups = _MESH_GROUPS.get(sizes)
+    if groups is None:
+        groups = _build_axis_groups(sizes)
+        _MESH_GROUPS[sizes] = groups
+    return dict(groups)
+
+
+def _build_axis_groups(sizes: Tuple[int, ...]) -> Dict[str, AxisGroup]:
+    w, me, be = world_size(), rank(), backend()
+    strides = [1] * len(sizes)
+    for i in range(len(sizes) - 2, -1, -1):
+        strides[i] = strides[i + 1] * sizes[i + 1]
+    coord = lambda r, i: (r // strides[i]) % sizes[i]
+    out = {}
+    for i, name in enumerate(AXES):
+        n = sizes[i]
+        if n == 1:
+            out[name] = AxisGroup(1, 0, be, (me,), None, name)
+            continue
+        if n == w:
+            out[name] = AxisGroup(w, me, be, tuple(range(w)), None, name)
+            continue
+        bases = sorted({r - coord(r, i) * strides[i] for r in range(w)})
+        for base in bases:
+            ranks = tuple(base + j * strides[i] for j in range(n))
+            pg = _dist().new_group(list(ranks))
+            if me in ranks:
+                out[name] = AxisGroup(n, ranks.index(me), be, ranks, pg, name)
+    return out
+
+
+def _axis(axis: Optional[AxisGroup]) -> AxisGroup:
+    """The group a collective runs over: `axis`, or the whole world."""
+    if axis is None:
+        return dp_group()
+    if not isinstance(axis, AxisGroup):
+        raise TypeError("a collective's axis is an AxisGroup (mesh.group("
+                        f"name)) or None, got {type(axis).__name__}")
+    return axis
+
+
+def _live(g: AxisGroup) -> bool:
+    """Does a collective over `g` reach torch.distributed? The world group
+    does whenever a group is initialized (even at world 1: a captured
+    program records its collectives); an axis group of size 1 is the
+    identity."""
+    if not initialized():
+        return False
+    return g.pg is not None or g.world == world_size()
+
+
+def _kw(g: AxisGroup) -> dict:
+    return {} if g.pg is None else {"group": g.pg}
 
 
 # ------------------------------------------------------- the dp scope
@@ -134,9 +242,9 @@ _SCOPE = threading.local()
 
 
 @contextlib.contextmanager
-def dp_scope(group: Optional[DPGroup]):
+def dp_scope(group: Optional[AxisGroup]):
     """Within the block, BatchNorm's batch statistics and the loss's
-    live-row count are global over `group` (when its world exceeds 1):
+    live-row count are global over `group` (when its size exceeds 1):
     the per-step dp semantics of one program over the global batch."""
     prev = getattr(_SCOPE, "group", None)
     _SCOPE.group = group if group is not None and group.world > 1 else None
@@ -146,28 +254,29 @@ def dp_scope(group: Optional[DPGroup]):
         _SCOPE.group = prev
 
 
-def current() -> Optional[DPGroup]:
+def current() -> Optional[AxisGroup]:
     """The dp group of the enclosing `dp_scope` (None outside one, or for
-    a world of 1)."""
+    a group of 1)."""
     return getattr(_SCOPE, "group", None)
 
 
 # -------------------------------------------------------- collectives
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """In-place sum over ranks; returns `t`."""
-    if initialized():
+def all_reduce_sum(t: torch.Tensor, axis=None) -> torch.Tensor:
+    """In-place sum over the axis; returns `t`."""
+    g = _axis(axis)
+    if _live(g):
         COUNTS["all_reduce"] += 1
-        _dist().all_reduce(t, op=_dist().ReduceOp.SUM)
+        _dist().all_reduce(t, op=_dist().ReduceOp.SUM, **_kw(g))
     return t
 
 
-def dp_all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
-    """In-place mean over ranks (a sum, then divided by the world);
+def dp_all_reduce_mean(t: torch.Tensor, axis=None) -> torch.Tensor:
+    """In-place mean over the axis (a sum, then divided by its size);
     returns `t`."""
-    all_reduce_sum(t)
-    w = world_size()
-    if w > 1:
-        t.div_(w)
+    g = _axis(axis)
+    all_reduce_sum(t, g)
+    if g.world > 1:
+        t.div_(g.world)
     return t
 
 
@@ -178,68 +287,105 @@ def _chunk(n: int, w: int) -> int:
     return n // w
 
 
-def reduce_scatter(flat: torch.Tensor) -> torch.Tensor:
-    """Chunk `rank` of the sum over ranks of the 1-D `flat` (its length a
-    multiple of the world): a new tensor of len(flat) / world elements.
-    Gloo: the all-reduce of a copy, then the chunk (module docstring)."""
-    w, r = world_size(), rank()
+def reduce_scatter(flat: torch.Tensor, axis=None) -> torch.Tensor:
+    """Chunk `rank` of the sum over the axis of the 1-D `flat` (its
+    length a multiple of the axis size): a new tensor of len(flat) / size
+    elements. Gloo: the all-reduce of a copy, then the chunk (module
+    docstring)."""
+    g = _axis(axis)
+    w, r = g.world, g.rank
     c = _chunk(flat.numel(), w)
-    if not initialized():
+    if not _live(g):
         return flat.clone()
     COUNTS["reduce_scatter"] += 1
-    if backend() == "gloo":
+    if g.backend == "gloo":
         buf = flat.clone()
-        _dist().all_reduce(buf, op=_dist().ReduceOp.SUM)
+        _dist().all_reduce(buf, op=_dist().ReduceOp.SUM, **_kw(g))
         return buf[r * c:(r + 1) * c].clone()
     out = torch.empty(c, dtype=flat.dtype, device=flat.device)
     _dist().reduce_scatter_tensor(out, flat.contiguous(),
-                                  op=_dist().ReduceOp.SUM)
+                                  op=_dist().ReduceOp.SUM, **_kw(g))
     return out
 
 
-def all_gather(mine: torch.Tensor) -> torch.Tensor:
-    """The ranks' 1-D chunks concatenated in rank order: a new tensor of
-    world * len(mine) elements. Gloo: the all-reduce of a zero buffer
-    holding this rank's chunk (module docstring)."""
-    w, r = world_size(), rank()
+def all_gather(mine: torch.Tensor, axis=None) -> torch.Tensor:
+    """The 1-D chunks of the axis's ranks concatenated in coordinate
+    order: a new tensor of size * len(mine) elements. Gloo: the
+    all-reduce of a zero buffer holding this rank's chunk (module
+    docstring)."""
+    g = _axis(axis)
+    w, r = g.world, g.rank
     c = mine.numel()
-    if not initialized():
+    if not _live(g):
         return mine.reshape(-1).clone()
     COUNTS["all_gather"] += 1
-    if backend() == "gloo":
+    if g.backend == "gloo":
         buf = torch.zeros(w * c, dtype=mine.dtype, device=mine.device)
         buf[r * c:(r + 1) * c] = mine.reshape(-1)
-        _dist().all_reduce(buf, op=_dist().ReduceOp.SUM)
+        _dist().all_reduce(buf, op=_dist().ReduceOp.SUM, **_kw(g))
         return buf
     out = torch.empty(w * c, dtype=mine.dtype, device=mine.device)
-    _dist().all_gather_into_tensor(out, mine.reshape(-1).contiguous())
+    _dist().all_gather_into_tensor(out, mine.reshape(-1).contiguous(),
+                                   **_kw(g))
     return out
 
 
-def broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """In place from rank `src`; returns `t`."""
-    if initialized():
+def broadcast(t: torch.Tensor, src: int = 0, axis=None) -> torch.Tensor:
+    """In place from coordinate `src` of the axis; returns `t`."""
+    g = _axis(axis)
+    if _live(g):
         COUNTS["broadcast"] += 1
-        _dist().broadcast(t, src=src)
+        peer = g.ranks[src] if g.ranks else src
+        _dist().broadcast(t, src=peer, **_kw(g))
     return t
 
 
+def ppermute(t: torch.Tensor, axis, shift: int = 1) -> torch.Tensor:
+    """One ring hop along the axis (JAX's `lax.ppermute` with the
+    permutation i -> (i + shift) % n): returns the tensor that coordinate
+    `rank - shift` held, as a new tensor on `t`'s device. Gloo moves a
+    CUDA tensor through pinned host buffers (module docstring)."""
+    g = _axis(axis)
+    n = g.world
+    if not _live(g) or n == 1 or shift % n == 0:
+        return t.clone()
+    COUNTS["ppermute"] += 1
+    dist = _dist()
+    to = g.ranks[(g.rank + shift) % n]
+    frm = g.ranks[(g.rank - shift) % n]
+    src = t.contiguous()
+    staged = g.backend == "gloo" and src.device.type != "cpu"
+    if staged:
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        host.copy_(src)
+        src = host
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, to, group=g.pg),
+           dist.P2POp(dist.irecv, out, frm, group=g.pg)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out.to(t.device, non_blocking=False) if staged else out
+
+
 class _DPSum(torch.autograd.Function):
-    """Sum over ranks; the backward is the all-reduce sum of the incoming
-    gradient (each rank's input reaches every rank's output)."""
+    """Sum over the group's ranks; the backward is the all-reduce sum of
+    the incoming gradient (each rank's input reaches every rank's
+    output)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return all_reduce_sum(x.detach().clone())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x.detach().clone(), group)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_sum(g.contiguous().clone())
+        return all_reduce_sum(g.contiguous().clone(), ctx.group), None
 
 
 def dp_sum(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum of `x` over the ranks (module docstring)."""
-    return _DPSum.apply(x)
+    """Differentiable sum of `x` over the ranks of the enclosing
+    `dp_scope` (the whole world outside one; module docstring)."""
+    return _DPSum.apply(x, current() or dp_group())
 
 
 def warm_up(device) -> None:
@@ -247,11 +393,12 @@ def warm_up(device) -> None:
     communicator and per-stream state lazily, which must not happen
     inside a CUDA graph capture."""
     if initialized():
-        all_reduce_sum(torch.zeros(1, device=device))
+        all_reduce_sum(torch.zeros(1, device=device), dp_group())
 
 
-__all__ = ["COUNTS", "DPGroup", "all_gather", "all_reduce_sum", "backend",
+__all__ = ["AXES", "COUNTS", "AxisGroup", "DPGroup", "all_gather",
+           "all_reduce_sum", "axis_groups", "backend",
            "broadcast", "current", "destroy_process_group",
            "dp_all_reduce_mean", "dp_group", "dp_scope", "dp_sum",
-           "init_process_group", "initialized", "rank", "reduce_scatter",
-           "warm_up", "world_size"]
+           "init_process_group", "initialized", "ppermute", "rank",
+           "reduce_scatter", "warm_up", "world_size"]

@@ -80,8 +80,11 @@ global batch:
     writes;
   - `evaluate` sums the confusion counts over the ranks.
 `checkpoint_format="orbax"` raises ValueError naming the npz format
-(orbax is a JAX library). Tensor and sequence parallelism wait for
-ROADMAP queue 9c.
+(orbax is a JAX library). The mesh must be dp only: a TrainingMaster
+process feeds its own rows (`batch_fn`), so a rank of another axis would
+have no rows of its own; tensor parallelism trains under
+`ParallelWrapper(net, tp=...)` (a deliberate deviation, ROADMAP queue 3:
+the JAX package's TrainingMaster replicates its params over a tp axis).
 
 Observability: a `tracer` records a span per step ("train_step", with
 its fetch/dispatch/device-sync/checkpoint children) or per k-window
@@ -201,6 +204,14 @@ class TrainingMaster:
                 "NonFiniteGuard(policy='rollback') requires a "
                 "checkpoint_dir to roll back to")
         self.mesh = resolve_mesh(mesh)
+        extra = {a: n for a, n in self.mesh.shape.items()
+                 if a != "dp" and n != 1}
+        if extra:
+            raise NotImplementedError(
+                f"TrainingMaster trains over the dp axis only (mesh axes "
+                f"{extra}): each process feeds its own rows through "
+                "batch_fn; train tensor-parallel with ParallelWrapper(net, "
+                "tp=...)")
         self.net = net
         # per-rank checkpoint copies (`<dir>/rank-<r>/`): every process
         # writes its own copy — the divergence quorum's voters

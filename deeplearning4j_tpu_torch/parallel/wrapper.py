@@ -8,13 +8,16 @@ loop :211-260, parameter averaging :320, updater-state averaging
     pw = ParallelWrapper(net, steps_per_dispatch=4)    # k-step windows
     pw = ParallelWrapper(net, averaging_frequency=4)   # local SGD
     pw = ParallelWrapper(net, sharding="zero1")        # ZeRO-1
+    pw = ParallelWrapper(net, tp=2)                    # dp = world/2, tp 2
     pw.fit(iterator_or_list, epochs=2)
 
 Every rank runs the same fit over the same global batches (SPMD): each
 batch is padded to a multiple of dp (padded rows masked out of the loss)
-and each rank trains on its contiguous rows (parallel/sharding.py). The
-dp extent is the live process group's size (parallel/collectives.py;
-`make_mesh(dp=...)` or `workers` must name it); one process is dp 1.
+and each rank trains on the contiguous rows of its dp coordinate
+(parallel/sharding.py). The mesh spans the live process group
+(parallel/mesh.py): `workers` x `tp` ranks (default workers = world //
+tp), or the `mesh` given; one process is dp 1. The ranks of the other
+axes (sp, pp, ep) replicate the work of their dp coordinate.
 
 - averaging_frequency == 1: one step per batch, the gradient averaged
   over the ranks every step (per-step dp, the reference's
@@ -30,6 +33,15 @@ dp extent is the live process group's size (parallel/collectives.py;
   delta threshold-encoded with a per-rank residual.
 - sharding="zero1": the ZeRO-1 step (engine/sharding.py) through
   `StepProgram.attach_mesh`.
+- tp > 1: tensor parallelism (parallel/tensor_parallel.py). While fit
+  runs each rank holds only its `_tp_spec` slices of the params and the
+  updater state (the flat carry off); Dense and Output layers compute
+  column-parallel, every other sharded leaf is gathered on use, and the
+  per-step gradient all-reduce runs over the dp group. When fit returns
+  the params and updater state are whole on every rank again, so
+  `output`, `evaluate`, `save` and checkpoints work as before. ZeRO-1,
+  local SGD and the stale trainer refuse tp > 1, as the JAX package's
+  do.
 
 A NonFiniteGuard skips a poisoned batch (`skip_step`) or rewinds to an
 in-memory snapshot refreshed every `snapshot_every` steps (`rollback`).
@@ -40,10 +52,8 @@ gradient (1-step staleness).
 
 The net keeps its train carry as it is under per-step dp and local SGD
 (the flat carry of updater/flat_chain.py where it has one: one flat
-gradient bucket per all-reduce); ZeRO-1 works on the per-layer trees.
-
-Waiting for ROADMAP queue 9c (NotImplementedError): `tp > 1` and the
-other non-dp mesh axes.
+gradient bucket per all-reduce); ZeRO-1 and tp work on the per-layer
+trees.
 """
 
 from __future__ import annotations
@@ -76,27 +86,22 @@ def _require_local_sgd(averaging_frequency: int, threshold: float):
             "to encode)")
 
 
-def _tp_not_ported(tp) -> NotImplementedError:
-    return NotImplementedError(
-        f"tp={tp} is not ported yet (ROADMAP queue 9c: tensor and sequence "
-        "parallelism); the port trains data-parallel (tp=1)")
-
-
 def resolve_mesh(mesh=None, workers: Optional[int] = None,
                  tp: int = 1) -> Mesh:
-    """The dp Mesh a trainer runs on: `mesh` as given (a Mesh or a
-    MeshSpec), else `make_mesh(dp=workers)` (default: the world size)."""
-    if tp != 1:
-        raise _tp_not_ported(tp)
+    """The Mesh a trainer runs on: `mesh` as given (a Mesh or a
+    MeshSpec), else `make_mesh(dp=workers, tp=tp)`, workers defaulting to
+    world // tp (the JAX package's `n // tp`)."""
     if isinstance(mesh, MeshSpec):
         return make_mesh(mesh)
     if mesh is None:
-        return make_mesh(dp=-1 if workers is None else int(workers))
+        if tp == 1:
+            return make_mesh(dp=-1 if workers is None else int(workers))
+        if workers is None:
+            workers = max(1, collectives.world_size() // tp)
+        return make_mesh(dp=int(workers), tp=tp)
     if not isinstance(mesh, Mesh):
         raise TypeError("mesh must be a parallel.mesh.Mesh (make_mesh) or "
                         f"a MeshSpec, got {type(mesh).__name__}")
-    if mesh.shape.get("tp", 1) != 1:
-        raise _tp_not_ported(mesh.shape["tp"])
     return mesh
 
 
@@ -114,19 +119,26 @@ def decorrelate_dropout(net, rank: int) -> None:
 
 
 def attach_dp(net, mesh: Mesh) -> None:
-    """Per-step dp on `net` when the mesh spans more than one rank: its
-    `_step` averages gradients over the group and its BatchNorm
-    statistics and loss row count become global."""
-    net._dp = mesh.group if mesh.shape["dp"] > 1 else None
-    decorrelate_dropout(net, mesh.rank)
+    """Per-step dp on `net` when the mesh's dp axis spans more than one
+    rank: its `_step` averages gradients over the dp group and its
+    BatchNorm statistics and loss row count become global over it.
+    Dropout streams differ by dp coordinate only: the ranks of the other
+    axes replicate their coordinate's work."""
+    net._dp = mesh.group("dp") if mesh.shape["dp"] > 1 else None
+    decorrelate_dropout(net, mesh.coords.get("dp", mesh.rank))
 
 
-def _mean_trees(trees, extra_sum=None):
-    """The float leaves of `trees` averaged over the ranks in one
-    all-reduce per dtype, and `extra_sum` (a scalar tensor, summed, not
-    averaged) riding in the first buffer. Returns (trees, summed
-    extra)."""
-    w = collectives.world_size()
+def _require_tp1(mesh, message: str) -> None:
+    if mesh.shape.get("tp", 1) != 1:
+        raise NotImplementedError(message)
+
+
+def _mean_trees(trees, extra_sum=None, group=None):
+    """The float leaves of `trees` averaged over the ranks of the dp
+    `group` (None: the live dp axis) in one all-reduce per dtype, and
+    `extra_sum` (a scalar tensor, summed, not averaged) riding in the
+    first buffer. Returns (trees, summed extra)."""
+    w = (group or collectives.dp_group()).world
     ls = [t for tree in trees for t in leaves(tree)]
     out = list(ls)
     by_dt = {}
@@ -139,7 +151,7 @@ def _mean_trees(trees, extra_sum=None):
         tail = extra_sum is not None and summed is None
         buf = collectives.all_reduce_sum(torch.cat(
             [ls[i].reshape(-1) for i in idx]
-            + ([extra_sum.reshape(-1).to(dt)] if tail else [])))
+            + ([extra_sum.reshape(-1).to(dt)] if tail else [])), group)
         if w > 1:
             buf[:n].div_(w)
         for i, p in zip(idx, torch.split(buf[:n],
@@ -157,6 +169,8 @@ def _mean_trees(trees, extra_sum=None):
 class ParallelWrapper:
     """Data-parallel trainer around a MultiLayerNetwork/ComputationGraph
     (module docstring)."""
+
+    tp_memory = None   # the last tp fit's memory_facts (tensor_parallel)
 
     def __init__(self, net, workers: Optional[int] = None, tp: int = 1,
                  averaging_frequency: int = 1, average_updaters: bool = True,
@@ -182,13 +196,13 @@ class ParallelWrapper:
         if sharding not in (None, "replicated", "zero1"):
             raise ValueError(
                 f"sharding must be None|'replicated'|'zero1': {sharding}")
+        zero1_tp = ("sharding='zero1' requires tp == 1 (the ZeRO update "
+                    "shards the dp axis of replicated params)")
         if sharding == "zero1" and tp != 1:
-            raise NotImplementedError(
-                "sharding='zero1' requires tp == 1 (the ZeRO update shards "
-                "the dp axis of replicated params); tp > 1 waits for "
-                "ROADMAP queue 9c")
+            raise NotImplementedError(zero1_tp)
         self.mesh = resolve_mesh(mesh, workers, tp)
         self.dp = self.mesh.shape["dp"]
+        self._tp = None
         self._snapshotter = None
         if guard is not None and guard.policy == "rollback":
             if snapshot_every <= 0:
@@ -219,6 +233,7 @@ class ParallelWrapper:
         self.zero1 = sharding == "zero1"
         self._mesh_mgr = None
         if self.zero1:
+            _require_tp1(self.mesh, zero1_tp)
             if self.averaging_frequency > 1:
                 raise ValueError(
                     "sharding='zero1' and averaging_frequency > 1 are "
@@ -227,11 +242,11 @@ class ParallelWrapper:
 
             self._mesh_mgr = MeshManager(mesh=self.mesh)
             self._harness.program.attach_mesh(self._mesh_mgr)
-            decorrelate_dropout(net, self.mesh.rank)
+            decorrelate_dropout(net, self.mesh.coords["dp"])
         elif self.averaging_frequency == 1:
             attach_dp(net, self.mesh)
         else:
-            decorrelate_dropout(net, self.mesh.rank)
+            decorrelate_dropout(net, self.mesh.coords["dp"])
 
     def _ensure_ready(self):
         ins = getattr(self.net.conf, "network_inputs", None)
@@ -243,6 +258,19 @@ class ParallelWrapper:
                 "output graphs only")
         if not self.net._initialized():
             self.net.init()
+
+    def _attach_tp(self):
+        """tp > 1: this rank's slices of the params and updater state for
+        the fit (parallel/tensor_parallel.py); None otherwise."""
+        if self.mesh.shape.get("tp", 1) == 1:
+            return None
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            TensorParallel,
+        )
+
+        if self._tp is None:
+            self._tp = TensorParallel(self.net, self.mesh)
+        return self._tp.attach()
 
     def _run_guarded(self, thunk) -> bool:
         """Run one training step/window under the shared harness's
@@ -284,6 +312,9 @@ class ParallelWrapper:
         net = self.net
         k = self.averaging_frequency
         if k > 1 and self._local_step is None:
+            _require_tp1(self.mesh,
+                         "averaging_frequency > 1 requires tp == 1 "
+                         "(local-SGD shards carry full param replicas)")
             self._local_step = LocalStepTrainer(
                 net, self.mesh, average_updaters=self.average_updaters,
                 threshold=self.threshold_compression,
@@ -306,8 +337,14 @@ class ParallelWrapper:
             stage = None
         else:
             self._harness.attach_data(batches)
-        with self._harness.session():
-            self._fit_loop(batches, epochs, pre_staged, stage)
+        tp = self._attach_tp()
+        try:
+            with self._harness.session():
+                self._fit_loop(batches, epochs, pre_staged, stage)
+        finally:
+            if tp is not None:
+                self.tp_memory = tp.memory_facts()
+                tp.detach()
         return self
 
     def _listeners_done(self):
@@ -472,6 +509,8 @@ class LocalStepTrainer:
         from deeplearning4j_tpu_torch.engine import StepProgram
 
         mesh = resolve_mesh(mesh)
+        _require_tp1(mesh, "averaging_frequency > 1 requires tp == 1 "
+                     "(local-SGD shards carry full param replicas)")
         _check_trainable(net, "averaging_frequency > 1")
         self.net = net
         self.mesh = mesh
@@ -484,7 +523,7 @@ class LocalStepTrainer:
         self._sent_nnz = []          # per-rendezvous device scalars
         self._param_entries = None
         self._n_rendezvous = 0
-        decorrelate_dropout(net, mesh.rank)
+        decorrelate_dropout(net, mesh.coords["dp"])
 
     # -------------------------------------------------------------- build
     def _build(self, k: int, with_fm: bool, with_lm: bool,
@@ -496,6 +535,7 @@ class LocalStepTrainer:
         net = self.net
         thr = self.threshold
         avg_upd = self.average_updaters
+        group = self.mesh.group("dp")
         recorded = []
 
         def program(xs, ys, fms, lms):
@@ -540,12 +580,13 @@ class LocalStepTrainer:
                     sent_tree = unflatten(params0, sends)[0]
                     (avg, states, upd_m, lsum), nnz = _mean_trees(
                         [sent_tree, states, upd if avg_upd else None,
-                         losses], extra_sum=nnz)
+                         losses], extra_sum=nnz, group=group)
                     params = unflatten(params0, [
                         a0 + a for a0, a in zip(p0, leaves(avg))])[0]
                 else:
                     (params, states, upd_m, lsum), _ = _mean_trees(
-                        [params, states, upd if avg_upd else None, losses])
+                        [params, states, upd if avg_upd else None, losses],
+                        group=group)
                 if avg_upd:
                     upd = upd_m
             net._set_train_carry((params, upd, states))
@@ -681,12 +722,13 @@ class StaleGradientTrainer:
         from deeplearning4j_tpu_torch.engine import StepProgram
 
         mesh = resolve_mesh(mesh)
+        _require_tp1(mesh, "StaleGradientTrainer requires tp == 1")
         _check_trainable(net, "StaleGradientTrainer")
         self.net = net
         self.mesh = mesh
         self._program = program or StepProgram(net)
         self._pending = None     # g_{t-1}, rank-averaged
-        decorrelate_dropout(net, mesh.rank)
+        decorrelate_dropout(net, mesh.coords["dp"])
 
     def _build(self, flush: bool, trace_key: str = "stale_grad"):
         from deeplearning4j_tpu_torch.nn.base_network import clip_grads
@@ -711,7 +753,8 @@ class StaleGradientTrainer:
             with torch.no_grad():
                 grads = clip_grads(net.conf, grads)
                 (g_avg, new_states, lv), _ = _mean_trees(
-                    [grads, new_states, loss.reshape(1)])
+                    [grads, new_states, loss.reshape(1)],
+                    group=self.mesh.group("dp"))
                 params, upd = net._apply_updates(
                     params, upd, self._pending, sc[0], sc[1])
             net._set_train_carry((params, upd, new_states))

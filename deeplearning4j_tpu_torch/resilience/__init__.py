@@ -75,8 +75,12 @@ from deeplearning4j_tpu_torch.resilience.supervisor import (  # noqa: F401
 from deeplearning4j_tpu_torch.resilience.cluster import (  # noqa: F401
     EXIT_HANG,
     EXIT_NAN,
+    EXIT_PEER_LOST,
+    PEER_LOST_MARKER,
     ClusterSupervisor,
     HeartbeatFile,
+    exit_peer_lost,
     heartbeat_path,
+    is_peer_loss,
     reap_stray_workers,
 )

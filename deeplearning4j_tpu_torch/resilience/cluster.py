@@ -73,11 +73,23 @@ checkpoint_integrity divergence quorum BEFORE any resume, and with
 `sharded_optimizer=True` the sharded (ZeRO-1) quorum: replicated state
 votes over the save-time world, the slice sets must be complete. The
 supervisor is process-level: the workers it launches may train together
-over `torch.distributed` (TrainingMaster.initialize_distributed); the
-multi-rank gang drills wait for ROADMAP queue 9c. The JAX package's test of a
-collateral death (a peer torn down by the distributed runtime, not
-charged against its budget) has no counterpart until then: every
-fault is charged, and each ledger entry says `"collateral": False`.
+over `torch.distributed` (TrainingMaster.initialize_distributed).
+
+Collateral deaths: when one rank of a gang dies, its peers' collectives
+fail too. Such a worker is recorded in the ledger with
+`"collateral": True` and not charged against its restart budget, unless
+no primary fault can be found among the gang's faults (then every member
+is charged: bounded recovery beats an uncharged restart loop). The JAX
+package reads `jax.distributed`'s teardown markers in the log tail; a
+torch worker marks such a death itself: a gang worker that catches the
+process group's peer-loss error (`is_peer_loss`) calls `exit_peer_lost`,
+which prints, as its last line and with no traceback,
+
+    deeplearning4j_tpu_torch: process group peer lost (<the error>)
+
+and exits with EXIT_PEER_LOST (88). The supervisor counts a crashed
+member as collateral when its log tail holds that marker and no Python
+traceback (a worker that died on its own error prints one).
 
 The `dist.heartbeat_stale` fault point fires at every lease check; an
 armed `raise` spec is consumed as a forced stale verdict, so the
@@ -114,6 +126,46 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 # wrapper use these so the supervisor can classify without parsing logs
 EXIT_HANG = 86   # os._exit by the watchdog: uninterruptible hang
 EXIT_NAN = 87    # NonFiniteLossError under policy='abort'
+EXIT_PEER_LOST = 88   # a collective failed because a peer of the gang died
+
+# the line a gang worker prints before EXIT_PEER_LOST (module docstring)
+PEER_LOST_MARKER = "deeplearning4j_tpu_torch: process group peer lost"
+
+# what torch.distributed's errors say when a peer of the group is gone
+# (gloo's TCP pairs, NCCL's watchdog, the store's socket)
+_PEER_LOSS_TEXT = ("connection closed by peer", "connection reset by peer",
+                   "broken pipe", "remote process exited",
+                   "communicator was aborted", "socket closed",
+                   "connection refused", "end of file")
+
+
+def is_peer_loss(exc: BaseException) -> bool:
+    """True for the error a torch.distributed collective raises when a peer
+    of the process group died: its message names a closed, reset or
+    refused connection (gloo, the store) or an aborted communicator
+    (NCCL)."""
+    text = str(exc).lower()
+    return (isinstance(exc, (RuntimeError, ConnectionError, OSError))
+            and any(s in text for s in _PEER_LOSS_TEXT))
+
+
+def exit_peer_lost(exc: Optional[BaseException] = None,
+                   heartbeat=None) -> None:
+    """Mark this worker's death as collateral and exit EXIT_PEER_LOST: the
+    marker line (no traceback), the lease marked "crash", then
+    `os._exit` (a normal exit would wait in torch.distributed's teardown
+    against the dead peer)."""
+    import sys
+
+    detail = " ".join(str(exc).split())[:200] if exc is not None else ""
+    sys.stderr.flush()
+    print(f"{PEER_LOST_MARKER} ({detail})", flush=True)
+    if heartbeat is not None:
+        try:
+            heartbeat.mark("crash")
+        except OSError:
+            pass
+    os._exit(EXIT_PEER_LOST)
 
 # processes spawned by any ClusterSupervisor in this interpreter;
 # `reap_stray_workers` sweeps it so a failing test cannot leak children
@@ -587,26 +639,62 @@ class ClusterSupervisor:
             self.checkpoint_dir, structural_check=self.structural_check)
         return 0 if step is None else int(step)
 
+    # log-tail marker of a worker whose collective failed because a PEER
+    # died (exit_peer_lost) — collateral damage of the real fault, not
+    # evidence this host is bad
+    _COLLATERAL_MARKERS = (PEER_LOST_MARKER.encode(),)
+
+    def _is_collateral(self, m: _Member, reason: str) -> bool:
+        """True when the member's crash is its reaction to ANOTHER
+        member's death: the peer-lost marker in its log tail WITHOUT a
+        Python traceback of its own (a worker that crashed on its own
+        error prints one). Collateral deaths are recorded in the ledger
+        but not charged against the restart budget — otherwise one bad
+        host would quarantine the whole gang."""
+        if reason != "crash" and not reason.startswith("killed:"):
+            return False
+        if not m.log_path:
+            return False
+        try:
+            with open(m.log_path, "rb") as f:
+                f.seek(max(0, os.path.getsize(m.log_path) - 16384))
+                tail = f.read()
+        except OSError:
+            return False
+        if b"Traceback (most recent call last)" in tail:
+            return False          # died on its own error: primary
+        return any(mk in tail for mk in self._COLLATERAL_MARKERS)
+
     def _record_faults(self, faults: List[Tuple[int, str]],
                        resume_step: int) -> None:
         self.gang_restarts += 1
         _obs.count("dl4j_cluster_gang_restarts_total")
+        collateral = {rank: self._is_collateral(self.members[rank],
+                                                reason)
+                      for rank, reason in faults}
+        if all(collateral.values()):
+            # someone died first even if the poll only saw the fallout:
+            # with no primary identifiable, charge everyone (bounded
+            # recovery beats an uncharged restart loop)
+            collateral = {rank: False for rank in collateral}
         for rank, reason in faults:
             m = self.members[rank]
-            m.restarts += 1
+            if not collateral[rank]:
+                m.restarts += 1
             self.restart_ledger.append({
                 "gang_restart": self.gang_restarts,
                 "worker": rank,
                 "slot": m.slot,
                 "reason": reason,
-                "collateral": False,
+                "collateral": collateral[rank],
                 "worker_restarts": m.restarts,
                 "resume_step": resume_step,
                 "t_s": round(time.monotonic() - self._t0, 3),
             })
             logger.warning(
-                "cluster: worker %d (slot %d) faulted (%s) — gang "
+                "cluster: worker %d (slot %d) faulted (%s%s) — gang "
                 "restart %d from step %d", rank, m.slot, reason,
+                " [collateral]" if collateral[rank] else "",
                 self.gang_restarts, resume_step)
         exhausted = [m for m in self.members
                      if m.restarts > self.max_restarts_per_worker]

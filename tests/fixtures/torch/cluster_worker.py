@@ -129,6 +129,11 @@ def main():
     handler.setFormatter(logging.Formatter("%(created).6f %(message)s"))
     logging.getLogger("deeplearning4j_tpu_torch").addHandler(handler)
     cuda = args.device != "cpu"
+    if not cuda:
+        # one intra-op thread: the MLP's ops are tiny, and eight OpenMP
+        # threads per worker on a loaded host stall a window for seconds
+        # (a healthy lease then goes stale, or the 1 s watchdog fires)
+        torch.set_num_threads(1)
     if cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

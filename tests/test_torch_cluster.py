@@ -298,9 +298,12 @@ def test_worker_hard_hang_relaunched_bit_for_bit(tmp_path, unfaulted,
             log = f.read()
         assert "marking heartbeat and exiting 86" in log
     else:
+        # the lease's margin over a healthy worker's longest silence:
+        # whole gen-4 fits took up to 0.65 s (~0.3 s between beats) with
+        # six OpenMP-bound torch processes loading the host
         stats, final = _worker_run(out, wedge_window=3,
                                    hang_exit_after=10 ** 6,
-                                   lease_timeout_s=3.0)
+                                   lease_timeout_s=6.0)
         reasons = ("heartbeat_stale",)
     assert stats["gang_restarts"] == 1 and stats["generations"] == 2
     (entry,) = stats["ledger"]

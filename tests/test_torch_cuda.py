@@ -1581,3 +1581,98 @@ def test_cuda_dense_slab_matches_the_cpu(mode):
         if want is not None:
             err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
             assert np.isfinite(got).all() and err < NLP_CARD_TOL
+
+
+# ------------------------------------ tensor and sequence parallelism
+def _mesh_gang(tmp_path, world, only, data, nets=None):
+    """tests/fixtures/torch/mesh_worker.py's gang of `world` gloo ranks
+    with CUDA tensors on the one card, over inputs written here with the
+    port's own seeded nets; returns rank 0's arrays and every rank's
+    facts."""
+    import json
+    import os
+    import sys
+
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    fixtures = os.path.join(os.path.dirname(__file__), "fixtures", "torch")
+    sys.path.insert(0, fixtures)
+    from mesh_worker import launch
+
+    io = str(tmp_path)
+    spec, arrays = {"nets": {}, "helpers": {}}, {}
+    for name, net in (nets or {}).items():
+        spec["nets"][name] = ["mln", net.conf.to_json()]
+        for prefix, tree in (("p", net.params), ("s", net.states)):
+            for i, t in enumerate(leaves(tree)):
+                arrays[f"{name}/{prefix}:{i}"] = t.numpy()
+    with open(os.path.join(io, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    np.savez(os.path.join(io, "nets.npz"), **arrays)
+    np.savez(os.path.join(io, "data.npz"), **data)
+    launch(os.path.join(fixtures, "mesh_worker.py"), io, world,
+           ("--only", only, "--device", "cuda"))
+    facts = []
+    for r in range(world):
+        with open(os.path.join(io, f"out-{r}.json")) as f:
+            facts.append(json.load(f))
+    return dict(np.load(os.path.join(io, "out-0.npz"))), facts
+
+
+@pytest.mark.cuda
+def test_cuda_ring_attention_over_two_ranks_matches_the_cpu(tmp_path):
+    """ring_self_attention over sp 2 (two gloo ranks, CUDA tensors, the
+    K/V hop through host buffers) against the port's one-process
+    attention on the CPU, causal and not (JAX's ring bar, TF32 off)."""
+    _need_cuda()
+    from deeplearning4j_tpu_torch.parallel import make_mesh, ring_self_attention
+
+    rng = np.random.default_rng(21)
+    q, k, v = (rng.normal(size=(2, 64, 4, 16)).astype(np.float32)
+               for _ in range(3))
+    out, facts = _mesh_gang(tmp_path, 2, "ring_sp2",
+                            {"ring_q": q, "ring_k": k, "ring_v": v})
+    assert all(f["_failed"] == {} for f in facts)
+    t = torch.from_numpy
+    for name, causal in (("full", False), ("causal", True)):
+        want = ring_self_attention(t(q), t(k), t(v), make_mesh(),
+                                   causal=causal).numpy()
+        np.testing.assert_allclose(out[f"ring_sp2/{name}:0"], want,
+                                   rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_tp_fit_over_two_ranks_matches_the_cpu(tmp_path):
+    """ParallelWrapper(tp=2) over two gloo ranks with CUDA tensors (the
+    bucketed gathers, the column-parallel Dense and Output layers, the
+    copy's all-reduce) against the same fit in one process on the CPU,
+    at JAX's tp bar (rtol 1e-3, atol 1e-4)."""
+    _need_cuda()
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conf = (NeuralNetConfiguration.Builder().seed(7).updater("sgd")
+            .learning_rate(0.1).activation("tanh").weight_init("xavier")
+            .list().layer(DenseLayer(n_out=16))
+            .layer(OutputLayer(n_out=4, loss="mcxent"))
+            .set_input_type(InputType.feed_forward(8)).build())
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(64, 8)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 64)]
+    out, facts = _mesh_gang(tmp_path, 2, "tp_mlp", {"mlp_x": x, "mlp_y": y},
+                            nets={"mlp8": net})
+    assert all(f["_failed"] == {} for f in facts)
+    assert facts[0]["tp_mlp"]["mesh"] == {"dp": 1, "pp": 1, "sp": 1,
+                                          "ep": 1, "tp": 2}
+    assert facts[1]["tp_mlp"]["memory"]["param_fraction"] < 0.52
+    net.fit([(x, y)] * 3)
+    got = [out[f"tp_mlp/params:{i}"] for i in range(len(leaves(net.params)))]
+    for a, b in zip(got, leaves(net.params)):
+        np.testing.assert_allclose(a, b.numpy(), rtol=1e-3, atol=1e-4)

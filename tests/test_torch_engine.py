@@ -382,12 +382,13 @@ def test_make_loss_and_apply_halves_compose_to_one_step():
 
 
 def test_attach_mesh_names_the_queue():
-    # ZeRO-1 is ported (tests/test_torch_scaleout.py); a mesh with a
-    # tensor-parallel axis still waits, naming queue 9c
+    # ZeRO-1 is ported (tests/test_torch_scaleout.py) and so is the tp
+    # axis (queue 9c): in one process a tp mesh of 2 needs more processes
+    # than the world has (ZeRO-1's tp refusal: tests/test_torch_tp.py)
     from deeplearning4j_tpu_torch.engine import MeshManager
     from deeplearning4j_tpu_torch.parallel import MeshSpec
 
-    with pytest.raises(NotImplementedError, match="queue 9c"):
+    with pytest.raises(ValueError, match="mesh needs 2 processes"):
         StepProgram(_port_net()).attach_mesh(
             MeshManager(mesh=MeshSpec(tp=2)))
     with pytest.raises(TypeError, match="MeshManager"):

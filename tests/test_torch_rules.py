@@ -90,3 +90,15 @@ def test_scaleout_worker_imports_only_the_port():
     assert not roots & set(FORBIDDEN_IMPORTS + ("distributed_worker",))
     assert "deeplearning4j_tpu_torch" in roots
 
+
+
+@pytest.mark.parametrize("name", ["mesh_worker", "gang_worker",
+                                  "w2v_worker"])
+def test_gang_workers_import_only_the_port(name):
+    """The tp/ring, supervised-gang and distributed-embedding workers
+    (tests/fixtures/torch/) run the port alone, as the scale-out one."""
+    worker = ROOT / "tests" / "fixtures" / "torch" / f"{name}.py"
+    roots = {mod for mod, _ in _imported_roots(worker)}
+    assert not roots & set(FORBIDDEN_IMPORTS + ("distributed_worker",
+                                                "w2v_distributed_worker"))
+    assert "deeplearning4j_tpu_torch" in roots

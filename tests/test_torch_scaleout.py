@@ -213,8 +213,10 @@ def test_mesh_spec_and_make_mesh_at_world_one():
         make_mesh(dp=2)
     with pytest.raises(ValueError, match="at most one"):
         make_mesh(dp=-1, tp=-1)
+    # every axis is ported; at world 1 a size of 2 is too many processes
+    # (JAX's "only N available" error; tests/test_torch_tp.py at world 4)
     for axis in ("tp", "sp", "pp", "ep"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 9c"):
+        with pytest.raises(ValueError, match="mesh needs 2 processes"):
             make_mesh(**{axis: 2})
     assert replicated(mesh).replicated
     assert batch_sharding(mesh).spec == ("dp",)

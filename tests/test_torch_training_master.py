@@ -881,7 +881,10 @@ def test_training_stats_and_world_info():
 
 @pytest.mark.parametrize("kw,queue", [
     # local SGD, ZeRO-1 and per-rank checkpoints are ported (queue 9a/9b,
-    # tests/test_torch_scaleout*.py); the non-dp mesh axes wait for 9c
+    # tests/test_torch_scaleout*.py) and the non-dp mesh axes too (queue
+    # 9c): in one process a mesh axis of 2 needs more processes than the
+    # world has, JAX's ValueError (TrainingMaster's dp-only refusal at
+    # world 4: tests/test_torch_tp.py)
     (dict(mesh=MeshSpec(tp=2)), 9),
     (dict(mesh=MeshSpec(sp=2), averaging_frequency=2), 9),
     (dict(mesh=MeshSpec(pp=2), averaging_frequency=2,
@@ -892,8 +895,9 @@ def test_training_stats_and_world_info():
     (dict(mesh=MeshSpec(sp=2), guard_inner_steps=True), 9),
 ])
 def test_unported_options_raise_and_name_their_queue(kw, queue):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue {queue}c"):
+    with pytest.raises(ValueError,
+                       match="mesh needs 2 processes, only 1 available|"
+                             "1 processes not divisible by fixed axes 2"):
         TrainingMaster(_tnet(), **kw)
 
 
@@ -908,7 +912,7 @@ def test_unported_entry_points_raise_and_name_their_queue(tmp_path):
     # (a JAX library's format) is refused naming npz
     with pytest.raises(ValueError, match="npz"):
         TrainingMaster(_tnet(), checkpoint_format="orbax")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 9c"):
+    with pytest.raises(ValueError, match="mesh needs 2 processes"):
         TrainingMaster(_tnet(), mesh=MeshSpec(tp=2))
     with pytest.raises(ValueError, match="mutually exclusive"):
         TrainingMaster(_tnet(), steps_per_dispatch=4, averaging_frequency=2)
