@@ -376,6 +376,22 @@ Phases, in order; any failure exits non-zero:
      drill on the card (tests/fixtures/torch/gang_worker.py's 2 ranks
      under ClusterSupervisor, MESH_DRILL_STEPS steps): the relaunched
      gang equal to its unfaulted run;
+  5o. the analyzer (lines start "analysis "): (a) tools/analyze_torch.py
+     (the AST passes) on the tree, exit 0 against its baseline; (b) the
+     program lint (analysis/program_lint.py) of full-width records on
+     the card, outside any capture: the flagship ResNet-50 train step at
+     batch TRAIN_BATCH (bf16, "pallas") and its run_group(GROUP_K) group
+     record beside the launches and collectives of the group captured
+     for the same key, the batch-BATCH serving forward through
+     ParallelInference's buckets, the decode step and chunk prefill at
+     bench_decode's width — every record's numbers printed (ops, f32
+     products, copy bytes and share, host reads, kernel launches by
+     route and dtype), every launch of the four kernels bf16 "wgmma",
+     every finding held against tools/analyze_torch_baseline.json; (c)
+     ANALYSIS_SERVE_S of phase 5j's serving (ResNet-50 "pallas" over HTTP
+     from ANALYSIS_SERVE_THREADS client threads) and a short decode run
+     under the port's LockOrderSanitizer: no lock-order cycle, the long
+     holds reported; (d) the four kernels' launches on this path;
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -386,7 +402,12 @@ Phases, in order; any failure exits non-zero:
 
 `--nccl-gang N` (a machine with N cards) runs only the tests' gang of N
 ranks over NCCL, one card per rank, against the same gang over gloo on
-the CPU (`nccl_gang`), then the last line.
+the CPU (`nccl_gang`), then the last line. Its second launch is the F11
+drill (ROADMAP queue 3): ZeRO-1's run_group(4) with the collectives
+captured, the refusal lifted (DL4J_TPU_NCCL_CAPTURE=1), a 60 s process
+group timeout with blocking waits, NCCL's INIT/COLL log and every rank's
+warm-up, capture and replay lines; `--gang-logs DIR` keeps every rank's
+whole log.
 
 Imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port package beside it, it exits non-zero and
@@ -615,6 +636,14 @@ MESH_VGG_STEPS = 3             # timed steps, after one warm step
 MESH_TP_TOL = {"rtol": 1e-3, "atol": 1e-4}   # tests/test_parallel.py's tp bar
 MESH_W2V_EPOCHS = 2            # timed, after one warm epoch
 MESH_DRILL_STEPS = 6
+# phase 5o: the analyzer. The flagship's records at TRAIN_BATCH (group
+# record at GROUP_K), the serving record at BATCH, the decode records at
+# DECODE_BENCH; serving under the lock-order sanitizer
+ANALYSIS_SERVE_S = 6.0
+ANALYSIS_SERVE_THREADS = 4
+ANALYSIS_SERVE_SIZES = (1, 3, 8, 16)
+ANALYSIS_DECODE_REQUESTS = 4
+ANALYSIS_LONG_HOLD_S = 1.0
 # phase 5h: Keras import and data. The seven Keras fixtures against their
 # expected outputs at tests/test_modelimport.py's bars; canonical Keras
 # VGG16 (BASELINE config 4, bench.py:506 bench_vgg16: batch 32, frozen
@@ -697,14 +726,14 @@ TL_HELPER_TOL = 1e-6
 # admission at 2x capacity (bench_serving.py:324 bench_soak's path,
 # tenant mix and shed thresholds, :434-441), a three-replica fleet, and
 # decode over HTTP (phase 5i's configurations)
-CONTROL_NPZ_S = 4.0
+CONTROL_NPZ_S = 3.0
 CONTROL_JSON_S = 2.0
 CONTROL_JSON_THREADS = 4
 CONTROL_SWAP_WAIT = 16         # requests a version serves per drill step
 CONTROL_SOAK_ROWS = 16
 CONTROL_CAPACITY_S = 2.0       # closed loop, gold only
 CONTROL_BASELINE_S = 2.0       # gold alone, open loop at its soak rate
-CONTROL_SOAK_S = 4.0           # open loop at 2x capacity
+CONTROL_SOAK_S = 3.0           # open loop at 2x capacity
 # (tenant, share of the offered load, priority, quota rate as a share
 # of capacity, burst)
 CONTROL_SOAK_MIX = (("gold", 0.15, "high", None, None),
@@ -810,7 +839,7 @@ DASH_ROWS = 2000
 # (the JAX fit_graph default) and Node2Vec's one walk per vertex to
 # length 10: both are Python loops on the host.
 NLP_VOCAB = 5000
-NLP_WORDS = 2_000_000
+NLP_WORDS = 1_000_000
 NLP_SEQ = 1000
 NLP_DIM = 128
 NLP_WINDOW = 5
@@ -819,8 +848,8 @@ NLP_EPOCHS = 2                 # bench.py's 5, cut for the time limit
 NLP_REPS = 1
 NLP_WIDE_VOCAB = 50_000
 NLP_WIDE_DIM = 300
-NLP_WIDE_WORDS = 2_000_000
-NLP_CUT_WORDS = 50_000
+NLP_WIDE_WORDS = 1_000_000
+NLP_CUT_WORDS = 20_000
 # the card against the port on the CPU after the same fit: max abs error
 # over max(1, max|CPU table|) (the card sums scatters with float atomics,
 # the CPU in index order; the port against the JAX package reads ~1e-5
@@ -8718,12 +8747,19 @@ def gang_inputs(np, io):
     np.savez(os.path.join(io, "data.npz"), **data)
 
 
-def run_gangs(np, tmp, world, backend, only, wait_s=300.0):
+# where `--gang-logs` keeps every gang rank's whole log (None: not kept)
+GANG_LOG_DIR = None
+
+
+def run_gangs(np, tmp, world, backend, only, wait_s=300.0, env_extra=None,
+              check=True):
     """tests/fixtures/torch/scaleout_worker.py's gang of `world` ranks on
     the card(s) (`backend` gloo: CUDA tensors on one card; nccl: one card
     per rank) and the same gang over gloo on the CPU, at the same time,
-    over gang_inputs. Returns ({"card"|"cpu": rank 0's arrays},
-    {"card"|"cpu": rank 0's facts}, seconds)."""
+    over gang_inputs; `env_extra` joins the card gang's environment.
+    Returns ({"card"|"cpu": rank 0's arrays}, {"card"|"cpu": rank 0's
+    facts}, seconds); with `check` False a failed gang returns (None,
+    {"rcs": ..., "tails": ...}, seconds) instead of failing the run."""
     here = os.path.dirname(os.path.abspath(__file__))
     worker = os.path.join(here, "tests", "fixtures", "torch",
                           "scaleout_worker.py")
@@ -8738,6 +8774,8 @@ def run_gangs(np, tmp, world, backend, only, wait_s=300.0):
         env["PYTHONPATH"] = here
         if be == "nccl":
             env.setdefault("NCCL_DEBUG", "WARN")
+        if which == "card":
+            env.update(env_extra or {})
         for r in range(world):
             log_f = open(os.path.join(io, f"log-{r}.txt"), "w")
             logs.append(log_f)
@@ -8763,10 +8801,32 @@ def run_gangs(np, tmp, world, backend, only, wait_s=300.0):
         for f in logs:
             f.close()
     secs = time.perf_counter() - t0
+    if GANG_LOG_DIR:
+        dst = os.path.join(GANG_LOG_DIR, os.path.basename(tmp.rstrip("/")))
+        os.makedirs(dst, exist_ok=True)
+        for which, io in ios.items():
+            for r in range(world):
+                shutil.copy(os.path.join(io, f"log-{r}.txt"),
+                            os.path.join(dst, f"{which}-log-{r}.txt"))
     if any(rcs):
         tails = "".join(
             open(os.path.join(io, f"log-{r}.txt")).read()[-3000:]
             for io in ios.values() for r in range(world))
+        if not check:
+            # each card rank's capture lines, its last NCCL collective
+            # lines and its errors, from the whole log
+            lines = {}
+            for r in range(world):
+                text = open(os.path.join(ios["card"],
+                                         f"log-{r}.txt")).read()
+                ls = text.splitlines()
+                coll = [ln for ln in ls if "NCCL INFO" in ln
+                        and "opCount" in ln]
+                lines[r] = ([ln for ln in ls if "graph rank" in ln]
+                            + coll[-4:]
+                            + [ln for ln in ls if "imeout" in ln
+                               or "Error" in ln or "timed out" in ln][-6:])
+            return None, {"rcs": rcs, "tails": tails, "lines": lines}, secs
         fail(f"scaleout gang of {world}: a rank failed {rcs}:\n{tails}")
     out = {w: dict(np.load(os.path.join(io, "out-0.npz")))
            for w, io in ios.items()}
@@ -8847,9 +8907,26 @@ def nccl_gang(torch, np, card, world):
             f"[{card}]")
         if max(errs.values()) > 1.0:
             fail("nccl gang (1): the NCCL gang disagrees with the CPU gang")
+        # (2), the F11 drill: the refusal lifted, a hang made an error
+        # that names the collective, every rank's capture logged
+        drill = {"DL4J_TPU_NCCL_CAPTURE": "1", "DL4J_TPU_GRAPH_LOG": "1",
+                 "DL4J_TPU_PG_TIMEOUT_S": "60",
+                 "TORCH_NCCL_BLOCKING_WAIT": "1", "NCCL_DEBUG": "INFO",
+                 "NCCL_DEBUG_SUBSYS": "INIT,COLL"}
         out, facts, secs = run_gangs(
-            np, os.path.join(tmp, "groups"), world, "nccl", "zero1_groups",
-            wait_s=100.0)
+            np, os.path.join(tmp, "groups"), world, "nccl",
+            "zero1_groups", wait_s=100.0, check=False, env_extra=drill)
+        res["f11"] = {"passed": out is not None, "seconds": secs}
+        if out is None:
+            res["f11"].update(rcs=facts["rcs"], lines=facts["lines"])
+            log(f"nccl gang (2) F11 drill: ranks ended {facts['rcs']} in "
+                f"{secs:.1f} s; each rank's capture lines, last collectives "
+                f"and errors:\n"
+                + "\n".join(f"[rank {r}] {ln[:300]}"
+                             for r, ls in facts["lines"].items()
+                             for ln in ls))
+            fail("nccl gang (2): the captured ZeRO-1 groups hung or failed "
+                 "(F11; logs above)")
     errs = gang_errors(np, out, ("z1_k1", "z1_k4"))
     coll = facts["card"]["z1_k4"]["collectives"]
     res["groups"] = {"seconds": secs, "tol_ratio": errs,
@@ -9400,6 +9477,210 @@ def mesh_phase(torch, np, pc, card, nlp_words_per_s):
     return res
 
 
+# ------------------------------------------------------------ phase 5o
+def analysis_records(torch, np, ResNet50, card):
+    """(b)'s records: the flagship's single step and run_group(GROUP_K)
+    group (the group captured first, so its record carries the captured
+    launches and collectives), the serving forward, the decode programs.
+    Returns (records, the net, the decode model)."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.engine.decode_program import DecodeProgram
+    from deeplearning4j_tpu_torch.parallel.inference import (
+        ParallelInference,
+    )
+    from deeplearning4j_tpu_torch.zoo.decoder import CausalTransformer
+
+    net = flagship(ResNet50, "pallas")
+    (x, y), = engine_batches(np, 71, 1, TRAIN_BATCH,
+                             net.conf.node("output").obj.n_out)
+    prog = StepProgram(net)
+    prog.run_group(np.repeat(x[None], GROUP_K, 0),
+                   np.repeat(y[None], GROUP_K, 0))
+    records = prog.lint_records(x, y, k=GROUP_K, name="flagship_step")
+    pi = ParallelInference(net, batch_limit=BATCH, queue_limit=64,
+                           max_wait_ms=1.0, pipeline_depth=0)
+    try:
+        rng = np.random.default_rng(5)
+        for rows in (BATCH, BATCH, BATCH // 2):
+            pi.output(serving_inputs(np, rng, rows), timeout_s=120.0)
+        records += pi.lint_records()
+    finally:
+        pi.shutdown()
+    model = CausalTransformer(**DECODE_BENCH, device=DEV).init()
+    dprog = DecodeProgram(model, max_slots=DECODE_SLOTS,
+                          page_size=DECODE_PAGE)
+    dprog.warmup(dprog.init_kv())
+    records += dprog.lint_records()
+    return records, net, model
+
+
+def analysis_check_records(reports, finds, card):
+    """(b)'s checks and lines: every report's numbers, every finding,
+    the flagship's and the serving forward's kernels all bf16 "wgmma",
+    the group record's eager launches equal to its captured replay's."""
+    from deeplearning4j_tpu_torch.analysis import Baseline
+
+    for rep in reports:
+        log(f"analysis (b) {rep['summary']}; wall {rep.get('wall_s', 0):.3f}"
+            f" s; copy bytes by op {rep.get('churn_by_op', {})}; traffic "
+            f"{rep.get('traffic_bytes', 0)} B [{card}]")
+    for rep in reports:
+        if not rep["name"].startswith(("flagship_step", "serving_predict")):
+            continue
+        kern = rep["kernels"]
+        want = ({"fused_conv1x1", "fused_conv3x3"}
+                if rep["name"] == "serving_predict" else
+                {"fused_conv1x1", "fused_conv3x3", "dgrad_conv1x1",
+                 "wgrad_conv1x1"})
+        if {k.split("/")[0] for k in kern} != want or not all(
+                k.endswith("/wgmma/bf16") for k in kern):
+            fail(f"analysis (b) {rep['name']}: kernel launches {kern}, not "
+                 f"every one of {sorted(want)} bf16 on wgmma")
+    group = next(r for r in reports
+                 if r["name"] == f"flagship_step_group_k{GROUP_K}")
+    cap = group.get("notes", {}).get("captured_launches", {})
+    eager = {}
+    for k, v in group["kernels"].items():
+        eager[k.split("/")[0]] = eager.get(k.split("/")[0], 0) + v
+    log(f"analysis (b) the group record's eager launches {eager} against "
+        f"the captured group's per replay "
+        f"{ {k: v for k, v in cap.items() if '/' not in k} }; its "
+        f"collectives per replay "
+        f"{group.get('notes', {}).get('captured_collectives')} [{card}]")
+    if any(cap.get(k) != v for k, v in eager.items()):
+        fail("analysis (b): the group record's launches differ from the "
+             "captured group's")
+    here = os.path.dirname(os.path.abspath(__file__))
+    bl = Baseline.load(os.path.join(here, "tools",
+                                    "analyze_torch_baseline.json"))
+    new, held, _ = bl.apply(finds)
+    for f in finds:
+        log(f"analysis (b) finding{'' if f in new else ' (baselined)'}: "
+            f"{f.render()}")
+    if new:
+        fail(f"analysis (b): {len(new)} finding(s) not in the baseline")
+    return {"findings": [f.to_dict() for f in finds],
+            "baselined": len(held)}
+
+
+def analysis_sanitized_serving(torch, np, net, model, card):
+    """(c): ModelServer over the flagship (ANALYSIS_SERVE_THREADS npz
+    client threads for ANALYSIS_SERVE_S), then a decode server answering
+    ANALYSIS_DECODE_REQUESTS generate calls, all built and run under the
+    port's LockOrderSanitizer."""
+    from deeplearning4j_tpu_torch.analysis import LockOrderSanitizer
+    from deeplearning4j_tpu_torch.engine.decode_program import DecodeProgram
+    from deeplearning4j_tpu_torch.parallel.serving import (
+        ModelClient,
+        ModelServer,
+    )
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    pool = [x for x in serving_pool(np, HW)
+            if x.shape[0] in ANALYSIS_SERVE_SIZES]
+    san = LockOrderSanitizer(long_hold_s=ANALYSIS_LONG_HOLD_S).install()
+    done, errors, lock = [0], [], threading.Lock()
+    try:
+        server = ModelServer(net, model_name="resnet50", batch_limit=BATCH,
+                             queue_limit=256, device=DEV).start()
+        url = f"http://127.0.0.1:{server.port}"
+        deadline = time.perf_counter() + ANALYSIS_SERVE_S
+
+        def client(t):
+            c = ModelClient(url, timeout=120.0, wire="npz")
+            order = np.random.default_rng(300 + t)
+            while time.perf_counter() < deadline:
+                try:
+                    c.predict(pool[int(order.integers(len(pool)))],
+                              model="resnet50")
+                    with lock:
+                        done[0] += 1
+                except Exception as e:   # noqa: BLE001 - counted, must be 0
+                    errors.append(repr(e))
+
+        ts = [threading.Thread(target=client, args=(t,), daemon=True,
+                               name=f"analysis-client-{t}")
+              for t in range(ANALYSIS_SERVE_THREADS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        server.stop()
+        prog = DecodeProgram(model, max_slots=DECODE_SLOTS,
+                             page_size=DECODE_PAGE)
+        prog.warmup(prog.init_kv())
+        dsrv = ModelServer(decode_engine=DecodeEngine(program=prog),
+                           model_name="decoder", device=DEV).start()
+        try:
+            reqs = decode_requests(random.Random(5),
+                                   ANALYSIS_DECODE_REQUESTS, DECODE_PROMPT,
+                                   (8, 16), model.vocab_size)
+            clients = [ModelClient(f"http://127.0.0.1:{dsrv.port}",
+                                   timeout=300.0) for _ in range(2)]
+            outs, _ = control_generate(clients, reqs)
+        finally:
+            dsrv.stop()
+    finally:
+        san.uninstall()
+    cycles, holds, edges = san.cycles(), san.long_holds(), san.edges()
+    res = {"requests": done[0], "errors": len(errors),
+           "generated": sum(len(o) for o in outs), "edges": len(edges),
+           "cycles": cycles,
+           "long_holds": [{"site": h.site, "s": h.duration_s,
+                           "thread": h.thread} for h in holds]}
+    log(f"analysis (c) LockOrderSanitizer over {ANALYSIS_SERVE_S:.0f} s of "
+        f"ResNet-50 \"pallas\" served over HTTP from "
+        f"{ANALYSIS_SERVE_THREADS} client threads ({done[0]} requests, "
+        f"{len(errors)} errors) and {ANALYSIS_DECODE_REQUESTS} decode "
+        f"requests over HTTP ({res['generated']} tokens): {len(edges)} "
+        f"lock-order edges, cycles {cycles}, long holds (> "
+        f"{ANALYSIS_LONG_HOLD_S:g} s) {res['long_holds']} [{card}]")
+    if cycles or errors or not done[0]:
+        fail(f"analysis (c): cycles {cycles}, errors {errors[:3]}")
+    return res
+
+
+def analysis_phase(torch, np, pc, ResNet50, card):
+    """Phase 5o (module docstring): (a)-(d)."""
+    from deeplearning4j_tpu_torch.analysis import program_lint
+
+    res, parts = {}, {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable,
+                        os.path.join(here, "tools", "analyze_torch.py")],
+                       cwd=here, capture_output=True, text=True,
+                       timeout=120)
+    parts["a"] = time.perf_counter() - t0
+    last = (p.stdout.strip().splitlines() or [""])[-1]
+    res["ast"] = {"rc": p.returncode, "seconds": parts["a"], "line": last}
+    log(f"analysis (a) tools/analyze_torch.py: exit {p.returncode} in "
+        f"{parts['a']:.2f} s: {last}")
+    if p.returncode != 0:
+        fail(f"analysis (a): the analyzer found new findings:\n"
+             f"{p.stdout[-3000:]}{p.stderr[-2000:]}")
+    pc.reset_launch_counts()
+    t0 = time.perf_counter()
+    records, net, model = analysis_records(torch, np, ResNet50, card)
+    finds, reports = program_lint.run_with_reports(records)
+    torch.cuda.synchronize()
+    parts["b"] = time.perf_counter() - t0
+    res["records"] = {r["name"]: r for r in reports}
+    res.update(analysis_check_records(reports, finds, card))
+    t0 = time.perf_counter()
+    res["sanitizer"] = analysis_sanitized_serving(torch, np, net, model,
+                                                  card)
+    parts["c"] = time.perf_counter() - t0
+    del net, model, records
+    torch.cuda.empty_cache()
+    res["launches"] = pc.launch_counts()
+    res["seconds_per_part"] = parts
+    log(f"analysis (d) the four kernels' launches on this path "
+        f"{ {k: v for k, v in res['launches'].items() if '/' not in k} }; "
+        f"seconds per part {parts}")
+    return res
+
+
 def record_kernel_calls(torch, pc, run):
     """The kernel calls `run()` makes, with their shapes and flags."""
     calls = []
@@ -9590,6 +9871,8 @@ def main():
     ap.add_argument("--nccl-gang", type=int, default=0, metavar="N",
                     help="run only the N-card NCCL gang check (needs N "
                          "cards) and exit")
+    ap.add_argument("--gang-logs", default=None, metavar="DIR",
+                    help="keep every gang rank's whole log under DIR")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 5h's Keras weights and data and of "
                          "phase 5i's requests and GPT-2-width weights")
@@ -9602,6 +9885,8 @@ def main():
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-io", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    global GANG_LOG_DIR
+    GANG_LOG_DIR = args.gang_logs
     if args.mesh_rank >= 0:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         mesh_rank_main(args.mesh_rank, args.mesh_world, args.mesh_port,
@@ -9797,6 +10082,12 @@ def main():
     mesh = mesh_phase(torch, np, pc, card, nlp["bench"]["words_per_s"])
     log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5o. the analyzer: the AST passes, the program lint of full-width
+    # records on the card, serving under the lock-order sanitizer
+    t0 = time.perf_counter()
+    analysis = analysis_phase(torch, np, pc, ResNet50, card)
+    log(f"analysis phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
     t0 = time.perf_counter()
@@ -9864,6 +10155,7 @@ def main():
             "nlp_launches": nlp["launches"][name],
             "scaleout_launches": scaleout["launches"][name],
             "mesh_launches": mesh["launches"][name],
+            "analysis_launches": analysis["launches"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -9879,7 +10171,8 @@ def main():
                        "keras": keras, "decode": decode,
                        "control": control, "cluster": cluster,
                        "clustering": clustering, "nlp": nlp,
-                       "scaleout": scaleout, "mesh": mesh},
+                       "scaleout": scaleout, "mesh": mesh,
+                       "analysis": analysis},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -9907,7 +10200,9 @@ def main():
         f"{SCALEOUT_STEPS}-step ZeRO-1 TrainingMaster fit at "
         f"steps_per_dispatch={GROUP_K} (world 1, NCCL), mesh_launches from "
         "phase 5n (ring attention, tp VGG16 and the distributed embedding "
-        "fit, counted in the gang's ranks too)")
+        "fit, counted in the gang's ranks too), analysis_launches from "
+        "phase 5o (the flagship's capture and its linted records, the "
+        "linted serving forward, the sanitized serving window)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

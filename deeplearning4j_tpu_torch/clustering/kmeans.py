@@ -49,7 +49,10 @@ def _lloyd_step(points, centers, metric):
     d = pairwise_distance(points, centers, metric)
     dmin, assign = torch.min(d, dim=1)   # first index on ties
     k = centers.shape[0]
-    one_hot = torch.nn.functional.one_hot(assign, k).to(points.dtype)
+    # a comparison, not F.one_hot, which reads the indices' range back
+    # to the host on the CPU
+    one_hot = (assign[:, None] == torch.arange(
+        k, device=assign.device)).to(points.dtype)
     sums = one_hot.T @ points                                # [k,D]
     counts = torch.sum(one_hot, dim=0)[:, None]
     new_centers = torch.where(counts > 0,

@@ -50,6 +50,7 @@ class NearestNeighborsServer:
             pts = pts[None, :]
         idx, dist = knn(pts, self.corpus, k=int(k), metric=self.metric)
         return [{"indices": row_i, "distances": row_d}
+                # analyze: allow=jit-host-sync — the neighbours server's JSON answer
                 for row_i, row_d in zip(idx.tolist(), dist.tolist())]
 
     def start(self) -> "NearestNeighborsServer":

@@ -83,6 +83,7 @@ class Normalizer:
         d = {"type": type(self).__name__}
         for k, v in self.__dict__.items():
             if not k.startswith("_"):
+                # analyze: allow=jit-host-sync — host-numpy stats serialization
                 d[k] = v.tolist() if isinstance(v, np.ndarray) else v
         return d
 

@@ -75,6 +75,7 @@ SCRATCH_PAGE = 0
 def host_outputs(nxt, ok) -> Tuple[np.ndarray, np.ndarray]:
     """The decode step's one device-to-host read: the [S] next tokens
     and the [S] finite verdicts in a single copy."""
+    # analyze: allow=jit-host-sync — the decode step's one device-to-host read
     both = torch.stack((nxt, ok.to(nxt.dtype))).cpu().numpy()
     return both[0], both[1].astype(bool)
 
@@ -470,11 +471,48 @@ class DecodeProgram:
 
     # ------------------------------------------------------------ lint
     def lint_records(self, buckets: Sequence[int] = ()) -> List:
-        """The JAX package lints the lowered programs (donation,
-        transpose churn); the port has no program lint yet."""
-        raise NotImplementedError(
-            "DecodeProgram.lint_records needs a program lint for the "
-            "port, which waits for ROADMAP queue 10c (analysis/*)")
+        """ProgramRecords (analysis/program_lint.py) of the decode step,
+        the chunk prefill and the page copy — the programs the engine
+        runs, from the model's cache (policy registered), each called
+        once on a fresh pool of the engine's shape with the index
+        tensors `step`/`prefill_chunk` hand them. The pool is DECLARED
+        updated in place (`inplace_argnums`), so
+        prog-unhonored-donation verifies no program replaces or copies
+        the [n_layers, 2, n_pages, n_heads, page_size, head_dim] pool
+        whole — a copy would double decode memory and pay a full-pool
+        copy per token. The calls record no new trace once the programs
+        ran at these shapes (warmup). `buckets` is accepted for
+        call-site compatibility and ignored: chunked prefill has one
+        chunk shape."""
+        del buckets
+        from deeplearning4j_tpu_torch.analysis.program_lint import (
+            ProgramRecord,
+        )
+
+        model = self.model
+        kv = self.init_kv()
+        s, c, t = self.max_slots, self.window, self.page_size
+        source = "deeplearning4j_tpu_torch/engine/decode_program.py"
+        z = lambda *shape: torch.zeros(shape, dtype=torch.int64,
+                                       device=self.device)
+        return [
+            ProgramRecord(
+                name=f"decode_step_s{s}", fn=self._decode_program(),
+                example_args=(model.params, kv, z(s), z(s), z(s, c),
+                              z(s, c), z(s), z(s)),
+                inplace_argnums=(1,),
+                precision_policy=self.precision_policy, source=source,
+                consumed_outputs=(0, 1, 2)),
+            ProgramRecord(
+                name=f"decode_prefill_c{t}", fn=self._chunk_program(),
+                example_args=(model.params, kv, z(t), 0, z(c), z(c), 1),
+                inplace_argnums=(1,),
+                precision_policy=self.precision_policy, source=source),
+            ProgramRecord(
+                name="decode_page_copy", fn=self._copy_program(),
+                example_args=(kv, 1, 2), inplace_argnums=(0,),
+                precision_policy=self.precision_policy, source=source),
+        ]
 
     # ------------------------------------------------------------ perf
     def step_flops(self) -> float:

@@ -89,12 +89,24 @@ Data parallelism (parallel/collectives.py):
     trainers' programs (parallel/wrapper.py) are built and cached here,
     keyed with the frozen signature, as in the JAX package.
 
-Not ported yet: `lint_records` (ROADMAP queue 10c).
+Program lint (analysis/program_lint.py): `lint_records(x, y, k=...)`
+gives the records of the single step and of a k-step group, and
+`lint_record_zero1(x, y)` that of the ZeRO-1 step, each a call of the
+same step math `run` and `run_group` run, on clones of the net's carry
+(the dropout generator rewound after the call), with the program's
+declared precision policy.
+
+F11 drill (ROADMAP queue 3): DL4J_TPU_GRAPH_LOG=1 logs each rank's
+warm-ups, captures and replays with the collective counts;
+DL4J_TPU_NCCL_CAPTURE=1 lifts the refusal of NCCL capture at world > 1.
 """
 
 from __future__ import annotations
 
 import gc
+import hashlib
+import os
+import sys
 import time
 
 import numpy as np
@@ -108,6 +120,22 @@ from deeplearning4j_tpu_torch.util.tree import clone, leaves, tree_map
 
 # captured groups a StepProgram keeps (k-step windows of distinct shapes)
 MAX_GROUPS = 4
+# "1": every rank logs the warm-up, capture and each replay of a group
+# with its key and the collective counts, flushed to stderr (the F11
+# gang drill reads them rank by rank)
+GRAPH_LOG_ENV = "DL4J_TPU_GRAPH_LOG"
+# "1": capture NCCL collectives at world > 1 anyway (the F11 probe;
+# run_group refuses it otherwise)
+NCCL_CAPTURE_ENV = "DL4J_TPU_NCCL_CAPTURE"
+
+
+def _graph_log(event: str, key, k: int) -> None:
+    if os.environ.get(GRAPH_LOG_ENV) != "1":
+        return
+    digest = hashlib.sha1(repr(key).encode()).hexdigest()[:8]
+    print(f"graph rank {collectives.rank()}: {event} group {digest} k={k} "
+          f"collectives {dict(collectives.COUNTS)}", file=sys.stderr,
+          flush=True)
 # batch rows of the twin steps register_perf counts and extrapolates from
 COUNT_ROWS = (1, 2)
 
@@ -136,9 +164,12 @@ class _CapturedGroup:
     buffers, the graph, its outputs, and the kernel launches one replay
     makes."""
 
-    def __init__(self, body, args, device, pool, gen=None):
+    def __init__(self, body, args, device, pool, gen=None, stream=None,
+                 key=None):
         self.static = clone(args)
         self._in = leaves(self.static)
+        self.key = key
+        self.k = k = int(self.static[4].shape[0])   # scalars are [k, 2]
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
@@ -146,12 +177,15 @@ class _CapturedGroup:
         # warm-up: builds and loads the kernels, creates autograd's and
         # the allocator's buffers; its launches are real and count, its
         # dropout draws are rewound
+        _graph_log("warm-up start", key, k)
         with torch.cuda.stream(side):
             body(*self.static, steps=1)
         cur.wait_stream(side)
+        _graph_log("warm-up end", key, k)
         if gen is not None:
             gen.set_state(rng)
         before = pallas_conv.launch_counts()
+        by_dtype = dict(pallas_conv.LAUNCHES_BY_DTYPE)
         coll0 = dict(collectives.COUNTS)
         self.graph = torch.cuda.CUDAGraph()
         if gen is not None:
@@ -163,10 +197,11 @@ class _CapturedGroup:
         gc.collect()
         gc_on = gc.isenabled()
         gc.disable()
+        _graph_log("capture start", key, k)
         try:
             # thread_local: an input pipeline's producer thread may pin
             # host memory while this thread captures
-            with torch.cuda.graph(self.graph, pool=pool,
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 self.out = body(*self.static)
         except StepHangError:
@@ -183,9 +218,14 @@ class _CapturedGroup:
                                 if collectives.COUNTS[k] != coll0[k]}
             after = pallas_conv.launch_counts()
             # capture records the launches; each replay makes them
-            self.launches = {k: after[k] - before[k] for k in after
-                             if after[k] != before[k]}
+            self.launches = {n: after[n] - before[n] for n in after
+                             if after[n] != before[n]}
             pallas_conv.add_launch_counts(self.launches, -1)
+            # a capture launches nothing: its wrapper calls leave no
+            # (kernel, route, dtype) count either
+            pallas_conv.LAUNCHES_BY_DTYPE.clear()
+            pallas_conv.LAUNCHES_BY_DTYPE.update(by_dtype)
+            _graph_log("capture end", key, k)
 
     def replay(self, args):
         new = leaves(args)
@@ -195,7 +235,9 @@ class _CapturedGroup:
                 f"group takes {len(self._in)}")
         for dst, src in zip(self._in, new):
             dst.copy_(src)
+        _graph_log("replay start", self.key, self.k)
         self.graph.replay()
+        _graph_log("replay end", self.key, self.k)
         pallas_conv.add_launch_counts(self.launches)
         return clone(self.out)
 
@@ -219,12 +261,23 @@ class StepProgram:
         self.last_step_losses = None
         self._groups = {}
         self._pool = None   # the graph pool every group captures into
+        # the stream every group captures on under a process group (None:
+        # torch.cuda.graph's own)
+        self._capture_stream = None
         # engine/mesh.py MeshManager once attach_mesh routed the program
         # through the ZeRO-1 step
         self.mesh_manager = None
         # capture cost, replay count and eager-run windows of the groups
         self.group_stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
                             "eager_windows": 0}
+
+    @property
+    def precision_policy(self) -> str:
+        """The declared precision policy of this net's step programs
+        ('bf16'/'f16' under a compute dtype, else 'f32')."""
+        from deeplearning4j_tpu_torch.nn.jit_cache import policy_name
+
+        return policy_name(getattr(self.net, "compute_dtype", None))
 
     # ------------------------------------------------------------ mesh
     def attach_mesh(self, manager) -> "StepProgram":
@@ -368,21 +421,32 @@ class StepProgram:
                     "run_group: a gloo process group's collectives cannot "
                     "be captured into a CUDA graph; use an NCCL group on "
                     "CUDA (or steps_per_dispatch=1)")
-            if collectives.world_size() > 1:
+            if collectives.world_size() > 1 \
+                    and os.environ.get(NCCL_CAPTURE_ENV) != "1":
                 raise NotImplementedError(
                     "run_group: capturing NCCL collectives at world > 1 "
                     "hung on four H100s (ROADMAP queue 3, F11); "
                     "use steps_per_dispatch=1 over more than one rank")
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-            # NCCL builds its communicator's stream state lazily: never
-            # inside the first capture
-            collectives.warm_up(net.device)
+            if collectives.initialized():
+                # with a process group every group captures on this one
+                # stream; NCCL builds its communicators' stream state
+                # lazily: warm every group and collective kind on it,
+                # never inside the first capture
+                self._capture_stream = torch.cuda.Stream(net.device)
+                self._capture_stream.wait_stream(
+                    torch.cuda.current_stream(net.device))
+                with torch.cuda.stream(self._capture_stream):
+                    collectives.warm_up(net.device)
+                torch.cuda.current_stream(net.device).wait_stream(
+                    self._capture_stream)
         while len(self._groups) >= MAX_GROUPS:
             del self._groups[next(iter(self._groups))]
         t0 = time.perf_counter()
         grp = _CapturedGroup(self._group_body, args, net.device, self._pool,
-                             net._train_rng())
+                             net._train_rng(), self._capture_stream, key)
+        # analyze: allow=jit-host-sync — once per new group key: times the capture
         torch.cuda.synchronize(net.device)
         capture_s = time.perf_counter() - t0
         self.group_stats["capture_s"] += capture_s
@@ -520,3 +584,120 @@ class StepProgram:
         """{(group key, k): kernel launches one replay makes} of the
         captured groups (launch_counts' keys)."""
         return {key: dict(g.launches) for key, g in self._groups.items()}
+
+    # ------------------------------------------------------------- lint
+    def _lint_rewind(self):
+        """A restore() putting the dropout generator back where it was,
+        or None when the net draws no masks."""
+        gen = self.net._train_rng()
+        if gen is None:
+            return None
+        state = gen.get_state()
+        return lambda: gen.set_state(state)
+
+    def lint_records(self, x, y, fm=None, lm=None, k=None, name=None):
+        """ProgramRecords (analysis/program_lint.py) of this net's train
+        step — the k=1 step (graph inputs adapted; for a truncated-BPTT
+        net one chunk from zero carries) and, when `k` is given, the
+        k-step group `run_group` runs — for `analysis/program_lint`.
+        Each record calls the same step math `run`/`run_group` call, on
+        clones of the net's carry, so the lint leaves the net's state as
+        it was (the dropout generator is rewound). On CUDA a group
+        already captured for the same key adds its per-replay launches
+        and collectives to the group record's notes."""
+        from deeplearning4j_tpu_torch.analysis.program_lint import (
+            ProgramRecord,
+        )
+
+        net = self.net
+        source = "deeplearning4j_tpu_torch/engine/step_program.py"
+        base = name or ("engine_graph" if self.is_graph
+                        else "engine_single")
+        inputs, labels, lmasks, fmasks = self._tensors(x, y, fm, lm)
+        step = getattr(net, "_step_impl", None) or net._step
+        scalars = net._step_scalars(net.iteration)[0]
+        carry = clone(net._train_carry())
+        if self.is_tbptt:
+            base = name or "engine_tbptt"
+            first = leaves(inputs)[0]
+            T, L = int(first.shape[1]), net.conf.tbptt_fwd_length
+            timed = lambda t: (t[:, :L] if t.ndim >= 2 and t.shape[1] == T
+                               else t)
+            args = (carry, tree_map(timed, inputs),
+                    tree_map(lambda t: t[:, :L] if t.ndim == 3 else t,
+                             labels),
+                    tree_map(timed, lmasks), scalars,
+                    tree_map(timed, fmasks),
+                    net._initial_carries(int(first.shape[0])))
+            consumed = (0, 1, 2)
+        else:
+            args = (carry, inputs, labels, lmasks, scalars, fmasks)
+            consumed = (0, 1)
+        records = [ProgramRecord(
+            name=base, fn=step, example_args=args,
+            precision_policy=self.precision_policy, source=source,
+            consumed_outputs=consumed, restore=self._lint_rewind())]
+        if k and not self.is_tbptt:
+            stack = lambda a: None if a is None else np.repeat(
+                np.asarray(a.cpu() if isinstance(a, torch.Tensor)
+                           else a)[None], k, axis=0)
+            g_in, g_lab, g_lm, g_fm = self._tensors(
+                stack(x), stack(y), stack(fm), stack(lm))
+            gcarry = clone(net._train_carry())
+            gargs = (gcarry, g_in, g_lab, g_lm,
+                     net._step_scalars(net.iteration, k), g_fm)
+            notes = {}
+            if net.device.type != "cpu":
+                key = (self.group_key(g_in, g_lab, g_lm, g_fm,
+                                      isinstance(gcarry[0], torch.Tensor)),
+                       k)
+                grp = self._groups.get(key)
+                if grp is not None:
+                    notes = {"captured_launches": dict(grp.launches),
+                             "captured_collectives": dict(grp.collectives)}
+            records.append(ProgramRecord(
+                name=f"{base}_group_k{k}", fn=self._group_body,
+                example_args=gargs, precision_policy=self.precision_policy,
+                source=source, consumed_outputs=(0, 1),
+                restore=self._lint_rewind(), notes=notes))
+        return records
+
+    def lint_record_zero1(self, x, y, name=None):
+        """ProgramRecord of the ZeRO-1 step (requires attach_mesh): the
+        full params, this rank's updater-state slices (argument 1) and
+        the BN states, with the bytes the MeshManager plan gives this
+        rank (`shard_plan_bytes`: each sharded leaf's rows over dp, the
+        rest whole) — the facts `prog-unsharded-optimizer-state` holds
+        the state to. Every rank of the group must lint it together
+        (the step reduce-scatters and all-gathers)."""
+        from deeplearning4j_tpu_torch.analysis.program_lint import (
+            ProgramRecord,
+        )
+        from deeplearning4j_tpu_torch.engine.sharding import (
+            zero1_leaf_sharded,
+        )
+
+        if self.mesh_manager is None:
+            raise ValueError("lint_record_zero1 requires attach_mesh")
+        net, mgr = self.net, self.mesh_manager
+        inputs, labels, lmasks, fmasks = self._tensors(x, y, None, None)
+        params = net.params
+        full = net._pack([net._updaters[key].init(params[key])
+                          for key, _ in net._layer_items()])
+        plan = sum(int(t.numel()) * t.element_size()
+                   // (mgr.dp if zero1_leaf_sharded(tuple(t.shape), mgr.dp)
+                       else 1) for t in leaves(full))
+        step = net._step_impl
+
+        def zero1_step(p, u, s, inputs, labels, lmasks, scalars, fmasks):
+            return step((p, u, s), inputs, labels, lmasks, scalars, fmasks)
+
+        args = (clone(params), clone(net.updater_states), clone(net.states),
+                inputs, labels, lmasks,
+                net._step_scalars(net.iteration)[0], fmasks)
+        return ProgramRecord(
+            name=name or "engine_zero1", fn=zero1_step, example_args=args,
+            precision_policy=self.precision_policy,
+            source="deeplearning4j_tpu_torch/engine/sharding.py",
+            consumed_outputs=(0, 1), sharded_argnums=(1,),
+            shard_plan_bytes=plan, restore=self._lint_rewind())

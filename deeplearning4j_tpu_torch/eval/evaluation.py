@@ -33,9 +33,11 @@ class ConfusionMatrix:
         return int(self.matrix[actual, predicted])
 
     def actual_total(self, cls: int) -> int:
+        # analyze: allow=jit-host-sync — host numpy confusion matrix
         return int(self.matrix[cls].sum())
 
     def predicted_total(self, cls: int) -> int:
+        # analyze: allow=jit-host-sync — host numpy confusion matrix
         return int(self.matrix[:, cls].sum())
 
     def total(self) -> int:
@@ -86,6 +88,7 @@ class Evaluation:
         self.confusion.add_batch(actual, pred)
         if top_n > 1:
             topk = np.argsort(-predictions, axis=-1)[:, :top_n]
+            # analyze: allow=jit-host-sync — host numpy arrays
             self.top_n_correct += int((topk == actual[:, None]).any(axis=1).sum())
             self.top_n_total += len(actual)
 

@@ -34,7 +34,8 @@ bf16 with the channel counts multiples of 64 and 16-byte aligned operands,
 which every bf16 ResNet-50 call takes; "simple", the first, plainer
 kernels (64x64 tiles, mma.sync or FMA), takes f32 and every other shape.
 `forward_route` / `backward_route` pick it; `FORWARD_ROUTES` /
-`BACKWARD_ROUTES` count each launch's route.
+`BACKWARD_ROUTES` count each launch's route and `LAUNCHES_BY_DTYPE` its
+(kernel, route, dtype).
 """
 
 from __future__ import annotations
@@ -57,6 +58,13 @@ BACKWARD_ROUTES = {"dgrad_conv1x1": {"wgmma": 0, "simple": 0},
 FORWARD_ROUTES = {"fused_conv1x1": {"wgmma": 0, "simple": 0},
                   "fused_conv3x3": {"wgmma": 0, "simple": 0}}
 _ROUTE_IDS = {"simple": 0, "wgmma": 1}
+# launches by (kernel, route, dtype) — "bf16"/"f32"/"f64" — beside the
+# counts above (the program lint reads a call's routes and dtypes from
+# it); a CUDA graph replay moves only LAUNCHES and the route counts;
+# reset with reset_launch_counts()
+LAUNCHES_BY_DTYPE = {}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float64: "f64", torch.float16: "f16"}
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -64,6 +72,7 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_DTYPE.clear()
     for routes in (*FORWARD_ROUTES.values(), *BACKWARD_ROUTES.values()):
         for r in routes:
             routes[r] = 0
@@ -90,6 +99,11 @@ def add_launch_counts(delta: dict, times: int = 1) -> None:
             {**FORWARD_ROUTES, **BACKWARD_ROUTES}[name][route] += v * times
         else:
             LAUNCHES[name] += v * times
+
+
+def _count_dtype(name: str, route: str, dtype) -> None:
+    key = (name, route, _DTYPE_NAMES.get(dtype, str(dtype)))
+    LAUNCHES_BY_DTYPE[key] = LAUNCHES_BY_DTYPE.get(key, 0) + 1
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -185,6 +199,7 @@ def fused_conv1x1(x, w, b, scale=None, shift=None, add=None,
     kernel_build.check(lib, rc, f"fused_conv1x1 ({route})")
     LAUNCHES["fused_conv1x1"] += 1
     FORWARD_ROUTES["fused_conv1x1"][route] += 1
+    _count_dtype("fused_conv1x1", route, x.dtype)
     return y, ssum, ssq, u
 
 
@@ -228,6 +243,7 @@ def fused_conv3x3(x, w, b, scale=None, shift=None, relu: bool = False,
     kernel_build.check(lib, rc, f"fused_conv3x3 ({route})")
     LAUNCHES["fused_conv3x3"] += 1
     FORWARD_ROUTES["fused_conv3x3"][route] += 1
+    _count_dtype("fused_conv3x3", route, x.dtype)
     return y, ssum, ssq
 
 
@@ -302,6 +318,7 @@ def dgrad_conv1x1(dy, y, w, x, x2=None, du_out=None, scale=None,
     kernel_build.check(lib, rc, f"dgrad_conv1x1 ({route})")
     LAUNCHES["dgrad_conv1x1"] += 1
     BACKWARD_ROUTES["dgrad_conv1x1"][route] += 1
+    _count_dtype("dgrad_conv1x1", route, dt)
     # both branches' shift gradients are the same sum over du
     dt1 = dt_ if s1 is not None else None
     dt2 = None if s2 is None else (dt_.clone() if s1 is not None else dt_)
@@ -413,6 +430,7 @@ def wgrad_conv1x1(dy, y, x, x2=None, scale=None, shift=None, scale2=None,
     kernel_build.check(lib, rc, f"wgrad_conv1x1 ({route})")
     LAUNCHES["wgrad_conv1x1"] += 1
     BACKWARD_ROUTES["wgrad_conv1x1"][route] += 1
+    _count_dtype("wgrad_conv1x1", route, dy.dtype)
     return dw
 
 

@@ -405,6 +405,7 @@ class ProfilerListener:
         elif self._active and iteration >= self.stop_at:
             # force pending device work into the traced window
             if model.score() is not None:
+                # analyze: allow=jit-host-sync — deliberate trace flush
                 float(model.score())
             self.stop()
 
@@ -414,6 +415,7 @@ class ProfilerListener:
         here instead of leaking into teardown."""
         if self._active:
             if model is not None and model.score() is not None:
+                # analyze: allow=jit-host-sync — deliberate trace flush
                 float(model.score())
             self.stop()
 

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import os
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -108,8 +109,13 @@ def init_process_group(coordinator_address: str, num_processes: int,
     a "tcp://" URL). `backend=None`: NCCL when `device` (None means
     "cuda", as every port entry point) is a CUDA device, gloo on the
     CPU. An NCCL group binds `device` (the current CUDA device when it
-    has no index), which creates the communicator eagerly."""
+    has no index), which creates the communicator eagerly.
+    `DL4J_TPU_PG_TIMEOUT_S`, when set, replaces `timeout_s` (a gang
+    drill's short timeout, with TORCH_NCCL_BLOCKING_WAIT=1, turns a hung
+    collective into an error that names it)."""
     from deeplearning4j_tpu_torch.device import resolve_device
+
+    timeout_s = float(os.environ.get("DL4J_TPU_PG_TIMEOUT_S", timeout_s))
 
     dist = _dist()
     if initialized():
@@ -389,11 +395,20 @@ def dp_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def warm_up(device) -> None:
-    """One all-reduce on the current stream of `device`: NCCL creates its
-    communicator and per-stream state lazily, which must not happen
-    inside a CUDA graph capture."""
-    if initialized():
-        all_reduce_sum(torch.zeros(1, device=device), dp_group())
+    """Every collective kind a captured step may issue (all-reduce,
+    reduce-scatter, all-gather) over the world and over every mesh axis
+    group made so far, on the current stream of `device`: NCCL creates
+    its communicators and per-stream state lazily, which must not happen
+    inside a CUDA graph capture. Counted in COUNTS like any collective."""
+    if not initialized():
+        return
+    groups = [dp_group()] + [g for gs in _MESH_GROUPS.values()
+                             for g in gs.values() if g.pg is not None]
+    for g in groups:
+        all_reduce_sum(torch.zeros(1, device=device), g)
+        if backend() == "nccl":
+            reduce_scatter(torch.zeros(g.world, device=device), g)
+            all_gather(torch.zeros(1, device=device), g)
 
 
 __all__ = ["AXES", "COUNTS", "AxisGroup", "DPGroup", "all_gather",

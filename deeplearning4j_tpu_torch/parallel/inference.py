@@ -74,6 +74,7 @@ _PRIORITY_IDX = {"high": 0, "normal": 1, "low": 2}
 
 def _to_host(o) -> np.ndarray:
     if isinstance(o, torch.Tensor):
+        # analyze: allow=jit-host-sync — the completion stage: where the host waits for the device
         return o.detach().cpu().numpy()
     return np.asarray(o)
 
@@ -270,11 +271,44 @@ class ParallelInference:
         return out
 
     def lint_records(self) -> list:
-        """The JAX package's program-lint records of the serving data
-        plane; the port has no program lint yet."""
-        raise NotImplementedError(
-            "ParallelInference.lint_records: the program lint is not "
-            "ported yet (ROADMAP queue 1 item 10c)")
+        """ProgramRecords (analysis/program_lint.py) of the serving data
+        plane: the net's cached predict program at the largest warmed
+        bucket (with its registered precision policy), called as
+        `net.output` calls it (inference mode, the compute-dtype params),
+        plus one fill-ratio record per dispatched bucket."""
+        from deeplearning4j_tpu_torch.analysis.program_lint import (
+            ProgramRecord,
+        )
+
+        source = "deeplearning4j_tpu_torch/parallel/inference.py"
+        records = []
+        net = self.net
+        cache = getattr(net, "_jit_cache", None)
+        shapes = self._warmup_shapes()
+        if cache is not None and "predict" in cache and shapes:
+            b = max(self._warmed_buckets or [self._cap])
+            xs = [torch.zeros((b,) + tuple(sh), dtype=net.dtype,
+                              device=net.device) for sh in shapes]
+            names = getattr(net.conf, "network_inputs", None)
+            inputs = dict(zip(names, xs)) if names else xs[0]
+            predict = cache["predict"]
+
+            def serving_predict(params, states, inputs):
+                with torch.inference_mode():
+                    return predict(params, states, inputs)
+
+            records.append(ProgramRecord(
+                name="serving_predict", fn=serving_predict,
+                example_args=(net._compute_params(), net.states, inputs),
+                precision_policy=cache.policy("predict"), source=source))
+        for b, agg in self.bucket_fill().items():
+            records.append(ProgramRecord(
+                name=f"serving_bucket_{b}", source=source,
+                bucket_capacity=b,
+                bucket_rows_per_dispatch=(
+                    agg["rows"] / agg["dispatches"]
+                    if agg["dispatches"] else 0.0)))
+        return records
 
     def bucket_fill(self) -> Dict[int, dict]:
         """{bucket: {dispatches, rows, fill}}; the pow2 coalescer keeps

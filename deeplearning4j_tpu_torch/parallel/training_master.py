@@ -475,6 +475,7 @@ class TrainingMaster:
                 if action == "rollback":
                     return restored["step"]
         if collect_training_stats:
+            # analyze: allow=jit-host-sync — opt-in stats barrier
             float(net.score())   # host read: the step's barrier
         t2 = time.perf_counter()
         if tr is not None and (check_now or collect_training_stats):
@@ -696,6 +697,7 @@ class TrainingMaster:
         if pp is not None:
             pp.mark("host_sync")
         if check_now:
+            # analyze: allow=jit-host-sync — checked windows only: the guard's verdict
             finite = torch.isfinite(
                 program.last_step_losses).cpu().numpy()
             bad = ([abs_steps[int(np.argmax(~finite))]]
@@ -738,6 +740,7 @@ class TrainingMaster:
                 return step + span if action == "skip" \
                     else restored["step"]
         if collect_training_stats:
+            # analyze: allow=jit-host-sync — opt-in stats barrier
             float(net.score())   # host read: the group's barrier
         t2 = time.perf_counter()
         # group telemetry: steps_total counts the inner steps
@@ -824,6 +827,7 @@ class TrainingMaster:
             if pp is not None:
                 pp.mark("host_sync")
             if check_now and self.guard_inner_steps:
+                # analyze: allow=jit-host-sync — checked windows only: the guard's verdict
                 inner = self._local_step.last_step_losses.cpu().numpy()
                 bad = [abs_steps[i] for i in range(len(abs_steps))
                        if not np.isfinite(inner[i])]
@@ -872,6 +876,7 @@ class TrainingMaster:
                         f"{verdict} training state in group at step {step} "
                         "(policy=abort)")
             if collect_training_stats:
+                # analyze: allow=jit-host-sync — opt-in stats barrier
                 float(net.score())   # host read: the group's barrier
             t2 = time.perf_counter()
             self._obs_acc.count_observe(

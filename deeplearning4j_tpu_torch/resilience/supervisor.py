@@ -166,6 +166,7 @@ class NonFiniteGuard:
             torch.isfinite(t).all() for t in tensors
             if t.is_floating_point()]
         ok_dev = torch.stack([o.to(loss.device) for o in oks]).all()
+        # analyze: allow=jit-host-sync — checked steps only: the guard's one read
         ok, loss_v = torch.stack([ok_dev.float(), loss]).tolist()
         if not ok:
             self.counters["nonfinite"] += 1

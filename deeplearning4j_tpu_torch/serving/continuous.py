@@ -981,6 +981,7 @@ class DecodeEngine:
             racer = self._handles_by_id.get(rid)
             if racer is not None and not racer.failed:
                 return racer
+            # analyze: allow=jit-host-sync — host numpy slot table
             if (int(self._active.sum()) + len(self._pending)
                     + self._placing) >= capacity:
                 shed = True
@@ -1016,6 +1017,7 @@ class DecodeEngine:
 
     def _in_flight(self) -> int:
         with self._cond:
+            # analyze: allow=jit-host-sync — host numpy slot table
             return (int(self._active.sum()) + len(self._pending)
                     + self._placing)
 
@@ -1694,6 +1696,7 @@ class DecodeEngine:
 
     # ------------------------------------------------------------ stats
     def _publish_gauges(self) -> None:
+        # analyze: allow=jit-host-sync — host numpy slot table
         active = int(self._active.sum())
         _obs.set_gauge("dl4j_decode_active_slots", active)
         elapsed = max(time.monotonic() - self._t0, 1e-9)
@@ -1726,6 +1729,7 @@ class DecodeEngine:
         return {
             "model": self.model_name,
             "max_slots": self.max_slots,
+            # analyze: allow=jit-host-sync — host numpy slot table
             "active_slots": int(self._active.sum()),
             "pending": pending,
             "queue_limit": self.queue_limit,
@@ -1749,6 +1753,7 @@ class DecodeEngine:
             "tokens_total": self._tokens_emitted,
             "completed": self._completed,
             "evictions": self._evictions,
+            # analyze: allow=jit-host-sync — host numpy slot table
             "quarantined_slots": int(self._quarantined.sum()),
             "quarantines": self._quarantines,
             "replays": self._replays,

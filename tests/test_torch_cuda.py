@@ -1676,3 +1676,32 @@ def test_cuda_tp_fit_over_two_ranks_matches_the_cpu(tmp_path):
     got = [out[f"tp_mlp/params:{i}"] for i in range(len(leaves(net.params)))]
     for a, b in zip(got, leaves(net.params)):
         np.testing.assert_allclose(a, b.numpy(), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flagship_step_record_runs_bf16_wgmma_without_host_reads():
+    """The program lint (analysis/program_lint.py) on the card: the
+    flagship ResNet-50 "pallas" bf16 train step's record launches every
+    call of the four kernels on the bf16 "wgmma" route, with no
+    prog-hidden-host-transfer and no prog-unhonored-donation finding."""
+    _need_cuda()
+    from deeplearning4j_tpu_torch.analysis import program_lint
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    net = ResNet50(num_classes=16, input_shape=(64, 64, 3),
+                   compute_dtype="bfloat16",
+                   helpers="pallas").init_model(device="cuda")
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(8, 64, 64, 3)).astype(np.float32)
+    y = np.eye(16, dtype=np.float32)[rng.integers(0, 16, 8)]
+    (rec,) = StepProgram(net).lint_records(x, y)
+    finds, (rep,) = program_lint.run_with_reports([rec])
+    kern = rep["kernels"]
+    assert {k.split("/")[0] for k in kern} == {
+        "fused_conv1x1", "fused_conv3x3", "dgrad_conv1x1", "wgrad_conv1x1"}
+    assert all(k.endswith("/wgmma/bf16") for k in kern), kern
+    assert rep["host_sync_ops"] == 0
+    bad = {f.rule for f in finds} & {"prog-hidden-host-transfer",
+                                     "prog-unhonored-donation"}
+    assert not bad, [f.render() for f in finds]

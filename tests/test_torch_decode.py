@@ -507,8 +507,17 @@ def test_dashboard_decode_line_from_a_live_engine(program):
 
 # ============================================================ lint, perf
 def test_program_lint_waits_for_queue_10c(program):
-    with pytest.raises(NotImplementedError, match="10c"):
-        program.lint_records()
+    """Queue 10c landed: the decode programs' lint records exist, declare
+    the pool updated in place, and lint clean."""
+    from deeplearning4j_tpu_torch.analysis import program_lint
+
+    recs = program.lint_records()
+    assert [r.name for r in recs] == [
+        f"decode_step_s{SLOTS}", f"decode_prefill_c{program.page_size}",
+        "decode_page_copy"]
+    assert all(r.inplace_argnums and r.precision_policy == "f32"
+               for r in recs)
+    assert program_lint.run(recs) == []
 
 
 def test_register_perf_counts_from_the_shapes(program):

@@ -289,7 +289,8 @@ def test_captured_groups_share_one_pool_and_stay_bounded(monkeypatch):
     pools = []
 
     class FakeGroup:
-        def __init__(self, body, args, device, pool, gen=None):
+        def __init__(self, body, args, device, pool, gen=None, stream=None,
+                     key=None):
             pools.append(pool)
 
     handles = iter(range(100))
@@ -320,7 +321,8 @@ def test_each_new_capture_records_one_compile_event(monkeypatch):
     from deeplearning4j_tpu_torch.engine import step_program as sp
 
     class FakeGroup:
-        def __init__(self, body, args, device, pool, gen=None):
+        def __init__(self, body, args, device, pool, gen=None, stream=None,
+                     key=None):
             pass
 
     monkeypatch.setattr(sp, "_CapturedGroup", FakeGroup)

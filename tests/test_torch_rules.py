@@ -20,7 +20,8 @@ FORBIDDEN_IMPORTS = FORBIDDEN + ("urllib",)
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "analyze_torch.py"]
 
 
 def _imported_roots(path):

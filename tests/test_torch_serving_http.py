@@ -368,8 +368,11 @@ def test_sequential_mode_serves_direct_with_host_results():
             pi.output(np.zeros((1, 3), np.float32))
         with pytest.raises(ValueError, match="inference_mode"):
             ParallelInference(net, inference_mode="fast")
-        with pytest.raises(NotImplementedError, match="10c"):
-            pi.lint_records()
+        from deeplearning4j_tpu_torch.analysis import program_lint
+
+        recs = pi.lint_records()   # no warmup: the cap's bucket, no fill
+        assert [r.name for r in recs] == ["serving_predict"]
+        assert program_lint.run(recs) == []
     finally:
         pi.shutdown()
     assert not pi.healthy
