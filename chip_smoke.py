@@ -400,14 +400,20 @@ Phases, in order; any failure exits non-zero:
   7. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--nccl-gang N` (a machine with N cards) runs only the tests' gang of N
-ranks over NCCL, one card per rank, against the same gang over gloo on
-the CPU (`nccl_gang`), then the last line. Its second launch is the F11
-drill (ROADMAP queue 3): ZeRO-1's run_group(4) with the collectives
-captured, the refusal lifted (DL4J_TPU_NCCL_CAPTURE=1), a 60 s process
-group timeout with blocking waits, NCCL's INIT/COLL log and every rank's
-warm-up, capture and replay lines; `--gang-logs DIR` keeps every rank's
-whole log.
+`--nccl-gang N` (a machine with N >= 2 cards) runs only the multi-card
+checks (`nccl_gang`), then the last line: (1) the tests' gang of N ranks
+over NCCL, one card per rank, eagerly, against the same gang over gloo
+on the CPU; (2) run_group(4) with its collectives captured at world N
+(ROADMAP F11, fixed): ZeRO-1 under TrainingMaster, per-step dp and tp 2
+under ParallelWrapper, each against its k=1 run and the CPU gang, an eager
+collective after the replays, every rank's warm-ups, captures and
+replays logged and each replay waited for under a deadline, NCCL's
+INIT/COLL log read for the communicators and streams each capture used;
+(3) the flagship ResNet-50 (bf16, "pallas", TRAIN_BATCH rows per rank)
+under TrainingMaster(sharding="zero1", steps_per_dispatch=4) against
+steps_per_dispatch=1: ms/step at both, the NCCL kernels' time, all four
+kernels launched inside the captured group. `--gang-logs DIR` keeps
+every rank's whole log.
 
 Imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port package beside it, it exits non-zero and
@@ -8549,6 +8555,16 @@ def scaleout_zero1(torch, np, pc, ResNet50, card, tmp):
     if not same:
         fail("scaleout (a): the restored ZeRO-1 run differs from the "
              "uninterrupted one")
+    # F11's fix at world 1: the programs that captured NCCL collectives
+    # give their graphs up before the process group goes
+    held = [p for p in (prog, tm2._harness.program) if p._groups]
+    collectives.release_captures()
+    res["released"] = {"programs": len(held),
+                       "groups_left": sum(len(p._groups) for p in held)}
+    log(f"scaleout (a) release_captures: {res['released']}")
+    if not held or res["released"]["groups_left"]:
+        fail(f"scaleout (a): the captured groups were not released before "
+             f"the process group: {res['released']}")
     del net, net2, tm, tm2, prog
     torch.cuda.empty_cache()
     return res
@@ -8751,41 +8767,23 @@ def gang_inputs(np, io):
 GANG_LOG_DIR = None
 
 
-def run_gangs(np, tmp, world, backend, only, wait_s=300.0, env_extra=None,
-              check=True):
-    """tests/fixtures/torch/scaleout_worker.py's gang of `world` ranks on
-    the card(s) (`backend` gloo: CUDA tensors on one card; nccl: one card
-    per rank) and the same gang over gloo on the CPU, at the same time,
-    over gang_inputs; `env_extra` joins the card gang's environment.
-    Returns ({"card"|"cpu": rank 0's arrays}, {"card"|"cpu": rank 0's
-    facts}, seconds); with `check` False a failed gang returns (None,
-    {"rcs": ..., "tails": ...}, seconds) instead of failing the run."""
+def launch_ranks(jobs, wait_s, keep=None):
+    """Start every (argv, log path, env) of `jobs` at once from this
+    script's directory, each writing its output to its log, and wait for
+    all of them under one deadline `wait_s` seconds away, killing what is
+    left at it. With `--gang-logs`, each log is copied to
+    GANG_LOG_DIR/`keep`/<its folder>-<its name>. Returns (exit codes,
+    "timeout" for a process killed at the deadline; seconds)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    worker = os.path.join(here, "tests", "fixtures", "torch",
-                          "scaleout_worker.py")
-    ios, procs, logs = {}, [], []
+    procs, logs = [], []
     t0 = time.perf_counter()
-    for which, dev, be in (("card", DEV, backend), ("cpu", "cpu", "gloo")):
-        io = ios[which] = os.path.join(tmp, f"gang-{which}-{world}")
-        os.makedirs(io, exist_ok=True)
-        gang_inputs(np, io)
-        port = free_port()
-        env = dict(os.environ)
-        env["PYTHONPATH"] = here
-        if be == "nccl":
-            env.setdefault("NCCL_DEBUG", "WARN")
-        if which == "card":
-            env.update(env_extra or {})
-        for r in range(world):
-            log_f = open(os.path.join(io, f"log-{r}.txt"), "w")
-            logs.append(log_f)
-            procs.append(subprocess.Popen(
-                [sys.executable, worker, "--rank", str(r), "--world",
-                 str(world), "--port", str(port), "--io", io, "--device",
-                 dev, "--backend", be, "--only", only],
-                stdout=log_f, stderr=subprocess.STDOUT, env=env, cwd=here))
-    deadline = time.perf_counter() + wait_s
     try:
+        for argv, path, env in jobs:
+            logs.append(open(path, "w"))
+            procs.append(subprocess.Popen(
+                argv, stdout=logs[-1], stderr=subprocess.STDOUT, env=env,
+                cwd=here))
+        deadline = time.perf_counter() + wait_s
         rcs = []
         for p in procs:
             try:
@@ -8801,13 +8799,60 @@ def run_gangs(np, tmp, world, backend, only, wait_s=300.0, env_extra=None,
         for f in logs:
             f.close()
     secs = time.perf_counter() - t0
-    if GANG_LOG_DIR:
-        dst = os.path.join(GANG_LOG_DIR, os.path.basename(tmp.rstrip("/")))
+    if GANG_LOG_DIR and keep:
+        dst = os.path.join(GANG_LOG_DIR, keep)
         os.makedirs(dst, exist_ok=True)
-        for which, io in ios.items():
-            for r in range(world):
-                shutil.copy(os.path.join(io, f"log-{r}.txt"),
-                            os.path.join(dst, f"{which}-log-{r}.txt"))
+        for _, path, _ in jobs:
+            shutil.copy(path, os.path.join(dst, "-".join((
+                os.path.basename(os.path.dirname(path)),
+                os.path.basename(path)))))
+    return rcs, secs
+
+
+def rank_jobs(flag, io, world):
+    """launch_ranks jobs for `world` ranks of this script (`flag` R, e.g.
+    --mesh-rank), rendezvousing on one free port, exchanging files in
+    `io`, each logging to io/log-R.txt."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=here)
+    return [([sys.executable, os.path.abspath(__file__), flag, str(r),
+              "--mesh-world", str(world), "--mesh-port", str(port),
+              "--mesh-io", io], os.path.join(io, f"log-{r}.txt"), env)
+            for r in range(world)]
+
+
+def run_gangs(np, tmp, world, backend, only, wait_s=300.0, env_extra=None,
+              check=True):
+    """tests/fixtures/torch/scaleout_worker.py's gang of `world` ranks on
+    the card(s) (`backend` gloo: CUDA tensors on one card; nccl: one card
+    per rank) and the same gang over gloo on the CPU, at the same time,
+    over gang_inputs; `env_extra` joins the card gang's environment.
+    Returns ({"card"|"cpu": rank 0's arrays}, {"card"|"cpu": rank 0's
+    facts}, seconds); with `check` False a failed gang returns (None,
+    {"rcs": ..., "tails": ...}, seconds) instead of failing the run."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(here, "tests", "fixtures", "torch",
+                          "scaleout_worker.py")
+    ios, jobs = {}, []
+    for which, dev, be in (("card", DEV, backend), ("cpu", "cpu", "gloo")):
+        io = ios[which] = os.path.join(tmp, f"gang-{which}-{world}")
+        os.makedirs(io, exist_ok=True)
+        gang_inputs(np, io)
+        port = free_port()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here
+        if be == "nccl":
+            env.setdefault("NCCL_DEBUG", "WARN")
+        if which == "card":
+            env.update(env_extra or {})
+        jobs += [([sys.executable, worker, "--rank", str(r), "--world",
+                   str(world), "--port", str(port), "--io", io, "--device",
+                   dev, "--backend", be, "--only", only],
+                  os.path.join(io, f"log-{r}.txt"), env)
+                 for r in range(world)]
+    rcs, secs = launch_ranks(jobs, wait_s,
+                             keep=os.path.basename(tmp.rstrip("/")))
     if any(rcs):
         tails = "".join(
             open(os.path.join(io, f"log-{r}.txt")).read()[-3000:]
@@ -8877,15 +8922,45 @@ def scaleout_gang(torch, np, card, tmp):
     return res
 
 
+def nccl_log_facts(text):
+    """From one rank's log under NCCL_DEBUG=INFO (INIT,COLL) and
+    DL4J_TPU_GRAPH_LOG=1: the communicators NCCL initialized (their
+    commIds) and, for the collectives logged between each "capture start"
+    and "capture end", the communicators and CUDA streams they were
+    enqueued on."""
+    import re
+
+    comm_ids = sorted(set(re.findall(r"commId (0x[0-9a-f]+)", text)))
+    captures, inside = [], None
+    for ln in text.splitlines():
+        if "capture start" in ln and "graph rank" in ln:
+            inside = {"comms": set(), "streams": set(), "collectives": 0}
+        elif "capture end" in ln and "graph rank" in ln and inside:
+            captures.append({"comms": sorted(inside["comms"]),
+                             "streams": sorted(inside["streams"]),
+                             "collectives": inside["collectives"]})
+            inside = None
+        elif inside is not None and "opCount" in ln:
+            inside["collectives"] += 1
+            inside["comms"].update(re.findall(r"comm (0x[0-9a-f]+)", ln))
+            inside["streams"].update(re.findall(r"stream (0x[0-9a-f]+)", ln))
+    return {"nccl_comms_initialized": len(comm_ids), "captures": captures}
+
+
 def nccl_gang(torch, np, card, world):
-    """`--nccl-gang N` (N cards): the tests' gang of N ranks over NCCL, one
-    card per rank, against the same gang over gloo on the CPU within
-    SCALEOUT_GANG_TOL, in two launches: (1) eager — per-step dp with
-    global BatchNorm statistics, local SGD k=2, ZeRO-1 with real
-    reduce-scatters and all-gathers (against the unsharded run: reported,
-    bit for bit only where the sums keep their order); (2) ZeRO-1's
-    run_group(4) with the collectives captured, against its eager k=1
-    steps."""
+    """`--nccl-gang N` (N cards), in launches: (1) the tests' gang of N
+    ranks over NCCL, one
+    card per rank, eagerly, against the same gang over gloo on the CPU
+    within SCALEOUT_GANG_TOL — per-step dp with global BatchNorm
+    statistics, local SGD k=2, ZeRO-1 with real reduce-scatters and
+    all-gathers (against the unsharded run: reported, bit for bit only
+    where the sums keep their order); (2) the captured groups: ZeRO-1's
+    run_group(4) (TrainingMaster), per-step dp's and tp 2's
+    (ParallelWrapper) with their collectives in the graph, each against
+    its k=1 run and the CPU gang, and an eager collective after the
+    replays, every rank logging its captures and waiting for each replay
+    under a deadline (DL4J_TPU_GRAPH_LOG=1); (3) the flagship ResNet-50
+    under ZeRO-1 at world N (zero1_gang)."""
     gap = lambda arrays, a, b: max(
         float(np.max(np.abs(arrays[k] - arrays[b + k[len(a):]])))
         for k in arrays if k.startswith(a + "/"))
@@ -8907,41 +8982,195 @@ def nccl_gang(torch, np, card, world):
             f"[{card}]")
         if max(errs.values()) > 1.0:
             fail("nccl gang (1): the NCCL gang disagrees with the CPU gang")
-        # (2), the F11 drill: the refusal lifted, a hang made an error
-        # that names the collective, every rank's capture logged
-        drill = {"DL4J_TPU_NCCL_CAPTURE": "1", "DL4J_TPU_GRAPH_LOG": "1",
-                 "DL4J_TPU_PG_TIMEOUT_S": "60",
-                 "TORCH_NCCL_BLOCKING_WAIT": "1", "NCCL_DEBUG": "INFO",
-                 "NCCL_DEBUG_SUBSYS": "INIT,COLL"}
-        out, facts, secs = run_gangs(
-            np, os.path.join(tmp, "groups"), world, "nccl",
-            "zero1_groups", wait_s=100.0, check=False, env_extra=drill)
-        res["f11"] = {"passed": out is not None, "seconds": secs}
+        scens = "zero1_groups,dp_groups" + (",tp_groups" if world % 2 == 0
+                                            else "")
+        logs = {"DL4J_TPU_GRAPH_LOG": "1", "DL4J_TPU_PG_TIMEOUT_S": "60",
+                "NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,COLL"}
+        gdir = os.path.join(tmp, "groups")
+        out, facts, secs = run_gangs(np, gdir, world, "nccl", scens,
+                                     wait_s=240.0, check=False,
+                                     env_extra=logs)
+        ranks = {r: nccl_log_facts(open(os.path.join(
+            gdir, f"gang-card-{world}", f"log-{r}.txt")).read())
+            for r in range(world)}
         if out is None:
-            res["f11"].update(rcs=facts["rcs"], lines=facts["lines"])
-            log(f"nccl gang (2) F11 drill: ranks ended {facts['rcs']} in "
-                f"{secs:.1f} s; each rank's capture lines, last collectives "
-                f"and errors:\n"
+            log(f"nccl gang (2) captured groups: ranks ended "
+                f"{facts['rcs']} in {secs:.1f} s; NCCL's view per rank "
+                f"{ranks}; each rank's capture lines, last collectives and "
+                f"errors:\n"
                 + "\n".join(f"[rank {r}] {ln[:300]}"
                              for r, ls in facts["lines"].items()
                              for ln in ls))
-            fail("nccl gang (2): the captured ZeRO-1 groups hung or failed "
-                 "(F11; logs above)")
-    errs = gang_errors(np, out, ("z1_k1", "z1_k4"))
-    coll = facts["card"]["z1_k4"]["collectives"]
-    res["groups"] = {"seconds": secs, "tol_ratio": errs,
-                     "k4_vs_k1": {
-                         "bitwise": bitwise_pair(np, out["card"], "z1_k4",
-                                                 "z1_k1"),
-                         "max_abs": gap(out["card"], "z1_k4", "z1_k1")},
-                     "collectives_per_replay": coll}
-    log(f"nccl gang (2) captured ZeRO-1 groups: {res['groups']} [{card}]")
-    if (max(errs.values()) > 1.0 or not coll
-            or not all(c.get("reduce_scatter", 0) >= 4
-                       and c.get("all_gather", 0) >= 4
-                       for c in coll.values())):
-        fail("nccl gang (2): the captured ZeRO-1 groups disagree with the "
-             "CPU gang, or hold no reduce-scatter/all-gather")
+            # launch (3) still runs: its result is read before failing
+            res["resnet50"] = zero1_gang(torch, np, card, tmp, world)
+            fail("nccl gang (2): a captured group hung or failed (F11; logs "
+                 "above)")
+        groups = {}
+        want_eager = world * (world + 1) / 2
+        for k4, k1 in (("z1_k4", "z1_k1"), ("dp_k4", "dp_k1"),
+                       ("tp_k4", "tp_k1")):
+            if k4 not in facts["card"]:
+                continue
+            errs = gang_errors(np, out, (k1, k4))
+            f = facts["card"][k4]
+            groups[k4] = {
+                "tol_ratio": errs,
+                "k4_vs_k1": {"bitwise": bitwise_pair(np, out["card"], k4, k1),
+                             "max_abs": gap(out["card"], k4, k1)},
+                "collectives_per_replay": f["collectives"],
+                "replays": f["replays"],
+                "eager_after": f["eager_after"]}
+        res["groups"] = {"seconds": secs, "scenarios": groups,
+                         "nccl_view": ranks}
+        log(f"nccl gang (2) captured groups over NCCL at world {world}: "
+            f"{json.dumps(res['groups'])} [{card}]")
+        kinds = {"z1_k4": ("reduce_scatter", "all_gather", "all_reduce"),
+                 "dp_k4": ("all_reduce",), "tp_k4": ("all_gather",)}
+        for k4, g in groups.items():
+            coll = g["collectives_per_replay"]
+            if (max(g["tol_ratio"].values()) > 1.0 or not coll
+                    or not g["replays"]
+                    or g["eager_after"] != want_eager
+                    or not all(c.get(kind, 0) >= GROUP_K
+                               for c in coll.values()
+                               for kind in kinds[k4])):
+                fail(f"nccl gang (2) {k4}: the captured groups disagree "
+                     f"with the CPU gang, hold too few collectives, or the "
+                     f"eager collective after them is wrong: {g}")
+        res["resnet50"] = zero1_gang(torch, np, card, tmp, world)
+    return res
+
+
+def zero1_gang_rank_main(rank, world, port, io):
+    """One rank of `--nccl-gang N`'s launch (3) (`--zero1-rank`): the
+    flagship ResNet-50 (bf16, "pallas", TRAIN_BATCH rows of its own per
+    rank) under TrainingMaster(sharding="zero1") over NCCL at world N:
+    steps_per_dispatch=1, then GROUP_K (the ZeRO-1 group captured with
+    its collectives), each GROUP_K warm-up steps and SCALEOUT_STEPS timed
+    ones from the same seeded init; one more window under torch.profiler
+    for the NCCL kernels' device time; then the k=GROUP_K master's
+    updater slices gathered eagerly. Writes io/rank-<rank>.json."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.helpers import pallas_conv as pc
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster, collectives
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    collectives.init_process_group(f"127.0.0.1:{port}", world, rank,
+                                   device=f"cuda:{rank}")
+    out = {"rank": rank}
+    try:
+        k, n = GROUP_K, SCALEOUT_STEPS
+        _, batch_fn = tm_data(np, 70 + rank, TRAIN_BATCH)
+        states = {}
+        for kk in (1, k):
+            net = flagship(ResNet50, "pallas")
+            tm = TrainingMaster(net, sharding="zero1", steps_per_dispatch=kk)
+            tm.fit(batch_fn, k)
+            ms, launches = scaleout_fit(torch, pc, tm, batch_fn, k, n)
+            out[f"k{kk}"] = {"ms_per_step": ms, "launches": launches}
+            states[kk] = [t.detach().clone() for t in train_state(net)]
+            print(f"zero1 rank {rank}: k={kk} {ms:.3f} ms/step", flush=True)
+            if kk == k:
+                prog = tm._harness.program
+                grp = next(iter(prog._groups.values()))
+                out["group"] = {
+                    "launches": grp.launches,
+                    "collectives_per_replay": grp.collectives,
+                    "stats": dict(prog.group_stats)}
+                kernels, nccl_ms = nccl_kernels(
+                    torch, lambda: tm.fit(batch_fn, 2 * k + n,
+                                          start_step=k + n))
+                out["profiled_window"] = {"nccl_kernels": kernels,
+                                          "nccl_ms": nccl_ms, "steps": k}
+                t0 = time.perf_counter()
+                faulthandler.dump_traceback_later(60, exit=True)
+                tm._mesh_mgr.gather_tree(net.updater_states)
+                faulthandler.cancel_dump_traceback_later()
+                out["eager_after"] = {"seconds": time.perf_counter() - t0}
+            del net, tm
+            torch.cuda.empty_cache()
+        a, b = states[1], states[k]
+        diff = sum(1 for x, y in zip(a, b) if not bits_equal(torch, x, y))
+        ratio = max(float(((y.float() - x.float()).abs()
+                           / (SCALEOUT_GANG_TOL["atol"]
+                              + SCALEOUT_GANG_TOL["rtol"]
+                              * x.float().abs())).max())
+                    for x, y in zip(a, b))
+        out["k_vs_k1"] = {"tensors": len(a), "differ": diff,
+                          "tol_ratio": ratio}
+        out["ok"] = True
+    finally:
+        with open(os.path.join(io, f"rank-{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+        collectives.destroy_process_group()
+
+
+def zero1_gang(torch, np, card, tmp, world, wait_s=420.0):
+    """Launch (3) of `--nccl-gang N`: `world` ranks of this script
+    (`--zero1-rank`), one card each, after the kernels are built here
+    once. Checks: every rank's k=GROUP_K group launched all four kernels
+    inside the capture, each call on the bf16 "wgmma" route; it holds a
+    reduce-scatter, an all-reduce and an all-gather per step; its state
+    after the same steps equals the k=1 run's (bit for bit, else within
+    SCALEOUT_GANG_TOL); the eager gather after the replays returned."""
+    from deeplearning4j_tpu_torch.nn.helpers import kernel_build
+
+    kernel_build.build_all(verbose=False)
+    io = os.path.join(tmp, "zero1")
+    os.makedirs(io, exist_ok=True)
+    rcs, secs = launch_ranks(
+        rank_jobs("--zero1-rank", io, world), wait_s, keep="zero1")
+    if any(rcs):
+        tails = "".join(open(os.path.join(io, f"log-{r}.txt")).read()[-3000:]
+                        for r in range(world))
+        fail(f"nccl gang (3): a ResNet-50 ZeRO-1 rank failed {rcs}:\n{tails}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(io, f"rank-{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    res = {"world": world, "seconds": secs, "rows_per_rank": TRAIN_BATCH,
+           "ms_per_step": {f"k={kk}": [x[f"k{kk}"]["ms_per_step"]
+                                       for x in ranks]
+                           for kk in (1, GROUP_K)},
+           "nccl_ms_per_window": [x["profiled_window"]["nccl_ms"]
+                                  for x in ranks],
+           "collectives_per_replay": r0["group"]["collectives_per_replay"],
+           "group_launches": r0["group"]["launches"],
+           "k_vs_k1": [x["k_vs_k1"] for x in ranks],
+           "eager_after_s": [x["eager_after"]["seconds"] for x in ranks]}
+    log(f"nccl gang (3) ResNet-50 bf16 \"pallas\" under TrainingMaster("
+        f"sharding=\"zero1\") over NCCL, {world} cards, {TRAIN_BATCH} rows "
+        f"per rank: ms/step (host clock over {SCALEOUT_STEPS} steps, per "
+        f"rank) k=1 {res['ms_per_step']['k=1']}, k={GROUP_K} "
+        f"{res['ms_per_step'][f'k={GROUP_K}']}; NCCL kernels' device ms per "
+        f"{GROUP_K}-step window {res['nccl_ms_per_window']} (kernels "
+        f"{r0['profiled_window']['nccl_kernels']}); collectives per replay "
+        f"{res['collectives_per_replay']}; "
+        f"kernel launches per replay {res['group_launches']}; k={GROUP_K} "
+        f"against k=1 after {GROUP_K + SCALEOUT_STEPS} steps "
+        f"{res['k_vs_k1']}; the eager gather after the replays "
+        f"{res['eager_after_s']} s; {secs:.1f} s [{card}]")
+    for x in ranks:
+        gl = x["group"]["launches"]
+        for name in ("fused_conv1x1", "fused_conv3x3", "dgrad_conv1x1",
+                     "wgrad_conv1x1"):
+            if gl.get(name, 0) <= 0 or gl.get(f"{name}/wgmma", 0) != gl[name]:
+                fail(f"nccl gang (3) rank {x['rank']}: {name} not launched "
+                     f"inside the captured group, or off the wgmma route: "
+                     f"{gl}")
+        c = x["group"]["collectives_per_replay"]
+        if not all(c.get(kind, 0) >= GROUP_K for kind in
+                   ("reduce_scatter", "all_reduce", "all_gather")):
+            fail(f"nccl gang (3) rank {x['rank']}: the captured group holds "
+                 f"too few collectives: {c}")
+        if x["k_vs_k1"]["differ"] and x["k_vs_k1"]["tol_ratio"] > 1.0:
+            fail(f"nccl gang (3) rank {x['rank']}: k={GROUP_K} disagrees "
+                 f"with k=1: {x['k_vs_k1']}")
     return res
 
 
@@ -9262,39 +9491,10 @@ def mesh_rank_main(rank, world, port, io):
 def mesh_gang(np, tmp, world=2, wait_s=240.0):
     """Phase 5n's gang: `world` ranks of this script (`--mesh-rank`) on
     the card. Returns ([rank outputs], seconds)."""
-    here = os.path.dirname(os.path.abspath(__file__))
     io = os.path.join(tmp, "mesh")
     os.makedirs(io, exist_ok=True)
-    port = free_port()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = here
-    procs, logs = [], []
-    t0 = time.perf_counter()
-    for r in range(world):
-        log_f = open(os.path.join(io, f"log-{r}.txt"), "w")
-        logs.append(log_f)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
-             str(r), "--mesh-world", str(world), "--mesh-port", str(port),
-             "--mesh-io", io], stdout=log_f, stderr=subprocess.STDOUT,
-            env=env, cwd=here))
-    deadline = time.perf_counter() + wait_s
-    rcs = []
-    try:
-        for p in procs:
-            try:
-                rcs.append(p.wait(timeout=max(1.0, deadline
-                                              - time.perf_counter())))
-            except subprocess.TimeoutExpired:
-                rcs.append("timeout")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    secs = time.perf_counter() - t0
+    rcs, secs = launch_ranks(rank_jobs("--mesh-rank", io, world), wait_s,
+                             keep="mesh")
     if any(rcs):
         tails = "".join(open(os.path.join(io, f"log-{r}.txt")).read()[-4000:]
                         for r in range(world))
@@ -9884,6 +10084,9 @@ def main():
     ap.add_argument("--mesh-port", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-io", default="", help=argparse.SUPPRESS)
+    # one rank of --nccl-gang's ResNet-50 ZeRO-1 launch (same launcher)
+    ap.add_argument("--zero1-rank", type=int, default=-1,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     global GANG_LOG_DIR
     GANG_LOG_DIR = args.gang_logs
@@ -9891,6 +10094,11 @@ def main():
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         mesh_rank_main(args.mesh_rank, args.mesh_world, args.mesh_port,
                        args.mesh_io)
+        return
+    if args.zero1_rank >= 0:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        zero1_gang_rank_main(args.zero1_rank, args.mesh_world,
+                             args.mesh_port, args.mesh_io)
         return
 
     import numpy as np
@@ -9921,9 +10129,11 @@ def main():
         f"device {torch.cuda.get_device_name(0)}")
 
     if args.nccl_gang:
-        if torch.cuda.device_count() < args.nccl_gang:
-            fail(f"--nccl-gang {args.nccl_gang} needs that many cards; "
-                 f"{torch.cuda.device_count()} visible")
+        if args.nccl_gang < 2 or torch.cuda.device_count() < args.nccl_gang:
+            fail(f"--nccl-gang {args.nccl_gang} needs that many cards (2 or "
+                 f"more); {torch.cuda.device_count()} visible")
+        cards = smi.stdout.strip().splitlines()[:args.nccl_gang]
+        log(f"{args.nccl_gang} cards: {[c.strip() for c in cards]}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         nccl_gang(torch, np, card, args.nccl_gang)

@@ -31,7 +31,7 @@ Reachability, as in the JAX pass: a class-hierarchy call graph where
     ParallelInference.output);
   - capture roots: the functions the captured body runs, by qualname
     (`CAPTURE_ROOTS`: `StepProgram._group_body`, the net's `_step`, the
-    ZeRO-1 step), plus every call made inside a
+    ZeRO-1 step and group), plus every call made inside a
     `with torch.cuda.graph(...)` block; the walk stays in the modules
     the train step can run (`CAPTURE_SCOPE`);
   - a call through a name the function binds itself (a parameter or a
@@ -82,7 +82,7 @@ ROOT_QUALNAMES = {
 # what run_group's CUDA graph runs, by qualname within its file (so a
 # fixture's StepProgram._group_body roots the same way)
 CAPTURE_ROOTS = {"StepProgram._group_body", "BaseNetwork._step",
-                 "build_zero1_step.step"}
+                 "build_zero1_step.step", "build_zero1_group.group"}
 # the package's modules the captured train step can run: the net's math
 # (nn/), the tree utilities, the ZeRO-1 step and the collectives. The
 # capture walk follows no name edge into the rest of the package — a

@@ -302,6 +302,10 @@ class AsyncDataSetIterator(DataSetIterator):
         self._q = None
         self._exhausted = True
 
+    def join(self, timeout_s: float = 5.0) -> None:
+        """Alias for close(): stop and join the prefetch thread."""
+        self.close(timeout_s=timeout_s)
+
     def __enter__(self) -> "AsyncDataSetIterator":
         return self
 

@@ -356,6 +356,11 @@ class StepHarness:
             if pp is not None:
                 pp.end_step()
 
+    def flush(self) -> None:
+        """Publish the step counters accumulated so far to the metrics
+        registry (observability.StepAccumulator.flush)."""
+        self.acc.flush()
+
     # ------------------------------------------------------------ stats
     def resilience_stats(self):
         """Guard / watchdog / preemption / supervisor counters (None

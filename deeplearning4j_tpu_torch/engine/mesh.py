@@ -149,14 +149,15 @@ class MeshManager:
         on `device` (default: where each tensor lies; numpy goes to the
         CPU). Records the layout for `gather_tree`."""
         self.layout = self.shard_layout(tree)
-        it = iter(self.layout)
 
         def put(a):
             t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
                 np.array(a))
             if device is not None:
                 t = t.to(device)
-            if next(it):
+            # by the leaf's own shape: tree_map walks dicts in insertion
+            # order, the layout is in leaves' sorted-key order
+            if zero1_leaf_sharded(tuple(t.shape), self.dp):
                 lo, hi = slice_bounds(t.shape[0], self.rank, self.dp)
                 t = t[lo:hi]
             return t.clone()

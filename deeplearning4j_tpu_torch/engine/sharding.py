@@ -18,11 +18,12 @@ convention:
               shard in both and the `*.updshard.npz` sidecars read across
               the packages.
   step half   `build_zero1_step`: the port's sharded step, with the
-              net's `_step` signature (so `StepProgram.run_group`'s body,
-              and its CUDA graph, take it as they take `_step`: the JAX
-              package's `build_zero1_group` has no separate counterpart),
-              over the per-layer trees (never the flat carry, whose one
-              vector would have to be gathered whole):
+              net's `_step` signature, over the per-layer trees (never
+              the flat carry, whose one vector would have to be gathered
+              whole); `build_zero1_group`: k of those steps over
+              [k, ...]-stacked data, the body `StepProgram.run_group`
+              runs (and on CUDA captures into one graph) under a mesh.
+              The ZeRO-1 step:
                 1. forward and backward on the full params, BatchNorm
                    statistics and the loss's row count global over the
                    group (`collectives.dp_scope`);
@@ -225,6 +226,43 @@ def build_zero1_step(net, manager):
     return step
 
 
+def k_steps(step, carry, inputs, labels, lmasks, scalars, fmasks, k):
+    """`k` calls of `step` (the net's `_step` signature) over the first k
+    entries of the [k', ...]-stacked inputs and [k', 2] scalars. Returns
+    (carry, [k] losses): the body of every k-step group, sharded
+    (`build_zero1_group`) or not (`StepProgram.run_group`)."""
+    from deeplearning4j_tpu_torch.util.tree import tree_map
+
+    losses = []
+    for i in range(k):
+        at = lambda ts: tree_map(lambda t: t[i], ts)
+        carry, loss, _ = step(carry, at(inputs), at(labels), at(lmasks),
+                              scalars[i], at(fmasks))
+        losses.append(loss)
+    return carry, torch.stack(losses)
+
+
+def build_zero1_group(net, manager, k: int, trace_key=None):
+    """The k-step grouping of the ZeRO-1 step (JAX's `lax.scan` group):
+    `group(carry, inputs, labels, lmasks, scalars, fmasks=None,
+    steps=None)` runs `steps` (default k) ZeRO-1 steps over the
+    [k, ...]-stacked inputs and the [k, 2] per-step (lr, step) scalars,
+    the updater state carried sharded, and returns (carry, [steps]
+    losses) — what k sequential `build_zero1_step` calls give, bit for
+    bit. `trace_key`, when given, is recorded in the net's JitCache once
+    per build (the JAX package records one trace per group program)."""
+    step = build_zero1_step(net, manager)
+    if trace_key is not None:
+        net._jit_cache.record_trace(trace_key)
+
+    def group(carry, inputs, labels, lmasks, scalars, fmasks=None,
+              steps=None):
+        return k_steps(step, carry, inputs, labels, lmasks, scalars, fmasks,
+                       k if steps is None else steps)
+
+    return group
+
+
 __all__ = ["ZERO1_AXIS", "zero1_leaf_sharded", "slice_bounds",
            "slice_rows", "assemble_rows", "reslice",
-           "build_zero1_step"]
+           "build_zero1_step", "build_zero1_group", "k_steps"]

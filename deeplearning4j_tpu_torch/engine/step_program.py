@@ -74,17 +74,20 @@ Data parallelism (parallel/collectives.py):
     averages its gradients in its own `_step` (one packed all-reduce) and
     computes BatchNorm statistics and the loss's row count over the
     global batch; `run_group` captures those collectives with the k steps
-    (NCCL at world 1 only: a gloo group cannot be captured, and NCCL
-    collectives captured at world > 1 hung (ROADMAP F11), so on CUDA
-    run_group raises for both; on the CPU the body runs directly);
+    over NCCL (a gloo group's collectives cannot be captured, so on CUDA
+    run_group raises for one; on the CPU the body runs directly);
   - `attach_mesh(manager)` (engine/mesh.py MeshManager) routes `run`,
     `run_batch` and `run_group` through the ZeRO-1 step
     (engine/sharding.py): the net leaves the flat carry, its updater
     state is cut to this rank's slices, and every step reduce-scatters,
-    updates the slices and all-gathers;
-  - before the first capture with an NCCL group, one all-reduce runs on
-    the capture stream (`collectives.warm_up`), and each captured group
-    records the collectives it holds (`group_collectives()`);
+    updates the slices and all-gathers; `run_group`'s body is then
+    `build_zero1_group`, k of those steps;
+  - before the first capture with an NCCL group, one all-reduce,
+    reduce-scatter and all-gather per group runs on the capture stream
+    (`collectives.warm_up`); each captured group records the collectives
+    it holds (`group_collectives()`), and the program's graphs are
+    destroyed before the process group is (`release`, called by
+    `collectives.release_captures`; ROADMAP F11);
   - `trainer_program(kind, build, *key)`: the local-SGD and stale
     trainers' programs (parallel/wrapper.py) are built and cached here,
     keyed with the frozen signature, as in the JAX package.
@@ -96,13 +99,16 @@ same step math `run` and `run_group` run, on clones of the net's carry
 (the dropout generator rewound after the call), with the program's
 declared precision policy.
 
-F11 drill (ROADMAP queue 3): DL4J_TPU_GRAPH_LOG=1 logs each rank's
-warm-ups, captures and replays with the collective counts;
-DL4J_TPU_NCCL_CAPTURE=1 lifts the refusal of NCCL capture at world > 1.
+DL4J_TPU_GRAPH_LOG=1 (the F11 drill, ROADMAP queue 3) logs each rank's
+warm-ups, captures and replays with the collective counts, and
+synchronizes after each replay under a deadline
+(REPLAY_SYNC_DEADLINE_S) that dumps every thread's stack and exits
+non-zero, so a replay that never completes names itself.
 """
 
 from __future__ import annotations
 
+import faulthandler
 import gc
 import hashlib
 import os
@@ -112,6 +118,12 @@ import time
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.engine.sharding import (
+    build_zero1_group,
+    build_zero1_step,
+    k_steps,
+    zero1_leaf_sharded,
+)
 from deeplearning4j_tpu_torch.nn.helpers import pallas_conv
 from deeplearning4j_tpu_torch.nn.jit_cache import describe_signature
 from deeplearning4j_tpu_torch.parallel import collectives
@@ -121,16 +133,20 @@ from deeplearning4j_tpu_torch.util.tree import clone, leaves, tree_map
 # captured groups a StepProgram keeps (k-step windows of distinct shapes)
 MAX_GROUPS = 4
 # "1": every rank logs the warm-up, capture and each replay of a group
-# with its key and the collective counts, flushed to stderr (the F11
-# gang drill reads them rank by rank)
+# with its key and the collective counts, flushed to stderr, and waits
+# for each replay (the F11 gang drill reads them rank by rank)
 GRAPH_LOG_ENV = "DL4J_TPU_GRAPH_LOG"
-# "1": capture NCCL collectives at world > 1 anyway (the F11 probe;
-# run_group refuses it otherwise)
-NCCL_CAPTURE_ENV = "DL4J_TPU_NCCL_CAPTURE"
+# seconds a logged replay may take on the device before every thread's
+# stack is dumped and the process exits non-zero
+REPLAY_SYNC_DEADLINE_S = 60.0
+
+
+def _graph_logging() -> bool:
+    return os.environ.get(GRAPH_LOG_ENV) == "1"
 
 
 def _graph_log(event: str, key, k: int) -> None:
-    if os.environ.get(GRAPH_LOG_ENV) != "1":
+    if not _graph_logging():
         return
     digest = hashlib.sha1(repr(key).encode()).hexdigest()[:8]
     print(f"graph rank {collectives.rank()}: {event} group {digest} k={k} "
@@ -187,6 +203,7 @@ class _CapturedGroup:
         before = pallas_conv.launch_counts()
         by_dtype = dict(pallas_conv.LAUNCHES_BY_DTYPE)
         coll0 = dict(collectives.COUNTS)
+        self.replays = 0
         self.graph = torch.cuda.CUDAGraph()
         if gen is not None:
             self.graph.register_generator_state(gen)
@@ -235,11 +252,30 @@ class _CapturedGroup:
                 f"group takes {len(self._in)}")
         for dst, src in zip(self._in, new):
             dst.copy_(src)
-        _graph_log("replay start", self.key, self.k)
+        self.replays += 1
+        _graph_log(f"replay {self.replays} start", self.key, self.k)
         self.graph.replay()
-        _graph_log("replay end", self.key, self.k)
+        _graph_log(f"replay {self.replays} end", self.key, self.k)
+        if _graph_logging():
+            self._wait(f"replay {self.replays}")
         pallas_conv.add_launch_counts(self.launches)
         return clone(self.out)
+
+    def _wait(self, what: str) -> None:
+        """The drill's wait for `what` on the device: every thread's stack
+        and exit 1 after REPLAY_SYNC_DEADLINE_S (the last log line names
+        what never completed)."""
+        _graph_log(f"{what} sync (deadline {REPLAY_SYNC_DEADLINE_S:.0f} s)",
+                   self.key, self.k)
+        t0 = time.perf_counter()
+        faulthandler.dump_traceback_later(REPLAY_SYNC_DEADLINE_S, exit=True)
+        try:
+            # analyze: allow=jit-host-sync — the F11 drill's wait, under DL4J_TPU_GRAPH_LOG only
+            torch.cuda.synchronize()
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+        _graph_log(f"{what} synchronized in "
+                   f"{time.perf_counter() - t0:.3f} s", self.key, self.k)
 
 
 class StepProgram:
@@ -264,9 +300,6 @@ class StepProgram:
         # the stream every group captures on under a process group (None:
         # torch.cuda.graph's own)
         self._capture_stream = None
-        # engine/mesh.py MeshManager once attach_mesh routed the program
-        # through the ZeRO-1 step
-        self.mesh_manager = None
         # capture cost, replay count and eager-run windows of the groups
         self.group_stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
                             "eager_windows": 0}
@@ -280,6 +313,14 @@ class StepProgram:
         return policy_name(getattr(self.net, "compute_dtype", None))
 
     # ------------------------------------------------------------ mesh
+    @property
+    def mesh_manager(self):
+        """The engine/mesh.py MeshManager whose ZeRO-1 step the net runs
+        (None: unsharded). It is the net's, set by whichever program
+        attached it, so every program of the net steps and groups
+        through the same step."""
+        return getattr(self.net, "_mesh_manager", None)
+
     def attach_mesh(self, manager) -> "StepProgram":
         """Route this program through the ZeRO-1 step (engine/sharding.py)
         over `manager`'s dp group: the net leaves the flat carry (its one
@@ -288,7 +329,6 @@ class StepProgram:
         `run` / `run_batch` / `run_group` step through the sharded update.
         Idempotent for the same manager."""
         from deeplearning4j_tpu_torch.engine.mesh import MeshManager
-        from deeplearning4j_tpu_torch.engine.sharding import build_zero1_step
 
         if not isinstance(manager, MeshManager):
             raise TypeError("attach_mesh takes an engine.mesh.MeshManager, "
@@ -306,9 +346,9 @@ class StepProgram:
         net._flat_chain = None
         net.updater_states = manager.shard_tree(net.updater_states)
         net._dp = None
-        # run, run_batch and run_group's body step through it
+        # run and run_batch step through it, run_group through k of it
         net._step_impl = build_zero1_step(net, manager)
-        self.mesh_manager = manager
+        net._mesh_manager = manager
         return self
 
     # -------------------------------------- engine-owned trainer programs
@@ -391,17 +431,17 @@ class StepProgram:
     def _group_body(self, carry, inputs, labels, lmasks, scalars,
                     fmasks=None, steps=None):
         """`steps` (default: all k) calls of the net's `_step` over the
-        stacked inputs. Returns (carry, [steps] losses)."""
+        stacked inputs — under a mesh, the ZeRO-1 group
+        (engine/sharding.py build_zero1_group). Returns (carry, [steps]
+        losses)."""
         net = self.net
-        step = getattr(net, "_step_impl", None) or net._step
-        k = scalars.shape[0] if steps is None else steps
-        losses = []
-        for i in range(k):
-            at = lambda ts: tree_map(lambda t: t[i], ts)
-            carry, loss, _ = step(carry, at(inputs), at(labels),
-                                  at(lmasks), scalars[i], at(fmasks))
-            losses.append(loss)
-        return carry, torch.stack(losses)
+        k = int(scalars.shape[0])
+        if self.mesh_manager is not None:
+            body = build_zero1_group(net, self.mesh_manager, k)
+            return body(carry, inputs, labels, lmasks, scalars, fmasks,
+                        steps=steps)
+        return k_steps(net._step, carry, inputs, labels, lmasks, scalars,
+                       fmasks, k if steps is None else steps)
 
     def _captured(self, key, k, args):
         """The group captured for (key, k), capturing it on first use
@@ -421,15 +461,11 @@ class StepProgram:
                     "run_group: a gloo process group's collectives cannot "
                     "be captured into a CUDA graph; use an NCCL group on "
                     "CUDA (or steps_per_dispatch=1)")
-            if collectives.world_size() > 1 \
-                    and os.environ.get(NCCL_CAPTURE_ENV) != "1":
-                raise NotImplementedError(
-                    "run_group: capturing NCCL collectives at world > 1 "
-                    "hung on four H100s (ROADMAP queue 3, F11); "
-                    "use steps_per_dispatch=1 over more than one rank")
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             if collectives.initialized():
+                # the groups' graphs go before the process group does
+                collectives.hold_capture(self)
                 # with a process group every group captures on this one
                 # stream; NCCL builds its communicators' stream state
                 # lazily: warm every group and collective kind on it,
@@ -457,6 +493,18 @@ class StepProgram:
         net._jit_cache.record_compile(key, describe_signature(args or ()),
                                       capture_s, k=k)
         return grp
+
+    def release(self) -> None:
+        """Destroy every captured group's graph, once the device is idle
+        (collectives.release_captures calls this before the process group
+        is destroyed); a later run_group captures afresh."""
+        if self._groups:
+            # analyze: allow=jit-host-sync — teardown, once per program
+            torch.cuda.synchronize()
+            for grp in self._groups.values():
+                grp.graph.reset()
+        self._groups = {}
+        self._pool = self._capture_stream = None
 
     def run_group(self, xs, ys, fms=None, lms=None):
         """k steps, one dispatch. `xs`/`ys` (and optional masks) carry a
@@ -672,9 +720,6 @@ class StepProgram:
         (the step reduce-scatters and all-gathers)."""
         from deeplearning4j_tpu_torch.analysis.program_lint import (
             ProgramRecord,
-        )
-        from deeplearning4j_tpu_torch.engine.sharding import (
-            zero1_leaf_sharded,
         )
 
         if self.mesh_manager is None:

@@ -204,9 +204,11 @@ class BaseNetwork:
         self._last_batch_size = None
         # per-step data parallelism (parallel/collectives.py): the dp
         # group whose ranks average this net's gradients each step (None:
-        # one process); a ZeRO-1 attach replaces the step itself
+        # one process); a ZeRO-1 attach (StepProgram.attach_mesh) replaces
+        # the step itself and keeps its engine/mesh.py MeshManager here
         self._dp = None
         self._step_impl = None
+        self._mesh_manager = None
         # tensor parallelism (parallel/tensor_parallel.py): the plan whose
         # slices of the params this rank holds while a fit runs (None: the
         # params are whole)

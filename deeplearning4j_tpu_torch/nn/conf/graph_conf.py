@@ -201,6 +201,19 @@ class ComputationGraphConfiguration:
             d[f.name] = v
         return d
 
+    def to_yaml(self) -> str:
+        """YAML serde (ref NeuralNetConfiguration.toYaml :291); PyYAML is
+        imported here, on use only."""
+        import yaml
+
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "ComputationGraphConfiguration":
+        import yaml
+
+        return ComputationGraphConfiguration.from_dict(yaml.safe_load(s))
+
     def to_json(self, **kw) -> str:
         return json.dumps(self.to_dict(), indent=2, **kw)
 
@@ -259,6 +272,10 @@ class GraphBuilder:
             preprocessor=preprocessor))
         return self
 
+    # DL4J's camelCase names
+    addLayer = add_layer
+    addInputs = add_inputs
+
     def add_vertex(self, name: str, vertex: GraphVertex,
                    *inputs: str) -> "GraphBuilder":
         inputs = list(inputs)
@@ -271,9 +288,13 @@ class GraphBuilder:
             name=name, kind="vertex", obj=vertex, inputs=inputs))
         return self
 
+    addVertex = add_vertex
+
     def set_outputs(self, *names: str) -> "GraphBuilder":
         self._conf.network_outputs = list(names)
         return self
+
+    setOutputs = set_outputs
 
     def helpers(self, mode: str) -> "GraphBuilder":
         """Select the helper tier ('none' | 'fused' | 'pallas')."""

@@ -93,6 +93,19 @@ class MultiLayerConfiguration:
             d[f.name] = v
         return d
 
+    def to_yaml(self) -> str:
+        """YAML serde (ref NeuralNetConfiguration.toYaml :291); PyYAML is
+        imported here, on use only."""
+        import yaml
+
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "MultiLayerConfiguration":
+        import yaml
+
+        return MultiLayerConfiguration.from_dict(yaml.safe_load(s))
+
     def to_json(self, **kw) -> str:
         return json.dumps(self.to_dict(), indent=2, **kw)
 

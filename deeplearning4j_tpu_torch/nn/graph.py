@@ -350,3 +350,74 @@ class ComputationGraph(BaseNetwork):
             acts, _, _ = self._forward(self.params, self.states, inputs,
                                        materialize_all=True)
             return acts
+
+    def evaluate(self, iterator, evaluation=None, output_index: int = 0):
+        """Evaluate the output at `output_index` over a (Multi)DataSet
+        iterator or a list of batches, computed on the network's device
+        (ref: ComputationGraph.evaluate(DataSetIterator))."""
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.eval import Evaluation
+
+        host = lambda a: (a.detach().float().cpu().numpy()
+                          if isinstance(a, torch.Tensor) else np.asarray(a))
+        ev = evaluation if evaluation is not None else Evaluation()
+        for batch in iterator:
+            ins, labs, _, lms = _as_multi(batch)
+            out = self.output(*ins)
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            lm = None if lms is None else lms[output_index]
+            ev.eval(host(labs[output_index]), host(outs[output_index]),
+                    mask=None if lm is None else host(lm))
+        return ev
+
+    def summary(self) -> str:
+        """Node table with shapes and parameter counts
+        (ref: ComputationGraph.summary())."""
+        from deeplearning4j_tpu_torch.util.tree import leaves
+
+        rows = [("name", "kind", "type", "inputs", "out", "params")]
+        total = 0
+        params = self._params_view() if self._initialized() else None
+        for node in self.topo:
+            n = (sum(int(p.numel()) for p in leaves(params[node.name]))
+                 if node.kind == "layer" and params is not None else 0)
+            total += n
+            out_t = (str(self.node_types.get(node.name))
+                     if self.node_types else "?")
+            rows.append((node.name, node.kind, type(node.obj).__name__,
+                         ",".join(node.inputs), out_t, f"{n:,}"))
+        widths = [max(len(r[c]) for r in rows) for c in range(6)]
+        lines = ["  ".join(v.ljust(w) for v, w in zip(r, widths))
+                 for r in rows]
+        lines.insert(1, "-" * len(lines[0]))
+        lines.append(f"Total parameters: {total:,}")
+        return "\n".join(lines)
+
+    def raw_score(self):
+        """The last training loss as the device scalar (no host sync)."""
+        return self._score
+
+    def get_layer(self, name: str):
+        return self.conf.node(name).obj
+
+    def n_layers(self) -> int:
+        return sum(1 for n in self.topo if n.kind == "layer")
+
+    def lint_program(self, inputs, labels, fmasks=None, lmasks=None,
+                     carries=None):
+        """The program-lint view of this net's train step: the k=1
+        ProgramRecord (analysis/program_lint.py) of
+        `StepProgram.lint_records`, the step `fit` runs, called on clones
+        of the net's carry. Each argument is the one input's (label's,
+        mask's) batch or a one-element list of it; `carries` must be
+        None (a truncated-BPTT net's record starts from zero carries)."""
+        from deeplearning4j_tpu_torch.engine.step_program import StepProgram
+
+        if carries is not None:
+            raise ValueError("lint_program records the step from zero "
+                             "recurrent carries; pass carries=None")
+        one = lambda v: (v[0] if isinstance(v, (list, tuple)) and len(v) == 1
+                         else v)
+        return StepProgram(self).lint_records(
+            one(inputs), one(labels), one(fmasks), one(lmasks))[0]

@@ -50,6 +50,12 @@ class Plan:
     vadd: Dict[str, List[str]] = field(default_factory=dict)
     consumers: Dict[str, List[str]] = field(default_factory=dict)
 
+    def covers(self) -> int:
+        """How many graph nodes the plan rewrites (fused convs, folded
+        BatchNorms, fused activations and residual adds)."""
+        return (len(self.conv) + len(self.bn) + len(self.vact)
+                + len(self.vadd))
+
 
 def _consumers(topo) -> Dict[str, List[str]]:
     out: Dict[str, List[str]] = {n.name: [] for n in topo}

@@ -116,6 +116,11 @@ class Layer:
             d[f.name] = v
         return d
 
+    def clone(self, **overrides) -> "Layer":
+        """A copy of this layer's configuration with `overrides` applied
+        (`dataclasses.replace`)."""
+        return dataclasses.replace(self, **overrides)
+
 
 def dropout_mask(x, p, gen):
     """The keep mask of inverted dropout at rate `p` for `x`: f32 uniform

@@ -345,6 +345,19 @@ class MultiLayerNetwork(BaseNetwork):
             self.params = params
         return self
 
+    def lint_program(self, x, y, fm=None, lm=None, carries=None):
+        """The program-lint view of this net's train step: the k=1
+        ProgramRecord (analysis/program_lint.py) of
+        `StepProgram.lint_records`, the step `fit` runs, called on clones
+        of the net's carry; `carries` must be None (a truncated-BPTT
+        net's record starts from zero carries)."""
+        from deeplearning4j_tpu_torch.engine.step_program import StepProgram
+
+        if carries is not None:
+            raise ValueError("lint_program records the step from zero "
+                             "recurrent carries; pass carries=None")
+        return StepProgram(self).lint_records(x, y, fm, lm)[0]
+
     # -------------------------------------------------------------- plumbing
     def get_layer(self, i: int) -> Layer:
         return self.conf.layers[i]

@@ -61,14 +61,23 @@ identity too; the world group itself issues its collectives whenever a
 group is initialized, even at world 1. `COUNTS` counts the collectives
 issued per kind (a CUDA graph capture reads them before and after, so a
 captured group records which collectives it holds).
+
+NCCL collectives captured into a CUDA graph hold their communicator:
+destroying it while such a graph is alive never returns (ROADMAP F11,
+found on four H100s). So whoever captures collectives registers with
+`hold_capture`, and `destroy_process_group` (and the process's exit)
+destroys those graphs first (`release_captures`).
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import datetime
+import gc
 import os
 import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -140,7 +149,9 @@ def init_process_group(coordinator_address: str, num_processes: int,
 
 def destroy_process_group() -> None:
     """Leave and destroy the default group and every axis group (no-op
-    without one)."""
+    without one), after releasing every CUDA graph that captured
+    collectives (`release_captures`)."""
+    release_captures()
     _MESH_GROUPS.clear()
     if initialized():
         _dist().destroy_process_group()
@@ -237,6 +248,30 @@ def _live(g: AxisGroup) -> bool:
     if not initialized():
         return False
     return g.pg is not None or g.world == world_size()
+
+
+# ------------------------------------------------ captured collectives
+# live holders of CUDA graphs that captured collectives (each has a
+# release() that destroys its graphs)
+_CAPTURE_HOLDERS = weakref.WeakSet()
+
+
+def hold_capture(holder) -> None:
+    """Register `holder` (an object with `release()`, which destroys the
+    CUDA graphs it captured collectives into) to be released before the
+    process group is destroyed or the process exits (module docstring)."""
+    atexit.unregister(release_captures)
+    atexit.register(release_captures)
+    _CAPTURE_HOLDERS.add(holder)
+
+
+def release_captures() -> None:
+    """Release every registered holder (`hold_capture`), dead ones
+    collected first (a collected holder's graphs go with it)."""
+    gc.collect()
+    for holder in list(_CAPTURE_HOLDERS):
+        holder.release()
+    _CAPTURE_HOLDERS.clear()
 
 
 def _kw(g: AxisGroup) -> dict:
@@ -411,9 +446,10 @@ def warm_up(device) -> None:
             all_gather(torch.zeros(1, device=device), g)
 
 
-__all__ = ["AXES", "COUNTS", "AxisGroup", "DPGroup", "all_gather",
-           "all_reduce_sum", "axis_groups", "backend",
+__all__ = ["AXES", "COUNTS", "AxisGroup", "DPGroup",
+           "all_gather", "all_reduce_sum", "axis_groups", "backend",
            "broadcast", "current", "destroy_process_group",
            "dp_all_reduce_mean", "dp_group", "dp_scope", "dp_sum",
-           "init_process_group", "initialized", "ppermute", "rank",
-           "reduce_scatter", "warm_up", "world_size"]
+           "hold_capture", "init_process_group", "initialized", "ppermute",
+           "rank", "reduce_scatter", "release_captures", "warm_up",
+           "world_size"]

@@ -235,14 +235,110 @@ def zero1(g):
     _tm(g, "dp_tm", g.steps("z1", 6))
 
 
+def group_facts(g, scen, program):
+    """The captured groups of `program` (none on the CPU): per k, the
+    collectives one replay holds; then one eager collective after the
+    replays, waited for on the device."""
+    facts = g.facts.setdefault(scen, {})
+    facts["collectives"] = {
+        str(key[1]): c for key, c in program.group_collectives().items()}
+    facts["replays"] = program.group_stats["replays"]
+    t = collectives.all_reduce_sum(
+        torch.ones(1, device=g.device) * (g.rank + 1))
+    facts["eager_after"] = float(t.cpu()[0])
+
+
 def zero1_groups(g):
-    """(v) ZeRO-1 k=4 groups against k=1 (run_group: on the CPU here; a
-    gloo group's collectives cannot be captured on a card)."""
+    """(v) ZeRO-1 k=4 groups against k=1 (over NCCL the k=4 groups are
+    captured; a gloo group's collectives cannot be captured on a card, so
+    on gloo they run on the CPU)."""
     _tm(g, "z1_k1", 8, sharding="zero1")
     _, tm = _tm(g, "z1_k4", 8, sharding="zero1", steps_per_dispatch=4)
-    g.facts["z1_k4"]["collectives"] = {
-        str(key[1]): c
-        for key, c in tm._harness.program.group_collectives().items()}
+    group_facts(g, "z1_k4", tm._harness.program)
+
+
+def dp_groups(g):
+    """Per-step dp k=4 windows against k=1: ParallelWrapper over the conv
+    + BatchNorm net, the gradient all-reduce and the global BatchNorm sums
+    (`dp_sum`) inside each group."""
+    data = [(g.d("conv_x"), g.d("conv_y"))] * 8
+    net = g.net("conv")
+    ParallelWrapper(net).fit(data)
+    g.keep("dp_k1", net, upd=False, states=True)
+    net = g.net("conv")
+    pw = ParallelWrapper(net, steps_per_dispatch=4)
+    pw.fit(data)
+    g.keep("dp_k4", net, upd=False, states=True)
+    group_facts(g, "dp_k4", pw._harness.program)
+
+
+def tp_groups(g):
+    """tp 2 (dp = world / 2) k=4 windows against k=1: ParallelWrapper's
+    column-parallel Dense and Output layers, their gathers and the dp
+    all-reduce inside each group."""
+    xs, ys = g.d("z_x"), g.d("z_y")
+    data = [(xs[s], ys[s]) for s in range(8)]
+    net = g.net("adam24")
+    ParallelWrapper(net, tp=2).fit(data)
+    g.keep("tp_k1", net, upd=False)
+    net = g.net("adam24")
+    pw = ParallelWrapper(net, tp=2, steps_per_dispatch=4)
+    pw.fit(data)
+    g.keep("tp_k4", net, upd=False)
+    group_facts(g, "tp_k4", pw._harness.program)
+
+
+def zero1_group(g):
+    """engine/sharding.py build_zero1_group(k=4) driven by hand over two
+    4-step windows ("zg_group"), and run_group(4) twice through a second
+    StepProgram of the net another program meshed ("zg_other"), against
+    8 calls of build_zero1_step from the same state ("zg_step"), on this
+    rank's rows of the z batches."""
+    from deeplearning4j_tpu_torch.engine import StepProgram
+    from deeplearning4j_tpu_torch.engine.mesh import MeshManager
+    from deeplearning4j_tpu_torch.engine.sharding import (
+        build_zero1_group,
+        build_zero1_step,
+    )
+
+    xs, ys = g.d("z_x"), g.d("z_y")
+    per = xs.shape[1] // g.world
+    lo = g.rank * per
+    for scen in ("zg_step", "zg_group", "zg_other"):
+        net = g.net("adam24")
+        mgr = MeshManager()
+        StepProgram(net).attach_mesh(mgr)
+        if scen == "zg_other":
+            other = StepProgram(net)
+            for lo_s in (0, 4):
+                other.run_group(xs[lo_s:lo_s + 4, lo:lo + per],
+                                ys[lo_s:lo_s + 4, lo:lo + per])
+            g.put(scen, "params", leaves(net._params_view()))
+            g.put(scen, "upd", leaves(mgr.gather_tree(net.updater_states)))
+            continue
+        x, y, fm, lm = net._batch_tensors(xs[:8, lo:lo + per],
+                                          ys[:8, lo:lo + per])
+        carry = net._train_carry()
+        scalars = net._step_scalars(0, 8)
+        if scen == "zg_step":
+            step, losses = build_zero1_step(net, mgr), []
+            for i in range(8):
+                carry, loss, _ = step(carry, x[i], y[i], None, scalars[i])
+                losses.append(loss)
+            losses = torch.stack(losses)
+        else:
+            group = build_zero1_group(net, mgr, 4)
+            parts = []
+            for lo_s in (0, 4):
+                at = slice(lo_s, lo_s + 4)
+                carry, ls = group(carry, x[at], y[at], None, scalars[at])
+                parts.append(ls)
+            losses = torch.cat(parts)
+        net._set_train_carry(carry)
+        g.put(scen, "params", leaves(net._params_view()))
+        g.put(scen, "upd", leaves(mgr.gather_tree(net.updater_states)))
+        g.put(scen, "losses", [losses])
+    g.facts["zero1_group"] = {"world": g.world}
 
 
 def zero1_ckpt(g):
@@ -311,7 +407,9 @@ def dist(g):
 SCENARIOS = {f.__name__: f for f in (
     dp_conv, dp_mlp, dp_ragged, dp_fused, lsgd, thr_res, thr_wire, stale,
     stale_first, stale_bn, zero1, zero1_groups, zero1_ckpt, zero1_save,
-    zero1_resume3, dist, zero1_save3)}
+    zero1_resume3, dist, zero1_save3, dp_groups, tp_groups, zero1_group)}
+# run only when named in --only
+OPT_IN = ("zero1_save3", "dp_groups", "tp_groups", "zero1_group")
 
 
 def main(argv=None):
@@ -329,7 +427,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     names = [n for n in a.only.split(",") if n] or [
-        n for n in SCENARIOS if n != "zero1_save3"]
+        n for n in SCENARIOS if n not in OPT_IN]
     device = f"cuda:{a.rank}" if a.backend == "nccl" else a.device
     TrainingMaster.initialize_distributed(
         f"127.0.0.1:{a.port}", a.world, a.rank, backend=a.backend,

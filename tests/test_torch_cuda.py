@@ -1705,3 +1705,110 @@ def test_cuda_flagship_step_record_runs_bf16_wgmma_without_host_reads():
     bad = {f.rule for f in finds} & {"prog-hidden-host-transfer",
                                      "prog-unhonored-donation"}
     assert not bad, [f.render() for f in finds]
+
+
+# ------------------------------------- captured groups over NCCL, world 2
+@pytest.mark.cuda
+def test_cuda_nccl_gang_captures_k_step_groups_at_world_two(tmp_path):
+    """ROADMAP F11: run_group(4) with its NCCL collectives captured at
+    world 2 (two cards, one rank each; tests/fixtures/torch/
+    scaleout_worker.py): ZeRO-1 under TrainingMaster and per-step dp with
+    global BatchNorm sums under ParallelWrapper. Each replays its group
+    with the collectives inside and equals its k=1 run (rtol 1e-4, atol
+    1e-5, the NCCL gang's tolerance against the CPU); an eager all-reduce
+    after the replays returns the right sum, and every rank's teardown
+    (the process group destroyed after the graphs) returns."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization,
+        ConvolutionLayer,
+        DenseLayer,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.tree import leaves
+
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL takes one rank per card)")
+    confs = {
+        "conv": (NeuralNetConfiguration.Builder().seed(3).updater("sgd")
+                 .learning_rate(0.05).weight_init("xavier").list()
+                 .layer(ConvolutionLayer(kernel_size=(3, 3), n_out=4,
+                                         activation="relu"))
+                 .layer(BatchNormalization())
+                 .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+                 .layer(OutputLayer(n_out=3, loss="mcxent"))
+                 .set_input_type(InputType.convolutional(8, 8, 1)).build()),
+        "adam24": (NeuralNetConfiguration.Builder().seed(7).updater("adam")
+                   .learning_rate(1e-2).activation("tanh")
+                   .weight_init("xavier").list()
+                   .layer(DenseLayer(n_out=24))
+                   .layer(OutputLayer(n_out=24, loss="mcxent"))
+                   .set_input_type(InputType.feed_forward(24)).build())}
+    io = str(tmp_path)
+    spec, arrays = {"nets": {}, "helpers": {}}, {}
+    for name, conf in confs.items():
+        net = MultiLayerNetwork(conf, device="cpu").init()
+        spec["nets"][name] = ["mln", conf.to_json()]
+        for prefix, tree in (("p", net.params), ("s", net.states)):
+            for i, t in enumerate(leaves(tree)):
+                arrays[f"{name}/{prefix}:{i}"] = t.numpy()
+    rng = np.random.default_rng(19)
+    x = rng.normal(size=(16, 8, 8, 1)).astype(np.float32)
+    x[8:] = x[8:] * 3 + 1
+    data = {"conv_x": x,
+            "conv_y": np.eye(3, dtype=np.float32)[rng.integers(0, 3, 16)],
+            "z_x": rng.normal(size=(8, 16, 24)).astype(np.float32),
+            "z_y": np.eye(24, dtype=np.float32)[
+                rng.integers(0, 24, (8, 16))]}
+    with open(os.path.join(io, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    np.savez(os.path.join(io, "nets.npz"), **arrays)
+    np.savez(os.path.join(io, "data.npz"), **data)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = os.path.join(root, "tests", "fixtures", "torch",
+                          "scaleout_worker.py")
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "--rank", str(r), "--world", "2",
+         "--port", str(port), "--io", io, "--backend", "nccl", "--only",
+         "zero1_groups,dp_groups"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    out = dict(np.load(os.path.join(io, "out-0.npz")))
+    with open(os.path.join(io, "out-0.json")) as f:
+        facts = json.load(f)
+    for k4, k1, kinds in (("z1_k4", "z1_k1", ("reduce_scatter",
+                                              "all_reduce", "all_gather")),
+                          ("dp_k4", "dp_k1", ("all_reduce",))):
+        keys = [k for k in out if k.startswith(k1 + "/")]
+        assert keys
+        for key in keys:
+            np.testing.assert_allclose(out[k4 + key[len(k1):]], out[key],
+                                       rtol=1e-4, atol=1e-5)
+        f = facts[k4]
+        assert f["replays"] == 2, f
+        (coll,) = f["collectives"].values()
+        assert all(coll.get(kind, 0) >= 4 for kind in kinds), coll
+        assert f["eager_after"] == 3.0

@@ -531,6 +531,27 @@ def test_mesh_manager_derive_policy_and_facts(gloo1):
     assert facts2["replica_bytes"] == 32
 
 
+@pytest.mark.parametrize("rank", [0, 1])
+def test_shard_tree_slices_each_leaf_by_its_own_shape(rank):
+    """ROADMAP F12: a tree whose dict keys are not in sorted order (as a
+    ResNet-50's layer names are) — each leaf is cut by its own shape at
+    dp 2, the stem's 7-row kernel whole and the 4-row leaf to this
+    rank's rows, and the recorded layout is in `leaves`' sorted order."""
+    import types
+
+    mgr = MeshManager()
+    mgr._world["dp"] = 2
+    mgr.mesh = types.SimpleNamespace(coords={"dp": rank},
+                                     shape=mgr.mesh.shape)
+    tree = {"stem": np.arange(21, dtype=np.float32).reshape(7, 3),
+            "bn": np.arange(8, dtype=np.float32).reshape(4, 2)}
+    placed = mgr.shard_tree(tree)
+    assert mgr.layout == [True, False]
+    np.testing.assert_array_equal(placed["stem"].numpy(), tree["stem"])
+    np.testing.assert_array_equal(placed["bn"].numpy(),
+                                  tree["bn"][2 * rank:2 * rank + 2])
+
+
 def test_mesh_metrics_registered_and_emitted(gloo1):
     for name in ("dl4j_mesh_world_size", "dl4j_mesh_reshard_total",
                  "dl4j_mesh_allgather_seconds"):
