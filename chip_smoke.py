@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (deeplearning4j_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--phase NAME[,NAME...]]
 
-Phases, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero. `--phase` runs only the
+named ones (PHASES: kernels 3, serving 4, training 5, engine 5b, mln 5c,
+tm 5d, obs 5e, rnn 5f, zoo 5g, keras 5h, decode 5i, control 5j, cluster
+5k, nlp 5l, scaleout 5m, mesh 5n, analysis 5o, tm_mesh 5p, timing 6)
+with the phases whose results they read (PHASE_DEPS), after phases 1-2,
+and prints the seconds of each phase run in place of the kernels line;
+the default runs every phase:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written CUDA kernels from csrc/ with nvcc (sm_90a),
      one nvcc per source, all started together;
@@ -392,6 +398,23 @@ Phases, in order; any failure exits non-zero:
      from ANALYSIS_SERVE_THREADS client threads) and a short decode run
      under the port's LockOrderSanitizer: no lock-order cycle, the long
      holds reported; (d) the four kernels' launches on this path;
+  5p. TrainingMaster on a dp x tp mesh and ghost BatchNorm statistics
+     under per-step dp (lines start "tm_mesh "): a 2-rank gloo gang of
+     this script (`--tm-mesh-rank`, CUDA tensors on the one card) runs (a)
+     the flagship (bf16, "pallas") under TrainingMaster on make_mesh(dp=1,
+     tp=2), steps_per_dispatch=GROUP_K, per-rank checkpoints, GROUP_K
+     steps on TRAIN_BATCH rows that both ranks feed: both ranks' train
+     states equal bit for bit and equal to a one-process TrainingMaster
+     run of the same batches (run in this process beside the gang), launches
+     per replay 120/64/120/120 all bf16 "wgmma", the two checkpoints of
+     step GROUP_K voting one digest (divergence_quorum); (b) the flagship
+     with stat_sample=2 on every BatchNorm under TrainingMaster on
+     make_mesh(dp=2), TM_MESH_GHOST_ROWS rows per rank, one step (the
+     statistics' leading rows all on rank 0; the composed route, no
+     kernel): equal on both ranks, and rank 0's one-process step on the
+     whole batch against it within GHOST_TOL, the reading printed. The
+     launch counters, set to 0 in the ranks before (a), are summed over
+     them (`tm_mesh_launches`);
   6. timing: every kernel call of one batch-32 forward and of one
      batch-128 train step, timed on the card (kernel, plain version, one
      library call) beside its bound and the ratio of the two, with the
@@ -412,8 +435,18 @@ INIT/COLL log read for the communicators and streams each capture used;
 (3) the flagship ResNet-50 (bf16, "pallas", TRAIN_BATCH rows per rank)
 under TrainingMaster(sharding="zero1", steps_per_dispatch=4) against
 steps_per_dispatch=1: ms/step at both, the NCCL kernels' time, all four
-kernels launched inside the captured group. `--gang-logs DIR` keeps
-every rank's whole log.
+kernels launched inside the captured group; (4) the flagship under
+TrainingMaster(sharding="zero1") on make_mesh(dp=N/2, tp=2), TRAIN_BATCH
+rows per dp coordinate: steps_per_dispatch=4 (captured over NCCL)
+against 1 bit for bit, ms/step at both, the tp replicas bit for bit, a
+per-rank checkpoint restored at the same dp bit for bit, 120/64/120/120
+bf16 "wgmma" launches per replay; (5) the flagship with stat_sample=3
+under TrainingMaster on make_mesh(dp=N), TRAIN_BATCH / 2 rows per rank
+(at N=4 the statistics' 86 rows lie 64 on rank 0 and 22 on rank 1)
+against one process on the whole batch within GHOST_TOL. `--phase`
+names the launches to run (NCCL_LAUNCHES: eager, groups, zero1,
+tp_zero1, ghost; default all). `--gang-logs DIR` keeps every rank's
+whole log.
 
 Imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the port package beside it, it exits non-zero and
@@ -642,6 +675,15 @@ MESH_VGG_STEPS = 3             # timed steps, after one warm step
 MESH_TP_TOL = {"rtol": 1e-3, "atol": 1e-4}   # tests/test_parallel.py's tp bar
 MESH_W2V_EPOCHS = 2            # timed, after one warm epoch
 MESH_DRILL_STEPS = 6
+# phase 5p and --nccl-gang's launches (4)-(5): TrainingMaster on a dp x
+# tp mesh (GROUP_K steps: one captured window) and ghost BatchNorm
+# statistics under per-step dp
+TM_MESH_GHOST_ROWS = 64        # rows per rank of (b)'s dp 2 step
+TM_MESH_PER_REPLAY = {"fused_conv1x1": 4 * 30, "fused_conv3x3": 4 * 16,
+                      "dgrad_conv1x1": 4 * 30, "wgrad_conv1x1": 4 * 30}
+# the ghost step against the one-process step, largest |gang - one| /
+# (atol + rtol |one|) over the train state
+GHOST_TOL = {"rtol": 1e-2, "atol": 1e-3}
 # phase 5o: the analyzer. The flagship's records at TRAIN_BATCH (group
 # record at GROUP_K), the serving record at BATCH, the decode records at
 # DECODE_BENCH; serving under the lock-order sanitizer
@@ -1214,6 +1256,16 @@ def serving_pool(np, hw):
     rng = np.random.default_rng(7)
     return [serving_inputs(np, rng, s, hw) for s in SERVE_SIZES
             for _ in range(POOL_PER_SIZE)]
+
+
+def serving_net(torch, ResNet50):
+    """Phase 4's net (and phase 5's step check's): full-width ResNet-50,
+    bf16 policy, helpers="pallas", seeded random weights and BatchNorm
+    statistics."""
+    net = ResNet50(input_shape=(HW, HW, 3), compute_dtype="bfloat16",
+                   helpers="pallas").init_model(device=DEV)
+    randomize_batchnorm(torch, net, seed=1)
+    return net
 
 
 def serving_phase(torch, np, pc, net):
@@ -8766,6 +8818,37 @@ def gang_inputs(np, io):
 # where `--gang-logs` keeps every gang rank's whole log (None: not kept)
 GANG_LOG_DIR = None
 
+# the default run's phases by name (`--phase`), in run order, and the
+# phases whose results each one reads (run with it)
+PHASES = ("kernels", "serving", "training", "engine", "mln", "tm", "obs",
+          "rnn", "zoo", "keras", "decode", "control", "cluster", "nlp",
+          "scaleout", "mesh", "analysis", "tm_mesh", "timing")
+PHASE_DEPS = {"tm": ("engine",), "obs": ("engine",), "zoo": ("engine",),
+              "keras": ("engine",), "control": ("serving", "decode"),
+              "cluster": ("engine", "tm"), "scaleout": ("engine",),
+              "timing": ("serving", "training")}
+# `--nccl-gang N`'s launches by name, in run order (none reads another)
+NCCL_LAUNCHES = ("eager", "groups", "zero1", "tp_zero1", "ghost")
+
+
+def phase_selection(arg, names, deps=None):
+    """The set of `names` that `--phase arg` selects: every name for an
+    empty arg, else the names given (comma-separated) and, transitively,
+    the phases they read (`deps`); an unknown name fails the run."""
+    if not arg:
+        return set(names)
+    todo = [n.strip() for n in arg.split(",") if n.strip()]
+    unknown = [n for n in todo if n not in names]
+    if unknown:
+        fail(f"--phase: unknown name(s) {unknown}; known: {list(names)}")
+    picked = set()
+    while todo:
+        n = todo.pop()
+        if n not in picked:
+            picked.add(n)
+            todo.extend((deps or {}).get(n, ()))
+    return picked
+
 
 def launch_ranks(jobs, wait_s, keep=None):
     """Start every (argv, log path, env) of `jobs` at once from this
@@ -8809,16 +8892,17 @@ def launch_ranks(jobs, wait_s, keep=None):
     return rcs, secs
 
 
-def rank_jobs(flag, io, world):
+def rank_jobs(flag, io, world, extra=()):
     """launch_ranks jobs for `world` ranks of this script (`flag` R, e.g.
-    --mesh-rank), rendezvousing on one free port, exchanging files in
-    `io`, each logging to io/log-R.txt."""
+    --mesh-rank, then `extra` arguments), rendezvousing on one free port,
+    exchanging files in `io`, each logging to io/log-R.txt."""
     here = os.path.dirname(os.path.abspath(__file__))
     port = free_port()
     env = dict(os.environ, PYTHONPATH=here)
     return [([sys.executable, os.path.abspath(__file__), flag, str(r),
               "--mesh-world", str(world), "--mesh-port", str(port),
-              "--mesh-io", io], os.path.join(io, f"log-{r}.txt"), env)
+              "--mesh-io", io, *extra], os.path.join(io, f"log-{r}.txt"),
+             env)
             for r in range(world)]
 
 
@@ -8947,97 +9031,124 @@ def nccl_log_facts(text):
     return {"nccl_comms_initialized": len(comm_ids), "captures": captures}
 
 
-def nccl_gang(torch, np, card, world):
-    """`--nccl-gang N` (N cards), in launches: (1) the tests' gang of N
+def nccl_gang(torch, np, card, world, launches=NCCL_LAUNCHES):
+    """`--nccl-gang N` (N cards), in launches (`launches`: the names of
+    NCCL_LAUNCHES to run): (1) "eager": the tests' gang of N
     ranks over NCCL, one
     card per rank, eagerly, against the same gang over gloo on the CPU
     within SCALEOUT_GANG_TOL — per-step dp with global BatchNorm
     statistics, local SGD k=2, ZeRO-1 with real reduce-scatters and
     all-gathers (against the unsharded run: reported, bit for bit only
-    where the sums keep their order); (2) the captured groups: ZeRO-1's
+    where the sums keep their order); (2) "groups": the captured groups:
+    ZeRO-1's
     run_group(4) (TrainingMaster), per-step dp's and tp 2's
     (ParallelWrapper) with their collectives in the graph, each against
     its k=1 run and the CPU gang, and an eager collective after the
     replays, every rank logging its captures and waiting for each replay
-    under a deadline (DL4J_TPU_GRAPH_LOG=1); (3) the flagship ResNet-50
-    under ZeRO-1 at world N (zero1_gang)."""
+    under a deadline (DL4J_TPU_GRAPH_LOG=1); (3) "zero1": the flagship
+    ResNet-50 under ZeRO-1 at world N (zero1_gang); (4) "tp_zero1" and
+    (5) "ghost", one launch (tp_gang): the flagship under TrainingMaster
+    (sharding="zero1") on a dp N/2 x tp 2 mesh, and ghost BatchNorm
+    statistics split over dp N."""
     gap = lambda arrays, a, b: max(
         float(np.max(np.abs(arrays[k] - arrays[b + k[len(a):]])))
         for k in arrays if k.startswith(a + "/"))
-    res = {"world": world}
+    res = {"world": world, "launches": sorted(launches)}
     with tempfile.TemporaryDirectory() as tmp:
-        out, facts, secs = run_gangs(
-            np, os.path.join(tmp, "eager"), world, "nccl",
-            "dp_conv,lsgd,zero1", wait_s=150.0)
-        errs = gang_errors(np, out, ("dp_conv", "lsgd", "z1", "dp_tm"))
-        res["eager"] = {
-            "seconds": secs, "tol_ratio": errs,
-            "zero1_vs_unsharded": {
-                "bitwise": bitwise_pair(np, out["card"], "z1", "dp_tm"),
-                "max_abs": gap(out["card"], "z1", "dp_tm")},
-            "layout": facts["card"]["z1"]["layout"],
-            "memory": facts["card"]["z1"]["memory"]}
-        log(f"nccl gang (1) eager: {world} ranks over NCCL, one card each, "
-            f"against the same gang over gloo on the CPU: {res['eager']} "
-            f"[{card}]")
-        if max(errs.values()) > 1.0:
-            fail("nccl gang (1): the NCCL gang disagrees with the CPU gang")
-        scens = "zero1_groups,dp_groups" + (",tp_groups" if world % 2 == 0
-                                            else "")
-        logs = {"DL4J_TPU_GRAPH_LOG": "1", "DL4J_TPU_PG_TIMEOUT_S": "60",
-                "NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,COLL"}
-        gdir = os.path.join(tmp, "groups")
-        out, facts, secs = run_gangs(np, gdir, world, "nccl", scens,
-                                     wait_s=240.0, check=False,
-                                     env_extra=logs)
-        ranks = {r: nccl_log_facts(open(os.path.join(
-            gdir, f"gang-card-{world}", f"log-{r}.txt")).read())
-            for r in range(world)}
-        if out is None:
-            log(f"nccl gang (2) captured groups: ranks ended "
-                f"{facts['rcs']} in {secs:.1f} s; NCCL's view per rank "
-                f"{ranks}; each rank's capture lines, last collectives and "
-                f"errors:\n"
-                + "\n".join(f"[rank {r}] {ln[:300]}"
-                             for r, ls in facts["lines"].items()
-                             for ln in ls))
-            # launch (3) still runs: its result is read before failing
+        if "eager" in launches:
+            res["eager"] = nccl_eager(np, card, world, tmp, gap)
+        if "groups" in launches:
+            groups = nccl_groups(torch, np, card, world, tmp, gap)
+            if groups is None:
+                # launch (3) still runs: its result is read before failing
+                if "zero1" in launches:
+                    res["resnet50"] = zero1_gang(torch, np, card, tmp, world)
+                fail("nccl gang (2): a captured group hung or failed (F11; "
+                     "logs above)")
+            res["groups"] = groups
+        if "zero1" in launches:
             res["resnet50"] = zero1_gang(torch, np, card, tmp, world)
-            fail("nccl gang (2): a captured group hung or failed (F11; logs "
-                 "above)")
-        groups = {}
-        want_eager = world * (world + 1) / 2
-        for k4, k1 in (("z1_k4", "z1_k1"), ("dp_k4", "dp_k1"),
-                       ("tp_k4", "tp_k1")):
-            if k4 not in facts["card"]:
-                continue
-            errs = gang_errors(np, out, (k1, k4))
-            f = facts["card"][k4]
-            groups[k4] = {
-                "tol_ratio": errs,
-                "k4_vs_k1": {"bitwise": bitwise_pair(np, out["card"], k4, k1),
-                             "max_abs": gap(out["card"], k4, k1)},
-                "collectives_per_replay": f["collectives"],
-                "replays": f["replays"],
-                "eager_after": f["eager_after"]}
-        res["groups"] = {"seconds": secs, "scenarios": groups,
-                         "nccl_view": ranks}
-        log(f"nccl gang (2) captured groups over NCCL at world {world}: "
-            f"{json.dumps(res['groups'])} [{card}]")
-        kinds = {"z1_k4": ("reduce_scatter", "all_gather", "all_reduce"),
-                 "dp_k4": ("all_reduce",), "tp_k4": ("all_gather",)}
-        for k4, g in groups.items():
-            coll = g["collectives_per_replay"]
-            if (max(g["tol_ratio"].values()) > 1.0 or not coll
-                    or not g["replays"]
-                    or g["eager_after"] != want_eager
-                    or not all(c.get(kind, 0) >= GROUP_K
-                               for c in coll.values()
-                               for kind in kinds[k4])):
-                fail(f"nccl gang (2) {k4}: the captured groups disagree "
-                     f"with the CPU gang, hold too few collectives, or the "
-                     f"eager collective after them is wrong: {g}")
-        res["resnet50"] = zero1_gang(torch, np, card, tmp, world)
+        parts = [n for n in ("tp_zero1", "ghost") if n in launches]
+        if parts:
+            res["tp_gang"] = tp_gang(torch, np, card, tmp, world, parts)
+    return res
+
+
+def nccl_eager(np, card, world, tmp, gap):
+    """`--nccl-gang N` launch (1) (nccl_gang's docstring)."""
+    out, facts, secs = run_gangs(
+        np, os.path.join(tmp, "eager"), world, "nccl",
+        "dp_conv,lsgd,zero1", wait_s=150.0)
+    errs = gang_errors(np, out, ("dp_conv", "lsgd", "z1", "dp_tm"))
+    res = {
+        "seconds": secs, "tol_ratio": errs,
+        "zero1_vs_unsharded": {
+            "bitwise": bitwise_pair(np, out["card"], "z1", "dp_tm"),
+            "max_abs": gap(out["card"], "z1", "dp_tm")},
+        "layout": facts["card"]["z1"]["layout"],
+        "memory": facts["card"]["z1"]["memory"]}
+    log(f"nccl gang (1) eager: {world} ranks over NCCL, one card each, "
+        f"against the same gang over gloo on the CPU: {res} "
+        f"[{card}]")
+    if max(errs.values()) > 1.0:
+        fail("nccl gang (1): the NCCL gang disagrees with the CPU gang")
+    return res
+
+
+def nccl_groups(torch, np, card, world, tmp, gap):
+    """`--nccl-gang N` launch (2) (nccl_gang's docstring); None when a rank
+    failed (its logs printed)."""
+    scens = "zero1_groups,dp_groups" + (",tp_groups" if world % 2 == 0
+                                        else "")
+    logs = {"DL4J_TPU_GRAPH_LOG": "1", "DL4J_TPU_PG_TIMEOUT_S": "60",
+            "NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,COLL"}
+    gdir = os.path.join(tmp, "groups")
+    out, facts, secs = run_gangs(np, gdir, world, "nccl", scens,
+                                 wait_s=240.0, check=False,
+                                 env_extra=logs)
+    ranks = {r: nccl_log_facts(open(os.path.join(
+        gdir, f"gang-card-{world}", f"log-{r}.txt")).read())
+        for r in range(world)}
+    if out is None:
+        log(f"nccl gang (2) captured groups: ranks ended "
+            f"{facts['rcs']} in {secs:.1f} s; NCCL's view per rank "
+            f"{ranks}; each rank's capture lines, last collectives and "
+            f"errors:\n"
+            + "\n".join(f"[rank {r}] {ln[:300]}"
+                         for r, ls in facts["lines"].items()
+                         for ln in ls))
+        return None
+    groups = {}
+    want_eager = world * (world + 1) / 2
+    for k4, k1 in (("z1_k4", "z1_k1"), ("dp_k4", "dp_k1"),
+                   ("tp_k4", "tp_k1")):
+        if k4 not in facts["card"]:
+            continue
+        errs = gang_errors(np, out, (k1, k4))
+        f = facts["card"][k4]
+        groups[k4] = {
+            "tol_ratio": errs,
+            "k4_vs_k1": {"bitwise": bitwise_pair(np, out["card"], k4, k1),
+                         "max_abs": gap(out["card"], k4, k1)},
+            "collectives_per_replay": f["collectives"],
+            "replays": f["replays"],
+            "eager_after": f["eager_after"]}
+    res = {"seconds": secs, "scenarios": groups, "nccl_view": ranks}
+    log(f"nccl gang (2) captured groups over NCCL at world {world}: "
+        f"{json.dumps(res)} [{card}]")
+    kinds = {"z1_k4": ("reduce_scatter", "all_gather", "all_reduce"),
+             "dp_k4": ("all_reduce",), "tp_k4": ("all_gather",)}
+    for k4, g in groups.items():
+        coll = g["collectives_per_replay"]
+        if (max(g["tol_ratio"].values()) > 1.0 or not coll
+                or not g["replays"]
+                or g["eager_after"] != want_eager
+                or not all(c.get(kind, 0) >= GROUP_K
+                           for c in coll.values()
+                           for kind in kinds[k4])):
+            fail(f"nccl gang (2) {k4}: the captured groups disagree "
+                 f"with the CPU gang, hold too few collectives, or the "
+                 f"eager collective after them is wrong: {g}")
     return res
 
 
@@ -9595,7 +9706,8 @@ def mesh_drill(np, tmp, res):
 
 def mesh_phase(torch, np, pc, card, nlp_words_per_s):
     """Phase 5n (module docstring): the 2-rank gang's (a)-(c) and, on a
-    thread beside it, (d). The kernel launch counters are set to 0 before
+    thread beside it, (d); `nlp_words_per_s` (phase 5l's, None when it
+    did not run) is printed beside (c)'s. The kernel launch counters are set to 0 before
     it and read after it, the gang's ranks' added: no kernel of csrc/ is
     on these paths."""
     pc.reset_launch_counts()
@@ -9662,7 +9774,8 @@ def mesh_phase(torch, np, pc, card, nlp_words_per_s):
         f"(vocab {NLP_VOCAB}, {NLP_WORDS} words, dim {NLP_DIM}, skip-gram NS, "
         f"dense, sync_every 1): {w2v['epochs']} epochs {w2v['fit_s']:.3f} s,"
         f" {w2v['words_per_s']:.0f} words/s (one process, phase 5l: "
-        f"{nlp_words_per_s:.0f}); {w2v['rendezvous']} rendezvous "
+        f"{'not run' if nlp_words_per_s is None else round(nlp_words_per_s)}"
+        f"); {w2v['rendezvous']} rendezvous "
         f"{w2v['rendezvous_s']:.3f} s in the timed fit; tables equal on "
         f"both ranks: {w2v['tables_sha'] == r1['w2v']['tables_sha']}; "
         f"finite {w2v['finite']} [{card}]")
@@ -9881,6 +9994,498 @@ def analysis_phase(torch, np, pc, ResNet50, card):
     return res
 
 
+# ------------------------------------------------------------ phase 5p
+def ghost_flagship(ResNet50, k):
+    """The flagship ("pallas") with stat_sample=k on every
+    BatchNormalization: statistics of the leading ceil(N/k) rows of the
+    (global) batch, on the composed route (no kernel), as in JAX."""
+    from deeplearning4j_tpu_torch.nn.layers import BatchNormalization
+
+    net = flagship(ResNet50, "pallas")
+    for node in net.topo:
+        if isinstance(node.obj, BatchNormalization):
+            node.obj.stat_sample = k
+    return net
+
+
+def ghost_step(torch, np, ResNet50, mesh, k, x, y):
+    """One per-step dp step of the ghost flagship under
+    TrainingMaster(mesh): this rank's rows of the global (x, y) (its dp
+    coordinate's equal share). Returns the net and the facts: this rank's
+    ghost rows and the global count (collectives.ghost_rows), the loss,
+    the state's sha and the seconds."""
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster, collectives
+
+    per = x.shape[0] // mesh.shape["dp"]
+    rows = slice(mesh.dp_coord * per, (mesh.dp_coord + 1) * per)
+    net = ghost_flagship(ResNet50, k)
+    tm = TrainingMaster(net, mesh=mesh)
+    t0 = time.perf_counter()
+    tm.fit(lambda s: (x[rows], y[rows]), 1)
+    torch.cuda.synchronize()
+    with collectives.dp_scope(mesh.group("dp")):
+        mine, total = collectives.ghost_rows(per, k)
+    return net, {"rows_per_rank": per, "stat_sample": k,
+                 "ghost_rows_mine": mine, "ghost_rows_global": total,
+                 "loss": float(net.score()), "seconds":
+                 time.perf_counter() - t0,
+                 "state_sha": sha_of(torch, train_state(net))}
+
+
+def ghost_reference(torch, ResNet50, k, x, y, got):
+    """One process's step of the ghost flagship on the whole (x, y) from
+    the same seeded init, against the gang rank's `got` train state:
+    largest |got - ref| / (atol + rtol |ref|) under GHOST_TOL, the largest
+    absolute difference, and the loss."""
+    ref = ghost_flagship(ResNet50, k)
+    loss = float(ref.fit_batch(([x], [y])))
+    want = train_state(ref)
+    out = {"tol_ratio": max(tol_ratio(torch, a, b, GHOST_TOL)
+                            for a, b in zip(got, want)),
+           "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(got, want)),
+           "tensors": len(want), "loss": loss}
+    del ref, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def tm_mesh_rank_main(rank, world, port, io):
+    """One rank of phase 5p's gang (`--tm-mesh-rank`), over one gloo
+    group with CUDA tensors on the card: (a) the flagship under
+    TrainingMaster on make_mesh(dp=1, tp=2) at steps_per_dispatch=GROUP_K
+    with per-rank checkpoints every GROUP_K steps, GROUP_K steps (the
+    group's warm-up and capture, then its replay) on TRAIN_BATCH rows
+    that both ranks (one dp coordinate) feed; (b) the flagship with
+    stat_sample=2 under TrainingMaster on make_mesh(dp=2), one step on
+    TM_MESH_GHOST_ROWS rows per rank, and on rank 0 the one-process step
+    on the whole batch against it. The launch counters are set to 0
+    before (a) and read after each part. Writes io/rank-<rank>.json."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.helpers import pallas_conv as pc
+    from deeplearning4j_tpu_torch.parallel import (
+        TrainingMaster,
+        collectives,
+        make_mesh,
+    )
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    collectives.init_process_group(f"127.0.0.1:{port}", world, rank,
+                                   backend="gloo", device=DEV)
+    out = {"rank": rank, "seconds": {}}
+    launches = lambda: {n: c for n, c in pc.launch_counts().items()}
+    try:
+        t0 = time.perf_counter()
+        _, batch_fn = tm_data(np, 80, TRAIN_BATCH)
+        net = flagship(ResNet50, "pallas")
+        m = make_mesh(dp=1, tp=2)
+        tm = TrainingMaster(net, mesh=m, steps_per_dispatch=GROUP_K,
+                            checkpoint_dir=os.path.join(io, "ckpt"),
+                            checkpoint_every=GROUP_K,
+                            per_rank_checkpoints=True)
+        torch.cuda.synchronize()
+        pc.reset_launch_counts()
+        t1 = time.perf_counter()
+        tm.fit(batch_fn, GROUP_K)
+        torch.cuda.synchronize()
+        prog = tm._harness.program
+        grp = next(iter(prog._groups.values()))
+        out["tp"] = {"mesh": dict(m.shape), "coords": dict(m.coords),
+                     "world": tm.world_info(), "fit_s":
+                     time.perf_counter() - t1, "launches": launches(),
+                     "launches_per_replay": grp.launches,
+                     "collectives_per_replay": grp.collectives,
+                     "replays": prog.group_stats["replays"],
+                     "loss": float(net.score()),
+                     "state_sha": sha_of(torch, train_state(net))}
+        out["seconds"]["tp"] = time.perf_counter() - t0
+        print(f"tm_mesh rank {rank}: (a) {out['seconds']['tp']:.1f} s",
+              flush=True)
+        del net, tm, prog, grp
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        n = TM_MESH_GHOST_ROWS
+        x, y = engine_batches(np, 81, 1, 2 * n, 1000)[0]
+        net, out["ghost"] = ghost_step(torch, np, ResNet50,
+                                       make_mesh(dp=2), 2, x, y)
+        out["ghost"]["launches"] = launches()
+        if rank == 0:
+            got = [t.detach().clone() for t in train_state(net)]
+            del net
+            torch.cuda.empty_cache()
+            out["ghost"]["reference"] = ghost_reference(torch, ResNet50, 2,
+                                                        x, y, got)
+        out["seconds"]["ghost"] = time.perf_counter() - t0
+        print(f"tm_mesh rank {rank}: (b) {out['seconds']['ghost']:.1f} s",
+              flush=True)
+        out["ok"] = True
+    finally:
+        with open(os.path.join(io, f"rank-{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+        collectives.destroy_process_group()
+
+
+def tm_mesh_phase(torch, np, pc, card):
+    """Phase 5p (module docstring): the 2-rank gang of tm_mesh_rank_main
+    and, beside it in this process, the one-process TrainingMaster run of
+    (a)'s batches; then (a)'s two per-rank checkpoints voted
+    (divergence_quorum). The launch counters, set to 0 in the ranks
+    before (a), are summed over the ranks."""
+    from deeplearning4j_tpu_torch.parallel import TrainingMaster
+    from deeplearning4j_tpu_torch.resilience.checkpoint_integrity import (
+        divergence_quorum,
+    )
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    world = 2
+    res = {"card": card}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        io = os.path.join(tmp, "tm_mesh")
+        os.makedirs(io, exist_ok=True)
+        gang = {}
+        th = threading.Thread(target=lambda: gang.update(zip(
+            ("rcs", "secs"), launch_ranks(rank_jobs(
+                "--tm-mesh-rank", io, world), 240.0, keep="tm_mesh"))),
+            daemon=True)
+        th.start()
+        try:
+            t0 = time.perf_counter()
+            _, batch_fn = tm_data(np, 80, TRAIN_BATCH)
+            ref = flagship(ResNet50, "pallas")
+            TrainingMaster(ref, steps_per_dispatch=GROUP_K).fit(batch_fn,
+                                                                GROUP_K)
+            ref_sha = sha_of(torch, train_state(ref))
+            ref_s = time.perf_counter() - t0
+            del ref
+            torch.cuda.empty_cache()
+        finally:
+            th.join(timeout=300.0)
+            torch.backends.cudnn.deterministic = det
+        rcs = gang.get("rcs", ["timeout"] * world)
+        if any(rcs):
+            tails = "".join(open(os.path.join(io, f"log-{r}.txt")).read()[
+                -4000:] for r in range(world)
+                if os.path.exists(os.path.join(io, f"log-{r}.txt")))
+            fail(f"tm_mesh gang: a rank failed {rcs}:\n{tails}")
+        outs = []
+        for r in range(world):
+            with open(os.path.join(io, f"rank-{r}.json")) as f:
+                outs.append(json.load(f))
+        t0 = time.perf_counter()
+        vote = divergence_quorum(os.path.join(io, "ckpt"), world, GROUP_K,
+                                 heal=False)
+        vote_s = time.perf_counter() - t0
+    a0, a1 = outs[0]["tp"], outs[1]["tp"]
+    b0, b1 = outs[0]["ghost"], outs[1]["ghost"]
+    ref_b = b0["reference"]
+    keys = sorted(set(TM_MESH_PER_REPLAY).union(
+        *(o["ghost"]["launches"] for o in outs)))
+    names = list(TM_MESH_PER_REPLAY)
+    launches = {k: sum(o["ghost"]["launches"].get(k, 0) for o in outs)
+                for k in keys}
+    res.update({
+        "gang_s": gang["secs"], "rank_seconds": [o["seconds"] for o in outs],
+        "reference_s": ref_s, "vote_s": vote_s,
+        "tp": {"mesh": a0["mesh"], "fit_s": [a0["fit_s"], a1["fit_s"]],
+               "launches_per_replay": a0["launches_per_replay"],
+               "collectives_per_replay": a0["collectives_per_replay"],
+               "replays": a0["replays"], "loss": a0["loss"],
+               "replicas_equal": a0["state_sha"] == a1["state_sha"],
+               "equal_to_one_process": a0["state_sha"] == ref_sha,
+               "vote": {"digest": vote["digest"],
+                        "ranks": vote["ranks"]}},
+        "ghost": {k: b0[k] for k in ("rows_per_rank", "stat_sample",
+                                     "loss", "seconds")},
+        "launches": {k: launches[k] for k in names},
+        "launches_by_route": launches,
+        "launches_per_replay": {k: a0["launches_per_replay"].get(k, 0)
+                                for k in names}})
+    res["ghost"].update({
+        "ghost_rows": [b0["ghost_rows_mine"], b1["ghost_rows_mine"]],
+        "ghost_rows_global": b0["ghost_rows_global"],
+        "replicas_equal": b0["state_sha"] == b1["state_sha"],
+        "reference": ref_b,
+        "launches": {k: sum(o["ghost"]["launches"].get(k, 0)
+                            - o["tp"]["launches"].get(k, 0) for o in outs)
+                     for k in names}})
+    t = res["tp"]
+    log(f"tm_mesh (a) ResNet-50 bf16 \"pallas\" under TrainingMaster on "
+        f"make_mesh(dp=1, tp=2) ({world} gloo ranks on the card, "
+        f"{TRAIN_BATCH} rows per rank, steps_per_dispatch={GROUP_K}, "
+        f"per-rank checkpoints): the fit (warm-up, capture, {t['replays']} "
+        f"replay) {t['fit_s'][0]:.2f} / {t['fit_s'][1]:.2f} s; launches per "
+        f"replay {t['launches_per_replay']}, collectives per replay "
+        f"{t['collectives_per_replay']}; loss {t['loss']:.5f}; both ranks' "
+        f"params, updater state and BN states equal: "
+        f"{t['replicas_equal']}, and equal to the one-process "
+        f"TrainingMaster run of the same batches: "
+        f"{t['equal_to_one_process']} ({ref_s:.1f} s beside the gang); "
+        f"the two per-rank checkpoints of step {GROUP_K} vote "
+        f"{sorted(set(vote['ranks'].values()), key=str)} -> "
+        f"{str(vote['digest'])[:12]} ({vote_s:.2f} s) [{card}]")
+    g = res["ghost"]
+    log(f"tm_mesh (b) ResNet-50 with stat_sample=2 on every BatchNorm "
+        f"under TrainingMaster on make_mesh(dp=2), {g['rows_per_rank']} "
+        f"rows per rank: ghost rows per rank {g['ghost_rows']} of "
+        f"{g['ghost_rows_global']}; one step {g['seconds']:.2f} s, loss "
+        f"{g['loss']:.5f} against the one-process step on the "
+        f"{2 * g['rows_per_rank']}-row batch {ref_b['loss']:.5f}; the "
+        f"train state ({ref_b['tensors']} tensors) against it: max |err| "
+        f"{ref_b['max_abs_err']:.3e}, {ref_b['tol_ratio']:.4f} of "
+        f"GHOST_TOL {GHOST_TOL}; both ranks equal: {g['replicas_equal']}; "
+        f"kernel launches {g['launches']} (the composed route) [{card}]")
+    log(f"tm_mesh phase: gang {gang['secs']:.1f} s (per rank "
+        f"{res['rank_seconds']}); kernel launches on these paths "
+        f"{res['launches']}")
+    for name in TM_MESH_PER_REPLAY:
+        gl = t["launches_per_replay"]
+        if (gl.get(name, 0) != TM_MESH_PER_REPLAY[name]
+                or gl.get(f"{name}/wgmma", 0) != gl[name]):
+            fail(f"tm_mesh (a): {name} launched {gl.get(name, 0)} times per "
+                 f"replay (want {TM_MESH_PER_REPLAY[name]}, all \"wgmma\")")
+    if not (t["replicas_equal"] and t["equal_to_one_process"]):
+        fail("tm_mesh (a): the tp replicas differ from each other or from "
+             "the one-process run")
+    if vote["digest"] is None or len(set(vote["ranks"].values())) != 1:
+        fail(f"tm_mesh (a): the per-rank checkpoints do not vote equal: "
+             f"{vote}")
+    if (not g["replicas_equal"] or ref_b["tol_ratio"] > 1.0
+            or not np.isfinite(g["loss"])):
+        fail("tm_mesh (b): the ghost-statistics step disagrees with the "
+             "one-process step, or between ranks")
+    return res
+
+
+# ------------------------------------- --nccl-gang N: launches (4), (5)
+def tp_gang_rank_main(rank, world, port, io, parts):
+    """One rank of `--nccl-gang N`'s launch (4)-(5) (`--tp-gang-rank`),
+    over NCCL, one card per rank. (4) "tp_zero1": the flagship under
+    TrainingMaster(sharding="zero1") on make_mesh(dp=N/2, tp=2),
+    TRAIN_BATCH rows per dp coordinate (its two tp replicas feed the
+    same rows): steps_per_dispatch=1, then GROUP_K (the ZeRO-1 group
+    captured with its collectives), each GROUP_K warm-up steps and
+    SCALEOUT_STEPS timed ones from the same seeded init; after the k=GROUP_K
+    fit a per-rank checkpoint (sidecars by dp coordinate) and a fresh
+    master's restore of it at the same dp. (5) "ghost": the flagship with
+    stat_sample=3 under TrainingMaster on make_mesh(dp=N), TRAIN_BATCH / 2
+    rows per rank, one step; rank 0 then runs the one-process step on the
+    whole batch against it. Writes io/rank-<rank>.json."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.helpers import pallas_conv as pc
+    from deeplearning4j_tpu_torch.parallel import (
+        TrainingMaster,
+        collectives,
+        make_mesh,
+    )
+    from deeplearning4j_tpu_torch.util.tree import leaves
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    collectives.init_process_group(f"127.0.0.1:{port}", world, rank,
+                                   device=f"cuda:{rank}")
+    out = {"rank": rank}
+    try:
+        if "tp_zero1" in parts:
+            m = make_mesh(dp=world // 2, tp=2)
+            out["coords"] = dict(m.coords)
+            k, n = GROUP_K, SCALEOUT_STEPS
+            _, batch_fn = tm_data(np, 90 + m.dp_coord, TRAIN_BATCH)
+            base = os.path.join(io, "ckpt")
+            states = {}
+            for kk in (1, k):
+                net = flagship(ResNet50, "pallas")
+                tm = TrainingMaster(net, mesh=m, sharding="zero1",
+                                    steps_per_dispatch=kk,
+                                    checkpoint_dir=base,
+                                    per_rank_checkpoints=True)
+                tm.fit(batch_fn, k)
+                ms, launches = scaleout_fit(torch, pc, tm, batch_fn, k, n)
+                states[kk] = [t.detach().clone() for t in train_state(net)]
+                out[f"k{kk}"] = {"ms_per_step": ms, "launches": launches,
+                                 "state_sha": sha_of(torch, states[kk])}
+                print(f"tp gang rank {rank}: k={kk} {ms:.3f} ms/step",
+                      flush=True)
+                if kk == k:
+                    mgr = tm._mesh_mgr
+                    prog = tm._harness.program
+                    grp = next(iter(prog._groups.values()))
+                    out["group"] = {
+                        "launches": grp.launches,
+                        "collectives_per_replay": grp.collectives,
+                        "memory": mgr.memory_facts(net.updater_states),
+                        "world": mgr.world_signature()}
+                    out["gathered_upd_sha"] = sha_of(torch, [
+                        torch.from_numpy(a) for a in
+                        leaves(mgr.gather_tree(net.updater_states))])
+                    t0 = time.perf_counter()
+                    tm.save_checkpoint(k + n)
+                    save_s = time.perf_counter() - t0
+                    # every rank's files written before any rank reads them
+                    collectives.all_reduce_sum(torch.zeros(1, device=DEV))
+                    torch.cuda.synchronize()
+                    del prog, grp
+                    fresh = flagship(ResNet50, "pallas")
+                    tm2 = TrainingMaster(fresh, mesh=m, sharding="zero1",
+                                         checkpoint_dir=base,
+                                         per_rank_checkpoints=True)
+                    t0 = time.perf_counter()
+                    step = tm2.load_checkpoint_at(k + n)
+                    torch.cuda.synchronize()
+                    back = train_state(fresh)
+                    out["restore"] = {
+                        "step": step, "save_s": save_s,
+                        "restore_s": time.perf_counter() - t0,
+                        "tensors": len(back), "differ": sum(
+                            1 for a, b in zip(states[k], back)
+                            if not bits_equal(torch, a, b))}
+                    del fresh, tm2, back
+                del net, tm
+                torch.cuda.empty_cache()
+            a, b = states[1], states[k]
+            out["k_vs_k1"] = {
+                "tensors": len(a),
+                "differ": sum(1 for x, y in zip(a, b)
+                              if not bits_equal(torch, x, y)),
+                "tol_ratio": max(tol_ratio(torch, y, x, SCALEOUT_GANG_TOL)
+                                 for x, y in zip(a, b))}
+            del states, a, b
+            torch.cuda.empty_cache()
+        if "ghost" in parts:
+            rows = TRAIN_BATCH // 2
+            x, y = engine_batches(np, 91, 1, rows * world, 1000)[0]
+            net, out["ghost"] = ghost_step(torch, np, ResNet50,
+                                           make_mesh(dp=world), 3, x, y)
+            if rank == 0:
+                got = [t.detach().clone() for t in train_state(net)]
+                del net
+                torch.cuda.empty_cache()
+                out["ghost"]["reference"] = ghost_reference(
+                    torch, ResNet50, 3, x, y, got)
+        out["ok"] = True
+    finally:
+        with open(os.path.join(io, f"rank-{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+        collectives.destroy_process_group()
+
+
+def tp_gang(torch, np, card, tmp, world, parts, wait_s=600.0):
+    """Launches (4)-(5) of `--nccl-gang N` (`parts`: "tp_zero1",
+    "ghost"): `world` ranks of this script (`--tp-gang-rank`), one card
+    each, after the kernels are built here once. Checks: (4) every rank's
+    k=GROUP_K group launched all four kernels inside the capture
+    (120/64/120/120 per replay), each call bf16 "wgmma", with a
+    reduce-scatter, an all-reduce and an all-gather per step; its state
+    equal to the k=1 run's bit for bit; the two tp replicas of each dp
+    coordinate equal bit for bit (params, their updater slices, BN
+    states) and the gathered updater state equal on every rank; the
+    restored checkpoint equal bit for bit to the state it saved; (5) the
+    ranks' ghost step equal on every rank and within GHOST_TOL of the
+    one-process step."""
+    from deeplearning4j_tpu_torch.nn.helpers import kernel_build
+
+    kernel_build.build_all(verbose=False)
+    io = os.path.join(tmp, "tp_gang")
+    os.makedirs(io, exist_ok=True)
+    rcs, secs = launch_ranks(
+        rank_jobs("--tp-gang-rank", io, world,
+                  extra=("--phase", ",".join(parts))), wait_s,
+        keep="tp_gang")
+    if any(rcs):
+        tails = "".join(open(os.path.join(io, f"log-{r}.txt")).read()[-3000:]
+                        for r in range(world))
+        fail(f"nccl gang (4)-(5): a rank failed {rcs}:\n{tails}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(io, f"rank-{r}.json")) as f:
+            ranks.append(json.load(f))
+    res = {"world": world, "seconds": secs}
+    r0 = ranks[0]
+    if "tp_zero1" in parts:
+        pairs = [(x["k1"]["state_sha"], x[f"k{GROUP_K}"]["state_sha"])
+                 for x in ranks]
+        z = {"mesh": {"dp": world // 2, "tp": 2},
+             "rows_per_dp_coordinate": TRAIN_BATCH,
+             "ms_per_step": {f"k={kk}": [x[f"k{kk}"]["ms_per_step"]
+                                         for x in ranks]
+                             for kk in (1, GROUP_K)},
+             "collectives_per_replay": r0["group"]["collectives_per_replay"],
+             "group_launches": r0["group"]["launches"],
+             "memory": r0["group"]["memory"], "world": r0["group"]["world"],
+             "k_vs_k1": [x["k_vs_k1"] for x in ranks],
+             "tp_replicas_equal": all(
+                 pairs[r] == pairs[r + 1] for r in range(0, world, 2)),
+             "gathered_equal": len({x["gathered_upd_sha"]
+                                    for x in ranks}) == 1,
+             "restore": [x["restore"] for x in ranks]}
+        res["tp_zero1"] = z
+        log(f"nccl gang (4) ResNet-50 bf16 \"pallas\" under TrainingMaster("
+            f"sharding=\"zero1\") on make_mesh(dp={world // 2}, tp=2) over "
+            f"NCCL, {world} cards, {TRAIN_BATCH} rows per dp coordinate: "
+            f"ms/step (host clock over {SCALEOUT_STEPS} steps, per rank) k=1 "
+            f"{z['ms_per_step']['k=1']}, k={GROUP_K} "
+            f"{z['ms_per_step'][f'k={GROUP_K}']}; collectives per replay "
+            f"{z['collectives_per_replay']}; kernel launches per replay "
+            f"{z['group_launches']}; k={GROUP_K} against k=1 "
+            f"{z['k_vs_k1']}; tp replicas equal bit for bit "
+            f"{z['tp_replicas_equal']}; gathered updater state equal on "
+            f"every rank {z['gathered_equal']}; updater bytes per rank "
+            f"{z['memory']}; the checkpoint restored at dp {world // 2} "
+            f"{z['restore']} [{card}]")
+        for x in ranks:
+            gl = x["group"]["launches"]
+            for name in TM_MESH_PER_REPLAY:
+                if (gl.get(name, 0) != TM_MESH_PER_REPLAY[name]
+                        or gl.get(f"{name}/wgmma", 0) != gl[name]):
+                    fail(f"nccl gang (4) rank {x['rank']}: {name} launched "
+                         f"{gl.get(name, 0)} times per replay, or off the "
+                         f"wgmma route: {gl}")
+            c = x["group"]["collectives_per_replay"]
+            if not all(c.get(kind, 0) >= GROUP_K for kind in
+                       ("reduce_scatter", "all_reduce", "all_gather")):
+                fail(f"nccl gang (4) rank {x['rank']}: the captured group "
+                     f"holds too few collectives: {c}")
+            if x["k_vs_k1"]["differ"] or x["restore"]["differ"]:
+                fail(f"nccl gang (4) rank {x['rank']}: k={GROUP_K} against "
+                     f"k=1 {x['k_vs_k1']}, restore {x['restore']}: not bit "
+                     f"for bit")
+        if not (z["tp_replicas_equal"] and z["gathered_equal"]):
+            fail("nccl gang (4): the tp replicas differ")
+    if "ghost" in parts:
+        g = {k: r0["ghost"][k] for k in ("rows_per_rank", "stat_sample",
+                                         "ghost_rows_global", "loss",
+                                         "seconds", "reference")}
+        g["ghost_rows"] = [x["ghost"]["ghost_rows_mine"] for x in ranks]
+        g["replicas_equal"] = len({x["ghost"]["state_sha"]
+                                   for x in ranks}) == 1
+        res["ghost"] = g
+        ref = g["reference"]
+        log(f"nccl gang (5) ResNet-50 with stat_sample={g['stat_sample']} "
+            f"on every BatchNorm under TrainingMaster on make_mesh(dp="
+            f"{world}) over NCCL, {g['rows_per_rank']} rows per rank: ghost "
+            f"rows per rank {g['ghost_rows']} of {g['ghost_rows_global']}; "
+            f"one step {g['seconds']:.2f} s, loss {g['loss']:.5f} against "
+            f"the one-process step on the {world * g['rows_per_rank']}-row "
+            f"batch {ref['loss']:.5f}; its train state ({ref['tensors']} "
+            f"tensors) against it: max |err| {ref['max_abs_err']:.3e}, "
+            f"{ref['tol_ratio']:.4f} of GHOST_TOL {GHOST_TOL}; every rank "
+            f"equal: {g['replicas_equal']} [{card}]")
+        if not g["replicas_equal"] or ref["tol_ratio"] > 1.0:
+            fail("nccl gang (5): the split ghost step disagrees with the "
+                 "one-process step, or between ranks")
+    return res
+
+
 def record_kernel_calls(torch, pc, run):
     """The kernel calls `run()` makes, with their shapes and flags."""
     calls = []
@@ -10073,6 +10678,11 @@ def main():
                          "cards) and exit")
     ap.add_argument("--gang-logs", default=None, metavar="DIR",
                     help="keep every gang rank's whole log under DIR")
+    ap.add_argument("--phase", default="", metavar="NAME[,NAME...]",
+                    help="run only the named phases (with the phases whose "
+                         "results they read; default: every phase): "
+                         + ", ".join(PHASES) + "; with --nccl-gang, its "
+                         "launches: " + ", ".join(NCCL_LAUNCHES))
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 5h's Keras weights and data and of "
                          "phase 5i's requests and GPT-2-width weights")
@@ -10084,8 +10694,13 @@ def main():
     ap.add_argument("--mesh-port", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-io", default="", help=argparse.SUPPRESS)
-    # one rank of --nccl-gang's ResNet-50 ZeRO-1 launch (same launcher)
+    # one rank of --nccl-gang's ResNet-50 ZeRO-1 launch (same launcher),
+    # of its tp ZeRO-1 and ghost launch, and of phase 5p's gang
     ap.add_argument("--zero1-rank", type=int, default=-1,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-gang-rank", type=int, default=-1,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tm-mesh-rank", type=int, default=-1,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     global GANG_LOG_DIR
@@ -10099,6 +10714,17 @@ def main():
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         zero1_gang_rank_main(args.zero1_rank, args.mesh_world,
                              args.mesh_port, args.mesh_io)
+        return
+    if args.tp_gang_rank >= 0:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        tp_gang_rank_main(args.tp_gang_rank, args.mesh_world,
+                          args.mesh_port, args.mesh_io,
+                          phase_selection(args.phase, NCCL_LAUNCHES))
+        return
+    if args.tm_mesh_rank >= 0:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        tm_mesh_rank_main(args.tm_mesh_rank, args.mesh_world,
+                          args.mesh_port, args.mesh_io)
         return
 
     import numpy as np
@@ -10136,7 +10762,8 @@ def main():
         log(f"{args.nccl_gang} cards: {[c.strip() for c in cards]}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        nccl_gang(torch, np, card, args.nccl_gang)
+        nccl_gang(torch, np, card, args.nccl_gang,
+                  phase_selection(args.phase, NCCL_LAUNCHES))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -10150,173 +10777,226 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    want = phase_selection(args.phase, PHASES, PHASE_DEPS).__contains__
+    ran = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        ran[name] = time.perf_counter() - t0
+        return out
+
     # 3. kernels against their plain versions
-    t0 = time.perf_counter()
-    worst = kernel_phase(torch, pc, BATCH)
-    # the train step's forward calls: bf16, with statistics
-    for name, v in kernel_phase(torch, pc, TRAIN_BATCH,
-                                dtypes=("bfloat16",)).items():
-        worst[name] = max(worst[name], v)
-    worst.update(backward_kernel_phase(torch, pc, TRAIN_BATCH))
-    log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+    worst = {}
+    if want("kernels"):
+        t0 = time.perf_counter()
+        worst = kernel_phase(torch, pc, BATCH)
+        # the train step's forward calls: bf16, with statistics
+        for name, v in kernel_phase(torch, pc, TRAIN_BATCH,
+                                    dtypes=("bfloat16",)).items():
+            worst[name] = max(worst[name], v)
+        worst.update(backward_kernel_phase(torch, pc, TRAIN_BATCH))
+        ran["kernels"] = time.perf_counter() - t0
+        log(f"kernel phase: {ran['kernels']:.1f} s")
+
+    def fold(w):
+        for name, v in w.items():
+            worst[name] = max(worst.get(name, 0.0), v)
 
     # 4. serving the main path
-    t0 = time.perf_counter()
-    net = ResNet50(input_shape=(HW, HW, 3), compute_dtype="bfloat16",
-                   helpers="pallas").init_model(device=DEV)
-    randomize_batchnorm(torch, net, seed=1)
-    log(f"model: ResNet-50, {net.num_params()} params, bf16 policy, "
-        f"helpers=pallas ({time.perf_counter() - t0:.1f} s to build)")
-    serving = serving_phase(torch, np, pc, net)
-    reference = reference_check(torch, np, net)
-    fwd = forward_times(torch, net, BATCH)
-    calls = record_kernel_calls(torch, pc, lambda: net.output(
-        torch.zeros(BATCH, HW, HW, 3)))
+    net = None
+    if want("serving"):
+        t0 = time.perf_counter()
+        net = serving_net(torch, ResNet50)
+        log(f"model: ResNet-50, {net.num_params()} params, bf16 policy, "
+            f"helpers=pallas ({time.perf_counter() - t0:.1f} s to build)")
+        serving = serving_phase(torch, np, pc, net)
+        reference = reference_check(torch, np, net)
+        fwd = forward_times(torch, net, BATCH)
+        calls = record_kernel_calls(torch, pc, lambda: net.output(
+            torch.zeros(BATCH, HW, HW, 3)))
+        ran["serving"] = time.perf_counter() - t0
 
     # 5. training: the step check, then the training run
-    t0 = time.perf_counter()
-    step = step_check(torch, np, pc, net)
-    del net
-    train, train_net, train_x = training_run(torch, np, pc, ResNet50)
-    log(f"training phases: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    y = labels_for(torch, torch.Generator().manual_seed(32), TRAIN_BATCH,
-                   train_net.conf.node("output").obj.n_out)
-    train_calls = record_kernel_calls(
-        torch, pc, lambda: train_net.fit_batch(([train_x], [y])))
-    del train_net
+    if want("training"):
+        t0 = time.perf_counter()
+        step = step_check(torch, np, pc, net if net is not None
+                          else serving_net(torch, ResNet50))
+        net = None
+        train, train_net, train_x = training_run(torch, np, pc, ResNet50)
+        log(f"training phases: {time.perf_counter() - t0:.1f} s")
+        y = labels_for(torch, torch.Generator().manual_seed(32), TRAIN_BATCH,
+                       train_net.conf.node("output").obj.n_out)
+        train_calls = record_kernel_calls(
+            torch, pc, lambda: train_net.fit_batch(([train_x], [y])))
+        del train_net
+        ran["training"] = time.perf_counter() - t0
+    net = None
     torch.cuda.empty_cache()
 
     # 5b. the training engine: StepProgram.run / run_group (a CUDA graph
     # of GROUP_K captured train steps) and EarlyStoppingTrainer
-    engine = engine_phase(torch, np, pc, ResNet50, card)
-    log(f"engine phase: {time.perf_counter() - t0:.1f} s")
+    if want("engine"):
+        engine = timed("engine", lambda: engine_phase(torch, np, pc,
+                                                      ResNet50, card))
+        log(f"engine phase: {ran['engine']:.1f} s")
 
     # 5c. MultiLayerNetwork: VGG16 serving and training (eager and one
     # CUDA-graph replay of GROUP_K steps, dropout on), the dropout checks,
     # AlexNet
-    t0 = time.perf_counter()
-    mln = mln_phase(torch, np, pc, card)
-    log(f"mln phase: {time.perf_counter() - t0:.1f} s")
+    if want("mln"):
+        mln = timed("mln", lambda: mln_phase(torch, np, pc, card))
+        log(f"mln phase: {ran['mln']:.1f} s")
 
     # 5d. TrainingMaster (timed at k=GROUP_K and k=1, checkpoints, resume,
     # torn write, guard), ParallelWrapper and EarlyStoppingParallelTrainer
-    t0 = time.perf_counter()
-    tm = tm_phase(torch, np, pc, ResNet50, card,
-                  engine["pallas"]["group"]["ms_per_step"],
-                  engine["group_check"]["deterministic"])
-    log(f"tm phase: {time.perf_counter() - t0:.1f} s")
+    if want("tm"):
+        tm = timed("tm", lambda: tm_phase(
+            torch, np, pc, ResNet50, card,
+            engine["pallas"]["group"]["ms_per_step"],
+            engine["group_check"]["deterministic"]))
+        log(f"tm phase: {ran['tm']:.1f} s")
 
     # 5e. observability on the flagship: every hook on against every hook
     # off, the cost model, the watchdog drill, traced serving, stats
-    t0 = time.perf_counter()
-    obs = obs_phase(torch, np, pc, ResNet50, card,
-                    engine["group_check"]["deterministic"])
-    log(f"obs phase: {time.perf_counter() - t0:.1f} s")
+    if want("obs"):
+        obs = timed("obs", lambda: obs_phase(
+            torch, np, pc, ResNet50, card,
+            engine["group_check"]["deterministic"]))
+        log(f"obs phase: {ran['obs']:.1f} s")
 
     # 5f. recurrent networks: TextGenerationLSTM trained (TBPTT) and
     # generating, the cuDNN yardstick, the recurrent golden graph
-    t0 = time.perf_counter()
-    rnn = rnn_phase(torch, np, pc, card)
-    log(f"rnn phase: {time.perf_counter() - t0:.1f} s")
+    if want("rnn"):
+        rnn = timed("rnn", lambda: rnn_phase(torch, np, pc, card))
+        log(f"rnn phase: {ran['rnn']:.1f} s")
 
     # 5g. the graph zoo (GoogLeNet, InceptionResNetV1, FaceNetNN4Small2),
     # ModelSelector, transfer learning (ResNet-50, VGG16), the line-search
     # solvers and layerwise pretraining
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        zoo = zoo_phase(torch, np, pc, card, engine, tmp)
-    for name, v in zoo["worst"].items():
-        worst[name] = max(worst[name], v)
-    log(f"zoo phase: {time.perf_counter() - t0:.1f} s")
+    if want("zoo"):
+        with tempfile.TemporaryDirectory() as tmp:
+            zoo = timed("zoo", lambda: zoo_phase(torch, np, pc, card,
+                                                 engine, tmp))
+        fold(zoo["worst"])
+        log(f"zoo phase: {ran['zoo']:.1f} s")
 
     # 5h. Keras import (the seven fixtures, canonical VGG16 with its two
     # config-4 steps, Keras ResNet50 through the kernels), the native CSV
     # path and LeNet on the MNIST stand-in
-    t0 = time.perf_counter()
-    keras = keras_phase(torch, np, pc, card, args.seed, engine)
-    for name, v in keras["worst"].items():
-        worst[name] = max(worst[name], v)
-    log(f"keras phase: {time.perf_counter() - t0:.1f} s")
+    if want("keras"):
+        keras = timed("keras", lambda: keras_phase(torch, np, pc, card,
+                                                   args.seed, engine))
+        fold(keras["worst"])
+        log(f"keras phase: {ran['keras']:.1f} s")
 
     # 5i. the decode-serving path: bench_decode's configuration (naive
     # against the continuous engine, the journal), the paged drills, and
     # GPT-2-small width
-    t0 = time.perf_counter()
-    decode = decode_phase(torch, np, pc, card, args.seed)
-    decode_oracle = decode.pop("bench_tokens")
-    log(f"decode phase: {time.perf_counter() - t0:.1f} s")
+    if want("decode"):
+        decode = timed("decode", lambda: decode_phase(torch, np, pc, card,
+                                                      args.seed))
+        decode_oracle = decode.pop("bench_tokens")
+        log(f"decode phase: {ran['decode']:.1f} s")
 
     # 5j. the serving control plane: ModelServer on both wires at phase
     # 4's width, the hot swap, tenant admission at 2x capacity, a
     # three-replica fleet, decode over HTTP
-    t0 = time.perf_counter()
-    control = control_phase(torch, np, pc, card, args.seed, serving,
-                            decode, decode_oracle)
-    log(f"control phase: {time.perf_counter() - t0:.1f} s")
+    if want("control"):
+        control = timed("control", lambda: control_phase(
+            torch, np, pc, card, args.seed, serving, decode, decode_oracle))
+        log(f"control phase: {ran['control']:.1f} s")
 
     # 5k. cluster supervision of the flagship (the unfaulted oracle, a
     # wedge inside a CUDA wait escalated by the watchdog's hard exit and
     # found stale by the supervisor) and clustering (t-SNE's two tiers,
     # k-means, the nearest-neighbour server, the dashboard's t-SNE tab)
-    t0 = time.perf_counter()
-    cluster = cluster_phase(torch, np, card,
-                            engine["group_check"]["deterministic"],
-                            tm["k4"]["ms_per_step"])
-    log(f"cluster phase (a): {time.perf_counter() - t0:.1f} s")
-    t1 = time.perf_counter()
-    clustering = clustering_phase(torch, np, card)
-    log(f"clustering phase (b)-(f): {time.perf_counter() - t1:.1f} s; "
-        f"phase 5k: {time.perf_counter() - t0:.1f} s")
+    if want("cluster"):
+        t0 = time.perf_counter()
+        cluster = cluster_phase(torch, np, card,
+                                engine["group_check"]["deterministic"],
+                                tm["k4"]["ms_per_step"])
+        log(f"cluster phase (a): {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        clustering = clustering_phase(torch, np, card)
+        ran["cluster"] = time.perf_counter() - t0
+        log(f"clustering phase (b)-(f): {time.perf_counter() - t1:.1f} s; "
+            f"phase 5k: {ran['cluster']:.1f} s")
 
     # 5l. the embedding trainers and graph embeddings: word2vec at
     # bench.py:468's configuration, CBOW + HS at width 300, the card
     # against the CPU, the two-topic quality bars, DeepWalk and Node2Vec
     # at BlogCatalog's scale
-    t0 = time.perf_counter()
-    nlp = nlp_phase(torch, np, pc, card)
-    log(f"nlp phase: {time.perf_counter() - t0:.1f} s")
+    nlp = None
+    if want("nlp"):
+        nlp = timed("nlp", lambda: nlp_phase(torch, np, pc, card))
+        log(f"nlp phase: {ran['nlp']:.1f} s")
 
     # 5m. data-parallel scale-out and ZeRO-1: the flagship at world 1 over
     # NCCL (ZeRO-1 against run_group, local SGD, the stale trainer), the
     # tests' 2-rank gloo gang on the card, the DCN model on its numbers
-    t0 = time.perf_counter()
-    scaleout = scaleout_phase(torch, np, pc, ResNet50, card,
-                              engine["group_check"]["deterministic"])
-    log(f"scaleout phase: {time.perf_counter() - t0:.1f} s")
+    if want("scaleout"):
+        scaleout = timed("scaleout", lambda: scaleout_phase(
+            torch, np, pc, ResNet50, card,
+            engine["group_check"]["deterministic"]))
+        log(f"scaleout phase: {ran['scaleout']:.1f} s")
 
     # 5n. tensor and sequence parallelism on a 2-rank gloo gang on the
     # card (ring attention, tp VGG16, DistributedSequenceVectors) and the
     # SIGKILL gang drill
-    t0 = time.perf_counter()
-    mesh = mesh_phase(torch, np, pc, card, nlp["bench"]["words_per_s"])
-    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    if want("mesh"):
+        mesh = timed("mesh", lambda: mesh_phase(
+            torch, np, pc, card,
+            None if nlp is None else nlp["bench"]["words_per_s"]))
+        log(f"mesh phase: {ran['mesh']:.1f} s")
 
     # 5o. the analyzer: the AST passes, the program lint of full-width
     # records on the card, serving under the lock-order sanitizer
-    t0 = time.perf_counter()
-    analysis = analysis_phase(torch, np, pc, ResNet50, card)
-    log(f"analysis phase: {time.perf_counter() - t0:.1f} s")
+    if want("analysis"):
+        analysis = timed("analysis", lambda: analysis_phase(
+            torch, np, pc, ResNet50, card))
+        log(f"analysis phase: {ran['analysis']:.1f} s")
+
+    # 5p. TrainingMaster on a dp x tp mesh and ghost BatchNorm statistics
+    # under per-step dp: a 2-rank gloo gang on the card
+    if want("tm_mesh"):
+        tm_mesh = timed("tm_mesh", lambda: tm_mesh_phase(torch, np, pc,
+                                                         card))
+        log(f"tm_mesh phase: {ran['tm_mesh']:.1f} s")
 
     # 6. timing of the kernel calls of a batch-32 forward and of a
     # batch-128 train step
-    t0 = time.perf_counter()
-    for what, cs in (("forward at batch %d" % BATCH, calls),
-                     ("train step at batch %d" % TRAIN_BATCH, train_calls)):
-        per_kernel = {}
-        for c in cs:
-            per_kernel[c[0]] = per_kernel.get(c[0], 0) + 1
-        log(f"main path, {what}: kernel calls {per_kernel}")
-    totals, rows = timing_phase(torch, pc, calls)
-    train_totals, train_rows = timing_phase(torch, pc, train_calls)
-    for what, tots in ((f"forward at batch {BATCH}", totals),
-                       (f"train step at batch {TRAIN_BATCH}", train_totals)):
-        for name, t in tots.items():
-            log(f"{what}, {name} summed over its calls: {t['ms']:.3f} ms "
-                f"(bound {t['bound_ms']:.3f} ms, "
-                f"{t['ms'] / t['bound_ms']:.1f}x; plain {t['plain_ms']:.3f} "
-                f"ms; library {t['library_ms']:.3f} ms)")
-    log(f"timing phases: {time.perf_counter() - t0:.1f} s")
+    if want("timing"):
+        t0 = time.perf_counter()
+        for what, cs in (("forward at batch %d" % BATCH, calls),
+                         ("train step at batch %d" % TRAIN_BATCH,
+                          train_calls)):
+            per_kernel = {}
+            for c in cs:
+                per_kernel[c[0]] = per_kernel.get(c[0], 0) + 1
+            log(f"main path, {what}: kernel calls {per_kernel}")
+        totals, rows = timing_phase(torch, pc, calls)
+        train_totals, train_rows = timing_phase(torch, pc, train_calls)
+        for what, tots in ((f"forward at batch {BATCH}", totals),
+                           (f"train step at batch {TRAIN_BATCH}",
+                            train_totals)):
+            for name, t in tots.items():
+                log(f"{what}, {name} summed over its calls: "
+                    f"{t['ms']:.3f} ms (bound {t['bound_ms']:.3f} ms, "
+                    f"{t['ms'] / t['bound_ms']:.1f}x; plain "
+                    f"{t['plain_ms']:.3f} ms; library "
+                    f"{t['library_ms']:.3f} ms)")
+        ran["timing"] = time.perf_counter() - t0
+        log(f"timing phases: {ran['timing']:.1f} s")
+
+    log(f"phases run (seconds): {json.dumps(ran)}")
+    if set(ran) != set(PHASES):
+        # a subset (--phase): the kernels line reads every phase
+        log(json.dumps({"phases": ran}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     src = "deeplearning4j_tpu_torch/csrc/"
     tpu = "deeplearning4j_tpu/nn/helpers/pallas_conv.py:"
@@ -10366,6 +11046,9 @@ def main():
             "scaleout_launches": scaleout["launches"][name],
             "mesh_launches": mesh["launches"][name],
             "analysis_launches": analysis["launches"][name],
+            "tm_mesh_launches": tm_mesh["launches"][name],
+            "tm_mesh_launches_per_replay":
+                tm_mesh["launches_per_replay"][name],
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -10382,7 +11065,8 @@ def main():
                        "control": control, "cluster": cluster,
                        "clustering": clustering, "nlp": nlp,
                        "scaleout": scaleout, "mesh": mesh,
-                       "analysis": analysis},
+                       "analysis": analysis, "tm_mesh": tm_mesh,
+                       "phase_seconds": ran},
                       f, indent=1,
                       default=str)
     log("note: kernels[].ms/plain_ms/library_ms/bound_ms are sums over the "
@@ -10412,7 +11096,12 @@ def main():
         "phase 5n (ring attention, tp VGG16 and the distributed embedding "
         "fit, counted in the gang's ranks too), analysis_launches from "
         "phase 5o (the flagship's capture and its linted records, the "
-        "linted serving forward, the sanitized serving window)")
+        "linted serving forward, the sanitized serving window), "
+        "tm_mesh_launches from phase 5p (the 2-rank gang's TrainingMaster "
+        f"on dp 1 x tp 2 at steps_per_dispatch={GROUP_K}, its warm-up and "
+        "capture on both ranks, and the ghost-statistics step, which "
+        "launches none), tm_mesh_launches_per_replay from one of its "
+        "replays on one rank")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,12 @@ deeplearning4j_tpu/engine/mesh.py).
 
 The engine's view of "where am I running": a MeshManager derives the one
 ``dp`` axis from the LIVE process group (parallel/collectives.py: one
-process per rank, one device per process, so dp is the world size) and
-owns every placement decision the ZeRO-1 subsystem (engine/sharding.py)
-makes against it:
+process per rank, one device per process, so dp is the world size), or
+takes an explicit mesh, whose other axes may exceed 1: their ranks are
+replicas that hold the slices of their dp coordinate, and every
+collective of the ZeRO-1 state runs over the dp axis group (`group`).
+It owns every placement decision the ZeRO-1 subsystem
+(engine/sharding.py) makes against it:
 
   - policy: optimizer-state leaves shard their leading dim over ``dp``
     when divisible (`zero1_leaf_sharded`), everything else replicates;
@@ -43,10 +46,11 @@ from deeplearning4j_tpu_torch.util.tree import leaves, tree_map, unflatten
 
 
 class MeshManager:
-    """The live 1-axis dp mesh and the ZeRO-1 placement policy over it.
+    """The live dp mesh and the ZeRO-1 placement policy over its dp axis.
 
-    `mesh` (a parallel.mesh.Mesh or MeshSpec) pins the mesh; None derives
-    it from the live process group and re-derives on `refresh()`."""
+    `mesh` (a parallel.mesh.Mesh or MeshSpec, any axes) pins the mesh;
+    None derives a dp-only mesh from the live process group and
+    re-derives on `refresh()`."""
 
     def __init__(self, devices=None, mesh=None):
         from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, make_mesh
@@ -70,16 +74,6 @@ class MeshManager:
 
         self.mesh = (self._explicit_mesh if self._explicit_mesh is not None
                      else make_mesh(dp=-1, devices=self._devices))
-        if self.mesh.shape.get("tp", 1) != 1:
-            raise NotImplementedError(
-                "sharding='zero1' requires tp == 1 (the ZeRO update shards "
-                "the dp axis of replicated params)")
-        extra = {a: n for a, n in self.mesh.shape.items()
-                 if a != ZERO1_AXIS and n != 1}
-        if extra:
-            raise NotImplementedError(
-                f"the ZeRO-1 step shards over a dp-only mesh (axes {extra}): "
-                "its collectives span the whole world")
         w = collectives.world_size()
         self._world = {"processes": w, "devices": w,
                        "dp": int(self.mesh.shape.get(ZERO1_AXIS, 1))}
@@ -97,6 +91,7 @@ class MeshManager:
 
     @property
     def group(self) -> collectives.AxisGroup:
+        """The dp axis group every ZeRO-1 collective runs over."""
         return self.mesh.group(ZERO1_AXIS)
 
     def world_signature(self) -> dict:
@@ -176,7 +171,7 @@ class MeshManager:
 
     def gather_tree(self, tree, layout: Optional[List[bool]] = None) -> Any:
         """Host tree of FULL numpy arrays: each sharded leaf's slices
-        all-gathered over the group (one collective for all of them),
+        all-gathered over the dp group (one collective for all of them),
         the rest copied. Timed into `dl4j_mesh_allgather_seconds`."""
         layout = self.layout if layout is None else layout
         ls = leaves(tree)
@@ -189,7 +184,8 @@ class MeshManager:
         if idx:
             w = self.dp
             full = collectives.all_gather(torch.cat(
-                [ls[i].detach().reshape(-1) for i in idx])).view(w, -1)
+                [ls[i].detach().reshape(-1) for i in idx]),
+                self.group).view(w, -1)
             for i, p in zip(idx, torch.split(
                     full, [ls[i].numel() for i in idx], dim=1)):
                 out[i] = p.reshape((ls[i].shape[0] * w,)

@@ -112,11 +112,13 @@ def reslice(full: np.ndarray, new_world: int) -> List[np.ndarray]:
 
 
 # ------------------------------------------------------- the sharded step
-def _reduce_grads(conf, like, grads, sharded, repl, loss, world, rank):
+def _reduce_grads(conf, like, grads, sharded, repl, loss, group):
     """Step 2 (module docstring): ([my slice of each gradient leaf, or the
-    whole leaf], mean loss) from the local gradients. `sharded` and
-    `repl` index the leaves that have a gradient; `like` is the params
-    tree the gradient normalization reads the layers from."""
+    whole leaf], mean loss) from the local gradients, every collective
+    over the dp axis `group` (an AxisGroup: its size and this rank's
+    coordinate pick the slices). `sharded` and `repl` index the leaves
+    that have a gradient; `like` is the params tree the gradient
+    normalization reads the layers from."""
     from deeplearning4j_tpu_torch.nn.base_network import clip_grads
     from deeplearning4j_tpu_torch.parallel import collectives as C
     from deeplearning4j_tpu_torch.util.tree import leaves, unflatten
@@ -125,13 +127,14 @@ def _reduce_grads(conf, like, grads, sharded, repl, loss, world, rank):
         return leaves(clip_grads(conf, unflatten(like, gs)[0])) \
             if any(g is not None for g in gs) else gs
 
+    world, rank = group.world, group.rank
     out = list(grads)
     gdt = grads[(sharded + repl)[0]].dtype
     lv = loss.detach().reshape(1).to(gdt)
     if conf.max_grad_norm or conf.gradient_normalization in _NORM_MODES:
         idx = sharded + repl
         buf = C.dp_all_reduce_mean(torch.cat(
-            [grads[i].reshape(-1) for i in idx] + [lv]))
+            [grads[i].reshape(-1) for i in idx] + [lv]), group)
         parts = torch.split(buf, [grads[i].numel() for i in idx] + [1])
         for p, i in zip(parts, idx):
             out[i] = p.view(grads[i].shape)
@@ -143,14 +146,14 @@ def _reduce_grads(conf, like, grads, sharded, repl, loss, world, rank):
     if sharded:
         send = torch.cat([grads[i].reshape(world, -1) for i in sharded],
                          dim=1).reshape(-1)
-        mine = C.reduce_scatter(send)
+        mine = C.reduce_scatter(send, group)
         mine.div_(world)
         for i, p in zip(sharded, torch.split(
                 mine, [grads[i].numel() // world for i in sharded])):
             out[i] = p.view((grads[i].shape[0] // world,)
                             + tuple(grads[i].shape[1:]))
     buf = C.dp_all_reduce_mean(torch.cat(
-        [grads[i].reshape(-1) for i in repl] + [lv]))
+        [grads[i].reshape(-1) for i in repl] + [lv]), group)
     parts = torch.split(buf, [grads[i].numel() for i in repl] + [1])
     for i, p in zip(repl, parts):
         out[i] = p.view(grads[i].shape)
@@ -182,8 +185,11 @@ def build_zero1_step(net, manager):
     """The ZeRO-1 train step of `net` over `manager`'s dp group
     (engine/mesh.py MeshManager): a callable with the net's `_step`
     signature on a carry of (full params, updater state with the sharded
-    leaves as this rank's slices, BN states). Returns (new carry, mean
-    loss over the ranks, new RNN carries)."""
+    leaves as this rank's slices, BN states). Every collective of the step
+    (BatchNorm's sums, the reduce-scatter, the all-reduce, the all-gather)
+    runs over that group, so on a mesh with other axes above 1 the ranks
+    of one dp coordinate hold equal slices. Returns (new carry, mean loss
+    over the dp ranks, new RNN carries)."""
     from deeplearning4j_tpu_torch.parallel import collectives as C
     from deeplearning4j_tpu_torch.util.tree import leaves, tree_map, unflatten
 
@@ -192,10 +198,11 @@ def build_zero1_step(net, manager):
     def step(carry, inputs, labels, lmasks, scalars, fmasks=None,
              rnn_carries=None):
         params, upd, states = carry
-        world, rank = manager.dp, manager.rank
+        group = manager.group
+        world, rank = group.world, group.rank
         gtree, loss, new_states, new_rnn = net._grads(
             params, states, inputs, labels, lmasks, fmasks, rnn_carries,
-            dp=manager.group)
+            dp=group)
         with torch.no_grad():
             pl = leaves(params)
             grads = _aligned(params, gtree)
@@ -205,7 +212,7 @@ def build_zero1_step(net, manager):
                     and i not in sharded]
             if sharded or repl:
                 grads, loss = _reduce_grads(conf, params, grads, sharded,
-                                            repl, loss, world, rank)
+                                            repl, loss, group)
             mine = list(pl)
             for i in sharded:
                 lo, hi = slice_bounds(pl[i].shape[0], rank, world)
@@ -216,7 +223,8 @@ def build_zero1_step(net, manager):
             out = list(leaves(new_sl))
             if sharded:
                 full = C.all_gather(torch.cat(
-                    [out[i].reshape(-1) for i in sharded])).view(world, -1)
+                    [out[i].reshape(-1) for i in sharded]),
+                    group).view(world, -1)
                 for i, p in zip(sharded, torch.split(
                         full, [out[i].numel() for i in sharded], dim=1)):
                     out[i] = p.reshape(pl[i].shape)

@@ -7,7 +7,9 @@ activations between fused convolutions as (raw conv output, per-channel
 affine) pairs, so BN-apply / relu / residual-add never cost separate
 passes. Unrecognized nodes run through the same node executor as the
 default path. In train mode each fused conv emits the statistics its BN
-consumer asks for (`stat_sample`: all rows, or the leading ceil(B/k)),
+consumer asks for (`stat_sample`: all rows, or the leading ceil(B/k); of
+the global batch under per-step dp, each rank summing its own rows among
+them),
 the BN becomes [C]-vector algebra (`bn_affine`) that autograd
 differentiates, and the running statistics follow an EMA computed
 outside autograd.
@@ -215,22 +217,19 @@ def fused_forward(net, params, states, inputs, *, train=False,
                 ssum, ssq = stats[conv_src]
                 raw = raws[conv_src]
                 k = max(int(getattr(layer, "stat_sample", 1)), 1)
-                nb = (raw.shape[0] - 1) // k + 1       # sampled rows
-                count = nb * raw.shape[1] * raw.shape[2]
                 from deeplearning4j_tpu_torch.parallel import collectives
 
-                dp = collectives.current()
-                if dp is not None:
+                # the statistics' rows (k > 1: the leading ceil(N/k), of
+                # the global batch under per-step dp, where the conv
+                # summed this rank's rows among them)
+                nb = collectives.ghost_rows(raw.shape[0], k)[1]
+                count = nb * raw.shape[1] * raw.shape[2]
+                if collectives.current() is not None:
                     # global statistics of a per-step dp group: dp_sum's
                     # backward all-reduces the gradients that reach the
                     # sums, so the fused backward runs unchanged
-                    if k > 1:
-                        raise NotImplementedError(
-                            "ghost-batch statistics (stat_sample > 1) "
-                            "under per-step data parallelism")
                     ssum = collectives.dp_sum(ssum)
                     ssq = collectives.dp_sum(ssq)
-                    count = count * dp.world
                 scale, shift, mean, var = bn_affine(
                     gamma, beta, ssum, ssq, count, layer.eps)
                 new_states[name] = st

@@ -85,7 +85,9 @@ def fused_conv(x, w, b, scale, shift, x2, scale2, shift2,
     x/x2: [B,H,W,C] raw (pre-BN) inputs; scale*/shift*: [C] f32 affines
     (None = plain tensor); stride: (sh, sw); padding: lax padding spec;
     with_stats: 0/False = no statistics (eval), 1 = statistics of the full
-    y, k>1 = statistics of the leading ceil(B/k) batch rows.
+    y, k>1 = statistics of the leading ceil(B/k) batch rows (under a
+    per-step dp scope: this rank's rows among the leading ceil(N/k) of
+    the global batch, `_stat_rows`).
 
     Returns (y_raw [B,H,W,N], ssum [N] f32, ssq [N] f32, u). Port-only,
     as PyTorch runs eagerly and nothing eliminates unread results: u is
@@ -112,14 +114,17 @@ class FusedConv(torch.autograd.Function):
         if u is x:   # identity prologue: an output may not be an input
             u = x.clone()
         ctx.save_for_backward(x, w, b, scale, shift, x2, scale2, shift2, y)
-        ctx.cfg = (stride, padding, relu, with_stats, impl)
+        # the rows the statistics read, fixed at the forward (under
+        # per-step dp: this rank's ghost rows of the global batch)
+        rows = _stat_rows(y, with_stats).shape[0] if with_stats else 0
+        ctx.cfg = (stride, padding, relu, with_stats, impl, rows)
         ctx.set_materialize_grads(False)
         return y, ssum, ssq, u
 
     @staticmethod
     def backward(ctx, dy, dssum, dssq, du_out):
         x, w, b, scale, shift, x2, scale2, shift2, y = ctx.saved_tensors
-        stride, padding, relu, with_stats, impl = ctx.cfg
+        stride, padding, relu, with_stats, impl, rows = ctx.cfg
         if dy is None:
             dy = torch.zeros_like(y)
         if not with_stats or (dssum is None and dssq is None):
@@ -140,7 +145,7 @@ class FusedConv(torch.autograd.Function):
         else:
             grads = _bwd_composed(x, w, b, scale, shift, x2, scale2, shift2,
                                   y, dy, dssum, dssq, du_out, stride,
-                                  padding, relu, with_stats, need)
+                                  padding, relu, with_stats, need, rows)
         return grads + (None,) * 6
 
 
@@ -171,11 +176,15 @@ def _fwd_impl(x, w, b, scale, shift, x2, scale2, shift2,
 
 
 def _stat_rows(y, k):
-    """Leading ceil(B/k) batch rows of y (k=1: y itself)."""
+    """The rows of y inside the statistics' rows: y itself for k=1, else
+    this rank's rows among the leading ceil(N/k) rows of the batch — of
+    the global batch under a per-step dp scope (`collectives.ghost_rows`:
+    a leading slice of y, possibly empty or whole)."""
     if k <= 1:
         return y
-    nb = (y.shape[0] - 1) // k + 1
-    return y[:nb]
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    return y[:collectives.ghost_rows(y.shape[0], k)[0]]
 
 
 def _fwd_kernel(route, x, w, b, scale, shift, x2, scale2, shift2, relu,
@@ -236,12 +245,15 @@ def _keep(grads, need):
 
 
 def _bwd_composed(x, w, b, scale, shift, x2, scale2, shift2, y, dy, dssum,
-                  dssq, du_out, stride, padding, relu, with_stats, need):
+                  dssq, du_out, stride, padding, relu, with_stats, need,
+                  rows=None):
     """The JAX package's composed backward (fused_ops.py _fused_conv_bwd):
     ybar rounded to the compute dtype, u recomputed, torch's convolution
     gradients, then the relu mask and the two branches' affine grads.
     `need`: which of the eight gradients to compute (`ctx.needs_input_grad`;
-    the rest are None); without an input-side gradient no du is formed."""
+    the rest are None); without an input-side gradient no du is formed.
+    `rows`: the leading rows of y the forward's sampled statistics read
+    (`_stat_rows`; None: recomputed here)."""
     dtype = x.dtype
     ybar = dy
     if dssum is not None:
@@ -250,7 +262,8 @@ def _bwd_composed(x, w, b, scale, shift, x2, scale2, shift2, y, dy, dssum,
         else:
             # sampled statistics: only the leading ghost rows carry a
             # statistics contribution (the JAX package's zero tail pad)
-            nb = _stat_rows(y, with_stats).shape[0]
+            nb = (_stat_rows(y, with_stats).shape[0] if rows is None
+                  else rows)
             corr = (to_acc(dssum) + 2.0 * to_acc(y[:nb]) * to_acc(dssq))
             corr = corr.to(dtype)
             ybar = torch.cat([dy[:nb] + corr, dy[nb:]])

@@ -11,7 +11,9 @@ leading ceil(B/k) rows (`stat_sample=k`, plain autograd); the running
 statistics follow an EMA computed outside autograd. Under per-step data
 parallelism (a `parallel.collectives.dp_scope` of world > 1) the batch
 statistics are those of the global batch (`_bn_train_global`), as the
-JAX package's one program over the dp-sharded batch computes them.
+JAX package's one program over the dp-sharded batch computes them; with
+`stat_sample=k` those of the global batch's leading ceil(N/k) rows, which
+lie on the first ranks (`collectives.ghost_rows`).
 """
 
 from __future__ import annotations
@@ -91,18 +93,21 @@ class BNTrain(torch.autograd.Function):
         return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None
 
 
-def _bn_train_global(x, gamma, beta, eps, axes, st, world):
+def _bn_train_global(x, gamma, beta, eps, axes, st, k=1):
     """Train-mode batchnorm with statistics over the GLOBAL batch of a
-    per-step dp group (`collectives.dp_scope`): the per-channel sums go
-    through `collectives.dp_sum`, whose backward all-reduces the
-    gradients reaching them, so plain autograd gives each rank its share
-    of the global gradient. Every rank holds an equal share, so the count
-    is the local one times the world. The same one-pass / two-pass split
-    as `_bn_stats`. Returns (y, mean, var)."""
+    per-step dp group (`collectives.dp_scope`), or over its leading
+    ceil(N/k) ghost rows (`stat_sample=k`): each rank sums its own rows
+    among them (`collectives.ghost_rows`: all, some or none) and the
+    per-channel sums go through `collectives.dp_sum`, whose backward
+    all-reduces the gradients reaching them, so plain autograd gives each
+    rank its share of the global gradient. The count is the global row
+    count of the statistics. The same one-pass / two-pass split as
+    `_bn_stats`. Returns (y, mean, var)."""
     from deeplearning4j_tpu_torch.parallel import collectives
 
-    n = (x.numel() // x.shape[-1]) * world
-    xs = x.to(st)
+    mine, total = collectives.ghost_rows(x.shape[0], k)
+    n = total * (x[0].numel() // x.shape[-1])
+    xs = x[:mine].to(st)
     mean = collectives.dp_sum(xs.sum(dim=axes)) / n
     if st == x.dtype:
         var = collectives.dp_sum(((xs - mean) ** 2).sum(dim=axes)) / n
@@ -189,15 +194,10 @@ class BatchNormalization(Layer):
             beta = torch.full((c,), b0, dtype=stat_dtype, device=x.device)
         from deeplearning4j_tpu_torch.parallel import collectives
 
-        dp = collectives.current()
-        if dp is not None:
-            if self.stat_sample > 1:
-                raise NotImplementedError(
-                    "ghost-batch statistics (stat_sample > 1) under "
-                    "per-step data parallelism: the leading rows of the "
-                    "global batch lie on one rank")
+        if collectives.current() is not None:
             y, mean, var = _bn_train_global(x, gamma, beta, self.eps, axes,
-                                            stat_dtype, dp.world)
+                                            stat_dtype,
+                                            int(self.stat_sample))
         elif self.stat_sample > 1:
             # ghost statistics of the leading ceil(B/k) rows, exact
             # autodiff through them (dgamma/dbeta stay full-tensor)

@@ -39,6 +39,10 @@ data-parallel world, which is the whole world.
         whose backward is itself an all-reduce sum: the route of
         BatchNorm's per-channel sums and the loss's live-row count under
         per-step dp.
+  ghost_rows(rows, k)
+        which of this rank's rows fall inside the leading ceil(N/k) rows
+        of the global batch of the enclosing `dp_scope` (BatchNorm's
+        ghost statistics, `stat_sample=k`), and that global count.
 
 Gloo has no reduce-scatter or all-gather into one tensor on CUDA tensors
 (and not in every release on CPU tensors), so for every gloo group both
@@ -429,6 +433,22 @@ def dp_sum(x: torch.Tensor) -> torch.Tensor:
     return _DPSum.apply(x, current() or dp_group())
 
 
+def ghost_rows(rows: int, k: int) -> Tuple[int, int]:
+    """(mine, total) for ghost-batch statistics over the leading
+    ceil(N/k) rows of a batch (`stat_sample=k`; k <= 1: every row). Under a
+    `dp_scope` of world w the batch is global: the w ranks' equal shares of
+    `rows` rows in coordinate order (the padded global batch of per-step
+    dp, N = w * rows), so this rank's ghost rows are its leading `mine` =
+    clamp(total - coordinate * rows, 0, rows), which may be none, some or
+    all of them; outside one N = rows. Every rank issues the same
+    collectives whatever its share (a rank without ghost rows sums none)."""
+    g = current()
+    w, r = (1, 0) if g is None else (g.world, g.rank)
+    n = rows * w
+    total = n if k <= 1 else (n - 1) // k + 1
+    return min(max(total - r * rows, 0), rows), total
+
+
 def warm_up(device) -> None:
     """Every collective kind a captured step may issue (all-reduce,
     reduce-scatter, all-gather) over the world and over every mesh axis
@@ -450,6 +470,6 @@ __all__ = ["AXES", "COUNTS", "AxisGroup", "DPGroup",
            "all_gather", "all_reduce_sum", "axis_groups", "backend",
            "broadcast", "current", "destroy_process_group",
            "dp_all_reduce_mean", "dp_group", "dp_scope", "dp_sum",
-           "hold_capture", "init_process_group", "initialized", "ppermute",
-           "rank", "reduce_scatter", "release_captures", "warm_up",
-           "world_size"]
+           "ghost_rows", "hold_capture", "init_process_group",
+           "initialized", "ppermute", "rank", "reduce_scatter",
+           "release_captures", "warm_up", "world_size"]

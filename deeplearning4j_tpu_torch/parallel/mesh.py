@@ -82,6 +82,13 @@ class Mesh:
         return collectives.AxisGroup(1, 0, collectives.backend(),
                                      (collectives.rank(),), None, axis)
 
+    @property
+    def dp_coord(self) -> int:
+        """This rank's coordinate along dp: which share of the global
+        batch it feeds and which slice of ZeRO-1 state it keeps (a mesh
+        built without coords spans the world's dp axis: the rank)."""
+        return int(self.coords.get("dp", self.rank))
+
 
 def mesh_sizes(sizes: Dict[str, int], n: int) -> Dict[str, int]:
     """The JAX package's axis arithmetic over `n` processes: at most one

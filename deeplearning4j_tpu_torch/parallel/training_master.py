@@ -56,35 +56,37 @@ A restore validates size, sha256 and structure, and falls back to the
 newest valid step.
 
 Scale-out (parallel/collectives.py: one process per rank, one device
-per process, dp = the world size). `initialize_distributed(address, n,
-rank)` joins the process group (NCCL on CUDA, gloo on the CPU); every
-rank then builds the same net (same configuration and seed) and calls
-the same methods, `batch_fn(step)` giving THIS rank's partition of the
-global batch:
+per process). `initialize_distributed(address, n, rank)` joins the
+process group (NCCL on CUDA, gloo on the CPU); every rank then builds
+the same net (same configuration and seed) and calls the same methods.
+The mesh (default: dp = the world size) may have other axes above 1, as
+the JAX package's TrainingMaster takes any mesh and replicates its
+params over them: the ranks that share a dp coordinate are replicas,
+`batch_fn(step)` giving each of them that coordinate's partition of the
+global batch (the global batch is dp equal shares in coordinate order),
+and every dp collective runs over the dp axis group alone:
   - per-step dp (default): each step's gradient and loss averaged over
-    the ranks inside the step, BatchNorm statistics and the loss's row
-    count global; `steps_per_dispatch=k` captures the collectives with
-    the k steps (NCCL);
+    the dp ranks inside the step, BatchNorm statistics (ghost rows
+    included) and the loss's row count global; `steps_per_dispatch=k`
+    captures the collectives with the k steps (NCCL);
   - `averaging_frequency=k > 1`: local SGD through LocalStepTrainer
     (`threshold_compression`, `guard_inner_steps`; the wire accounting in
     `training_stats()["wire"]`);
   - `sharding="zero1"`: the ZeRO-1 step through a MeshManager and
-    `StepProgram.attach_mesh`; each checkpoint's sharded optimizer
-    leaves go to a per-rank `step-%08d.updshard.npz` sidecar (the save's
-    gather timed into `dl4j_mesh_allgather_seconds`), the replicated rest
-    and the layout (`upd_sharded_idx`, `shard_world`) to the main file;
-    a resume reassembles the slices of the save-time world and re-slices
-    them for the live one (`dl4j_mesh_reshard_total` when they differ);
+    `StepProgram.attach_mesh`, its state sharded over dp (replicas hold
+    equal slices); each checkpoint's sharded optimizer leaves go to a
+    per-rank `step-%08d.updshard.npz` sidecar holding the slice of the
+    rank's dp coordinate (the save's gather timed into
+    `dl4j_mesh_allgather_seconds`), the replicated rest and the layout
+    (`upd_sharded_idx`, `shard_world` = dp) to the main file; a resume
+    reassembles the slices by dp coordinate and re-slices them for the
+    live dp (`dl4j_mesh_reshard_total` when the two differ);
   - `per_rank_checkpoints=True`: every rank writes its own copy under
-    `<dir>/rank-<r>/` (the divergence quorum's voters); else rank 0
-    writes;
-  - `evaluate` sums the confusion counts over the ranks.
+    `<dir>/rank-<r>/` (the divergence quorum's voters: all ranks,
+    replicas included); else rank 0 writes;
+  - `evaluate` sums the confusion counts over the dp ranks.
 `checkpoint_format="orbax"` raises ValueError naming the npz format
-(orbax is a JAX library). The mesh must be dp only: a TrainingMaster
-process feeds its own rows (`batch_fn`), so a rank of another axis would
-have no rows of its own; tensor parallelism trains under
-`ParallelWrapper(net, tp=...)` (a deliberate deviation, ROADMAP queue 3:
-the JAX package's TrainingMaster replicates its params over a tp axis).
+(orbax is a JAX library).
 
 Observability: a `tracer` records a span per step ("train_step", with
 its fetch/dispatch/device-sync/checkpoint children) or per k-window
@@ -204,14 +206,6 @@ class TrainingMaster:
                 "NonFiniteGuard(policy='rollback') requires a "
                 "checkpoint_dir to roll back to")
         self.mesh = resolve_mesh(mesh)
-        extra = {a: n for a, n in self.mesh.shape.items()
-                 if a != "dp" and n != 1}
-        if extra:
-            raise NotImplementedError(
-                f"TrainingMaster trains over the dp axis only (mesh axes "
-                f"{extra}): each process feeds its own rows through "
-                "batch_fn; train tensor-parallel with ParallelWrapper(net, "
-                "tp=...)")
         self.net = net
         # per-rank checkpoint copies (`<dir>/rank-<r>/`): every process
         # writes its own copy — the divergence quorum's voters
@@ -342,11 +336,11 @@ class TrainingMaster:
         self._attached = True
         if self._mesh_mgr is not None:
             self._harness.program.attach_mesh(self._mesh_mgr)
-            decorrelate_dropout(self.net, self.mesh.rank)
+            decorrelate_dropout(self.net, self.mesh.dp_coord)
         elif self.averaging_frequency == 1:
             attach_dp(self.net, self.mesh)
         else:
-            decorrelate_dropout(self.net, self.mesh.rank)
+            decorrelate_dropout(self.net, self.mesh.dp_coord)
 
     # ----------------------------------------------------------------- fit
     def fit(self, batch_fn: Callable[[int], Tuple], num_steps: int,
@@ -978,9 +972,10 @@ class TrainingMaster:
                  evaluation=None):
         """Classification counts over `num_steps` batches of
         `batch_fn(step) -> (x, y[, features_mask[, labels_mask]])` (THIS
-        rank's partition): the argmax confusion counts are summed on the
-        device, over the ranks (one all-reduce per batch, so every rank
-        holds the global counts), and folded into `evaluation` (the
+        rank's dp partition): the argmax confusion counts are summed on
+        the device, over the dp ranks (one all-reduce per batch, so every
+        rank holds the global counts; the replicas of a dp coordinate
+        count its rows once), and folded into `evaluation` (the
         port's eval.Evaluation) once per batch. Only
         the label mask shapes the counts (rows or time steps whose mask
         is 0 are dropped), as the containers' evaluate() does."""
@@ -1001,11 +996,12 @@ class TrainingMaster:
             if lm is not None:
                 cell = cell[net._as_input(lm).reshape(-1) != 0]
             counts = torch.bincount(cell, minlength=c * c)
-            if self.mesh.world > 1:
-                # every rank ends with the GLOBAL counts of its partitions
+            if self.mesh.shape["dp"] > 1:
+                # every rank ends with the GLOBAL counts of the partitions
                 from deeplearning4j_tpu_torch.parallel import collectives
 
-                counts = collectives.all_reduce_sum(counts)
+                counts = collectives.all_reduce_sum(counts,
+                                                    self.mesh.group("dp"))
             evaluation._ensure(c)
             evaluation.confusion.matrix += \
                 counts.reshape(c, c).cpu().numpy().astype(np.int64)
@@ -1060,16 +1056,17 @@ class TrainingMaster:
 
     def _sharded_upd_payload(self, payload) -> dict:
         """The ZeRO-1 checkpoint layout: the updater state gathered whole
-        (`MeshManager.gather_tree`, timed as `dl4j_mesh_allgather_seconds`),
-        replicated leaves into the quorum-voted main `payload` as
-        `upd:<i>`, sharded leaves cut to THIS rank's rows for the sidecar;
-        the main payload records `upd_sharded_idx` and `shard_world`, so
-        its digest covers the layout."""
+        over dp (`MeshManager.gather_tree`, timed as
+        `dl4j_mesh_allgather_seconds`), replicated leaves into the
+        quorum-voted main `payload` as `upd:<i>`, sharded leaves cut to
+        the rows of THIS rank's dp coordinate for the sidecar; the main
+        payload records `upd_sharded_idx` and `shard_world` (dp), so its
+        digest covers the layout."""
         from deeplearning4j_tpu_torch.engine.sharding import slice_rows
 
         mgr = self._mesh_mgr
         full = leaves(mgr.gather_tree(self.net.updater_states))
-        world, rank = self.mesh.world, self.mesh.rank
+        world, rank = mgr.dp, mgr.rank
         slices, sharded_idx = {}, []
         for i, (leaf, sharded) in enumerate(zip(full, mgr.layout)):
             if sharded and leaf.shape[0] % world == 0:
@@ -1082,12 +1079,16 @@ class TrainingMaster:
         return slices
 
     def _write_shard_sidecar(self, step, slices, state_sha):
-        """This rank's optimizer-state slice sidecar: atomic write and a
-        manifest entry carrying `main_state_sha256`, the digest of the main
-        state the slice belongs to (what the sharded quorum checks)."""
+        """This rank's optimizer-state slice sidecar (the slice of its dp
+        coordinate, `shard_rank`, of `shard_world` = dp): atomic write and
+        a manifest entry carrying `main_state_sha256`, the digest of the
+        main state the slice belongs to (what the sharded quorum checks),
+        and `processes`, the world that wrote the step (which rank
+        directories hold which coordinate)."""
         side_fn = _ci.shard_sidecar_filename(step)
         side = os.path.join(self.checkpoint_dir, side_fn)
-        world, rank = self.mesh.world, self.mesh.rank
+        world, rank = self._mesh_mgr.dp, self._mesh_mgr.rank
+        procs = self.mesh.world
 
         def _write_side():
             with _ci.atomic_writer(side, suffix=".tmp.npz") as tmp:
@@ -1099,7 +1100,7 @@ class TrainingMaster:
             _ci.record_checksum(
                 self.checkpoint_dir, side_fn, digest, size,
                 extra={"step": step, "shard_rank": rank,
-                       "shard_world": world,
+                       "shard_world": world, "processes": procs,
                        "main_state_sha256": state_sha})
 
         self._ckpt_retry.call(_write_side)
@@ -1214,10 +1215,12 @@ class TrainingMaster:
     def _restore_sharded_upd(self, data, step: int, like) -> list:
         """The FULL updater-state leaves of a ZeRO-1 checkpoint: the
         replicated leaves from the main payload, the sharded ones
-        reassembled from the save-time world's slice sidecars (validated,
-        and tied to the main state's recorded digest). A save-time world
-        other than the live one is a reshard (`dl4j_mesh_reshard_total`;
-        the ZeRO-1 staging re-slices for the live world)."""
+        reassembled by dp coordinate from the save-time slice sidecars
+        (one rank directory per coordinate, `_ci.shard_slice_dirs`;
+        validated, and tied to the main state's recorded digest). A
+        save-time dp other than the live one is a reshard
+        (`dl4j_mesh_reshard_total`; the ZeRO-1 staging re-slices for the
+        live dp)."""
         from deeplearning4j_tpu_torch.engine.sharding import assemble_rows
 
         world = int(data["shard_world"])
@@ -1230,8 +1233,7 @@ class TrainingMaster:
             fn = os.path.basename(self._ckpt_path(step))
             expect = _ci.state_digest(self.checkpoint_dir, fn)
             if self.per_rank_checkpoints or world > 1:
-                dirs = [_ci.rank_checkpoint_dir(self._ckpt_base, r)
-                        for r in range(world)]
+                dirs = _ci.shard_slice_dirs(self._ckpt_base, step, world)
             else:
                 dirs = [self.checkpoint_dir]
             slices = _ci.collect_sharded_slices(dirs, step,
@@ -1250,15 +1252,14 @@ class TrainingMaster:
             finally:
                 for d in opened.values():
                     d.close()
-        cur_world = self.world_info()["processes"]
-        if world != cur_world:
+        cur_dp = int(self.mesh.shape["dp"])
+        if world != cur_dp:
             if self._mesh_mgr is not None:
                 self._mesh_mgr.reshards += 1
             _obs.count("dl4j_mesh_reshard_total")
             logger.warning(
                 "sharded checkpoint step %d: resharding optimizer state "
-                "from save-world %d to live world %d", step, world,
-                cur_world)
+                "from save-time dp %d to live dp %d", step, world, cur_dp)
         return new
 
     def _restore_npz(self, step: int, meta) -> int:

@@ -121,11 +121,16 @@ def decorrelate_dropout(net, rank: int) -> None:
 def attach_dp(net, mesh: Mesh) -> None:
     """Per-step dp on `net` when the mesh's dp axis spans more than one
     rank: its `_step` averages gradients over the dp group and its
-    BatchNorm statistics and loss row count become global over it.
-    Dropout streams differ by dp coordinate only: the ranks of the other
-    axes replicate their coordinate's work."""
+    BatchNorm statistics and loss row count become global over it. Each
+    rank's rows are the share of its dp coordinate d of the (padded)
+    global batch, every share equal (`_padded`, `shard_batch`), so its
+    global row offset is d times its rows: what BatchNorm's ghost
+    statistics read (`collectives.ghost_rows`) to find which of its rows
+    lie among the global batch's leading ceil(N/k). Dropout streams
+    differ by dp coordinate only: the ranks of the other axes replicate
+    their coordinate's work."""
     net._dp = mesh.group("dp") if mesh.shape["dp"] > 1 else None
-    decorrelate_dropout(net, mesh.coords.get("dp", mesh.rank))
+    decorrelate_dropout(net, mesh.dp_coord)
 
 
 def _require_tp1(mesh, message: str) -> None:
@@ -242,11 +247,11 @@ class ParallelWrapper:
 
             self._mesh_mgr = MeshManager(mesh=self.mesh)
             self._harness.program.attach_mesh(self._mesh_mgr)
-            decorrelate_dropout(net, self.mesh.coords["dp"])
+            decorrelate_dropout(net, self.mesh.dp_coord)
         elif self.averaging_frequency == 1:
             attach_dp(net, self.mesh)
         else:
-            decorrelate_dropout(net, self.mesh.coords["dp"])
+            decorrelate_dropout(net, self.mesh.dp_coord)
 
     def _ensure_ready(self):
         ins = getattr(self.net.conf, "network_inputs", None)
@@ -285,7 +290,9 @@ class ParallelWrapper:
 
     def _padded(self, batch):
         """The global (x, y, fm, lm) padded to a dp multiple, the padded
-        rows masked out of the loss."""
+        rows masked out of the loss: N rows in dp equal shares, coordinate
+        d's starting at row d * N / dp (the offset BatchNorm's ghost rows
+        are counted from; JAX's `_pad_batch_with_masks`)."""
         x, y, fm, lm = _as_batch(batch)
         host = lambda a: None if a is None else (
             a.detach().cpu().numpy() if isinstance(a, torch.Tensor)

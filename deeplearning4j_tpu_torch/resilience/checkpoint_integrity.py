@@ -39,6 +39,8 @@ directories.
   shard_sidecar_filename    a ZeRO-1 rank's optimizer-state slice file
                             (`step-%08d.updshard.npz`), its manifest entry
                             tied to the main state's digest
+  shard_slice_dirs          the rank directories that hold a step's slices,
+                            one per dp coordinate
   collect_sharded_slices    the validated slice set of a step (or None)
   sharded_quorum_resume_step
                             the quorum over ZeRO-1 copies: replicated state
@@ -438,8 +440,13 @@ def quorum_resume_step(base_dir: str, nprocs: int,
 # the MAIN step file holds the replicated portion (params, BN states,
 # step bookkeeping, the unshardable optimizer leaves and the layout) —
 # the same state on every rank, so the divergence quorum votes over it
-# unchanged — and a SIDECAR holds the rank's own slice of the sharded
-# optimizer-state leaves. The sidecar's manifest entry records
+# unchanged — and a SIDECAR holds the slice of the sharded
+# optimizer-state leaves that the rank's dp coordinate keeps (its
+# `shard_rank` of `shard_world` = dp). On a mesh whose other axes exceed
+# 1 the ranks of one coordinate write equal slices; the manifest entry's
+# `processes` (the save-time world; absent: `shard_world`) places them:
+# dp is the mesh's slowest axis, so coordinate d's first rank is
+# d * processes / dp. The sidecar's manifest entry records
 # `main_state_sha256`, tying the slice to the main state it was saved
 # with: a rank whose main copy was out-voted as a fork carries a slice
 # recorded against the forked digest, so the slice is rejected and the
@@ -450,6 +457,25 @@ SHARD_SUFFIX = ".updshard.npz"
 
 def shard_sidecar_filename(step: int) -> str:
     return f"step-{step:08d}{SHARD_SUFFIX}"
+
+
+def _saved_processes(base_dir: str, step: int, shard_world: int) -> int:
+    """The world that wrote `step`'s slices: rank 0's sidecar manifest
+    entry's `processes`, else `shard_world` (a world that was all dp)."""
+    entry = read_manifest(rank_checkpoint_dir(base_dir, 0)).get(
+        shard_sidecar_filename(step)) or {}
+    return int(entry.get("processes", shard_world))
+
+
+def shard_slice_dirs(base_dir: str, step: int,
+                     shard_world: int) -> List[str]:
+    """The rank directories under `base_dir` whose sidecars hold `step`'s
+    slices, one per dp coordinate in coordinate order: the first rank of
+    each coordinate (module note above)."""
+    procs = _saved_processes(base_dir, step, shard_world)
+    per = max(1, procs // max(1, shard_world))
+    return [rank_checkpoint_dir(base_dir, d * per)
+            for d in range(shard_world)]
 
 
 def collect_sharded_slices(dirs: List[str], step: int,
@@ -513,9 +539,11 @@ def sharded_quorum_resume_step(base_dir: str, nprocs: int,
     copies), not the surviving gang's `nprocs`: after a 3→2 shrink the
     step was written by three ranks and all three slices are needed to
     reassemble the optimizer state, so rank dirs beyond the current
-    world still vote and still contribute their slice. The returned
-    report gains ``shard_world`` and ``slices`` ({shard_rank: sidecar
-    path}) for the resharding-on-resume loader."""
+    world still vote and still contribute their slice. On a mesh with
+    other axes above 1 every rank votes and one rank per dp coordinate
+    contributes the slice (`shard_slice_dirs`). The returned report gains
+    ``shard_world`` and ``slices`` ({shard_rank: sidecar path}) for the
+    resharding-on-resume loader."""
     ranks_present = _present_rank_dirs(base_dir)
     steps = set()
     for r in ranks_present:
@@ -532,10 +560,12 @@ def sharded_quorum_resume_step(base_dir: str, nprocs: int,
             if report["digest"] is not None:
                 return report
             continue
-        report = divergence_quorum(base_dir, world, step, heal=heal)
+        report = divergence_quorum(
+            base_dir, _saved_processes(base_dir, step, world), step,
+            heal=heal)
         if report["digest"] is None:
             continue
-        dirs = [rank_checkpoint_dir(base_dir, r) for r in range(world)]
+        dirs = shard_slice_dirs(base_dir, step, world)
         slices = collect_sharded_slices(
             dirs, step, expect_digest=report["digest"])
         if slices is None:

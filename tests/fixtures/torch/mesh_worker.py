@@ -1,8 +1,11 @@
-"""One rank of the port's tensor- and sequence-parallel gangs: the
-scenarios of tests/test_torch_tp.py (a 4-rank gang: dp 2 x tp 2) and
+"""One rank of the port's mesh gangs: the scenarios of
+tests/test_torch_tp.py (a 4-rank gang: dp 2 x tp 2),
 tests/test_torch_ring_attention.py (an 8-rank gang: sp 8, dp 2 x sp 4),
-run in sequence over one gloo process group on the CPU (or, with
---device cuda, with CUDA tensors on one card).
+tests/test_torch_tm_mesh.py (a 4-rank gang: TrainingMaster on dp 2 x tp
+2, ghost statistics split over dp 4) and tests/test_torch_ghost_bn.py (a
+2-rank gang: ghost statistics under per-step dp 2), run in sequence over
+one gloo process group on the CPU (or, with --device cuda, with CUDA
+tensors on one card).
 
     python mesh_worker.py --rank R --world W --port P --io DIR
         [--device cpu|cuda] [--only NAME,NAME]
@@ -223,9 +226,95 @@ def tp_refusals(g):
             g.net("mlp8"), tp=2, averaging_frequency=2).fit(batches)),
         "local_step": _error(lambda: LocalStepTrainer(g.net("mlp8"), tpm)),
         "stale": _error(lambda: StaleGradientTrainer(g.net("mlp8"), tpm)),
-        "training_master": _error(lambda: TrainingMaster(g.net("mlp8"),
-                                                         mesh=tpm)),
     }
+    # TrainingMaster trains on the tp mesh (its params replicated over tp)
+    net = g.net("mlp8")
+    x, y = g.d("mlp_x"), g.d("mlp_y")
+    per = x.shape[0] // 2
+    rows = slice(tpm.dp_coord * per, (tpm.dp_coord + 1) * per)
+    g.facts["tp_refusals"]["training_master"] = _error(
+        lambda: TrainingMaster(net, mesh=tpm).fit(
+            lambda s: (x[rows], y[rows]), 2))
+    g.keep("tp_tm", net)
+
+
+# ----------------------------------------- TrainingMaster on dp x tp
+def _dp_part(g, mesh, kx, ky):
+    """batch_fn(step): the share of this rank's dp coordinate of global
+    batch `step` (every replica of a coordinate feeds the same rows)."""
+    xs, ys = g.d(kx), g.d(ky)
+    per = xs.shape[1] // mesh.shape["dp"]
+    rows = slice(mesh.dp_coord * per, (mesh.dp_coord + 1) * per)
+    return lambda s: (xs[s, rows], ys[s, rows])
+
+
+TM_STEPS = 6
+
+
+def tm_tp(g):
+    """TrainingMaster on make_mesh(dp=2, tp=2), TM_STEPS steps of the
+    24-wide Adam MLP: plain at k=1 and k=2 (with evaluate over the dp
+    ranks), ZeRO-1 with per-rank checkpoints every 2 steps, and that
+    run's round trip from its step-4 checkpoint."""
+    m = make_mesh(dp=2, tp=2)
+    bfn = _dp_part(g, m, "z_x", "z_y")
+    for scen, k in (("tm_tp", 1), ("tm_tp_k2", 2)):
+        net = g.net("adam24")
+        tm = TrainingMaster(net, mesh=m, steps_per_dispatch=k)
+        tm.fit(bfn, TM_STEPS)
+        g.keep(scen, net, states=True)
+        g.facts[scen]["world"] = tm.world_info()
+    g.facts["tm_tp"]["confusion"] = tm.evaluate(
+        bfn, TM_STEPS).confusion.matrix.tolist()
+    net = g.net("adam24")
+    base = g.ckpt("tm_tp_z1")
+    tm = TrainingMaster(net, mesh=m, sharding="zero1", checkpoint_dir=base,
+                        checkpoint_every=2, per_rank_checkpoints=True)
+    tm.fit(bfn, TM_STEPS)
+    mgr = tm._mesh_mgr
+    g.keep("tm_tp_z1", net, mgr=mgr)
+    g.put("tm_tp_z1", "slices", leaves(net.updater_states))
+    g.facts["tm_tp_z1"].update({
+        "dp": mgr.dp, "dp_rank": mgr.rank, "layout": mgr.layout,
+        "world": mgr.world_signature(),
+        "memory": mgr.memory_facts(net.updater_states),
+        "files": sorted(os.listdir(tm.checkpoint_dir))})
+    net = g.net("adam24")
+    tm = TrainingMaster(net, mesh=m, sharding="zero1", checkpoint_dir=base,
+                        per_rank_checkpoints=True)
+    g.facts["tm_tp_z1_rt"] = {"restored": tm.load_checkpoint_at(4)}
+    tm.fit(bfn, TM_STEPS, start_step=4)
+    g.keep("tm_tp_z1_rt", net, mgr=tm._mesh_mgr)
+
+
+def ghost_split(g):
+    """ParallelWrapper on make_mesh(dp=4), 3 rows per rank, stat_sample=3
+    on the BatchNorm: the statistics' rows (the leading 4 of 12) lie 3 on
+    rank 0, 1 on rank 1, none on ranks 2-3; then a ragged 10-row batch
+    (padded to 12, the same split)."""
+    m = make_mesh(dp=4)
+    for scen, key in (("ghost_split", "gs"), ("ghost_split_rag", "gsr")):
+        net = g.net("ghost3")
+        ParallelWrapper(net, mesh=m).fit(
+            [(g.d(f"{key}_x"), g.d(f"{key}_y"))] * 2)
+        g.keep(scen, net, states=True)
+
+
+def ghost_dp(g):
+    """ParallelWrapper at dp 2 with ghost statistics: the conv net with
+    stat_sample=2 (3 steps on halves that differ), a ragged 13-row batch
+    with stat_sample=3 (padded to 14: the leading 5 rows, all on rank 0),
+    and the mini ResNet with stat_sample=2 on every BatchNorm in "none"
+    (the layer) and "pallas" (the fused tier), 2 steps each."""
+    cases = (("ghost_conv", "ghost2", "conv", 3),
+             ("ghost_rag", "ghost3", "rag", 1),
+             ("ghost_mini_none", "mini_none", "mini", 2),
+             ("ghost_mini_pallas", "mini_pallas", "mini", 2))
+    for scen, name, key, steps in cases:
+        net = g.net(name)
+        ParallelWrapper(net, mesh=make_mesh(dp=2)).fit(
+            [(g.d(f"{key}_x"), g.d(f"{key}_y"))] * steps)
+        g.keep(scen, net, states=True)
 
 
 # ------------------------------------------------------- ring attention
@@ -263,7 +352,8 @@ def ring_sp2(g):
 
 
 SCENARIOS = {f.__name__: f for f in (mesh, tp_mlp, tp_adam, tp_conv, tp_k2,
-                                     tp_early, tp_refusals, ring, ring_sp2)}
+                                     tp_early, tp_refusals, tm_tp,
+                                     ghost_split, ghost_dp, ring, ring_sp2)}
 
 
 def main(argv=None):

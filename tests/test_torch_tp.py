@@ -330,8 +330,14 @@ def test_early_stopping_parallel_trainer_passes_tp(gang):
 
 def test_refusals_under_tp_match_jax(gang):
     """ZeRO-1, local SGD and the stale trainer refuse tp > 1 with the JAX
-    package's messages; TrainingMaster refuses a non-dp mesh (a deliberate
-    deviation: its processes feed their own rows)."""
+    package's messages; TrainingMaster trains on the tp mesh as JAX's
+    does (its params replicated over tp, each dp coordinate's ranks
+    feeding that coordinate's rows), within TP_TOL of JAX's TrainingMaster
+    on make_mesh(dp=2, tp=2)."""
+    from deeplearning4j_tpu.parallel.training_master import (
+        TrainingMaster as JTM,
+    )
+
     r = gang["facts"][0]["tp_refusals"]
     assert r["zero1"] == [
         "NotImplementedError", "sharding='zero1' requires tp == 1 (the "
@@ -341,5 +347,10 @@ def test_refusals_under_tp_match_jax(gang):
     assert r["local_sgd"] == local and r["local_step"] == local
     assert r["stale"] == ["NotImplementedError",
                           "StaleGradientTrainer requires tp == 1"]
-    assert r["training_master"][0] == "NotImplementedError"
-    assert "ParallelWrapper(net, tp=...)" in r["training_master"][1]
+    assert r["training_master"] is None
+    assert gang["facts"][0]["tp_tm"]["iteration"] == 2
+    d = gang["data"]
+    jnet = _mlp8()
+    JTM(jnet, mesh=jmake_mesh(dp=2, tp=2, devices=jax.devices("cpu")[:4])
+        ).fit(lambda s: (d["mlp_x"], d["mlp_y"]), 2)
+    _close(_field(gang, "tp_tm", "params"), _np(jnet.params), TP_TOL)
